@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of the Whisper-on-CGLA reproduction, for the
+NVIDIA H100.
+
+A package of its own beside the JAX reference ``repro``: it imports
+``torch`` and nothing of JAX or of ``repro``. Each Pallas kernel of the
+main path has a hand-written CUDA kernel under ``csrc/`` with a plain
+PyTorch version beside it (``kernels/<op>/``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from repro_torch.audio.transcribe import TranscribeResult, transcribe
+
+__all__ = ["TranscribeResult", "transcribe"]

@@ -1,0 +1,126 @@
+"""Where the time of one transcription goes, on the card.
+
+    python -m repro_torch.breakdown [--cache-dtype q8_0]
+
+Runs whisper-tiny.en at full width with seeded random weights on 30 s
+of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
+decode steps a tick, and reports, after one warm-up transcription:
+
+* host-clock seconds of each stage (frontend, encode, prefill, decode),
+  each ended by a device synchronize, from a run without the profiler;
+* for the first decode tick of a further run, under ``torch.profiler``:
+  the summed device time of its kernels and copies, their launch count,
+  the kernels that take the most device time, and the device's busy
+  share, that device time over the mean wall time of an unprofiled tick
+  (1 - busy is the idle share). The profiler's own host cost is left
+  out that way.
+
+Needs a CUDA device; prints one JSON object as its last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.audio.features import audio_frames
+from repro_torch.audio.stream import synth_waveform
+from repro_torch.configs import get_config
+from repro_torch.models.model import build
+from repro_torch.quantize import quantize_tree
+from repro_torch.serving.engine import AudioRequest, ServeEngine
+
+MAX_NEW = 32
+DECODE_BLOCK = 8
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def run(cache_dtype: str, seed: int = 0) -> dict:
+    model = build(get_config("whisper-tiny-en"))
+    params = model.init_values(torch.Generator().manual_seed(seed),
+                               device="cuda")
+    if cache_dtype == "q8_0":
+        params = quantize_tree(params)
+    x = synth_waveform(30.0, seed=seed)
+
+    def one(profile_tick: bool):
+        eng = ServeEngine(model, params, n_slots=1, max_len=MAX_NEW + 3,
+                          enc_len=1500, cache_dtype=cache_dtype,
+                          decode_block=DECODE_BLOCK, platform="h100-sxm")
+        with torch.no_grad():
+            frames, t_fe = _timed(lambda: audio_frames(
+                x, model.cfg.d_model, device="cuda"))
+        states, t_enc = _timed(lambda: eng.encode_chunks([frames]))
+        st, t_pre = _timed(lambda: eng.admit(AudioRequest(
+            uid=0, tokens=[1], max_new=MAX_NEW, eos_id=-1,
+            enc_states=states[0])))
+        if profile_tick:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                eng.step()
+            return prof
+        t0 = time.monotonic()
+        while eng.n_active:
+            eng.step()
+        t_dec = time.monotonic() - t0
+        return {"frontend_s": t_fe, "encode_s": t_enc,
+                "prefill_s": t_pre, "decode_s": t_dec,
+                "decode_tok_per_s": (len(st.out) - 1) / t_dec,
+                "ticks": eng._ticks, "host_syncs": eng._host_syncs}
+
+    one(False)                          # warm-up: handles, kernel loads
+    stages = one(False)
+    prof = one(True)
+    t_tick = stages["decode_s"] / stages["ticks"]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        s = by_name.setdefault(e.name, [0, 0.0])
+        s[0] += 1
+        s[1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    tick = {"unprofiled_wall_s": t_tick, "device_s": dev_us * 1e-6,
+            "busy_share": dev_us * 1e-6 / t_tick,
+            "kernel_launches": len(kernels),
+            "top": [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
+                    for n, (c, us) in top]}
+    return {"cache_dtype": cache_dtype, "decode_block": DECODE_BLOCK,
+            "stages": stages, "decode_tick": tick}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cache-dtype", choices=["bf16", "q8_0"],
+                    default="bf16",
+                    help="bf16 weights and cache, or Q8_0 weights with "
+                         "the q8_0 cache")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("repro_torch.breakdown needs a CUDA device")
+    r = run(args.cache_dtype)
+    for k, v in r["stages"].items():
+        print(f"{k}: {v}")
+    t = r["decode_tick"]
+    print(f"decode tick: unprofiled_wall_s={t['unprofiled_wall_s']} "
+          f"device_s={t['device_s']} "
+          f"busy_share={t['busy_share']} launches={t['kernel_launches']}")
+    for row in t["top"]:
+        print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
+    print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,131 @@
+"""Architecture configs for the port: ``ArchConfig``, ``reduced()`` and the
+paper's Whisper models.
+
+A copy of the JAX package's ``repro.configs`` (the port imports nothing
+from it), cut to the encoder-decoder models this slice serves.
+``reduced()`` produces the CPU-test shrink of a config with the same
+rule as the reference, so both packages build identically shaped
+parameters from one config name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0             # 0 -> d_model // n_heads
+
+    # attention features
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    local_global: bool = False
+    local_window: int = 4096
+    rope_theta: float = 10000.0
+    attn_bias: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    attn_every: int = 0
+
+    # xLSTM
+    xlstm: bool = False
+    proj_factor: float = 2.0
+
+    # encoder-decoder (whisper)
+    enc_dec: bool = False
+    enc_layers: int = 0
+
+    # VLM
+    vlm: bool = False
+    n_img_tokens: int = 0
+
+    # general
+    norm_eps: float = 1e-6
+    act: str = "silu"            # silu | gelu
+    tie_embeddings: bool = False
+    remat: bool = True
+    dtype: str = "bf16"          # activation/compute dtype
+    source: str = ""             # provenance note
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def scan_unit(self) -> int:
+        """Layers per scanned segment (heterogeneous stacks scan groups)."""
+        if self.family == "hybrid" and self.attn_every:
+            return self.attn_every
+        if self.xlstm or self.local_global:
+            return 2
+        return 1
+
+
+WHISPER_TINY_EN = ArchConfig(
+    name="whisper-tiny.en", family="audio",
+    n_layers=4, enc_layers=4, enc_dec=True,
+    d_model=384, n_heads=6, n_kv_heads=6, d_ff=1536, vocab=51865,
+    act="gelu", tie_embeddings=True,
+    source="whisper.cpp / arXiv:2212.04356",
+)
+
+_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN}
+
+
+def list_archs() -> list[str]:
+    return [n.replace("_", "-") for n in _REGISTRY]
+
+
+def get_config(name: str) -> ArchConfig:
+    key = name.replace("-", "_").replace(".", "")
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return _REGISTRY[key]
+
+
+def reduced(cfg: ArchConfig) -> ArchConfig:
+    """Smoke-test shrink: same family and block pattern, tiny dims."""
+    unit = cfg.scan_unit
+    kv = min(cfg.n_kv_heads, 2)
+    heads = max(4, kv * max(1, min(2, cfg.n_heads // max(cfg.n_kv_heads, 1))))
+    heads = (heads // kv) * kv or kv
+    return dataclasses.replace(
+        cfg,
+        n_layers=2 * unit,
+        enc_layers=2 if cfg.enc_dec else 0,
+        d_model=128,
+        n_heads=heads,
+        n_kv_heads=kv,
+        d_head=32,
+        d_ff=0 if cfg.d_ff == 0 else 256,
+        vocab=512,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        sliding_window=64 if cfg.sliding_window else None,
+        local_window=32 if cfg.local_global else cfg.local_window,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_head_dim=32 if cfg.ssm_state else cfg.ssm_head_dim,
+        n_img_tokens=16 if cfg.vlm else 0,
+        remat=False,
+    )

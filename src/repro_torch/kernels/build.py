@@ -1,0 +1,152 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface and
+loaded with ``ctypes``. Nothing is built at import: the first kernel
+launch builds every library, all ``nvcc`` processes started together,
+into ``build/repro_torch_kernels/<hash>/`` at the repository root (or
+``$REPRO_TORCH_BUILD_DIR``). The hash covers the sources and the flags,
+so an edited source builds afresh and an unchanged one is reused.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception naming the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+
+#: kernel library name -> its source file under csrc/
+SOURCES = {
+    "fp16_matmul": "fp16_matmul.cu",
+    "q8_matmul": "q8_matmul.cu",
+    "flash_attention": "flash_attention.cu",
+    "q8_attention": "q8_attention.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: torch dtype -> the dtype code every C entry point takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_build_s: dict[str, float] = {}
+
+
+def _build_root() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return (pathlib.Path(__file__).resolve().parents[3] / "build"
+            / "repro_torch_kernels")
+
+
+def _digest() -> str:
+    """Hash of the flags and of every source and header in csrc/."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels of repro_torch are built on first use")
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel library that is not built yet, one ``nvcc``
+    process per source, all started together. Returns the seconds each
+    library took to build in this process (0.0 where it was reused)."""
+    with _lock:
+        out_dir = _build_root() / _digest()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = None
+        procs = {}
+        t0 = time.monotonic()
+        for name, src in SOURCES.items():
+            lib = out_dir / f"lib{name}.so"
+            if name in _build_s:
+                continue
+            if lib.exists():
+                _build_s[name] = 0.0
+                continue
+            nvcc = nvcc or _nvcc()
+            tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+            log = open(out_dir / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
+        failed = []
+        for name, (proc, tmp, lib, log) in procs.items():
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, lib)
+            _build_s[name] = time.monotonic() - t0
+        if failed:
+            logs = "\n".join(
+                f"--- {n}:\n" + (out_dir / f"{n}.log").read_text()[-4000:]
+                for n in failed)
+            raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        return dict(_build_s)
+
+
+def build_dir() -> pathlib.Path:
+    return _build_root() / _digest()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = load(name).repro_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel failed: CUDA error {rc} ({msg})")
+
+
+def stream(device: torch.device) -> int:
+    """Handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """All of ``tensors`` on one CUDA device, else ``ValueError``."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}; "
+                             f"all operands must share one CUDA device")

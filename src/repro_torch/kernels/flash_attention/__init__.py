@@ -1,0 +1,1 @@
+"""flash_attention: CUDA kernel wrapper (ops) and plain PyTorch version (plain)."""

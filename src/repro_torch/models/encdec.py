@@ -1,0 +1,186 @@
+"""Whisper-style encoder-decoder of the port (the JAX package's
+``models/encdec.py``).
+
+The model consumes frame embeddings (B, S_enc, d_model) from the log-mel
+frontend; a learnable square projection stands in for Whisper's conv
+stem. Encoder: sinusoidal positions + bidirectional attention + GELU MLP
+(``encode_chunked`` for the block-diagonal streaming variant). Decoder:
+learned positions, causal self-attention, cross-attention, GELU MLP and
+the tied embedding head. The reference's ``lax.scan`` over the stacked
+layer axis is a Python loop over it here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (embed, layer_slice, layernorm,
+                                       logits_head, mlp, ninit, pad_vocab,
+                                       sinusoidal_positions, take_rows)
+from repro_torch.quantize import Q8Tensor, as_array
+
+MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
+
+
+def _init_layernorm(d: int, device) -> dict:
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def _init_mlp(gen, d: int, ff: int, device) -> dict:
+    return {"up": ninit(gen, (d, ff), d, device),
+            "down": ninit(gen, (ff, d), ff, device)}
+
+
+def _init_enc_layer(gen, cfg: ArchConfig, device) -> dict:
+    return {
+        "ln1": _init_layernorm(cfg.d_model, device),
+        "attn": attn_mod.init_attention(gen, cfg, device),
+        "ln2": _init_layernorm(cfg.d_model, device),
+        "mlp": _init_mlp(gen, cfg.d_model, cfg.d_ff, device),
+    }
+
+
+def _init_dec_layer(gen, cfg: ArchConfig, device) -> dict:
+    return {
+        "ln1": _init_layernorm(cfg.d_model, device),
+        "self_attn": attn_mod.init_attention(gen, cfg, device),
+        "ln_x": _init_layernorm(cfg.d_model, device),
+        "cross_attn": attn_mod.init_attention(gen, cfg, device),
+        "ln2": _init_layernorm(cfg.d_model, device),
+        "mlp": _init_mlp(gen, cfg.d_model, cfg.d_ff, device),
+    }
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """Parameters with the reference's shapes and distributions
+    (``models/encdec.py:58-75``): scaled normals, N(0, 0.02^2) decoder
+    positions, unit/zero LayerNorms, layers stacked on a leading axis."""
+    d = cfg.d_model
+    return {
+        "frontend": ninit(gen, (d, d), d, device),
+        "embed": {"table": ninit(gen, (pad_vocab(cfg.vocab), d), d, device)},
+        "dec_pos": (0.02 * torch.randn((MAX_DEC_POS, d), generator=gen,
+                                       device=gen.device)).to(device),
+        "enc_layers": _stack([_init_enc_layer(gen, cfg, device)
+                              for _ in range(cfg.enc_layers)]),
+        "enc_ln": _init_layernorm(d, device),
+        "dec_layers": _stack([_init_dec_layer(gen, cfg, device)
+                              for _ in range(cfg.n_layers)]),
+        "dec_ln": _init_layernorm(d, device),
+    }
+
+
+def _n_stacked(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return (tree.q if isinstance(tree, Q8Tensor) else tree).shape[0]
+
+
+def encode(params: dict, cfg: ArchConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, d_model) frame embeddings -> encoder states."""
+    b, s, d = frames.shape
+    x = frames.to(torch.bfloat16) @ as_array(params["frontend"])
+    x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
+    layers = params["enc_layers"]
+    for i in range(_n_stacked(layers)):
+        lp = layer_slice(layers, i)
+        h = layernorm(lp["ln1"], x)
+        a, _ = attn_mod.attention(lp["attn"], h, cfg, kind="bidir",
+                                  mode="train")
+        x = x + a
+        h = layernorm(lp["ln2"], x)
+        x = x + mlp(lp["mlp"], h, cfg.act)
+    return layernorm(params["enc_ln"], x)
+
+
+def encode_chunked(params: dict, cfg: ArchConfig, frames: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    """Block-diagonal encode: fixed-size chunks encoded independently
+    (attention within a chunk only), states concatenated."""
+    s = frames.shape[1]
+    outs = [encode(params, cfg, frames[:, i:i + chunk])
+            for i in range(0, s, chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  enc_out: Optional[torch.Tensor] = None, *,
+                  mode: str = "train", cache=None, pos=None, enc_lens=None):
+    """Decoder pass. train/prefill: tokens (B, S) with ``enc_out`` given;
+    prefill returns the per-layer self and cross K/V stacked as
+    ``{"layers": {"self": {k, v}, "cross": {k, v}}}`` (padded to
+    ``cache``'s lengths). decode: tokens (B, 1) at per-lane positions
+    ``pos`` (B,), against the stacked pool ``cache``, updated in place;
+    ``enc_lens`` (B,) masks each lane's cross-attention."""
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens)
+    if mode == "decode":
+        posv = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
+        idx = posv[:, None] + torch.arange(s, device=x.device)[None, :]
+        x = x + take_rows(params["dec_pos"], idx).to(x.dtype)
+    else:
+        x = x + take_rows(params["dec_pos"],
+                          torch.arange(s, device=x.device), x.dtype)[None]
+
+    layers = params["dec_layers"]
+    n_layers = _n_stacked(layers)
+    per_layer = []
+    for i in range(n_layers):
+        lp = layer_slice(layers, i)
+        h = layernorm(lp["ln1"], x)
+        if mode == "decode":
+            a, _ = attn_mod.attention(
+                lp["self_attn"], h, cfg, kind="global", mode=mode,
+                cache=cache["layers"]["self"], pos=posv, layer_idx=i)
+            x = x + a
+            h = layernorm(lp["ln_x"], x)
+            c, _ = attn_mod.attention(
+                lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
+                cache=cache["layers"]["cross"], pos=posv, x_kv=h,
+                layer_idx=i, kv_lens=enc_lens)
+        else:
+            lc = None if cache is None else layer_slice(cache["layers"], i)
+            a, self_c = attn_mod.attention(
+                lp["self_attn"], h, cfg, kind="global", mode=mode,
+                cache=None if lc is None else lc["self"])
+            x = x + a
+            h = layernorm(lp["ln_x"], x)
+            c, cross_c = attn_mod.attention(
+                lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
+                cache=None if lc is None else lc["cross"], x_kv=enc_out)
+            per_layer.append({"self": self_c, "cross": cross_c})
+        x = x + c
+        h = layernorm(lp["ln2"], x)
+        x = x + mlp(lp["mlp"], h, cfg.act)
+
+    x = layernorm(params["dec_ln"], x)
+    logits = logits_head(params["embed"], x, cfg.vocab,
+                         softcap=cfg.final_softcap)
+    if mode == "decode":
+        return logits, cache
+    if mode == "train":
+        return logits, None
+    return logits, {"layers": _stack(per_layer)}
+
+
+def init_encdec_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      enc_len: int, dtype=torch.bfloat16,
+                      device=None) -> dict:
+    """The stacked (L, batch, ., Hkv, .) self and cross planes."""
+    def stacked(length):
+        one = attn_mod.init_kv_cache(cfg, batch, length, dtype, device)
+        return {k: v.unsqueeze(0).repeat(cfg.n_layers, *([1] * v.dim()))
+                for k, v in one.items()}
+    return {"layers": {"self": stacked(max_len), "cross": stacked(enc_len)}}

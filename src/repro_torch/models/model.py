@@ -1,0 +1,120 @@
+"""Model API of the port (the enc-dec part of the JAX package's
+``models/model.py``) and the per-lane serving state spec."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.platforms import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneStateSpec:
+    """What one serving lane of a model carries between decode steps.
+
+    The serving engine asks the model for this spec and drives
+    admission, the decode tick, quantized cache storage, abort/free and
+    the accounting off it. State kinds: ``self_kv`` (causal K/V,
+    O(max_len) per lane), ``cross_kv`` (encoder K/V, O(enc_len) per
+    lane), ``recurrent`` (constant-size per-lane state: ``"ssm"``,
+    ``"mstate"``, ``"sstate"``) and ``moe_experts > 0`` (per-lane
+    expert-routing counters). ``prefill_exact``: recurrent scans fold
+    every input position into the state, so such lanes prefill at the
+    exact prompt length. ``quant_tiers``: the quantized cache tiers the
+    family can serve under."""
+    family: str
+    self_kv: bool
+    cross_kv: bool
+    recurrent: tuple = ()
+    recurrent_dtype: str = "bfloat16"
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    prefill_exact: bool = False
+    quant_tiers: tuple = ()
+
+    def supports_tier(self, cache_dtype: str) -> bool:
+        if cache_dtype in ("q8_0", "q4_0"):
+            return cache_dtype in self.quant_tiers
+        return True
+
+    @property
+    def state_kinds(self) -> tuple:
+        """Every state kind a lane holds, in engine order."""
+        out = []
+        if self.self_kv:
+            out.append("self_kv")
+        if self.cross_kv:
+            out.append("cross_kv")
+        out.extend(self.recurrent)
+        if self.moe_experts:
+            out.append("routing")
+        return tuple(out)
+
+
+def _require_enc_dec(cfg: ArchConfig) -> None:
+    if not cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the decoder-only families are not ported yet "
+            f"(ROADMAP queue 1, item 14)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    def init_values(self, generator: torch.Generator,
+                    device=None) -> dict:
+        """Fresh parameters drawn from ``generator`` (the reference's
+        shapes and distributions), placed on ``device`` (default
+        ``cuda``)."""
+        _require_enc_dec(self.cfg)
+        return encdec_mod.init_encdec(generator, self.cfg,
+                                      resolve_device(device))
+
+    def forward(self, values, batch: dict, *, mode: str = "train",
+                cache=None, pos=None):
+        """Returns (logits, new_cache). ``batch``: ``tokens``, and
+        ``enc_frames`` or ``enc_states`` (train/prefill; states skip the
+        encoder) or ``enc_lens`` (decode: per-lane valid encoder
+        lengths)."""
+        cfg = self.cfg
+        _require_enc_dec(cfg)
+        if mode == "decode":
+            return encdec_mod.decode_tokens(
+                values, cfg, batch["tokens"], mode="decode", cache=cache,
+                pos=pos, enc_lens=batch.get("enc_lens"))
+        enc_out = batch.get("enc_states")
+        if enc_out is None:
+            enc_out = encdec_mod.encode(values, cfg, batch["enc_frames"])
+        return encdec_mod.decode_tokens(values, cfg, batch["tokens"],
+                                        enc_out, mode=mode, cache=cache)
+
+    def encode(self, values, frames: torch.Tensor) -> torch.Tensor:
+        """Encoder-only pass: (B, S, d_model) frames -> states."""
+        _require_enc_dec(self.cfg)
+        return encdec_mod.encode(values, self.cfg, frames)
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 1500,
+                   dtype=torch.bfloat16, device: Optional[Any] = None):
+        """Stacked self/cross cache planes; ``dtype`` a tensor dtype or
+        ``"q8_0"``."""
+        _require_enc_dec(self.cfg)
+        return encdec_mod.init_encdec_cache(self.cfg, batch, max_len,
+                                            enc_len, dtype, device)
+
+    def state_spec(self) -> LaneStateSpec:
+        """The per-lane serving state of this model."""
+        cfg = self.cfg
+        _require_enc_dec(cfg)
+        return LaneStateSpec(
+            family=cfg.family, self_kv=True, cross_kv=True,
+            quant_tiers=("q8_0",) if cfg.head_dim % 32 == 0 else ())
+
+
+def build(cfg: ArchConfig) -> Model:
+    return Model(cfg)
