@@ -22,6 +22,8 @@
 // one head dim over a strided subset of the rows, read coalesced across
 // the warp, and the partial sums are reduced in shared memory. The
 // dequantized cache never exists outside registers.
+//
+// The query and output are bf16, as on the port's decode path.
 
 #include "common.cuh"
 #include <math.h>
@@ -61,7 +63,8 @@ __device__ float block_sum(float v, float* red) {
   return r;
 }
 
-template <typename T>
+using T = __nv_bfloat16;
+
 __global__ void __launch_bounds__(NT)
 q8_decode_attention_kernel(const T* __restrict__ q, long long q_sb, long long q_sh,
                            const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
@@ -148,52 +151,33 @@ q8_decode_attention_kernel(const T* __restrict__ q, long long q_sb, long long q_
   }
 }
 
-template <typename T>
-int launch(const void* q, long long q_sb, long long q_sh, const void* kq,
-           const void* vq, long long kv_sb, long long kv_ss, long long kv_sh,
-           const void* ks, const void* vs, long long sc_sb, long long sc_ss,
-           long long sc_sh, const void* lens, void* o, long long o_sb,
-           long long o_sh, int B, int H, int Hkv, int S, int D, float scale,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(D + S + NWARP + NT);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(q8_decode_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  q8_decode_attention_kernel<T><<<B * H, NT, smem, stream>>>(
-      static_cast<const T*>(q), q_sb, q_sh, static_cast<const int8_t*>(kq),
-      static_cast<const int8_t*>(vq), kv_sb, kv_ss, kv_sh,
-      static_cast<const __half*>(ks), static_cast<const __half*>(vs), sc_sb,
-      sc_ss, sc_sh, static_cast<const int*>(lens), static_cast<T*>(o), o_sb,
-      o_sh, H, Hkv, S, D, scale);
-  return 0;
-}
-
 }  // namespace
 
 // q: lane b, head h at q + b*q_sb + h*q_sh (D contiguous values);
 // kq/vq: int8 row (b, s, kv head) at b*kv_sb + s*kv_ss + hk*kv_sh;
 // ks/vs: f16 scales, D/32 per row, strides sc_*; lens: (B,) int32;
-// o: like q. Strides are in elements. D % 32 == 0, D <= 128, and every
-// code row 16-byte aligned. dtype of q and o: 0 = f32, 1 = bf16, 2 = f16.
+// o: like q; q and o bf16. Strides are in elements. D % 32 == 0,
+// D <= 128, and every code row 16-byte aligned.
 extern "C" int q8_decode_attention(
     const void* q, long long q_sb, long long q_sh, const void* kq,
     const void* vq, long long kv_sb, long long kv_ss, long long kv_sh,
     const void* ks, const void* vs, long long sc_sb, long long sc_ss,
     long long sc_sh, const void* lens, void* o, long long o_sb,
-    long long o_sh, int B, int H, int Hkv, int S, int D, int dtype,
-    void* stream) {
+    long long o_sh, int B, int H, int Hkv, int S, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  int rc = static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0: rc = launch<float>(q, q_sb, q_sh, kq, vq, kv_sb, kv_ss, kv_sh, ks, vs, sc_sb, sc_ss, sc_sh, lens, o, o_sb, o_sh, B, H, Hkv, S, D, scale, s); break;
-    case 1: rc = launch<__nv_bfloat16>(q, q_sb, q_sh, kq, vq, kv_sb, kv_ss, kv_sh, ks, vs, sc_sb, sc_ss, sc_sh, lens, o, o_sb, o_sh, B, H, Hkv, S, D, scale, s); break;
-    case 2: rc = launch<__half>(q, q_sb, q_sh, kq, vq, kv_sb, kv_ss, kv_sh, ks, vs, sc_sb, sc_ss, sc_sh, lens, o, o_sb, o_sh, B, H, Hkv, S, D, scale, s); break;
-    default: break;
+  const size_t smem = sizeof(float) * (size_t)(D + S + NWARP + NT);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(q8_decode_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (rc != 0) return rc;
+  q8_decode_attention_kernel<<<B * H, NT, smem, s>>>(
+      static_cast<const T*>(q), q_sb, q_sh, static_cast<const int8_t*>(kq),
+      static_cast<const int8_t*>(vq), kv_sb, kv_ss, kv_sh,
+      static_cast<const __half*>(ks), static_cast<const __half*>(vs), sc_sb,
+      sc_ss, sc_sh, static_cast<const int*>(lens), static_cast<T*>(o), o_sb,
+      o_sh, H, Hkv, S, D, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,15 @@ decision to the first eligible backend of that side, runs it, and
 records the routing in a trace and in counters keyed
 ``(op, decision, backend)``.
 
-ACCEL binds to ``"cuda"``, the hand-written Hopper kernel, when the
-call's tensors lie on a CUDA device; for CPU tensors it binds to
-``"torch"``, the plain version, as the reference binds ACCEL to XLA off
-the TPU. There is no fallback: a kernel that cannot take a call raises.
+For CPU tensors both sides bind to ``"torch"``, the plain version, as
+the reference binds ACCEL to XLA off the TPU. For CUDA tensors both
+sides bind to ``"cuda"``, the hand-written Hopper kernel: the kernels
+take every size, and the plain versions serve CPU tensors only. The
+record keeps the law's decision (``"host"`` when the footprint exceeds
+the budget), so nothing moves main-path work off the kernels quietly.
+Forcing ``"torch"`` on CUDA tensors raises unless the context sets
+``allow_plain_on_cuda`` (a comparison against the plain version). There
+is no fallback: a kernel that cannot take a call raises.
 
 A ``DispatchContext`` carries the budget, the packing policy, backend
 overrides and the platform / tag stamped into each record; derive one
@@ -47,13 +52,16 @@ class DispatchContext:
 
     ``vmem_budget`` is the paper's LMM-size knob. ``force_backend``
     bypasses the control law globally; ``backends`` per op
-    (``{"q8_matmul": "torch"}``). ``platform`` and ``tag`` are stamped
-    into every ``DispatchRecord``."""
+    (``{"q8_matmul": "torch"}``). ``allow_plain_on_cuda`` lets a forced
+    ``"torch"`` run on CUDA tensors, for comparisons against the plain
+    versions. ``platform`` and ``tag`` are stamped into every
+    ``DispatchRecord``."""
 
     vmem_budget: int = DEFAULT_BUDGET
     policy: str = "optimized"
     force_backend: Optional[str] = None
     backends: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    allow_plain_on_cuda: bool = False
     platform: Optional[str] = None
     tag: Optional[str] = None
 
@@ -141,13 +149,19 @@ def _decide(op: KernelOp, spec: KernelSpec, ctx: DispatchContext,
         if forced not in BACKENDS:
             raise ValueError(f"forced backend {forced!r} for {op.name}: "
                              f"expected one of {BACKENDS}")
-        if forced in op.backends:
-            return "forced", forced, footprint
-        return "forced", _first_allowed(op, op.host_order, on_cuda), \
-            footprint
-    decision = "accel" if footprint <= ctx.vmem_budget else "host"
-    order = op.accel_order if decision == "accel" else op.host_order
-    return decision, _first_allowed(op, order, on_cuda), footprint
+        decision = "forced"
+        backend = forced if forced in op.backends \
+            else _first_allowed(op, op.host_order, on_cuda)
+    else:
+        decision = "accel" if footprint <= ctx.vmem_budget else "host"
+        order = op.accel_order if decision == "accel" or on_cuda \
+            else op.host_order
+        backend = _first_allowed(op, order, on_cuda)
+    if on_cuda and backend != "cuda" and not ctx.allow_plain_on_cuda:
+        raise ValueError(f"{op.name}: {decision} route to {backend!r} would "
+                         f"run the plain version on the card; set "
+                         f"allow_plain_on_cuda to compare against it")
+    return decision, backend, footprint
 
 
 def decide(op_name: str, spec: KernelSpec,

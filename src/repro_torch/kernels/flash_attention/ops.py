@@ -1,7 +1,9 @@
 """Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
 
 ``flash_attention(q, k, v)`` over the model's (B, S, H, D) layout with
-GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill). On
+GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill).
+The kernel takes bf16 with head_dim 64 (whisper-tiny.en) or 32 (its
+reduced configuration); calls outside that raise on every device. On
 CUDA tensors it launches the kernel, which reads KV heads by index and
 masks a ragged S itself; on CPU tensors it runs the plain version.
 """
@@ -16,10 +18,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import plain
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _lib():
@@ -41,10 +43,9 @@ def _check(q, k, v, window) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in "
                          f"{HEAD_DIMS}")
-    if q.dtype not in build.DTYPE_CODES or not (q.dtype == k.dtype
-                                                == v.dtype):
-        raise TypeError(f"flash_attention: q, k, v must share one of f32, "
-                        f"bf16, f16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"flash_attention: q, k, v must be bf16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
@@ -70,8 +71,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = _lib().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
         skv, h, hkv, d, int(causal), int(window or 0),
-        float(softcap or 0.0), build.DTYPE_CODES[q.dtype],
-        build.stream(q.device))
+        float(softcap or 0.0), build.stream(q.device))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

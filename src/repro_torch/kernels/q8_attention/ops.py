@@ -29,7 +29,7 @@ from repro_torch.quantize import QBLOCK
 _LL = ctypes.c_longlong
 _P = ctypes.c_void_p
 _ARGTYPES = ([_P, _LL, _LL, _P, _P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
-              _P, _P, _LL, _LL] + [ctypes.c_int] * 6 + [_P])
+              _P, _P, _LL, _LL] + [ctypes.c_int] * 5 + [_P])
 
 #: bytes of shared memory one block may use on Hopper
 _SMEM_LIMIT = 232_448
@@ -48,7 +48,10 @@ def cache_traffic_ratio() -> float:
     return (1.0 + 2.0 / QBLOCK) / 2.0
 
 
-def _check_planes(kq, ks, vq, vs, d: int) -> None:
+def _check_planes(q, kq, ks, vq, vs, d: int) -> None:
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"q8_decode_attention: q must be bf16, got "
+                        f"{q.dtype}")
     if kq.shape != vq.shape or ks.shape != vs.shape:
         raise ValueError(f"q8_decode_attention: K/V planes differ: "
                          f"{tuple(kq.shape)} vs {tuple(vq.shape)}")
@@ -76,14 +79,11 @@ def _launch(q, q_sb, q_sh, kq, vq, kv_strides, ks, vs, sc_strides, lens,
             or any(st % 16 for st in kv_strides):
         raise ValueError("q8_decode_attention: code rows must be 16-byte "
                          "aligned")
-    if q.dtype not in build.DTYPE_CODES:
-        raise TypeError(f"q8_decode_attention: unsupported q dtype "
-                        f"{q.dtype}")
     rc = _lib().q8_decode_attention(
         q.data_ptr(), q_sb, q_sh, kq.data_ptr(), vq.data_ptr(),
         *kv_strides, ks.data_ptr(), vs.data_ptr(), *sc_strides,
         lens.data_ptr(), out.data_ptr(), o_sb, o_sh, b, h, hkv, s_len, d,
-        build.DTYPE_CODES[q.dtype], build.stream(q.device))
+        build.stream(q.device))
     build.check(rc, "q8_attention")
     q8_decode_attention.launches += 1
 
@@ -105,7 +105,7 @@ def q8_decode_attention(q, kq, ks, vq, vs, length) -> torch.Tensor:
                          f"codes {tuple(kq.shape)} are not (BH, 1, D), "
                          f"(BH, S, D)")
     bh, _, d = q.shape
-    _check_planes(kq, ks, vq, vs, d)
+    _check_planes(q, kq, ks, vq, vs, d)
     if not q.is_cuda:
         return plain.q8_decode_attention(q, kq, ks, vq, vs, length)
     build.require_cuda("q8_decode_attention", q, kq, ks, vq, vs)
@@ -132,7 +132,7 @@ def q8_decode_attention_cache(q, kq, ks, vq, vs, lens,
         raise ValueError(f"q8_decode_attention: layer {layer} outside "
                          f"[0, {kq.shape[0]})")
     b, _, h, d = q.shape
-    _check_planes(kq, ks, vq, vs, d)
+    _check_planes(q, kq, ks, vq, vs, d)
     if not q.is_cuda:
         return plain.q8_decode_attention_cache(q, kq, ks, vq, vs, lens,
                                                layer)

@@ -152,7 +152,8 @@ class ServeEngine:
                  cache_dtype: str = "bf16", decode_block: int = 1,
                  platform: Optional[Any] = None,
                  dispatch_ctx: Optional[DispatchContext] = None,
-                 device=None, paged: bool = False, spec_k: int = 0):
+                 device=None, keep_logits: bool = False,
+                 paged: bool = False, spec_k: int = 0):
         """``device``: where the pool lives and decode runs (default
         ``cuda``; without CUDA pass ``device="cpu"``). ``params`` must
         already be on it. ``platform`` (a registered
@@ -160,7 +161,10 @@ class ServeEngine:
         enables ``energy_report``. ``cache_dtype``: ``"bf16"`` or
         ``"q8_0"`` (int8 + f16-scale planes read by the
         q8_decode_attention kernel). ``decode_block``: decode steps per
-        tick, one host fetch per tick."""
+        tick, one host fetch per tick. ``keep_logits``: keep, in
+        ``logits_log``, every logits row a token was chosen from, on the
+        device: (1, vocab) at an admission, (n_slots, vocab) at a decode
+        step."""
         if paged:
             raise NotImplementedError(
                 "paged KV is not ported yet (ROADMAP queue 1, item 13)")
@@ -202,6 +206,8 @@ class ServeEngine:
         self.enc_len = enc_len
         self.cache_dtype = cache_dtype
         self.decode_block = int(decode_block)
+        self.keep_logits = keep_logits
+        self.logits_log: list[torch.Tensor] = []
         cdt = "q8_0" if cache_dtype == "q8_0" else torch.bfloat16
         self.cache = model.init_cache(n_slots, max_len, enc_len, dtype=cdt,
                                       device=self.device)
@@ -312,6 +318,8 @@ class ServeEngine:
                 one = quantize_kv_cache(one, "q8_0")
             _scatter_slot(self.cache, one, slot)
             first = int(logits[0, n - 1].argmax())   # the admit-time sync
+            if self.keep_logits:
+                self.logits_log.append(logits[0, n - 1][None])
         self._generated += 1
         self.lanestate.reserve(slot, self.spec, n_tokens=n + req.max_new,
                                enc_frames=enc_s)
@@ -361,6 +369,8 @@ class ServeEngine:
                     self.params, batch, mode="decode", cache=self.cache,
                     pos=pos)
                 nxt = logits[:, -1].argmax(dim=-1)
+                if self.keep_logits:
+                    self.logits_log.append(logits[:, -1])
                 emit = active
                 tokens = torch.where(active[:, None], nxt[:, None], tokens)
                 pos = torch.where(active, pos + 1, pos)
@@ -483,7 +493,8 @@ class ServeEngine:
 
     def reset_serve_stats(self) -> None:
         """Zero the serving accounting so the next ``energy_report``
-        prices only the work from here on."""
+        prices only the work from here on; ``logits_log`` starts anew."""
+        self.logits_log = []
         self._ticks = 0
         self._decode_steps = 0
         self._generated = 0

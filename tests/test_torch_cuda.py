@@ -11,7 +11,11 @@ Shapes are the main path's (whisper-tiny.en: d_model 384, 6 heads of 64,
 d_ff 1536, 1500 encoder frames, the 32-token prefill bucket, decode at a
 few lanes) plus small ragged ones. Both sides accumulate in f32 in a
 different order, so f32 results agree to ~1e-5 relative; results stored
-in bf16 agree to one bf16 rounding (2^-8 relative).
+in bf16 agree to one bf16 rounding of each side, at most 2^-7 of the
+largest output (``assert_bf16_close``). The attention cases also run
+with V only on the last keys before the end (or before a lane's length,
+with a large V past it), so a kernel that drops the ragged last tile or
+reads short or past ``length`` fails.
 """
 
 import numpy as np
@@ -31,6 +35,13 @@ from repro_torch.quantize import Q8Tensor, quantize_q8_0
 pytestmark = pytest.mark.cuda
 
 BF16_RTOL = 2 ** -7   # two roundings to bf16 (kernel and plain output)
+
+
+def assert_bf16_close(got, want):
+    """Within one bf16 rounding of each side at the largest output."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = BF16_RTOL * float(want.float().abs().max())
+    assert tol > 0 and err <= tol, (err, tol)
 
 
 @pytest.fixture
@@ -81,27 +92,29 @@ def test_q8_matmul_kernel(dev, m, k, n):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("tail", [None, 3])
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,softcap", [
     (1, 1500, 1500, 6, 6, 64, False, None, None),   # encoder
     (1, 32, 32, 6, 6, 64, True, None, None),        # decoder prefill
     (1, 32, 1500, 6, 6, 64, False, None, None),     # cross prefill
     (2, 40, 40, 4, 2, 32, True, None, None),        # reduced GQA
     (2, 70, 70, 4, 2, 32, True, 16, None),          # sliding window
-    (1, 50, 50, 2, 1, 128, True, None, 5.0),        # softcap
+    (1, 50, 50, 2, 1, 64, True, None, 5.0),         # softcap
     (1, 45, 20, 4, 4, 64, True, None, None),        # sq > skv, causal
 ])
 def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
-                                softcap):
+                                softcap, tail):
     rng = np.random.default_rng(sq * 7 + skv)
     q = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
     k = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
     v = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
+    if tail:   # V only on the last keys: the output is the ragged tile's
+        v[:, :-tail] = 0
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = fa_plain.flash_attention(q, k, v, **kw)
-    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
-                               atol=2e-2)
+    assert_bf16_close(got, want)
 
 
 def _q8_planes(rng, shape, dev):
@@ -121,9 +134,27 @@ def test_q8_decode_attention_kernel(dev, bh, s, d):
     got = qa_ops.q8_decode_attention(q, kq, ks, vq, vs, lens)
     torch.cuda.synchronize()
     want = qa_plain.q8_decode_attention(q, kq, ks, vq, vs, lens)
-    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
-                               atol=2e-2)
+    assert_bf16_close(got, want)
     assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bh,s,d", [(24, 1500, 64), (6, 35, 64)])
+def test_q8_decode_attention_kernel_reads_exactly_to_length(dev, bh, s, d):
+    # V only on the 3 positions before each lane's length and a large V
+    # past it: reading short drops the output, reading long poisons it
+    rng = np.random.default_rng(bh * s)
+    q = _randn(rng, (bh, 1, d), dev, torch.bfloat16)
+    kq, ks = _q8_planes(rng, (bh, s, d), dev)
+    lens = torch.from_numpy(rng.integers(3, s + 1, bh)).to(dev)
+    v = _randn(rng, (bh, s, d), dev)
+    pos = torch.arange(s, device=dev)[None, :, None]
+    n = lens[:, None, None]
+    v = torch.where(pos >= n, 8.0 * v, torch.where(pos >= n - 3, v, 0.0))
+    vt = quantize_q8_0(v, axis=-1)
+    got = qa_ops.q8_decode_attention(q, kq, ks, vt.q, vt.scale, lens)
+    torch.cuda.synchronize()
+    want = qa_plain.q8_decode_attention(q, kq, ks, vt.q, vt.scale, lens)
+    assert_bf16_close(got, want)
 
 
 @pytest.mark.parametrize("L,b,s,h,hkv,d,layer", [(4, 4, 1500, 6, 6, 64, 2),
@@ -139,8 +170,7 @@ def test_q8_decode_attention_cache_kernel(dev, L, b, s, h, hkv, d, layer):
     torch.cuda.synchronize()
     want = qa_plain.q8_decode_attention_cache(q, kq, ks, vq, vs, lens,
                                               layer)
-    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
-                               atol=2e-2)
+    assert_bf16_close(got, want)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -157,3 +187,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((2, 1, 4, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((2, 1, 4, 64), device=dev)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, q, q)
+    kq = torch.zeros((2, 8, 64), dtype=torch.int8, device=dev)
+    ks = torch.zeros((2, 8, 2), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):
+        qa_ops.q8_decode_attention(torch.zeros((2, 1, 64), device=dev),
+                                   kq, ks, kq, ks, 8)

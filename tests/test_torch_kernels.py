@@ -216,12 +216,32 @@ def test_dispatch_records_host_and_forced_routes():
             api.dispatch("fp16_matmul", x, w)
 
 
+def test_cuda_tensors_never_route_to_the_plain_version_quietly():
+    spec = _spec("fp16_matmul", 1500, 1536, 384)
+    # over budget the law says HOST; on the card the call still runs the
+    # kernel, and the record keeps the decision
+    over = api.DispatchContext(vmem_budget=0)
+    assert api.decide("fp16_matmul", spec, over) == ("host", "cuda")
+    assert api.decide("fp16_matmul", spec, over, on_cuda=False) == \
+        ("host", "torch")
+    for ctx in (api.DispatchContext(force_backend="torch"),
+                api.DispatchContext(backends={"fp16_matmul": "torch"})):
+        with pytest.raises(ValueError, match="allow_plain_on_cuda"):
+            api.decide("fp16_matmul", spec, ctx)
+        assert api.decide("fp16_matmul", spec, ctx, on_cuda=False) == \
+            ("forced", "torch")
+    ctx = api.DispatchContext(force_backend="torch", allow_plain_on_cuda=True)
+    assert api.decide("fp16_matmul", spec, ctx) == ("forced", "torch")
+
+
 def test_wrappers_validate_calls_before_choosing_a_path():
     x = torch.zeros(4, 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         fp16_matmul(x, torch.zeros(64, 8))
     with pytest.raises(ValueError):
-        flash_attention(*(torch.zeros(1, 8, 2, 48),) * 3)
+        flash_attention(*(torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16),) * 3)
+    with pytest.raises(TypeError):     # the kernel takes bf16 only
+        flash_attention(*(torch.zeros(1, 8, 2, 64),) * 3)
     with pytest.raises(ValueError):
         q8_decode_attention(torch.zeros(2, 3, 32), *(
             torch.zeros(2, 8, 32, dtype=torch.int8),

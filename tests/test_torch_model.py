@@ -4,10 +4,13 @@ KV heads, head_dim 32) with the reference's own parameters carried
 across by the bridge.
 
 Tolerances: activations are bf16 in both packages, rounded at slightly
-different places (XLA vs PyTorch elementwise fusion, bf16 GELU), so
-states and logits of magnitude ~4 agree to a few bf16 ulps (2^-6 at
-that magnitude): 0.1 absolute. The frontend is f32 end to end: 1e-4, as
-the reference's own golden test.
+different places (XLA vs PyTorch elementwise fusion, bf16 GELU). States,
+caches and logits of magnitude up to ~4 differ by at most two bf16 ulps
+at that magnitude (0.031 measured), and the relative error over a whole
+tensor, ||a - b|| / ||b||, is at most 0.0082 measured. ``assert_near``
+allows 0.05 absolute (three ulps) and 1.5e-2 relative, so a divergence
+spread over the tensor fails even where no element passes 0.05. The
+frontend is f32 end to end: 1e-4, as the reference's own golden test.
 """
 
 import jax
@@ -29,7 +32,8 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.models.attention import quantize_kv_cache
 from repro_torch.models.model import build
 
-ATOL = 0.1
+MAX_ABS = 0.05
+MAX_REL = 1.5e-2
 VOCAB = 512
 ENC_S = 40
 
@@ -57,6 +61,13 @@ def _bridge(tree):
 
 def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def assert_near(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, atol=MAX_ABS, rtol=0)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= MAX_REL, rel
 
 
 def test_log_mel_matches_numpy_golden():
@@ -105,7 +116,7 @@ def test_encode_prefill_and_decode_logits_match_jax(models, weights):
 
     je = _f32(jm.encode(jparams, jnp.asarray(frames)))
     te = tm.encode(tparams, torch.from_numpy(frames))
-    np.testing.assert_allclose(te.float().numpy(), je, atol=ATOL)
+    assert_near(te.float().numpy(), je)
 
     jl, jc = jm.forward(jparams, {"tokens": jnp.asarray(toks),
                                   "enc_frames": jnp.asarray(frames)},
@@ -114,14 +125,12 @@ def test_encode_prefill_and_decode_logits_match_jax(models, weights):
                                   "enc_frames": torch.from_numpy(frames)},
                         mode="prefill",
                         cache=tm.init_cache(1, 16, ENC_S, device="cpu"))
-    np.testing.assert_allclose(tl.numpy()[..., :VOCAB],
-                               _f32(jl)[..., :VOCAB], atol=ATOL)
+    assert_near(tl.numpy()[..., :VOCAB], _f32(jl)[..., :VOCAB])
     # the prefill caches agree too, plane for plane
     for kind in ("self", "cross"):
         for key in ("k", "v"):
-            np.testing.assert_allclose(
-                tc["layers"][kind][key].float().numpy(),
-                _f32(jc["layers"][kind][key]), atol=ATOL)
+            assert_near(tc["layers"][kind][key].float().numpy(),
+                        _f32(jc["layers"][kind][key]))
 
     # one decode step against the same (bridged) cache, bf16 and q8_0
     for cache_tier in ("bf16", "q8_0"):
@@ -135,16 +144,17 @@ def test_encode_prefill_and_decode_logits_match_jax(models, weights):
                                       "enc_lens": torch.tensor([ENC_S])},
                             mode="decode", cache=tcache,
                             pos=torch.tensor([4]))
-        np.testing.assert_allclose(td.numpy()[..., :VOCAB],
-                                   _f32(jd)[..., :VOCAB], atol=ATOL)
+        assert_near(td.numpy()[..., :VOCAB], _f32(jd)[..., :VOCAB])
         assert int(td[0, 0, :VOCAB].argmax()) == \
             int(jnp.argmax(jd[0, 0, :VOCAB]))
         # the port wrote the new token in place; the planes match JAX's
         key = "kq" if cache_tier == "q8_0" else "k"
         got_plane = tn["layers"]["self"][key][:, :, 4].float().numpy()
         want_plane = _f32(jn["layers"]["self"][key][:, :, 4])
-        np.testing.assert_allclose(got_plane, want_plane,
-                                   atol=1.01 if key == "kq" else ATOL)
+        if key == "kq":   # int8 codes of nearly equal inputs: off by <= 1
+            np.testing.assert_allclose(got_plane, want_plane, atol=1.01)
+        else:
+            assert_near(got_plane, want_plane)
 
 
 def test_quantize_kv_cache_matches_jax(models):

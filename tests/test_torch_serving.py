@@ -117,6 +117,24 @@ def test_fused_tick_equals_single_steps_with_one_fetch(setup):
     assert outs[4] == outs[1] and len(outs[4]) == 5
 
 
+def test_engine_keeps_the_logits_it_chose_from(setup):
+    _, tm, jp = setup
+    fr = np.random.default_rng(4).standard_normal((24, 128)) \
+        .astype(np.float32)
+    eng = ServeEngine(tm, _bridge(jp), n_slots=2, max_len=32, enc_len=24,
+                      decode_block=4, device="cpu", keep_logits=True)
+    st = eng.admit(AudioRequest(uid=0, tokens=[1, 3], max_new=5,
+                                eos_id=-1, enc_frames=fr))
+    eng.step()
+    log = eng.logits_log
+    assert [r.shape[0] for r in log] == [1, 2, 2, 2, 2]
+    picks = [int(log[0][0].argmax())] + \
+        [int(r[st.slot].argmax()) for r in log[1:]]
+    assert picks == st.out
+    eng.reset_serve_stats()
+    assert eng.logits_log == []
+
+
 def test_transcribe_matches_jax(setup):
     jm, tm, jp = setup
     x = synth_waveform(0.5)
