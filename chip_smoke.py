@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with an H100 (or any
 CUDA card) and ``nvcc``. It imports nothing of JAX and nothing of the
 JAX package. Phases:
 
-1. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build the six CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 2. for each kernel, at the main path's shapes: the largest difference
    from its plain PyTorch version, its time, the plain version's time,
@@ -19,7 +19,17 @@ JAX package. Phases:
    weights, 32 new tokens: bf16 weights with a bf16 cache, then Q8_0
    weights with the q8_0 cache;
 4. a serve phase: 4 audio requests on 4 slots, 8 decode steps a tick,
-   through ``BatchScheduler`` (Q8_0 weights, q8_0 cache).
+   through ``BatchScheduler`` (Q8_0 weights, q8_0 cache);
+5. the q4_0 tier and self-speculative decoding, bf16 weights:
+   a. ``transcribe`` with the q4_0 self and cross cache;
+   b. ``transcribe`` through a reused speculative engine (q4_0 cache,
+      ``spec_k=4``: 3 draft steps on Q4_0 weights, one verify of 4
+      positions a round, 2 rounds a tick), whose tokens must be a's;
+   c. ``BatchScheduler`` over a speculative engine with the q8_0 cache
+      (4 requests on 4 slots, ``spec_k=4``), whose tokens must be those
+      of a plain (``spec_k=0``) serve of the same requests.
+   Each prints its draft steps, verify steps, acceptance rate and host
+   syncs per tick.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -27,16 +37,19 @@ values live only in the last keys before the end or a lane's length, and
 past a lane's length a large poison: a kernel that drops the ragged last
 KV tile, stops short of ``length`` or reads past it fails there.
 
-Before each phase of 3 and 4 every kernel's launch count is set to 0 and
-the dispatch log cleared; after it the script requires that each kernel
-of that path launched and that every call of the four ops was routed
-``("accel", "cuda")``. The engine of each phase keeps every logits row
-it chose a token from; the same phase is then run again on the plain
-versions (forced, on the card) and the two runs' logits must agree
-within ``LOGIT_REL_TOL`` of the largest logit, up to the first step where
-the runs pick different tokens, which must be a near-tie. Any failure
+Before each phase of 3, 4 and 5 every kernel's launch count is set to 0
+and the dispatch log cleared; after it the script requires that each
+kernel of that path launched and that every call of the six ops was
+routed ``("accel", "cuda")``. The engine of each phase keeps the logits
+row each token was chosen from; the same phase is then run again on the
+plain versions (forced, on the card) and the two runs' rows must agree
+within ``LOGIT_REL_TOL`` of the largest logit, request by request, up to
+the first token where the runs differ, which must be a near-tie
+(``TIE_MARGIN``). Token lists held against each other (b against a, c
+against the plain serve) follow the same near-tie rule. Any failure
 raises and exits non-zero. The last line is the JSON result; the line
-before it lists the kernels.
+before it the card's name and power limit, the one before that the
+kernels.
 """
 
 from __future__ import annotations
@@ -57,6 +70,11 @@ F32_REL = 1e-5       # f32 outputs: summation order only
 # kernel-vs-plain logits over the largest logit: 0.0062-0.0074 measured on
 # an H100 (about one bf16 ulp of a logit near 5), with ~3x headroom
 LOGIT_REL_TOL = 0.02
+# the same with a q4_0 cache: 0.0169-0.0182 measured on an NVIDIA H100
+# 80GB HBM3 at 700 W. A q4_0 code step is a block's max / 7, so a
+# last-bit difference in a new K/V row that lands on a rounding boundary
+# moves that entry by a whole step
+LOGIT_REL_TOL_Q4 = 0.05
 TIE_MARGIN = 0.25    # a token flip is allowed only below this logit gap
 ARCH = "whisper-tiny-en"
 MAX_NEW = 32
@@ -116,11 +134,16 @@ def kernel_cases():
     from repro_torch.kernels.flash_attention import plain as fa_plain
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
     from repro_torch.kernels.fp16_matmul import plain as mm_plain
+    from repro_torch.kernels.q4_attention import ops as q4a_ops
+    from repro_torch.kernels.q4_attention import plain as q4a_plain
+    from repro_torch.kernels.q4_matmul import ops as q4_ops
+    from repro_torch.kernels.q4_matmul import plain as q4_plain
     from repro_torch.kernels.q8_attention import ops as qa_ops
     from repro_torch.kernels.q8_attention import plain as qa_plain
     from repro_torch.kernels.q8_matmul import ops as q8_ops
     from repro_torch.kernels.q8_matmul import plain as q8_plain
-    from repro_torch.quantize import dequantize_q8_0, quantize_q8_0
+    from repro_torch.quantize import (dequantize_q4_0, dequantize_q8_0,
+                                      quantize_q4_0, quantize_q8_0)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -204,48 +227,102 @@ def kernel_cases():
                        BF16_REL))
     cases["flash_attention"] = fa
 
-    qa = []
-    for label, b, s_len, lens in (
-            ("cross decode, 4 lanes", 4, 1500, [1500, 1000, 500, 1250]),
-            ("self decode, 4 lanes", 4, 64, [33, 20, 9, 27]),
-            ("cross decode, 1 lane", 1, 1500, [1500])):
-        L, h, d = 4, 6, 64
-        kf = randn((L, b, s_len, h, d), torch.float32)
-        vf = randn((L, b, s_len, h, d), torch.float32)
-        # V only on each lane's last 3 positions before its length, and a
-        # large poison past it: reading short or long moves the output
-        vtail = torch.zeros_like(vf)
-        for i, n in enumerate(lens):
-            vtail[:, i, n - 3:n] = vf[:, i, n - 3:n]
-            vtail[:, i, n:] = 8.0 * vf[:, i, n:]
-        kt = quantize_q8_0(kf, axis=-1)
-        q = randn((b, 1, h, d))
-        ln = torch.tensor(lens, device=dev)
-        mask = (torch.arange(s_len, device=dev)[None, :]
-                < ln[:, None])[:, None, None, :]
-        qh = q.transpose(1, 2).contiguous()
-        read = sum(lens) * h * (2 * d + 2 * 2 * d // 32)
-        for tag, vsrc in (("", vf), (", V on the last 3 before length",
-                                     vtail)):
-            vt = quantize_q8_0(vsrc, axis=-1)
-            lib = None
-            if not tag:
-                # yardstick: SDPA over the pre-dequantized bf16 layer
-                kd = dequantize_q8_0(kt, bf)[0].transpose(1, 2).contiguous()
-                vd = dequantize_q8_0(vt, bf)[0].transpose(1, 2).contiguous()
-                lib = (lambda qh=qh, kd=kd, vd=vd, mask=mask:
-                       F.scaled_dot_product_attention(qh, kd, vd,
-                                                      attn_mask=mask))
-            qa.append((f"{label} S={s_len} lens={lens} H=6 D=64{tag}",
-                       lambda q=q, kt=kt, vt=vt, ln=ln:
-                           qa_ops.q8_decode_attention_cache(
-                               q, kt.q, kt.scale, vt.q, vt.scale, ln, 0),
-                       lambda q=q, kt=kt, vt=vt, ln=ln:
-                           qa_plain.q8_decode_attention_cache(
-                               q, kt.q, kt.scale, vt.q, vt.scale, ln, 0),
-                       lib, read + _nbytes(q, q, ln), 4.0 * sum(lens) * h * d,
-                       "bf16", BF16_REL))
-    cases["q8_decode_attention"] = qa
+    q4 = []
+    for label, m, k, n in (("draft MLP up, 4 lanes", 4, 384, 1536),
+                           ("draft MLP down, 4 lanes", 4, 1536, 384),
+                           ("draft wo, 4 lanes", 4, 384, 384),
+                           ("draft MLP up, 1 lane", 1, 384, 1536),
+                           ("draft MLP down, 1 lane", 1, 1536, 384),
+                           ("draft wo, 1 lane", 1, 384, 384)):
+        x = randn((m, k))
+        w = quantize_q4_0(randn((k, n), torch.float32, k ** -0.5), axis=0)
+        wd = dequantize_q4_0(w, bf, axis=0)
+        y = torch.empty((m, n), dtype=bf, device=dev)
+        q4.append((f"{label} ({m},{k})@({k},{n})",
+                   lambda x=x, w=w: q4_ops.q4_matmul(x, w, out_dtype=bf),
+                   lambda x=x, w=w: q4_plain.q4_matmul(x, w.q, w.scale, bf),
+                   lambda x=x, wd=wd: torch.matmul(x, wd),
+                   _nbytes(x, w.q, w.scale, y), 2.0 * m * n * k, "bf16",
+                   BF16_REL))
+    cases["q4_matmul"] = q4
+
+    def decode_cases(tier, specs):
+        """Decode attention over one layer of a stacked cache of
+        ``tier``; each spec: (label, lanes, queries, S, lengths (B,) or
+        (B, Q)). Each case also runs with V only on the 3 positions
+        before each lane's first length and a large poison past it."""
+        quant = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
+        deq = dequantize_q8_0 if tier == "q8_0" else dequantize_q4_0
+        kern, plain = ((qa_ops.q8_decode_attention_cache,
+                        qa_plain.q8_decode_attention_cache)
+                       if tier == "q8_0" else
+                       (q4a_ops.q4_decode_attention_cache,
+                        q4a_plain.q4_decode_attention_cache))
+        # bytes of one cached position of one head: K and V codes, scales
+        code_b = 1.0 if tier == "q8_0" else 0.5
+        row_b = 2 * 64 * code_b + 2 * 2 * 64 // 32
+        out = []
+        for label, b, nq, s_len, lens in specs:
+            L, h, d = 4, 6, 64
+            ln = torch.tensor(lens, device=dev)
+            ln2 = ln if ln.dim() == 2 else ln[:, None].expand(b, nq)
+            first = ln2[:, 0].tolist()
+            kf = randn((L, b, s_len, h, d), torch.float32)
+            vf = randn((L, b, s_len, h, d), torch.float32)
+            vtail = torch.zeros_like(vf)
+            for i, n0 in enumerate(first):
+                vtail[:, i, n0 - 3:n0] = vf[:, i, n0 - 3:n0]
+                vtail[:, i, n0:] = 8.0 * vf[:, i, n0:]
+            kt = quant(kf, axis=-1)
+            q = randn((b, nq, h, d))
+            mask = (torch.arange(s_len, device=dev)[None, None, :]
+                    < ln2[:, :, None])[:, None]          # (B, 1, Q, S)
+            qh = q.transpose(1, 2).contiguous()
+            # each lane's cache rows are read once for all its queries
+            read = float(ln2.max(dim=1).values.sum()) * h * row_b
+            ops = 4.0 * float(ln2.sum()) * h * d
+            for tag, vsrc in (("", vf), (", V on the last 3 before length",
+                                         vtail)):
+                vt = quant(vsrc, axis=-1)
+                lib = None
+                if not tag:
+                    # yardstick: SDPA over the pre-dequantized bf16 layer
+                    kd = deq(kt, bf)[0].transpose(1, 2).contiguous()
+                    vd = deq(vt, bf)[0].transpose(1, 2).contiguous()
+                    lib = (lambda qh=qh, kd=kd, vd=vd, mask=mask:
+                           F.scaled_dot_product_attention(qh, kd, vd,
+                                                          attn_mask=mask))
+                out.append((f"{label} S={s_len} Q={nq} lens={lens} H=6 "
+                            f"D=64{tag}",
+                            lambda q=q, kt=kt, vt=vt, ln=ln:
+                                kern(q, kt.q, kt.scale, vt.q, vt.scale, ln,
+                                     0),
+                            lambda q=q, kt=kt, vt=vt, ln=ln:
+                                plain(q, kt.q, kt.scale, vt.q, vt.scale, ln,
+                                      0),
+                            lib, read + _nbytes(q, q, ln), ops, "bf16",
+                            BF16_REL))
+        return out
+
+    cross = [1500, 1000, 500, 1250]
+    verify = [[33 + j, 20 + j, 9 + j, 27 + j] for j in range(4)]
+    verify = [list(r) for r in zip(*verify)]       # (B, Q): pos + j + 1
+    cases["q8_decode_attention"] = decode_cases("q8_0", (
+        ("cross decode, 4 lanes", 4, 1, 1500, cross),
+        ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
+        ("cross decode, 1 lane", 1, 1, 1500, [1500]),
+        ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
+        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)))
+    # phases a and b run one slot: S is 35 (a) or 38 (b, spec headroom)
+    cases["q4_decode_attention"] = decode_cases("q4_0", (
+        ("cross decode, 1 lane", 1, 1, 1500, [1500]),
+        ("self decode, 1 lane", 1, 1, 35, [20]),
+        ("self verify, 1 lane x 4 queries", 1, 4, 38, [[30, 31, 32, 33]]),
+        ("cross verify, 1 lane x 4 queries", 1, 4, 1500, [1500]),
+        ("cross decode, 4 lanes", 4, 1, 1500, cross),
+        ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
+        ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
+        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)))
     return cases
 
 
@@ -260,6 +337,11 @@ KERNEL_META = {
     "q8_decode_attention": ("csrc/q8_attention.cu",
                             "src/repro/kernels/q8_attention/"
                             "q8_attention.py:74"),
+    "q4_matmul": ("csrc/q4_matmul.cu",
+                  "src/repro/kernels/q4_matmul/q4_matmul.py:60"),
+    "q4_decode_attention": ("csrc/q4_attention.cu",
+                            "src/repro/kernels/q4_attention/"
+                            "q4_attention.py:78"),
 }
 
 
@@ -299,12 +381,16 @@ def check_kernels() -> dict:
 def launch_counters():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
+    from repro_torch.kernels.q4_attention import ops as q4a_ops
+    from repro_torch.kernels.q4_matmul import ops as q4_ops
     from repro_torch.kernels.q8_attention import ops as qa_ops
     from repro_torch.kernels.q8_matmul import ops as q8_ops
     return {"fp16_matmul": mm_ops.fp16_matmul,
             "q8_matmul": q8_ops.q8_matmul,
             "flash_attention": fa_ops.flash_attention,
-            "q8_decode_attention": qa_ops.q8_decode_attention}
+            "q8_decode_attention": qa_ops.q8_decode_attention,
+            "q4_matmul": q4_ops.q4_matmul,
+            "q4_decode_attention": q4a_ops.q4_decode_attention}
 
 
 def zero_counts() -> None:
@@ -316,7 +402,7 @@ def zero_counts() -> None:
 
 def read_counts(phase: str, expect: tuple) -> dict:
     """Launch counts of this phase; every expected kernel launched and
-    every dispatched call of the four ops went ("accel", "cuda")."""
+    every dispatched call of the six ops went ("accel", "cuda")."""
     from repro_torch.kernels.api import dispatch_counters
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     routing = dispatch_counters()
@@ -340,41 +426,70 @@ def plain_context():
     return DispatchContext(force_backend="torch", allow_plain_on_cuda=True)
 
 
-def logits_check(phase: str, got: list, want: list,
-                 vocab: int) -> tuple[float, int]:
-    """Hold the kernel run's logits rows against the plain run's over the
-    ``vocab`` real ids (the padding ids carry -1e9), row for row, up to
-    and including the first row at which the two runs pick a different
-    token (which must be a near-tie of the plain run). Returns (max
-    |kernel - plain| over the largest plain logit, rows compared)."""
+def _first_diff(got: list, want: list):
+    return next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+                None)
+
+
+def _tie_gap(row, want_tok: int, got_tok: int) -> float:
+    """How far below ``want_tok`` the row puts ``got_tok``."""
+    return float(row[want_tok] - row[got_tok])
+
+
+def tokens_check(phase: str, got: list, want: list, want_rows: list) -> None:
+    """``got`` equals ``want`` up to the first difference, where ``got``'s
+    pick must be within TIE_MARGIN of ``want``'s on ``want``'s row."""
+    if len(got) != len(want):
+        raise AssertionError(f"[{phase}] {len(got)} tokens vs {len(want)}")
+    i = _first_diff(got, want)
+    if i is not None:
+        gap = _tie_gap(want_rows[i].float(), want[i], got[i])
+        if gap >= TIE_MARGIN:
+            raise AssertionError(f"[{phase}] token {i}: {got[i]} vs "
+                                 f"{want[i]}, {gap:.4f} below it")
+        _log(f"[{phase}] tokens differ from token {i} on, at a near-tie "
+             f"(gap {gap:.4f} < {TIE_MARGIN})")
+
+
+def logits_check(phase: str, runs: list, vocab: int,
+                 tol: float = LOGIT_REL_TOL) -> float:
+    """Hold each request's logits rows (the row each token was chosen
+    from) of the kernel run against the plain run's, over the ``vocab``
+    real ids (padding ids carry -1e9), up to and including the first
+    token at which the two runs differ (a near-tie of the plain run, see
+    ``tokens_check``). ``runs``: (kernel tokens, kernel rows, plain
+    tokens, plain rows) per request. Returns max |kernel - plain| over
+    the largest plain logit."""
     import torch
-    if len(got) != len(want) or not got:
-        raise AssertionError(f"[{phase}] logits logs of {len(got)} and "
-                             f"{len(want)} rows")
-    err, top, n = 0.0, 0.0, 0
-    for g, w in zip(got, want):
-        g, w = g[..., :vocab].float(), w[..., :vocab].float()
-        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"[{phase}] logits row {tuple(g.shape)} "
-                                 f"vs {tuple(w.shape)}, or not finite")
-        err = max(err, float((g - w).abs().max()))
-        top = max(top, float(w.abs().max()))
-        n += 1
-        pg, pw = g.argmax(-1, keepdim=True), w.argmax(-1, keepdim=True)
-        if not bool((pg == pw).all()):
-            gap = float((w.gather(-1, pw) - w.gather(-1, pg)).max())
-            if gap >= TIE_MARGIN:
-                raise AssertionError(f"[{phase}] the kernels pick a token "
-                                     f"{gap:.4f} below the plain run's")
-            break
+    err, top, n, total = 0.0, 0.0, 0, 0
+    for got_tok, got, want_tok, want in runs:
+        tokens_check(phase, got_tok, want_tok, want)
+        if len(got) != len(got_tok) or len(want) != len(want_tok) \
+                or not got:
+            raise AssertionError(f"[{phase}] {len(got)} and {len(want)} "
+                                 f"logits rows for {len(got_tok)} tokens")
+        stop = _first_diff(got_tok, want_tok)
+        stop = len(got) if stop is None else stop + 1
+        for g, w in zip(got[:stop], want[:stop]):
+            g, w = g[:vocab].float(), w[:vocab].float()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"[{phase}] logits not finite")
+            err = max(err, float((g - w).abs().max()))
+            top = max(top, float(w.abs().max()))
+            n += 1
+        total += len(got)
     rel = err / top
     _log(f"[{phase}] logits vs plain run: max_abs_err={err:.4g} "
-         f"max_abs_logit={top:.4g} rel={rel:.4g} (tol {LOGIT_REL_TOL}) "
-         f"over {n} of {len(got)} rows")
-    if not rel <= LOGIT_REL_TOL:
+         f"max_abs_logit={top:.4g} rel={rel:.4g} (tol {tol}) "
+         f"over {n} of {total} rows")
+    if not rel <= tol:
         raise AssertionError(f"[{phase}] logits off the plain run by "
-                             f"{rel:.4g} of the largest > {LOGIT_REL_TOL}")
-    return rel, n
+                             f"{rel:.4g} of the largest > {tol}")
+    return rel
+
+
+def _logit_tol(cache_dtype: str) -> float:
+    return LOGIT_REL_TOL_Q4 if cache_dtype == "q4_0" else LOGIT_REL_TOL
 
 
 def check_tokens(phase: str, tokens, vocab: int) -> None:
@@ -382,8 +497,20 @@ def check_tokens(phase: str, tokens, vocab: int) -> None:
         raise AssertionError(f"[{phase}] bad tokens {tokens}")
 
 
-def run_transcribe(model, params, x, cache_dtype: str, phase: str,
-                   expect: tuple) -> dict:
+def spec_line(phase: str, eng) -> None:
+    if eng.spec_k:
+        _log(f"[{phase}] spec_k={eng.spec_k} draft_steps={eng._draft_steps} "
+             f"verify_steps={eng._verify_steps} rounds={eng._spec_rounds} "
+             f"acceptance_rate={eng.acceptance_rate:.4f} "
+             f"host_syncs_per_tick={eng._host_syncs / eng._ticks:.2f}")
+
+
+def run_transcribe(model, params, x, phase: str, expect: tuple,
+                   cache_dtype: str, spec_k: int = 0, draft=None):
+    """One transcription through the engine ``transcribe`` would build
+    (or, with ``spec_k``, a reused speculative engine), keeping its
+    logits; then the same on the plain versions. Returns (result,
+    launch counts)."""
     import torch
 
     import repro_torch
@@ -391,11 +518,12 @@ def run_transcribe(model, params, x, cache_dtype: str, phase: str,
     from repro_torch.serving.engine import ServeEngine
 
     def run(platform):
-        # the engine transcribe would build, keeping its logits
-        eng = ServeEngine(model, params, n_slots=1, max_len=1 + MAX_NEW + 2,
+        eng = ServeEngine(model, params, n_slots=1,
+                          max_len=1 + MAX_NEW + 2 + max(spec_k - 1, 0),
                           enc_len=1500, cache_dtype=cache_dtype,
                           decode_block=8, platform=platform,
-                          keep_logits=True)
+                          keep_logits=True, spec_k=spec_k,
+                          draft_params=draft)
         return repro_torch.transcribe(x, model=model, params=params,
                                       engine=eng, chunk_frames=1500,
                                       max_new=MAX_NEW)
@@ -414,59 +542,75 @@ def run_transcribe(model, params, x, cache_dtype: str, phase: str,
          f"decode_tok_per_s={tps:.1f} ticks={r.ticks} "
          f"host_syncs={r.host_syncs} decode_steps={r.decode_steps} "
          f"modeled_j_per_audio_s={r.energy['joules_per_audio_s']:.4g}")
+    spec_line(phase, r.engine)
     with use_context(plain_context()):
         ref = run(None)
-    logits_check(phase, r.engine.logits_log, ref.engine.logits_log,
-                 model.cfg.vocab)
-    return counts
+    logits_check(phase, [(r.tokens, r.logits, ref.tokens, ref.logits)],
+                 model.cfg.vocab, _logit_tol(cache_dtype))
+    return r, counts
 
 
-def run_serve(model, params) -> dict:
+SERVE_SECONDS = (30.0, 20.0, 10.0, 25.0)
+
+
+def serve(model, params, frames, platform, cache_dtype: str,
+          spec_k: int = 0, draft=None):
+    """4 audio requests on 4 slots through ``BatchScheduler``, 8 decode
+    steps a tick; returns the engine and the scheduler."""
+    from repro_torch.serving.engine import AudioRequest, ServeEngine
+    from repro_torch.serving.scheduler import BatchScheduler
+    eng = ServeEngine(model, params, n_slots=4, max_len=64, enc_len=1500,
+                      cache_dtype=cache_dtype, decode_block=8,
+                      platform=platform, keep_logits=True, spec_k=spec_k,
+                      draft_params=draft)
+    sched = BatchScheduler(eng, max_admit_per_tick=4)
+    for i, fr in enumerate(frames):
+        sched.submit(AudioRequest(uid=i, tokens=[1], max_new=MAX_NEW,
+                                  eos_id=-1, enc_frames=fr))
+    sched.run_until_drained(max_ticks=64)
+    return eng, sched
+
+
+def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
+              spec_k: int = 0, draft=None):
+    """The serve phase on the kernels, checked, then on the plain
+    versions. Returns (the scheduler's results, launch counts)."""
     import torch
 
     from repro_torch.audio.features import audio_frames
     from repro_torch.audio.stream import synth_waveform
     from repro_torch.kernels.api import use_context
-    from repro_torch.serving.engine import AudioRequest, ServeEngine
-    from repro_torch.serving.scheduler import BatchScheduler
-    phase = "serve q8_0 4x4"
-    secs = (30.0, 20.0, 10.0, 25.0)
-    waves = [synth_waveform(s, seed=i + 1) for i, s in enumerate(secs)]
-
-    def serve(frames, platform):
-        eng = ServeEngine(model, params, n_slots=4, max_len=64,
-                          enc_len=1500, cache_dtype="q8_0", decode_block=8,
-                          platform=platform, keep_logits=True)
-        sched = BatchScheduler(eng, max_admit_per_tick=4)
-        for i, fr in enumerate(frames):
-            sched.submit(AudioRequest(uid=i, tokens=[1], max_new=MAX_NEW,
-                                      eos_id=-1, enc_frames=fr))
-        sched.run_until_drained(max_ticks=64)
-        return eng, sched
+    waves = [synth_waveform(s, seed=i + 1)
+             for i, s in enumerate(SERVE_SECONDS)]
 
     zero_counts()
     t0 = time.monotonic()
     frames = [audio_frames(w, model.cfg.d_model, device="cuda")
               for w in waves]
-    eng, sched = serve(frames, "h100-sxm")
+    eng, sched = serve(model, params, frames, "h100-sxm", cache_dtype,
+                       spec_k, draft)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    counts = read_counts(phase, ("fp16_matmul", "q8_matmul",
-                                 "flash_attention", "q8_decode_attention"))
+    counts = read_counts(phase, expect)
+    res = sched.results
     for i in range(len(frames)):
-        st = sched.results[i]
-        if st.error:
-            raise AssertionError(f"[{phase}] request {i}: {st.error}")
-        check_tokens(phase, st.out, model.cfg.vocab)
+        if res[i].error:
+            raise AssertionError(f"[{phase}] request {i}: {res[i].error}")
+        check_tokens(phase, res[i].out, model.cfg.vocab)
     m = sched.metrics
-    n_tok = sum(len(sched.results[i].out) for i in range(len(frames)))
+    n_tok = sum(len(res[i].out) for i in range(len(frames)))
     _log(f"[{phase}] wall_s={wall:.4f} tokens={n_tok} tok_per_s="
          f"{n_tok / wall:.1f} ticks={m.ticks} host_syncs={eng._host_syncs} "
          f"mean_occupancy={m.mean_occupancy:.3f}")
+    spec_line(phase, eng)
     with use_context(plain_context()):
-        ref, _ = serve(frames, None)
-    logits_check(phase, eng.logits_log, ref.logits_log, model.cfg.vocab)
-    return counts
+        _, ref = serve(model, params, frames, None, cache_dtype, spec_k,
+                       draft)
+    logits_check(phase, [(res[i].out, res[i].logits, ref.results[i].out,
+                          ref.results[i].logits)
+                         for i in range(len(frames))], model.cfg.vocab,
+                 _logit_tol(cache_dtype))
+    return res, frames, counts
 
 
 def main() -> int:
@@ -516,17 +660,51 @@ def main() -> int:
                            max_new=4, decode_block=8)
 
     launches = {k: 0 for k in KERNEL_META}
-    for cache_dtype, p, phase, expect in (
-            ("bf16", params, "transcribe bf16",
-             ("fp16_matmul", "flash_attention")),
-            ("q8_0", qparams, "transcribe q8_0",
-             ("fp16_matmul", "q8_matmul", "flash_attention",
-              "q8_decode_attention"))):
-        counts = run_transcribe(model, p, x, cache_dtype, phase, expect)
+
+    def add(counts):
         for k, n in counts.items():
             launches[k] += n
-    for k, n in run_serve(model, qparams).items():
-        launches[k] += n
+
+    mm_fa = ("fp16_matmul", "flash_attention")
+    add(run_transcribe(model, params, x, "transcribe bf16", mm_fa,
+                       "bf16")[1])
+    add(run_transcribe(model, qparams, x, "transcribe q8_0",
+                       mm_fa + ("q8_matmul", "q8_decode_attention"),
+                       "q8_0")[1])
+    add(run_serve(model, qparams, "serve q8_0 4x4",
+                  mm_fa + ("q8_matmul", "q8_decode_attention"), "q8_0")[2])
+
+    # the q4_0 tier and self-speculative decoding, bf16 target weights
+    draft = quantize_tree(params, tier="q4_0")
+    ra, counts = run_transcribe(model, params, x, "a: transcribe q4_0",
+                                mm_fa + ("q4_decode_attention",), "q4_0")
+    add(counts)
+    rb, counts = run_transcribe(
+        model, params, x, "b: transcribe q4_0 spec_k=4",
+        mm_fa + ("q4_matmul", "q4_decode_attention"), "q4_0", spec_k=4,
+        draft=draft)
+    add(counts)
+    tokens_check("b: transcribe q4_0 spec_k=4", rb.tokens, ra.tokens,
+                 ra.logits)
+    phase = "c: serve q8_0 spec_k=4 4x4"
+    res, frames, counts = run_serve(
+        model, params, phase, mm_fa + ("q4_matmul", "q8_decode_attention"),
+        "q8_0", spec_k=4, draft=draft)
+    add(counts)
+    # c against a plain (spec_k=0) serve of the same requests
+    t0 = time.monotonic()
+    _, plain = serve(model, params, frames, "h100-sxm", "q8_0")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_tok = sum(len(plain.results[i].out) for i in range(len(frames)))
+    _log(f"[{phase}] the plain serve (spec_k=0): wall_s={wall:.4f} "
+         f"tokens={n_tok} tok_per_s={n_tok / wall:.1f} "
+         f"ticks={plain.metrics.ticks}")
+    for i in range(len(frames)):
+        tokens_check(phase, res[i].out, plain.results[i].out,
+                     plain.results[i].logits)
+    _log(f"[{phase}] tokens of the 4 requests equal the plain serve's, "
+         f"but for near-ties")
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

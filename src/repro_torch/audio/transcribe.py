@@ -48,6 +48,8 @@ class TranscribeResult:
     decode_s: float = 0.0            # decode ticks after the prefill, host
                                      # clock (every tick ends in a fetch)
     engine: Any = dataclasses.field(default=None, repr=False)
+    # the logits row of each token, when the engine keeps them
+    logits: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
     def text(self) -> str:
@@ -148,4 +150,4 @@ def transcribe(samples, sr: int = 16_000, *,
         cache_dtype=cache_dtype, energy=energy,
         decode_block=engine.decode_block,
         decode_steps=engine._decode_steps, host_syncs=engine._host_syncs,
-        decode_s=t_end - t_dec, engine=engine)
+        decode_s=t_end - t_dec, engine=engine, logits=list(st.logits))

@@ -1,10 +1,15 @@
 """Where the time of one transcription goes, on the card.
 
-    python -m repro_torch.breakdown [--cache-dtype q8_0]
+    python -m repro_torch.breakdown [--cache-dtype bf16|q8_0|q4_0]
+                                    [--spec-k K]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
-decode steps a tick, and reports, after one warm-up transcription:
+decode steps a tick. ``--cache-dtype q8_0`` serves Q8_0 weights with the
+q8_0 cache, ``bf16`` and ``q4_0`` bf16 weights with that cache;
+``--spec-k K`` makes each tick 8 / K speculative rounds (K - 1 draft
+steps on Q4_0 weights, one verify forward), always on bf16 weights. It
+reports, after one warm-up transcription:
 
 * host-clock seconds of each stage (frontend, encode, prefill, decode),
   each ended by a device synchronize, from a run without the profiler;
@@ -45,18 +50,21 @@ def _timed(fn):
     return out, time.monotonic() - t0
 
 
-def run(cache_dtype: str, seed: int = 0) -> dict:
+def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
     model = build(get_config("whisper-tiny-en"))
     params = model.init_values(torch.Generator().manual_seed(seed),
                                device="cuda")
-    if cache_dtype == "q8_0":
+    if cache_dtype == "q8_0" and not spec_k:
         params = quantize_tree(params)
     x = synth_waveform(30.0, seed=seed)
+    draft = quantize_tree(params, tier="q4_0") if spec_k else None
 
     def one(profile_tick: bool):
-        eng = ServeEngine(model, params, n_slots=1, max_len=MAX_NEW + 3,
+        eng = ServeEngine(model, params, n_slots=1,
+                          max_len=MAX_NEW + 3 + max(spec_k - 1, 0),
                           enc_len=1500, cache_dtype=cache_dtype,
-                          decode_block=DECODE_BLOCK, platform="h100-sxm")
+                          decode_block=DECODE_BLOCK, platform="h100-sxm",
+                          spec_k=spec_k, draft_params=draft)
         with torch.no_grad():
             frames, t_fe = _timed(lambda: audio_frames(
                 x, model.cfg.d_model, device="cuda"))
@@ -77,7 +85,10 @@ def run(cache_dtype: str, seed: int = 0) -> dict:
         return {"frontend_s": t_fe, "encode_s": t_enc,
                 "prefill_s": t_pre, "decode_s": t_dec,
                 "decode_tok_per_s": (len(st.out) - 1) / t_dec,
-                "ticks": eng._ticks, "host_syncs": eng._host_syncs}
+                "ticks": eng._ticks, "host_syncs": eng._host_syncs,
+                "draft_steps": eng._draft_steps,
+                "verify_steps": eng._verify_steps,
+                "acceptance_rate": eng.acceptance_rate}
 
     one(False)                          # warm-up: handles, kernel loads
     stages = one(False)
@@ -97,20 +108,24 @@ def run(cache_dtype: str, seed: int = 0) -> dict:
             "kernel_launches": len(kernels),
             "top": [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
                     for n, (c, us) in top]}
-    return {"cache_dtype": cache_dtype, "decode_block": DECODE_BLOCK,
-            "stages": stages, "decode_tick": tick}
+    return {"cache_dtype": cache_dtype, "spec_k": spec_k,
+            "decode_block": DECODE_BLOCK, "stages": stages,
+            "decode_tick": tick}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cache-dtype", choices=["bf16", "q8_0"],
+    ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
-                    help="bf16 weights and cache, or Q8_0 weights with "
-                         "the q8_0 cache")
+                    help="the KV-cache tier; q8_0 also quantizes the "
+                         "weights unless --spec-k is given")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative rounds of K positions (K - 1 "
+                         "Q4_0 draft steps, one verify); 0 = plain decode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
-    r = run(args.cache_dtype)
+    r = run(args.cache_dtype, args.spec_k)
     for k, v in r["stages"].items():
         print(f"{k}: {v}")
     t = r["decode_tick"]

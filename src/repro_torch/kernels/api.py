@@ -204,15 +204,27 @@ def _flat_m(x) -> int:
     return m
 
 
-def _q8_attn_spec(q, kq, ks, vq, vs, length, layer=None) -> KernelSpec:
-    # count = 2 * lanes * heads: the QK^T and AV contractions
-    if layer is None:       # flat (BH, 1, D) form
-        n, count = kq.shape[1], 2 * q.shape[0]
-    else:                   # stacked (L, B, S, Hkv, D) cache form
-        n, count = kq.shape[2], 2 * q.shape[0] * q.shape[2]
-    return KernelSpec("q8_decode_attention", m=q.shape[1], n=n,
-                      k=q.shape[-1], dtype="q8_0", count=count,
-                      tag="attn_qk")
+def _decode_attn_spec(name: str, dtype: str):
+    def spec(q, kq, ks, vq, vs, length, layer=None) -> KernelSpec:
+        # count = 2 * lanes * heads: the QK^T and AV contractions; m =
+        # the queries of a lane (1, or spec_k in the verify)
+        if layer is None:       # flat (BH, Q, D) form
+            n, count = kq.shape[1], 2 * q.shape[0]
+        else:                   # stacked (L, B, S, Hkv, .) cache form
+            n, count = kq.shape[2], 2 * q.shape[0] * q.shape[2]
+        return KernelSpec(name, m=q.shape[1], n=n, k=q.shape[-1],
+                          dtype=dtype, count=count, tag="attn_qk")
+    return spec
+
+
+def _decode_attn_backends(flat, cache):
+    """Backend of a decode-attention op: the flat (BH, Q, D) form, or the
+    stacked cache form when ``layer`` is given."""
+    def run(q, kq, ks, vq, vs, length, layer=None):
+        if layer is None:
+            return flat(q, kq, ks, vq, vs, length)
+        return cache(q, kq, ks, vq, vs, length, layer)
+    return run
 
 
 def _register_builtin_ops() -> None:
@@ -220,6 +232,10 @@ def _register_builtin_ops() -> None:
     from repro_torch.kernels.flash_attention import plain as fa_plain
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
     from repro_torch.kernels.fp16_matmul import plain as mm_plain
+    from repro_torch.kernels.q4_attention import ops as q4a_ops
+    from repro_torch.kernels.q4_attention import plain as q4a_plain
+    from repro_torch.kernels.q4_matmul import ops as q4_ops
+    from repro_torch.kernels.q4_matmul import plain as q4_plain
     from repro_torch.kernels.q8_attention import ops as qa_ops
     from repro_torch.kernels.q8_attention import plain as qa_plain
     from repro_torch.kernels.q8_matmul import ops as q8_ops
@@ -237,6 +253,21 @@ def _register_builtin_ops() -> None:
             "cuda": lambda x, w, out_dtype=f32: q8_ops.q8_matmul(
                 x, w, out_dtype=out_dtype),
             "torch": lambda x, w, out_dtype=f32: q8_plain.q8_matmul(
+                x, w.q, w.scale, out_dtype=out_dtype),
+        },
+    ))
+
+    # spec.k is the logical K (twice the packed rows), as the reference
+    register(KernelOp(
+        name="q4_matmul",
+        doc="Q4_0 GEMM (nibble-packed weights quantized along K).",
+        spec=lambda x, w, **kw: KernelSpec(
+            "q4_matmul", m=_flat_m(x), n=w.q.shape[-1], k=x.shape[-1],
+            dtype="q4_0", tag="proj"),
+        backends={
+            "cuda": lambda x, w, out_dtype=f32: q4_ops.q4_matmul(
+                x, w, out_dtype=out_dtype),
+            "torch": lambda x, w, out_dtype=f32: q4_plain.q4_matmul(
                 x, w.q, w.scale, out_dtype=out_dtype),
         },
     ))
@@ -267,23 +298,30 @@ def _register_builtin_ops() -> None:
                   "torch": fa_plain.flash_attention},
     ))
 
-    def _qa_cuda(q, kq, ks, vq, vs, length, layer=None):
-        if layer is None:
-            return qa_ops.q8_decode_attention(q, kq, ks, vq, vs, length)
-        return qa_ops.q8_decode_attention_cache(q, kq, ks, vq, vs, length,
-                                                layer)
-
-    def _qa_torch(q, kq, ks, vq, vs, length, layer=None):
-        if layer is None:
-            return qa_plain.q8_decode_attention(q, kq, ks, vq, vs, length)
-        return qa_plain.q8_decode_attention_cache(q, kq, ks, vq, vs,
-                                                  length, layer)
-
     register(KernelOp(
         name="q8_decode_attention",
         doc="Decode attention reading the Q8_0-quantized KV cache.",
-        spec=_q8_attn_spec,
-        backends={"cuda": _qa_cuda, "torch": _qa_torch},
+        spec=_decode_attn_spec("q8_decode_attention", "q8_0"),
+        backends={
+            "cuda": _decode_attn_backends(
+                qa_ops.q8_decode_attention,
+                qa_ops.q8_decode_attention_cache),
+            "torch": _decode_attn_backends(
+                qa_plain.q8_decode_attention,
+                qa_plain.q8_decode_attention_cache)},
+    ))
+
+    register(KernelOp(
+        name="q4_decode_attention",
+        doc="Decode attention reading the Q4_0 nibble-packed KV cache.",
+        spec=_decode_attn_spec("q4_decode_attention", "q4_0"),
+        backends={
+            "cuda": _decode_attn_backends(
+                q4a_ops.q4_decode_attention,
+                q4a_ops.q4_decode_attention_cache),
+            "torch": _decode_attn_backends(
+                q4a_plain.q4_decode_attention,
+                q4a_plain.q4_decode_attention_cache)},
     ))
 
 

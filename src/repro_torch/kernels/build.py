@@ -33,6 +33,8 @@ SOURCES = {
     "q8_matmul": "q8_matmul.cu",
     "flash_attention": "flash_attention.cu",
     "q8_attention": "q8_attention.cu",
+    "q4_matmul": "q4_matmul.cu",
+    "q4_attention": "q4_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

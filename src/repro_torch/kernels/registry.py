@@ -34,7 +34,7 @@ class KernelSpec:
     m: int
     n: int
     k: int
-    dtype: str        # storage dtype of A: 'f16' | 'q8_0' | 'f32'
+    dtype: str        # storage dtype of A: 'f16' | 'q8_0' | 'q4_0' | 'f32'
     count: int = 1
     tag: str = "proj"  # proj | attn_qk | attn_av | mlp | logits | frontend
 

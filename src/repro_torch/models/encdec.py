@@ -21,7 +21,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (embed, layer_slice, layernorm,
                                        logits_head, mlp, ninit, pad_vocab,
                                        sinusoidal_positions, take_rows)
-from repro_torch.quantize import Q8Tensor, as_array
+from repro_torch.quantize import QTENSORS, as_array
 
 MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
 
@@ -84,7 +84,7 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
 def _n_stacked(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return (tree.q if isinstance(tree, Q8Tensor) else tree).shape[0]
+    return (tree.q if isinstance(tree, QTENSORS) else tree).shape[0]
 
 
 def encode(params: dict, cfg: ArchConfig,
@@ -121,9 +121,10 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """Decoder pass. train/prefill: tokens (B, S) with ``enc_out`` given;
     prefill returns the per-layer self and cross K/V stacked as
     ``{"layers": {"self": {k, v}, "cross": {k, v}}}`` (padded to
-    ``cache``'s lengths). decode: tokens (B, 1) at per-lane positions
-    ``pos`` (B,), against the stacked pool ``cache``, updated in place;
-    ``enc_lens`` (B,) masks each lane's cross-attention."""
+    ``cache``'s lengths). decode: tokens (B, Q) at per-lane positions
+    ``pos`` (B,) + j, against the stacked pool ``cache``, updated in
+    place at every one of the Q positions (Q > 1 is the speculative
+    verify); ``enc_lens`` (B,) masks each lane's cross-attention."""
     b, s = tokens.shape
     x = embed(params["embed"], tokens)
     if mode == "decode":

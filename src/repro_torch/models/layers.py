@@ -4,9 +4,12 @@
 Parameters are nested dicts of tensors; a stacked layer tree keeps its
 leading layer axis and ``layer_slice`` takes one layer out of it. The
 matrix products route through the kernel-dispatch API: ``mm`` / ``mm_out``
-send 2-D weights to ``fp16_matmul`` and Q8_0 weights to ``q8_matmul``;
-the 3-D per-head projections (QKV) stay ``torch.matmul``, as the
-reference leaves them to XLA.
+send 2-D weights to ``fp16_matmul``, Q8_0 weights to ``q8_matmul`` and
+Q4_0 weights (the speculative draft's) to ``q4_matmul``; the 3-D per-head
+projections (QKV) stay ``torch.matmul``, as the reference leaves them to
+XLA. A Q4_0 vocab table is widened to bf16, never to an f32 plane, for
+the embedding and the tied head, as the reference does outside any
+kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.api import dispatch
-from repro_torch.quantize import QBLOCK, Q8Tensor, dequantize_q8_0
+from repro_torch.quantize import (QBLOCK, QTENSORS, Q4Tensor, Q8Tensor,
+                                  dequantize_q8_0, unpack_q4)
 
 
 def ninit(gen: torch.Generator, shape, fan_in: int,
@@ -33,21 +37,49 @@ def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (views, no copy)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    if isinstance(tree, Q8Tensor):
-        return Q8Tensor(tree.q[i], tree.scale[i])
+    if isinstance(tree, QTENSORS):
+        return type(tree)(tree.q[i], tree.scale[i])
     return tree[i]
 
 
+def _q4_row_codes(leaf: Q4Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Int8 codes of rows ``idx`` of a Q4 table packed along the rows:
+    row r sits in byte row r // 2, low nibble for even r."""
+    packed = leaf.q[torch.div(idx, 2, rounding_mode="floor")]
+    odd = (idx % 2 == 1)[..., None]
+    return torch.where(odd, packed >> 4, packed & 0xF).to(torch.int8) - 8
+
+
+def _row_scales(leaf, idx: torch.Tensor) -> torch.Tensor:
+    return leaf.scale[torch.div(idx, QBLOCK, rounding_mode="floor")]
+
+
 def take_rows(leaf, idx: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """Rows ``idx`` of a (rows, d) table, dequantized if it is a Q8Tensor
-    blocked along the rows (equal to dequantizing the whole table, then
-    gathering, since dequantization is per element)."""
+    """Rows ``idx`` of a (rows, d) table, dequantized in f32 if it is a
+    Q8Tensor or Q4Tensor blocked along the rows (equal to dequantizing the
+    whole table, then gathering, since dequantization is per element)."""
     if isinstance(leaf, Q8Tensor):
-        rows = leaf.q[idx].to(torch.float32) \
-            * leaf.scale[torch.div(idx, QBLOCK, rounding_mode="floor")] \
-            .to(torch.float32)
-        return rows.to(dtype)
-    return leaf[idx].to(dtype)
+        codes = leaf.q[idx]
+    elif isinstance(leaf, Q4Tensor):
+        codes = _q4_row_codes(leaf, idx)
+    else:
+        return leaf[idx].to(dtype)
+    rows = codes.to(torch.float32) * _row_scales(leaf, idx).to(torch.float32)
+    return rows.to(dtype)
+
+
+def _q4_rows_bf16(leaf: Q4Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a Q4 table widened as the reference's
+    ``_dequant_q4_bf16``: bf16 codes times bf16 scales, in bf16."""
+    return _q4_row_codes(leaf, idx).to(torch.bfloat16) \
+        * _row_scales(leaf, idx).to(torch.bfloat16)
+
+
+def _dequant_q4_bf16(t: Q4Tensor) -> torch.Tensor:
+    """A vocab-axis-packed Q4 table dequantized to bf16 (no f32 plane)."""
+    codes = unpack_q4(t.q, axis=-2).to(torch.bfloat16)
+    return codes * t.scale.to(torch.bfloat16).repeat_interleave(QBLOCK,
+                                                                dim=-2)
 
 
 # ----------------------------------------------------------------------------
@@ -56,15 +88,18 @@ def take_rows(leaf, idx: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x @ w, contracting x's last dim with w's first. ``w`` is a
-    Q8Tensor (dispatched ``q8_matmul``), a 2-D tensor (dispatched
-    ``fp16_matmul``) or a 3-D (k, heads, head_dim) tensor
-    (``torch.matmul``)."""
+    Q8Tensor or Q4Tensor (dispatched ``q8_matmul`` / ``q4_matmul``), a
+    2-D tensor (dispatched ``fp16_matmul``) or a 3-D (k, heads,
+    head_dim) tensor (``torch.matmul``)."""
     lead = x.shape[:-1]
     k = x.shape[-1]
-    if isinstance(w, Q8Tensor):
-        w2 = Q8Tensor(w.q.reshape(k, -1),
-                      w.scale.reshape(w.scale.shape[0], -1))
-        y = dispatch("q8_matmul", x.reshape(-1, k).contiguous(), w2,
+    if isinstance(w, QTENSORS):
+        # a Q4 plane is packed along K: (K // 2, ...) for a logical
+        # (K, ...) weight, so the output dims are w.q.shape[1:] either way
+        op = "q8_matmul" if isinstance(w, Q8Tensor) else "q4_matmul"
+        w2 = type(w)(w.q.reshape(w.q.shape[0], -1),
+                     w.scale.reshape(w.scale.shape[0], -1))
+        y = dispatch(op, x.reshape(-1, k).contiguous(), w2,
                      out_dtype=compute_dtype)
         return y.reshape(*lead, *w.q.shape[1:])
     w = w.to(compute_dtype)
@@ -79,12 +114,15 @@ def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """(..., h, d) @ (h, d, n) -> (..., n) output projection."""
-    if isinstance(w, Q8Tensor):
-        h, d, n = w.q.shape
-        w2 = Q8Tensor(w.q.reshape(h * d, n), w.scale.reshape(-1, n))
-        y = dispatch("q8_matmul", x.reshape(-1, h * d).contiguous(), w2,
-                     out_dtype=compute_dtype)
+    """(..., h, d) @ (h, d, n) -> (..., n) output projection. A Q4Tensor
+    is packed along head_dim: (h, d // 2, n), and d % 32 == 0 keeps the
+    flattened (h * d) contraction's 32-blocks inside one head."""
+    if isinstance(w, QTENSORS):
+        op = "q8_matmul" if isinstance(w, Q8Tensor) else "q4_matmul"
+        h, dq, n = w.q.shape
+        w2 = type(w)(w.q.reshape(h * dq, n), w.scale.reshape(-1, n))
+        y = dispatch(op, x.reshape(-1, x.shape[-2] * x.shape[-1])
+                     .contiguous(), w2, out_dtype=compute_dtype)
         return y.reshape(*x.shape[:-2], n)
     h, d, n = w.shape
     xc = x.to(compute_dtype).reshape(*x.shape[:-2], h * d).contiguous()
@@ -129,18 +167,28 @@ def pad_vocab(v: int, mult: int = VOCAB_MULT) -> int:
 
 def embed(p: dict, tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Token rows of the (padded-vocab, d) table, in ``compute_dtype``."""
-    return take_rows(p["table"], tokens, compute_dtype)
+    """Token rows of the (padded-vocab, d) table, in ``compute_dtype``. A
+    Q4 table is widened to bf16, as the reference's ``embed`` does."""
+    tbl = p["table"]
+    if isinstance(tbl, Q4Tensor):
+        return _q4_rows_bf16(tbl, tokens).to(compute_dtype)
+    return take_rows(tbl, tokens, compute_dtype)
 
 
 def logits_head(p: dict, x: torch.Tensor, vocab: int,
                 softcap: Optional[float] = None) -> torch.Tensor:
     """Tied head: f32 x @ table^T over the padded vocab; padding ids get
-    a large negative logit."""
+    a large negative logit. A Q4 table (the draft's) is widened to bf16
+    and multiplied with bf16 x, accumulated in f32 by the library GEMM
+    and rounded to bf16 before the f32 cast: the draft's argmax only
+    proposes tokens, which the verify forward keeps or rejects."""
     tbl = p["table"]
-    if isinstance(tbl, Q8Tensor):
-        tbl = dequantize_q8_0(tbl, axis=-2)
-    y = x.to(torch.float32) @ tbl.to(torch.float32).T
+    if isinstance(tbl, Q4Tensor):
+        y = (x.to(torch.bfloat16) @ _dequant_q4_bf16(tbl).T).float()
+    else:
+        if isinstance(tbl, Q8Tensor):
+            tbl = dequantize_q8_0(tbl, axis=-2)
+        y = x.to(torch.float32) @ tbl.to(torch.float32).T
     if softcap is not None:
         y = softcap * torch.tanh(y / softcap)
     vp = y.shape[-1]

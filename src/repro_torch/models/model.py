@@ -101,8 +101,8 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 1500,
                    dtype=torch.bfloat16, device: Optional[Any] = None):
-        """Stacked self/cross cache planes; ``dtype`` a tensor dtype or
-        ``"q8_0"``."""
+        """Stacked self/cross cache planes; ``dtype`` a tensor dtype,
+        ``"q8_0"`` or ``"q4_0"``."""
         _require_enc_dec(self.cfg)
         return encdec_mod.init_encdec_cache(self.cfg, batch, max_len,
                                             enc_len, dtype, device)
@@ -113,7 +113,8 @@ class Model:
         _require_enc_dec(cfg)
         return LaneStateSpec(
             family=cfg.family, self_kv=True, cross_kv=True,
-            quant_tiers=("q8_0",) if cfg.head_dim % 32 == 0 else ())
+            quant_tiers=("q8_0", "q4_0") if cfg.head_dim % 32 == 0
+            else ())
 
 
 def build(cfg: ArchConfig) -> Model:

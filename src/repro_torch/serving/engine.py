@@ -1,11 +1,12 @@
 """Slot-pool serving engine of the port (the JAX package's
-``serving/engine.py``, enc-dec in bf16 and q8_0).
+``serving/engine.py``, enc-dec with bf16, q8_0 and q4_0 caches, and
+self-speculative decoding).
 
 The engine owns a fixed pool of ``n_slots`` cache slots: one stacked
 self/cross KV cache on the device. Admission prefills one request at a
 bucketed token length (powers of two from 32), quantizes the prefill
-cache for a q8_0 pool, writes it into a free slot **in place** and
-fetches one scalar, the first token.
+cache for a q8_0 or q4_0 pool, writes it into a free slot **in place**
+and fetches one scalar, the first token.
 
 Decode state lives on the device: last token, position, encoder length,
 the active mask, EOS ids, ``max_new`` budgets and emitted counts. One
@@ -17,9 +18,15 @@ the ``(k, n_slots)`` token block with its emit mask (``_host_syncs``
 counts them); host Python then replays the emit mask to append tokens
 and free slots.
 
+With ``spec_k > 0`` a tick runs ``decode_block // spec_k`` speculative
+rounds instead: ``spec_k - 1`` greedy draft steps on quantized draft
+weights, one full-model forward that verifies all ``spec_k`` positions
+at once, and the acceptance of the leading draft hits, cut by the same
+EOS / max_new / max_len stops. The emitted stream is token-identical to
+plain greedy decode and the tick still makes one host fetch.
+
 Not ported yet, and refused with ``NotImplementedError``: paged KV
-(ROADMAP queue 1, item 13), self-speculative decoding (item 12), the
-q4_0 tier (item 11) and streaming audio (item 7).
+(ROADMAP queue 1, item 13) and streaming audio (item 7).
 """
 
 from __future__ import annotations
@@ -33,16 +40,19 @@ import torch
 
 from repro_torch.kernels.api import (DispatchContext, dispatch_counters,
                                      dispatch_trace, use_context)
+from repro_torch.kernels.q4_attention.ops import cache_traffic_ratio_q4
 from repro_torch.kernels.q8_attention.ops import cache_traffic_ratio
 from repro_torch.models.attention import quantize_kv_cache
 from repro_torch.models.model import Model
 from repro_torch.platforms import Platform, get_platform, resolve_device
-from repro_torch.quantize import Q8Tensor, stored_bytes
+from repro_torch.quantize import QTENSORS, quantize_tree, stored_bytes
 from repro_torch.serving.lanestate import LaneStatePool
 
 EOS_DEFAULT = 2
 
-CACHE_DTYPES = ("bf16", "q8_0")
+CACHE_DTYPES = ("bf16", "q8_0", "q4_0")
+
+QUANT_TIERS = ("q8_0", "q4_0")
 
 _ENGINE_SEQ = itertools.count()   # unique dispatch-trace tags per engine
 
@@ -106,16 +116,21 @@ class RequestState:
     error: Optional[str] = None
     error_code: Optional[RejectCode] = None
     partials: list = dataclasses.field(default_factory=list)
+    # with keep_logits: the (vocab,) logits row each token of ``out``
+    # was chosen from, on the device
+    logits: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class PendingTick:
     """A dispatched, not yet fetched decode tick: the device tensors of
-    the ``(k, n_slots)`` token block and emit mask."""
+    the ``(k, n_slots)`` token block and emit mask, and with keep_logits
+    the ``k`` (n_slots, vocab) logits rows the block was chosen from."""
 
     k: int
     tok_blk: Any
     emit_blk: Any
+    logits: list = dataclasses.field(default_factory=list)
 
 
 def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -128,18 +143,24 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
 def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return tree.q if isinstance(tree, Q8Tensor) else tree
+    return tree.q if isinstance(tree, QTENSORS) else tree
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, Q8Tensor):
+    elif isinstance(tree, QTENSORS):
         yield tree.q
         yield tree.scale
     else:
         yield tree
+
+
+def _has_qtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_qtensor(v) for v in tree.values())
+    return isinstance(tree, QTENSORS)
 
 
 def _shape(x) -> tuple:
@@ -153,29 +174,27 @@ class ServeEngine:
                  platform: Optional[Any] = None,
                  dispatch_ctx: Optional[DispatchContext] = None,
                  device=None, keep_logits: bool = False,
-                 paged: bool = False, spec_k: int = 0):
+                 paged: bool = False, spec_k: int = 0,
+                 draft_dtype: str = "q4_0", draft_params: Any = None):
         """``device``: where the pool lives and decode runs (default
         ``cuda``; without CUDA pass ``device="cpu"``). ``params`` must
         already be on it. ``platform`` (a registered
         ``repro_torch.platforms`` name) derives the dispatch context and
-        enables ``energy_report``. ``cache_dtype``: ``"bf16"`` or
+        enables ``energy_report``. ``cache_dtype``: ``"bf16"``,
         ``"q8_0"`` (int8 + f16-scale planes read by the
-        q8_decode_attention kernel). ``decode_block``: decode steps per
-        tick, one host fetch per tick. ``keep_logits``: keep, in
-        ``logits_log``, every logits row a token was chosen from, on the
-        device: (1, vocab) at an admission, (n_slots, vocab) at a decode
-        step."""
+        q8_decode_attention kernel) or ``"q4_0"`` (nibble-packed planes
+        read by q4_decode_attention, ~0.28x the bf16 cache bytes).
+        ``decode_block``: decode steps per tick, one host fetch per tick.
+        ``spec_k`` > 0: self-speculative decoding, ``spec_k - 1`` draft
+        tokens a round from ``draft_params`` (default: ``params``
+        quantized to ``draft_dtype``), verified in one full-model
+        forward; ``decode_block`` must be a multiple of it.
+        ``keep_logits``: keep, in each ``RequestState.logits``, the
+        (vocab,) logits row each of its tokens was chosen from, on the
+        device."""
         if paged:
             raise NotImplementedError(
                 "paged KV is not ported yet (ROADMAP queue 1, item 13)")
-        if spec_k:
-            raise NotImplementedError(
-                "self-speculative decoding is not ported yet (ROADMAP "
-                "queue 1, item 12)")
-        if cache_dtype == "q4_0":
-            raise NotImplementedError(
-                "the q4_0 KV tier is not ported yet (ROADMAP queue 1, "
-                "item 11)")
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"cache_dtype {cache_dtype!r}: expected one "
                              f"of {CACHE_DTYPES}")
@@ -189,9 +208,34 @@ class ServeEngine:
                              f"{self.device}")
         cfg = model.cfg
         self.spec = model.state_spec()
-        if cache_dtype == "q8_0" and not self.spec.supports_tier("q8_0"):
-            raise ValueError(f"{cfg.name} cannot hold a q8_0 KV cache "
-                             f"(head_dim={cfg.head_dim})")
+        if cache_dtype in QUANT_TIERS \
+                and not self.spec.supports_tier(cache_dtype):
+            raise ValueError(f"{cfg.name} cannot hold a {cache_dtype} KV "
+                             f"cache (head_dim={cfg.head_dim})")
+        self.spec_k = int(spec_k)
+        self.draft_dtype = draft_dtype
+        self.draft_params = None
+        if self.spec_k:
+            if self.spec_k < 2:
+                raise ValueError(f"spec_k must be >= 2 (1 draft + 1 "
+                                 f"verify minimum), got {spec_k}")
+            if draft_dtype not in QUANT_TIERS:
+                raise ValueError(f"draft_dtype {draft_dtype!r}: expected "
+                                 f"one of {QUANT_TIERS}")
+            if int(decode_block) % self.spec_k:
+                raise ValueError(
+                    f"decode_block ({decode_block}) must be a multiple "
+                    f"of spec_k ({spec_k}): a tick runs decode_block // "
+                    f"spec_k draft-verify rounds")
+            if draft_params is not None:
+                self.draft_params = draft_params
+            elif _has_qtensor(params):
+                raise ValueError(
+                    "served params are already quantized; pass "
+                    "draft_params= explicitly (the engine builds draft "
+                    "weights from float params only)")
+            else:
+                self.draft_params = quantize_tree(params, tier=draft_dtype)
         self.platform: Optional[Platform] = \
             get_platform(platform) if platform is not None else None
         if dispatch_ctx is None and self.platform is not None:
@@ -207,8 +251,7 @@ class ServeEngine:
         self.cache_dtype = cache_dtype
         self.decode_block = int(decode_block)
         self.keep_logits = keep_logits
-        self.logits_log: list[torch.Tensor] = []
-        cdt = "q8_0" if cache_dtype == "q8_0" else torch.bfloat16
+        cdt = cache_dtype if cache_dtype in QUANT_TIERS else torch.bfloat16
         self.cache = model.init_cache(n_slots, max_len, enc_len, dtype=cdt,
                                       device=self.device)
         self.free = list(range(n_slots))
@@ -230,6 +273,14 @@ class ServeEngine:
         self._decode_steps = 0
         self._generated = 0
         self._host_syncs = 0
+        self._zero_spec_stats()
+
+    def _zero_spec_stats(self) -> None:
+        self._draft_steps = 0
+        self._verify_steps = 0
+        self._spec_rounds = 0
+        self._spec_emitted = 0      # tokens emitted by spec ticks
+        self._spec_live_rounds = 0  # (round, lane) pairs that emitted
 
     # ------------------------------------------------------------------
     def _set_lane(self, slot: int, *, token: int, pos: int, enc_len: int,
@@ -250,10 +301,17 @@ class ServeEngine:
         None."""
         C = RejectCode
         n = len(req.tokens)
-        if n + req.max_new >= self.max_len:
+        # speculative lanes write draft/verify KV up to spec_k - 1
+        # positions past the last emitted token before the stops bind:
+        # that whole extent stays inside the pool
+        headroom = self.spec_k - 1 if self.spec_k else 0
+        if n + req.max_new + headroom >= self.max_len:
             return Rejection(C.TOO_LONG,
                              f"request {req.uid} too long for engine "
-                             f"({n}+{req.max_new} vs {self.max_len})")
+                             f"({n}+{req.max_new}"
+                             + (f"+{headroom} speculative headroom"
+                                if headroom else "")
+                             + f" vs {self.max_len})")
         if req.enc_frames is None and req.enc_states is None:
             return Rejection(C.MISSING_ENC_INPUT,
                              f"request {req.uid}: enc-dec model "
@@ -314,16 +372,16 @@ class ServeEngine:
                                         device=self.device)
             logits, one = self.model.forward(self.params, batch,
                                              mode="prefill", cache=one)
-            if self.cache_dtype == "q8_0":
-                one = quantize_kv_cache(one, "q8_0")
+            if self.cache_dtype in QUANT_TIERS:
+                one = quantize_kv_cache(one, self.cache_dtype)
             _scatter_slot(self.cache, one, slot)
             first = int(logits[0, n - 1].argmax())   # the admit-time sync
-            if self.keep_logits:
-                self.logits_log.append(logits[0, n - 1][None])
+            kept = [logits[0, n - 1]] if self.keep_logits else []
         self._generated += 1
         self.lanestate.reserve(slot, self.spec, n_tokens=n + req.max_new,
                                enc_frames=enc_s)
-        st = RequestState(req=req, slot=slot, pos=n, out=[first])
+        st = RequestState(req=req, slot=slot, pos=n, out=[first],
+                          logits=kept)
         done = first == req.eos_id or len(st.out) >= req.max_new
         self._set_lane(slot, token=first, pos=n, enc_len=enc_s,
                        eos=req.eos_id, max_new=req.max_new, n_out=1,
@@ -350,40 +408,107 @@ class ServeEngine:
     @torch.no_grad()
     def step_begin(self, k: Optional[int] = None) -> Optional[PendingTick]:
         """Enqueue one tick of ``k`` (default ``decode_block``) decode
-        steps on the device and return without waiting; None when no
-        lane is active. Finished lanes freeze on the device."""
+        steps, or of ``k // spec_k`` speculative rounds, on the device and
+        return without waiting; None when no lane is active. Finished
+        lanes freeze on the device."""
         if not self.active:
             return None
         k = self.decode_block if k is None else int(k)
         if k < 1:
             raise ValueError(f"decode block must be >= 1, got {k}")
-        tokens, pos = self._tokens, self._pos
-        active, n_out = self._lane_active, self._lane_out
-        eos, max_new = self._lane_eos, self._lane_max
+        if self.spec_k and k % self.spec_k:
+            raise ValueError(f"decode block ({k}) must be a multiple of "
+                             f"spec_k ({self.spec_k})")
+        state = (self._tokens, self._pos, self._lane_active,
+                 self._lane_out)
         batch = {"enc_lens": self._enc_lens}
-        toks, emits = [], []
+        toks, emits, rows = [], [], []
         with use_context(self.dispatch_ctx):
-            for _ in range(k):
-                batch["tokens"] = tokens
-                logits, _ = self.model.forward(
-                    self.params, batch, mode="decode", cache=self.cache,
-                    pos=pos)
-                nxt = logits[:, -1].argmax(dim=-1)
-                if self.keep_logits:
-                    self.logits_log.append(logits[:, -1])
-                emit = active
-                tokens = torch.where(active[:, None], nxt[:, None], tokens)
-                pos = torch.where(active, pos + 1, pos)
-                n_out = torch.where(active, n_out + 1, n_out)
-                stop = (nxt == eos) | (n_out >= max_new) \
-                    | (pos >= self.max_len - 1)
-                active = active & ~stop
-                toks.append(nxt)
-                emits.append(emit)
-        self._tokens, self._pos = tokens, pos
-        self._lane_active, self._lane_out = active, n_out
-        return PendingTick(k=k, tok_blk=torch.stack(toks),
-                           emit_blk=torch.stack(emits))
+            if self.spec_k:
+                for _ in range(k // self.spec_k):
+                    *state, o, emit, logits = self._spec_round(batch,
+                                                               *state)
+                    toks.append(o.T)
+                    emits.append(emit.T)
+                    rows.extend(logits.unbind(dim=1))
+            else:
+                for _ in range(k):
+                    *state, nxt, emit, logits = self._plain_step(batch,
+                                                                 *state)
+                    toks.append(nxt[None])
+                    emits.append(emit[None])
+                    rows.append(logits)
+        (self._tokens, self._pos, self._lane_active,
+         self._lane_out) = state
+        return PendingTick(k=k, tok_blk=torch.cat(toks),
+                           emit_blk=torch.cat(emits),
+                           logits=rows if self.keep_logits else [])
+
+    def _stops(self, nxt, n_out, pos):
+        """The on-device stop of a lane that emits ``nxt`` with ``n_out``
+        tokens out and its cursor at ``pos``: EOS, max_new, max_len. The
+        arguments are (B,), or (B, Q) for a round's candidates."""
+        lane = (-1,) + (1,) * (nxt.dim() - 1)
+        return (nxt == self._lane_eos.view(lane)) \
+            | (n_out >= self._lane_max.view(lane)) \
+            | (pos >= self.max_len - 1)
+
+    def _plain_step(self, batch, tokens, pos, active, n_out):
+        """One greedy decode step over the whole pool."""
+        batch["tokens"] = tokens
+        logits, _ = self.model.forward(self.params, batch, mode="decode",
+                                       cache=self.cache, pos=pos)
+        nxt = logits[:, -1].argmax(dim=-1)
+        emit = active
+        tokens = torch.where(active[:, None], nxt[:, None], tokens)
+        pos = torch.where(active, pos + 1, pos)
+        n_out = torch.where(active, n_out + 1, n_out)
+        active = active & ~self._stops(nxt, n_out, pos)
+        return tokens, pos, active, n_out, nxt, emit, logits[:, -1]
+
+    def _spec_round(self, batch, tokens, pos, active, n_out):
+        """One draft-verify round over the whole pool (the reference's
+        ``_build_spec_decode``). Draft: ``spec_k - 1`` greedy steps on
+        the draft weights, writing draft KV at pos .. pos + spec_k - 2.
+        Verify: one full-model forward over [token, drafts] at pos ..
+        pos + spec_k - 1, whose writes overwrite every draft KV entry,
+        giving the true greedy continuation o_j at each position.
+        Accept: o_0 .. o_{m-1}, where m - 1 counts the leading draft hits
+        (d_j == o_j), cut by EOS, max_new and max_len. ``pos`` advances
+        by m; a rejected tail is rolled back by not advancing it, and the
+        next round writes over it before any query attends it. Returns
+        the new state, o (B, spec_k), the emit mask (B, spec_k) and the
+        verify logits (B, spec_k, vocab)."""
+        sk, gamma = self.spec_k, self.spec_k - 1
+        dtok, dpos, drafts = tokens, pos, []
+        for _ in range(gamma):
+            batch["tokens"] = dtok
+            logits, _ = self.model.forward(self.draft_params, batch,
+                                           mode="decode", cache=self.cache,
+                                           pos=dpos)
+            dtok = logits[:, -1].argmax(dim=-1)[:, None]
+            dpos = dpos + 1
+            drafts.append(dtok)
+        drafts = torch.cat(drafts, dim=1)                      # (B, gamma)
+        batch["tokens"] = torch.cat([tokens, drafts], dim=1)
+        logits, _ = self.model.forward(self.params, batch, mode="decode",
+                                       cache=self.cache, pos=pos)
+        o = logits.argmax(dim=-1)                              # (B, spec_k)
+        nb = tokens.shape[0]
+        ones = torch.ones((nb, 1), dtype=torch.bool, device=o.device)
+        match = (drafts == o[:, :gamma]).to(torch.int32)
+        prefix_ok = torch.cat([ones, match.cumprod(dim=1) > 0], dim=1)
+        jj = torch.arange(sk, device=o.device)[None, :]
+        cand_stop = self._stops(o, n_out[:, None] + jj + 1,
+                                pos[:, None] + jj + 1)
+        go_on = (~cand_stop[:, :-1]).to(torch.int32).cumprod(dim=1) > 0
+        emit = active[:, None] & prefix_ok & torch.cat([ones, go_on], dim=1)
+        m = emit.sum(dim=1)
+        last = o.gather(1, (m - 1).clamp(0, sk - 1)[:, None])
+        tokens = torch.where((m > 0)[:, None], last, tokens)
+        pos, n_out = pos + m, n_out + m
+        active = active & ~(emit & cand_stop).any(dim=1)
+        return tokens, pos, active, n_out, o, emit, logits
 
     def step_fetch(self, pending: PendingTick):
         """The one host sync of a tick: the ``(k, n_slots)`` token block
@@ -393,9 +518,32 @@ class ServeEngine:
         tok_blk, emit_blk = both[0], both[1].astype(bool)
         self._host_syncs += 1
         self._ticks += 1
-        self._generated += int(emit_blk.sum())
-        self._decode_steps += pending.k
+        emitted = int(emit_blk.sum())
+        self._generated += emitted
+        if self.spec_k:
+            # a round is spec_k - 1 draft forwards + one verify forward
+            rounds = pending.k // self.spec_k
+            self._spec_rounds += rounds
+            self._draft_steps += rounds * (self.spec_k - 1)
+            self._verify_steps += rounds
+            self._spec_emitted += emitted
+            # (round, lane) pairs that emitted at all: the denominator
+            # of the acceptance rate
+            live = emit_blk.reshape(rounds, self.spec_k, -1).any(axis=1)
+            self._spec_live_rounds += int(live.sum())
+        else:
+            self._decode_steps += pending.k
         return tok_blk, emit_blk
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft tokens the verify accepted so far (0.0 before
+        any speculative round emitted): each live round emits one
+        verified token plus the accepted drafts of its ``spec_k - 1``."""
+        if not self._spec_live_rounds or self.spec_k < 2:
+            return 0.0
+        accepted = self._spec_emitted - self._spec_live_rounds
+        return accepted / (self._spec_live_rounds * (self.spec_k - 1))
 
     def step_replay(self, pending: PendingTick, tok_blk,
                     emit_blk) -> list[RequestState]:
@@ -405,9 +553,13 @@ class ServeEngine:
         for slot, st in list(self.active.items()):
             for j in range(pending.k):
                 if not emit_blk[j, slot]:
+                    # a speculative round that accepts m < spec_k tokens
+                    # leaves a gap before the next round's rows
                     continue
                 tok = int(tok_blk[j, slot])
                 st.out.append(tok)
+                if pending.logits:
+                    st.logits.append(pending.logits[j][slot])
                 st.pos += 1
                 if tok == st.req.eos_id or len(st.out) >= st.req.max_new \
                         or st.pos >= self.max_len - 1:
@@ -465,7 +617,7 @@ class ServeEngine:
         kv_bytes = sum(t.numel() * t.element_size()
                        for t in _leaves(self.cache))
         cfg = self.model.cfg
-        dt = "q8_0" if self.cache_dtype == "q8_0" else "bf16"
+        dt = self.cache_dtype if self.cache_dtype in QUANT_TIERS else "bf16"
         per_tok = 2 * cfg.n_layers * stored_bytes(
             (cfg.n_kv_heads, cfg.head_dim), dt)
         return {
@@ -478,7 +630,9 @@ class ServeEngine:
             "bytes_per_step": kv_bytes,
             "self_kv_bytes_per_token": per_tok,
             "traffic_ratio_vs_bf16":
-                cache_traffic_ratio() if self.cache_dtype == "q8_0" else 1.0,
+                cache_traffic_ratio() if self.cache_dtype == "q8_0"
+                else cache_traffic_ratio_q4()
+                if self.cache_dtype == "q4_0" else 1.0,
         }
 
     def lane_report(self) -> dict:
@@ -493,16 +647,17 @@ class ServeEngine:
 
     def reset_serve_stats(self) -> None:
         """Zero the serving accounting so the next ``energy_report``
-        prices only the work from here on; ``logits_log`` starts anew."""
-        self.logits_log = []
+        prices only the work from here on."""
         self._ticks = 0
         self._decode_steps = 0
         self._generated = 0
         self._host_syncs = 0
+        self._zero_spec_stats()
 
-    def _param_stats(self) -> tuple[int, int]:
-        """(element count, stored bytes) of the served parameters."""
-        leaves = list(_leaves(self.params))
+    def _param_stats(self, params=None) -> tuple[int, int]:
+        """(element count, stored bytes) of the served parameters (or of
+        ``params``)."""
+        leaves = list(_leaves(self.params if params is None else params))
         return (sum(t.numel() for t in leaves),
                 sum(t.numel() * t.element_size() for t in leaves))
 
@@ -511,7 +666,10 @@ class ServeEngine:
         steps x (weight bytes + cache bytes per step) at the platform's
         memory rate against 2 x N_params FLOP per token at its
         ``kernel``-dtype peak; latency is the larger, power the
-        platform's model. A roofline model, not a measurement."""
+        platform's model. A roofline model, not a measurement. With
+        ``spec_k``, every draft step streams the draft weights and the
+        cache once, and every verify forward streams the full weights and
+        the cache once for all ``spec_k`` positions."""
         if self.platform is None:
             raise ValueError("energy_report() needs a platform: construct "
                              "the engine with ServeEngine(..., "
@@ -525,6 +683,25 @@ class ServeEngine:
         cache_bytes = steps * cbs
         stream_bytes = steps * weight_bytes + cache_bytes
         flops = 2.0 * n_elems * tokens
+        spec = None
+        if self.spec_k:
+            d_elems, d_bytes = self._param_stats(self.draft_params)
+            cache_bytes += (self._draft_steps + self._verify_steps) * cbs
+            stream_bytes = cache_bytes + steps * weight_bytes \
+                + self._draft_steps * d_bytes \
+                + self._verify_steps * weight_bytes
+            flops = 2.0 * n_elems * (steps + self._verify_steps
+                                     * self.spec_k) \
+                + 2.0 * d_elems * self._draft_steps
+            spec = {
+                "spec_k": self.spec_k,
+                "draft_dtype": self.draft_dtype,
+                "rounds": self._spec_rounds,
+                "draft_steps": self._draft_steps,
+                "verify_steps": self._verify_steps,
+                "acceptance_rate": self.acceptance_rate,
+                "draft_weight_bytes": d_bytes,
+            }
         bw = max(p.memory.main_bw, 1e-9)
         rate = p.peak_flops("q8_0" if kernel == "q8_0" else "f16")
         t_mem = stream_bytes / bw
@@ -568,6 +745,7 @@ class ServeEngine:
             "trace_records": len(recs),
             "modeled_tokens_per_s":
                 tokens / latency_s if latency_s > 0 else 0.0,
+            **({"speculative": spec} if spec else {}),
         }
 
 

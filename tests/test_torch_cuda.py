@@ -9,7 +9,8 @@ is absent:
 
 Shapes are the main path's (whisper-tiny.en: d_model 384, 6 heads of 64,
 d_ff 1536, 1500 encoder frames, the 32-token prefill bucket, decode at a
-few lanes) plus small ragged ones. Both sides accumulate in f32 in a
+few lanes, the speculative verify's 4 queries a lane) plus small ragged
+ones. Both sides accumulate in f32 in a
 different order, so f32 results agree to ~1e-5 relative; results stored
 in bf16 agree to one bf16 rounding of each side, at most 2^-7 of the
 largest output (``assert_bf16_close``). The attention cases also run
@@ -26,11 +27,16 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import plain as fa_plain
 from repro_torch.kernels.fp16_matmul import ops as mm_ops
 from repro_torch.kernels.fp16_matmul import plain as mm_plain
+from repro_torch.kernels.q4_attention import ops as q4a_ops
+from repro_torch.kernels.q4_attention import plain as q4a_plain
+from repro_torch.kernels.q4_matmul import ops as q4_ops
+from repro_torch.kernels.q4_matmul import plain as q4_plain
 from repro_torch.kernels.q8_attention import ops as qa_ops
 from repro_torch.kernels.q8_attention import plain as qa_plain
 from repro_torch.kernels.q8_matmul import ops as q8_ops
 from repro_torch.kernels.q8_matmul import plain as q8_plain
-from repro_torch.quantize import Q8Tensor, quantize_q8_0
+from repro_torch.quantize import (Q4Tensor, Q8Tensor, quantize_q4_0,
+                                  quantize_q8_0)
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +201,124 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         qa_ops.q8_decode_attention(torch.zeros((2, 1, 64), device=dev),
                                    kq, ks, kq, ks, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 384, 384), (1, 384, 1536),
+                                   (1, 1536, 384), (4, 384, 384),
+                                   (4, 384, 1536), (4, 1536, 384),
+                                   (7, 64, 50), (33, 96, 70),
+                                   (1500, 384, 1536)])
+def test_q4_matmul_kernel(dev, dtype, m, k, n):
+    rng = np.random.default_rng(m * k + n + 1)
+    x = _randn(rng, (m, k), dev, dtype)
+    w = quantize_q4_0(_randn(rng, (k, n), dev, scale=k ** -0.5), axis=0)
+    before = q4_ops.q4_matmul.launches
+    got = q4_ops.q4_matmul(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert q4_ops.q4_matmul.launches == before + 1
+    want = q4_plain.q4_matmul(x, w.q, w.scale, torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    got16 = q4_ops.q4_matmul(x, w, out_dtype=torch.bfloat16)
+    assert_bf16_close(got16, want)
+
+
+def _planes(tier, rng, shape, dev, v=None):
+    """Code and scale planes of the ``tier`` cache for random (or the
+    given) values of ``shape``, blocked along head_dim."""
+    x = _randn(rng, shape, dev) if v is None else v
+    t = (quantize_q8_0 if tier == "q8_0" else quantize_q4_0)(x, axis=-1)
+    return t.q, t.scale
+
+
+_OPS = {"q8_0": (qa_ops.q8_decode_attention, qa_plain.q8_decode_attention,
+                 qa_ops.q8_decode_attention_cache,
+                 qa_plain.q8_decode_attention_cache),
+        "q4_0": (q4a_ops.q4_decode_attention, q4a_plain.q4_decode_attention,
+                 q4a_ops.q4_decode_attention_cache,
+                 q4a_plain.q4_decode_attention_cache)}
+
+
+@pytest.mark.parametrize("bh,s,d", [(24, 1500, 64), (6, 35, 64),
+                                    (8, 40, 32)])
+def test_q4_decode_attention_kernel(dev, bh, s, d):
+    rng = np.random.default_rng(bh + s + 1)
+    q = _randn(rng, (bh, 1, d), dev, torch.bfloat16)
+    kp, ks = _planes("q4_0", rng, (bh, s, d), dev)
+    vp, vs = _planes("q4_0", rng, (bh, s, d), dev)
+    lens = torch.from_numpy(rng.integers(1, s + 1, bh)).to(dev)
+    lens[0], lens[-1] = s, 0
+    before = q4a_ops.q4_decode_attention.launches
+    got = q4a_ops.q4_decode_attention(q, kp, ks, vp, vs, lens)
+    torch.cuda.synchronize()
+    assert q4a_ops.q4_decode_attention.launches == before + 1
+    want = q4a_plain.q4_decode_attention(q, kp, ks, vp, vs, lens)
+    assert_bf16_close(got, want)
+    assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tier", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("nq", [1, 4])
+@pytest.mark.parametrize("bh,s,d", [(24, 1500, 64), (6, 35, 64)])
+def test_decode_attention_kernel_reads_exactly_to_length(dev, tier, nq, bh,
+                                                         s, d):
+    # V only on the 3 positions before each query's length and a large V
+    # past it: reading short drops the output, reading long poisons it
+    rng = np.random.default_rng(bh * s + nq)
+    q = _randn(rng, (bh, nq, d), dev, torch.bfloat16)
+    kc, ks = _planes(tier, rng, (bh, s, d), dev)
+    lens = torch.from_numpy(rng.integers(3, s - nq + 2, bh)).to(dev)
+    lens = lens[:, None] + torch.arange(nq, device=dev)[None, :]
+    v = _randn(rng, (bh, s, d), dev)
+    n = lens[:, :1, None]      # the first query's length
+    pos = torch.arange(s, device=dev)[None, :, None]
+    v = torch.where(pos >= n, 8.0 * v, torch.where(pos >= n - 3, v, 0.0))
+    vc, vs = _planes(tier, rng, None, dev, v=v)
+    kern, plain = _OPS[tier][:2]
+    got = kern(q, kc, ks, vc, vs, lens)
+    torch.cuda.synchronize()
+    want = plain(q, kc, ks, vc, vs, lens)
+    assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("tier", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("L,b,nq,s,h,hkv,d,layer", [
+    (4, 4, 4, 64, 6, 6, 64, 2),       # self verify: 4 lanes x 4 queries
+    (4, 4, 4, 1500, 6, 6, 64, 1),     # cross verify, (B,) lengths
+    (4, 4, 1, 1500, 6, 6, 64, 3),     # cross decode
+    (2, 3, 3, 40, 4, 2, 32, 1)])      # reduced GQA
+def test_decode_attention_cache_kernel_multi_query(dev, tier, L, b, nq, s,
+                                                   h, hkv, d, layer):
+    rng = np.random.default_rng(L * b * s + nq)
+    q = _randn(rng, (b, nq, h, d), dev, torch.bfloat16)
+    kc, ks = _planes(tier, rng, (L, b, s, hkv, d), dev)
+    vc, vs = _planes(tier, rng, (L, b, s, hkv, d), dev)
+    first = torch.from_numpy(rng.integers(1, s - nq + 2, b)).to(dev)
+    if s == 1500:   # cross: one length a lane for every query
+        lens = torch.tensor([1500, 1000, 500, 1250][:b], device=dev)
+    else:           # self: token j attends [0, pos + j]
+        lens = first[:, None] + torch.arange(nq, device=dev)[None, :]
+    kern, plain = _OPS[tier][2:]
+    got = kern(q, kc, ks, vc, vs, lens, layer)
+    torch.cuda.synchronize()
+    want = plain(q, kc, ks, vc, vs, lens, layer)
+    assert_bf16_close(got, want)
+
+
+def test_q4_kernels_refuse_what_they_do_not_take(dev):
+    w = Q4Tensor(torch.zeros((32, 8), dtype=torch.uint8, device=dev),
+                 torch.zeros((2, 8), dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError):
+        q4_ops.q4_matmul(torch.zeros((4, 32), device=dev), w)
+    with pytest.raises(TypeError):
+        q4_ops.q4_matmul(torch.zeros((4, 64), device=dev),
+                         Q4Tensor(w.q.to(torch.int8), w.scale))
+    kp = torch.zeros((2, 8, 32), dtype=torch.uint8, device=dev)
+    ks = torch.zeros((2, 8, 2), dtype=torch.float16, device=dev)
+    q = torch.zeros((2, 3, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):   # (B, Q) lengths of the wrong shape
+        q4a_ops.q4_decode_attention(q, kp, ks, kp, ks,
+                                    torch.ones((2, 2), device=dev))
+    with pytest.raises(TypeError):
+        q4a_ops.q4_decode_attention(q, kp.to(torch.int8), ks,
+                                    kp.to(torch.int8), ks, 8)

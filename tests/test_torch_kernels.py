@@ -16,22 +16,35 @@ import pytest
 import torch
 
 from repro.core.burst import split_burst
+from repro.core.quantize import quantize_q4_0 as j_quantize_q4
 from repro.core.quantize import quantize_q8_0 as j_quantize
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.fp16_matmul.ops import fp16_matmul as j_fp16
 from repro.kernels.q8_attention.ops import q8_decode_attention as j_q8attn
+from repro.kernels.q4_attention.ops import cache_traffic_ratio_q4 as \
+    j_q4_ratio
+from repro.kernels.q4_attention.ops import q4_decode_attention as j_q4attn
+from repro.kernels.q4_attention.ref import q4_decode_attention_ref
+from repro.kernels.q4_attention.xla import q4_decode_attention_xla
+from repro.kernels.q4_matmul.ops import q4_matmul as j_q4mm
+from repro.kernels.q4_matmul.ref import q4_matmul_ref
 from repro.kernels.q8_attention.ref import q8_decode_attention_ref
+from repro.kernels.q8_attention.xla import q8_decode_attention_xla
 from repro.kernels.q8_matmul.ops import q8_matmul as j_q8mm
 from repro.models.attention import chunked_attention
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import api
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fp16_matmul.ops import fp16_matmul, offload_info
+from repro_torch.kernels.q4_attention.ops import (
+    cache_traffic_ratio_q4, q4_decode_attention, q4_decode_attention_cache,
+    quantize_kv_q4)
+from repro_torch.kernels.q4_matmul.ops import q4_matmul
 from repro_torch.kernels.q8_attention.ops import (q8_decode_attention,
                                                   q8_decode_attention_cache)
 from repro_torch.kernels.q8_matmul.ops import q8_matmul
 from repro_torch.kernels.registry import KernelSpec
-from repro_torch.quantize import Q8Tensor
+from repro_torch.quantize import Q4Tensor, Q8Tensor
 
 BF = jnp.bfloat16
 
@@ -173,6 +186,110 @@ def test_q8_decode_attention_cache_form_equals_flat_form():
                                .permute(0, 2, 1, 3))
 
 
+# ------------------------------------------------------------------ q4_0
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 50), (4, 128, 96), (7, 96, 130)])
+def test_q4_matmul_matches_jax(m, k, n):
+    # against the reference's oracle and its Pallas kernel in interpret
+    # mode (never q4_matmul_xla, whose bf16 x bf16 -> f32 dot jax's CPU
+    # runtime refuses); f32 summation order only
+    rng = np.random.default_rng(m + n + 1)
+    x = jnp.asarray(rng.standard_normal((m, k)), BF)
+    w = j_quantize_q4(jnp.asarray(rng.standard_normal((k, n)), jnp.float32),
+                      axis=0)
+    got = q4_matmul(_t(x), Q4Tensor(_t(w.q), _t(w.scale)),
+                    out_dtype=torch.float32).numpy()
+    for want in (_np(q4_matmul_ref(x, w.q, w.scale)),
+                 _np(j_q4mm(x, w, out_dtype=jnp.float32, interpret=True))):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _q4_cache(rng, shape):
+    t = j_quantize_q4(jnp.asarray(rng.standard_normal(shape), jnp.float32),
+                      axis=-1)
+    return t.q, t.scale
+
+
+@pytest.mark.parametrize("nq", [1, 4])
+def test_q4_decode_attention_matches_jax(nq):
+    # Q = 1 with (BH,) lengths (the reference's Pallas kernel too) and the
+    # verify's Q = 4 with (BH, Q) lengths; bf16 outputs: 1e-2, and 3e-2
+    # against the host path, which rounds its operands and P to bf16
+    rng = np.random.default_rng(8 + nq)
+    bh, s, d = 6, 40, 32
+    q = jnp.asarray(rng.standard_normal((bh, nq, d)), BF)
+    kp, ks = _q4_cache(rng, (bh, s, d))
+    vp, vs = _q4_cache(rng, (bh, s, d))
+    first = np.array([37, 1, 17, 33, 30, 5], np.int32)
+    lens = jnp.asarray(first if nq == 1 else
+                       first[:, None] + np.arange(nq)[None, :])
+    got = q4_decode_attention(*(_t(a) for a in (q, kp, ks, vp, vs, lens)))
+    got = got.float().numpy()
+    np.testing.assert_allclose(
+        got, _np(q4_decode_attention_ref(q, kp, ks, vp, vs, lens)),
+        rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(
+        got, _np(q4_decode_attention_xla(q, kp, ks, vp, vs, lens)),
+        rtol=3e-2, atol=3e-2)
+    if nq == 1:
+        np.testing.assert_allclose(
+            got, _np(j_q4attn(q, kp, ks, vp, vs, lens, interpret=True)),
+            rtol=1e-2, atol=1e-2)
+
+
+def test_q8_decode_attention_multi_query_matches_jax():
+    # the verify's (BH, Q) lengths against the reference's host path,
+    # the only reference backend that takes Q > 1 (tolerance as above)
+    rng = np.random.default_rng(9)
+    bh, nq, s, d = 6, 4, 40, 32
+    q = jnp.asarray(rng.standard_normal((bh, nq, d)), BF)
+    kq, ks = _q8_cache(rng, (bh, s, d))
+    vq, vs = _q8_cache(rng, (bh, s, d))
+    lens = jnp.asarray(np.array([36, 1, 17, 33, 30, 5])[:, None]
+                       + np.arange(nq)[None, :], jnp.int32)
+    want = _np(q8_decode_attention_xla(q, kq, ks, vq, vs, lens))
+    got = q8_decode_attention(*(_t(a) for a in (q, kq, ks, vq, vs, lens)))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        _np(q8_decode_attention_ref(q, kq, ks, vq, vs, lens)),
+        rtol=1e-2, atol=1e-2)
+
+
+def test_q4_decode_attention_cache_form_equals_flat_form():
+    # the stacked (L, B, S, Hkv, D/2) entry with (B, Q) lengths is the
+    # flat op on one layer, repeated over the query heads
+    rng = np.random.default_rng(10)
+    L, b, nq, s, h, hkv, d = 2, 3, 4, 24, 4, 2, 32
+    q = torch.from_numpy(rng.standard_normal((b, nq, h, d))) \
+        .to(torch.bfloat16)
+    kp, ks = (_t(a) for a in _q4_cache(rng, (L, b, s, hkv, d)))
+    vp, vs = (_t(a) for a in _q4_cache(rng, (L, b, s, hkv, d)))
+    lens = torch.tensor([20, 0, 8])[:, None] + torch.arange(nq)[None, :]
+    got = q4_decode_attention_cache(q, kp, ks, vp, vs, lens, 1)
+
+    def flat(c):
+        lay = c[1].repeat_interleave(h // hkv, dim=2)
+        return lay.permute(0, 2, 1, 3).reshape(b * h, s, -1)
+    want = q4_decode_attention(q.permute(0, 2, 1, 3).reshape(b * h, nq, d),
+                               flat(kp), flat(ks), flat(vp), flat(vs),
+                               lens.repeat_interleave(h, dim=0))
+    torch.testing.assert_close(got, want.reshape(b, h, nq, d)
+                               .permute(0, 2, 1, 3))
+    # lane 1's first query has length 0: it attends nothing
+    assert float(got[1, 0].abs().max()) == 0.0
+
+
+def test_quantize_kv_q4_and_its_traffic_ratio():
+    k = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 5, 64)).astype(np.float32))
+    p, sc = quantize_kv_q4(k)
+    assert p.shape == (2, 5, 32) and p.dtype == torch.uint8
+    assert sc.shape == (2, 5, 2) and sc.dtype == torch.float16
+    assert cache_traffic_ratio_q4() == j_q4_ratio() == 0.28125
+
+
 # ------------------------------------------------------------- dispatch
 
 def _spec(op, m, n, k, tag="proj", dtype="f16"):
@@ -188,7 +305,10 @@ def test_h100_budget_routes_every_main_path_call_to_accel():
                  _spec("q8_matmul", 1500, 384, 1536, dtype="q8_0"),
                  _spec("flash_attention", 1500, 1500, 64, tag="attn_qk"),
                  _spec("q8_decode_attention", 1, 1500, 64, tag="attn_qk",
-                       dtype="q8_0")):
+                       dtype="q8_0"),
+                 _spec("q4_matmul", 4, 384, 1536, dtype="q4_0"),
+                 _spec("q4_decode_attention", 4, 1500, 64, tag="attn_qk",
+                       dtype="q4_0")):
         assert api.decide(spec.name, spec, ctx) == ("accel", "cuda")
         # CPU tensors bind the accel decision to the plain version
         assert api.decide(spec.name, spec, ctx, on_cuda=False) == \
@@ -242,7 +362,11 @@ def test_wrappers_validate_calls_before_choosing_a_path():
         flash_attention(*(torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16),) * 3)
     with pytest.raises(TypeError):     # the kernel takes bf16 only
         flash_attention(*(torch.zeros(1, 8, 2, 64),) * 3)
-    with pytest.raises(ValueError):
-        q8_decode_attention(torch.zeros(2, 3, 32), *(
+    with pytest.raises(ValueError):   # (B, Q) lengths for 2 x 2 queries
+        q8_decode_attention(torch.zeros(2, 3, 32, dtype=torch.bfloat16), *(
             torch.zeros(2, 8, 32, dtype=torch.int8),
-            torch.zeros(2, 8, 1, dtype=torch.float16)) * 2, 8)
+            torch.zeros(2, 8, 1, dtype=torch.float16)) * 2,
+            torch.ones(2, 2))
+    with pytest.raises(ValueError):   # K = 64 against 24 packed rows
+        q4_matmul(x, Q4Tensor(torch.zeros(24, 8, dtype=torch.uint8),
+                              torch.zeros(2, 8, dtype=torch.float16)))

@@ -7,10 +7,13 @@ of ``tests/test_serving.py``): both run bf16 activations, rounded at
 different places, and Q8_0 caches on top of them.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro
 import repro_torch
@@ -18,6 +21,7 @@ from repro.audio.features import audio_frames as j_audio_frames
 from repro.audio.stream import chunk_list as j_chunk_list
 from repro.configs import get_config, reduced
 from repro.core.quantize import quantize_tree as j_quantize_tree
+from repro.kernels.api import DispatchContext as JDispatchContext
 from repro.models.model import build as j_build
 from repro.serving.engine import AudioRequest as JAudioRequest
 from repro.serving.engine import ServeEngine as JServeEngine
@@ -29,6 +33,7 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.models.model import build
 from repro_torch.serving.engine import (AudioRequest, RejectCode,
                                         ServeEngine)
+from repro_torch.quantize import Q4Tensor, quantize_tree
 from repro_torch.serving.scheduler import BatchScheduler
 
 TIE_MARGIN = 0.15   # tests/test_serving.py's bf16 margin
@@ -126,13 +131,19 @@ def test_engine_keeps_the_logits_it_chose_from(setup):
     st = eng.admit(AudioRequest(uid=0, tokens=[1, 3], max_new=5,
                                 eos_id=-1, enc_frames=fr))
     eng.step()
-    log = eng.logits_log
-    assert [r.shape[0] for r in log] == [1, 2, 2, 2, 2]
-    picks = [int(log[0][0].argmax())] + \
-        [int(r[st.slot].argmax()) for r in log[1:]]
-    assert picks == st.out
-    eng.reset_serve_stats()
-    assert eng.logits_log == []
+    # one (vocab,) row per token of the request, the admission's first
+    assert [tuple(r.shape) for r in st.logits] == [(2048,)] * 5
+    assert [int(r.argmax()) for r in st.logits] == st.out
+    # a speculative engine keeps the verify rows of the emitted tokens
+    eng = ServeEngine(tm, _bridge(jp), n_slots=2, max_len=32, enc_len=24,
+                      decode_block=4, spec_k=4, device="cpu",
+                      keep_logits=True)
+    st = eng.admit(AudioRequest(uid=0, tokens=[1, 3], max_new=7,
+                                eos_id=-1, enc_frames=fr))
+    while eng.n_active:
+        eng.step()
+    assert len(st.logits) == len(st.out) == 7
+    assert [int(r.argmax()) for r in st.logits] == st.out
 
 
 def test_transcribe_matches_jax(setup):
@@ -182,11 +193,218 @@ def test_engine_validates_and_refuses_unported_features(setup):
             RejectCode.BAD_ENC_SHAPE)]
     for req, code in bad:
         assert eng.validate(req).code == code
-    for kw in (dict(paged=True), dict(spec_k=4), dict(cache_dtype="q4_0")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(tm, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tm, tparams, device="cpu", paged=True)
+    # the q4_0 tier and speculative decoding are ported: they construct
+    eng = ServeEngine(tm, tparams, device="cpu", cache_dtype="q4_0",
+                      decode_block=4, spec_k=4)
+    assert eng.cache["layers"]["self"]["kp"].dtype == torch.uint8
+    assert eng.cache_report()["traffic_ratio_vs_bf16"] == 0.28125
+    assert isinstance(eng.draft_params["dec_layers"]["mlp"]["up"],
+                      Q4Tensor)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         repro_torch.transcribe(synth_waveform(0.2), stream=True,
                                device="cpu")
     with pytest.raises(ValueError):
         ServeEngine(tm, tparams, device="meta")
+
+
+# ------------------------------------------------ speculative decoding
+# The port's counterparts of the reference's tests/test_spec_decode.py:
+# test_spec_tick_parity, test_spec_parity_eos_mid_draft,
+# test_spec_knob_validation and test_spec_validate_headroom, plus the
+# energy report's spec fields by the reference's formula (its own
+# test_spec_energy_report_fields does not run on jax's CPU runtime here).
+
+SPEC_PROMPTS = [[5, 6, 7, 8], [9, 10, 11], [3, 4, 5, 6, 7]]
+
+
+def _spec_frames(lens=(8, 12, 8)):
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((n, 128)).astype(np.float32) * 0.5
+            for n in lens]
+
+
+def _spec_serve(tm, tparams, frames, max_new=8, eos=-2, **kw):
+    kw.setdefault("n_slots", 4)
+    kw.setdefault("max_len", 64)
+    kw.setdefault("enc_len", 16)
+    eng = ServeEngine(tm, tparams, device="cpu", **kw)
+    sts = [eng.admit(AudioRequest(uid=i, tokens=list(p), max_new=max_new,
+                                  eos_id=eos, enc_frames=f))
+           for i, (p, f) in enumerate(zip(SPEC_PROMPTS, frames))]
+    ticks = 0
+    while eng.n_active:
+        eng.step()
+        ticks += 1
+    return eng, sts, ticks
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "q8_0", "q4_0"])
+def test_spec_tick_parity(setup, cache_dtype):
+    """The speculative tick is token-identical to the plain fused tick on
+    every cache tier, with one host sync a tick and the round
+    accounting of the reference."""
+    _, tm, jp = setup
+    tparams, frames = _bridge(jp), _spec_frames()
+    _, plain, _ = _spec_serve(tm, tparams, frames, cache_dtype=cache_dtype,
+                              decode_block=4)
+    eng, spec, ticks = _spec_serve(tm, tparams, frames,
+                                   cache_dtype=cache_dtype, decode_block=4,
+                                   spec_k=4)
+    assert [st.out for st in spec] == [st.out for st in plain]
+    assert eng._host_syncs == ticks == eng._ticks
+    assert eng._spec_rounds == eng._ticks
+    assert eng._draft_steps == 3 * eng._spec_rounds
+    assert eng._verify_steps == eng._spec_rounds
+    assert 0.0 <= eng.acceptance_rate <= 1.0
+    assert eng.lanestate.drained
+
+
+def test_spec_parity_eos_mid_draft(setup):
+    """A lane whose greedy stream hits EOS inside a draft window stops
+    exactly there."""
+    _, tm, jp = setup
+    tparams, frames = _bridge(jp), _spec_frames()
+    _, probe, _ = _spec_serve(tm, tparams, frames, decode_block=1)
+    eos = probe[0].out[2]   # round position 2 of a spec_k = 4 round
+    _, plain, _ = _spec_serve(tm, tparams, frames, eos=eos, decode_block=4)
+    _, spec, _ = _spec_serve(tm, tparams, frames, eos=eos, decode_block=4,
+                             spec_k=4)
+    assert [st.out for st in spec] == [st.out for st in plain]
+    assert spec[0].out[-1] == eos
+    assert all(st.done for st in spec)
+
+
+def test_spec_tokens_match_jax_spec_engine(setup):
+    """The port's speculative engine (q4_0 cache, Q4_0 draft) against the
+    reference's on the same weights and requests: greedy tokens equal up
+    to a near-tie, and the same acceptance when they are equal. The
+    reference runs ``q4_matmul`` on its ``ref`` oracle: its host path
+    ``q4_matmul_xla`` is a bf16 x bf16 -> f32 dot that jax's CPU runtime
+    refuses."""
+    jm, tm, jp = setup
+    frames = _spec_frames()
+    kw = dict(n_slots=4, max_len=64, enc_len=16, cache_dtype="q4_0",
+              decode_block=4, spec_k=4)
+    jeng = JServeEngine(jm, jp, dispatch_ctx=dataclasses.replace(
+        JDispatchContext.from_env(), backends={"q4_matmul": "ref"}), **kw)
+    jsts = [jeng.admit(JAudioRequest(uid=i, tokens=list(p), max_new=8,
+                                     eos_id=-2, enc_frames=f))
+            for i, (p, f) in enumerate(zip(SPEC_PROMPTS, frames))]
+    jticks = 0
+    while jeng.n_active:
+        jeng.step()
+        jticks += 1
+    teng, tsts, tticks = _spec_serve(tm, _bridge(jp), frames, **kw)
+    for p, f, st, jst in zip(SPEC_PROMPTS, frames, tsts, jsts):
+        enc = jm.encode(jp, jnp.asarray(f)[None])
+        _assert_greedy_matches(jm, jp, p, enc, st.out, jst.out)
+    if [st.out for st in tsts] == [st.out for st in jsts]:
+        assert teng.acceptance_rate == jeng.acceptance_rate
+        assert tticks == jticks
+    assert teng._host_syncs == tticks
+
+
+def test_spec_knob_validation(setup):
+    _, tm, jp = setup
+    tparams = _bridge(jp)
+    with pytest.raises(ValueError, match="spec_k"):
+        ServeEngine(tm, tparams, device="cpu", spec_k=1)
+    with pytest.raises(ValueError, match="multiple"):
+        ServeEngine(tm, tparams, device="cpu", decode_block=3, spec_k=2)
+    with pytest.raises(ValueError, match="draft_dtype"):
+        ServeEngine(tm, tparams, device="cpu", decode_block=2, spec_k=2,
+                    draft_dtype="int3")
+    eng, _, _ = _spec_serve(tm, tparams, _spec_frames(), max_new=30,
+                            decode_block=4, spec_k=4)
+    eng.admit(AudioRequest(uid=9, tokens=[1], max_new=8, eos_id=-2,
+                           enc_frames=_spec_frames()[0]))
+    with pytest.raises(ValueError, match="multiple"):
+        eng.step_begin(k=6)
+    # quantized served params need explicit draft weights
+    with pytest.raises(ValueError, match="draft_params"):
+        ServeEngine(tm, quantize_tree(tparams), device="cpu",
+                    decode_block=2, spec_k=2)
+    q8 = quantize_tree(tparams)
+    eng = ServeEngine(tm, q8, device="cpu", decode_block=2, spec_k=2,
+                      draft_params=quantize_tree(tparams, tier="q4_0"))
+    assert eng.draft_params is not q8
+
+
+def test_spec_validate_headroom(setup):
+    """Speculative lanes keep spec_k - 1 extra KV positions: a request
+    that fits a plain engine exactly is TOO_LONG for the speculative
+    one."""
+    _, tm, jp = setup
+    tparams = _bridge(jp)
+    plain = ServeEngine(tm, tparams, device="cpu", max_len=64, enc_len=16)
+    spec = ServeEngine(tm, tparams, device="cpu", max_len=64, enc_len=16,
+                       decode_block=4, spec_k=4)
+    fr = np.zeros((8, 128), np.float32)
+    req = AudioRequest(uid=0, tokens=list(range(2, 33)), max_new=32,
+                       eos_id=-2, enc_frames=fr)
+    assert plain.validate(req) is None         # 31 + 32 < 64
+    rej = spec.validate(req)
+    assert rej is not None and rej.code == RejectCode.TOO_LONG
+    assert "speculative headroom" in rej.message
+    req2 = AudioRequest(uid=1, tokens=list(range(2, 30)), max_new=32,
+                        eos_id=-2, enc_frames=fr)
+    assert spec.validate(req2) is None         # 28 + 32 + 3 < 64
+
+
+def test_spec_energy_report_fields(setup):
+    """The spec block of ``energy_report`` and its roofline, by the
+    reference's formula (``serving/engine.py`` energy_report): every
+    draft step streams the draft weights and the cache, every verify the
+    full weights and the cache once for all spec_k positions."""
+    _, tm, jp = setup
+    tparams = _bridge(jp)
+    eng, _, _ = _spec_serve(tm, tparams, _spec_frames(), decode_block=4,
+                            spec_k=4, cache_dtype="q4_0",
+                            platform="h100-sxm")
+    er = eng.energy_report()
+    spec = er["speculative"]
+    assert spec["spec_k"] == 4 and spec["draft_dtype"] == "q4_0"
+    assert spec["draft_steps"] == 3 * spec["rounds"] == 3 * er["ticks"]
+    assert spec["verify_steps"] == spec["rounds"]
+    assert spec["acceptance_rate"] == eng.acceptance_rate
+    assert 0 < spec["draft_weight_bytes"] < er["weight_bytes"]
+    n_elems, w_bytes = eng._param_stats()
+    d_elems, d_bytes = eng._param_stats(eng.draft_params)
+    assert spec["draft_weight_bytes"] == d_bytes
+    cbs = er["cache_bytes_per_step"]
+    steps = er["decode_steps"]
+    assert steps == 0      # a spec tick runs rounds, not plain steps
+    ds, vs = spec["draft_steps"], spec["verify_steps"]
+    assert er["stream_bytes_total"] == (ds + vs) * cbs \
+        + steps * w_bytes + ds * d_bytes + vs * w_bytes
+    assert er["modeled_flops"] == 2.0 * n_elems * (steps + vs * 4) \
+        + 2.0 * d_elems * ds
+    assert er["host_syncs"] == er["ticks"]
+    assert er["modeled_tokens_per_s"] > 0
+
+
+def test_transcribe_q4_0_and_a_reused_spec_engine(setup):
+    """``transcribe(cache_dtype="q4_0")`` against the reference's, and
+    the same audio through a reused speculative engine: the port's
+    tokens equal its own plain transcription."""
+    jm, tm, jp = setup
+    x = synth_waveform(0.5)
+    want = repro.transcribe(x, model=jm, params=jp, max_new=8,
+                            cache_dtype="q4_0")
+    tparams = _bridge(jp)
+    got = repro_torch.transcribe(x, model=tm, params=tparams, max_new=8,
+                                 cache_dtype="q4_0", device="cpu")
+    assert got.cache_dtype == "q4_0"
+    enc = want.engine.encode_chunks(
+        j_chunk_list(np.asarray(j_audio_frames(x, 128)), 16))
+    _assert_greedy_matches(jm, jp, [1], enc, got.tokens, want.tokens)
+    eng = ServeEngine(tm, tparams, n_slots=1, max_len=14, enc_len=25,
+                      cache_dtype="q4_0", decode_block=4, spec_k=4,
+                      device="cpu")
+    spec = repro_torch.transcribe(x, model=tm, params=tparams, max_new=8,
+                                  engine=eng)
+    assert spec.tokens == got.tokens
+    assert spec.host_syncs == spec.ticks
+    assert eng._verify_steps == spec.ticks
