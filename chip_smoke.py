@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with an H100 (or any
 CUDA card) and ``nvcc``. It imports nothing of JAX and nothing of the
 JAX package. Phases:
 
-1. build the six CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build the seven CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 2. for each kernel, at the main path's shapes: the largest difference
    from its plain PyTorch version, its time, the plain version's time,
@@ -29,7 +29,17 @@ JAX package. Phases:
       (4 requests on 4 slots, ``spec_k=4``), whose tokens must be those
       of a plain (``spec_k=0``) serve of the same requests.
    Each prints its draft steps, verify steps, acceptance rate and host
-   syncs per tick.
+   syncs per tick;
+d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
+   weights): 4 token requests (prompts of 64, 128, 192 and 256 ids drawn
+   from the seed, 32 new tokens each) on 4 slots through
+   ``BatchScheduler``, 8 decode steps a tick. The sLSTM recurrence runs
+   on ``slstm_scan`` at prefill and decode, the untied f32 head on
+   ``fp16_matmul``. It prints wall seconds, decode tok/s, ticks, host
+   syncs and the ``energy_report`` on ``h100-sxm``, and counts every
+   device-to-host synchronisation of the run (``torch.cuda``'s sync
+   debug mode): one per admission (the first token) and one per decode
+   tick, no more.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -37,13 +47,20 @@ values live only in the last keys before the end or a lane's length, and
 past a lane's length a large poison: a kernel that drops the ragged last
 KV tile, stops short of ``length`` or reads past it fails there.
 
-Before each phase of 3, 4 and 5 every kernel's launch count is set to 0
+The f32 cases of phase 2 (the frontend GEMMs, the xLSTM head at a
+decode step and at prefill of every prompt position, the sLSTM
+recurrence) hold each output to f32 summation order (``F32_REL`` of the
+largest value); the sLSTM cases include a decode step from a random
+non-initial state and a case with saturated gates.
+
+Before each phase of 3, 4, 5 and d every kernel's launch count is set to 0
 and the dispatch log cleared; after it the script requires that each
-kernel of that path launched and that every call of the six ops was
+kernel of that path launched and that every call of the seven ops was
 routed ``("accel", "cuda")``. The engine of each phase keeps the logits
 row each token was chosen from; the same phase is then run again on the
 plain versions (forced, on the card) and the two runs' rows must agree
-within ``LOGIT_REL_TOL`` of the largest logit, request by request, up to
+within ``LOGIT_REL_TOL`` of the largest logit (``LOGIT_REL_TOL_Q4`` with a
+q4_0 cache, ``LOGIT_REL_TOL_XLSTM`` in phase d), request by request, up to
 the first token where the runs differ, which must be a near-tie
 (``TIE_MARGIN``). Token lists held against each other (b against a, c
 against the plain serve) follow the same near-tie rule. Any failure
@@ -75,6 +92,11 @@ LOGIT_REL_TOL = 0.02
 # last-bit difference in a new K/V row that lands on a rounding boundary
 # moves that entry by a whole step
 LOGIT_REL_TOL_Q4 = 0.05
+# phase d's kernel-vs-plain logits over the largest logit: 7.8e-7
+# measured on an NVIDIA H100 80GB HBM3 at 700 W, the head's f32
+# summation order only (slstm_scan is bit-equal to its plain version; the
+# rest of the model runs the same torch ops in both runs), ~13x headroom
+LOGIT_REL_TOL_XLSTM = 1e-5
 TIE_MARGIN = 0.25    # a token flip is allowed only below this logit gap
 ARCH = "whisper-tiny-en"
 MAX_NEW = 32
@@ -142,6 +164,8 @@ def kernel_cases():
     from repro_torch.kernels.q8_attention import plain as qa_plain
     from repro_torch.kernels.q8_matmul import ops as q8_ops
     from repro_torch.kernels.q8_matmul import plain as q8_plain
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
+    from repro_torch.kernels.slstm_scan import plain as sl_plain
     from repro_torch.quantize import (dequantize_q4_0, dequantize_q8_0,
                                       quantize_q4_0, quantize_q8_0)
 
@@ -175,6 +199,20 @@ def kernel_cases():
                    _nbytes(x, w, y), 2.0 * m * n * k,
                    "bf16" if dt == bf else "f32",
                    BF16_REL if dt == bf else F32_REL))
+    # the xLSTM head: f32 activations @ the f32-cast lm_head over the
+    # padded vocab, at phase d's decode step (4 lanes) and prefill (every
+    # position of a prompt: its longest, 256, and a ragged 77)
+    k, n = 1024, 51200
+    for label, m in (("decode, 4 lanes", 4), ("prefill S=256", 256),
+                     ("prefill S=77 (ragged)", 77)):
+        x, w = randn((m, k), torch.float32), randn((k, n), torch.float32,
+                                                   k ** -0.5)
+        y = torch.empty((m, n), dtype=torch.float32, device=dev)
+        mm.append((f"xlstm head, {label} (f32) ({m},{k})@({k},{n})",
+                   lambda x=x, w=w: mm_ops.fp16_matmul(x, w),
+                   lambda x=x, w=w: mm_plain.fp16_matmul(x, w),
+                   lambda x=x, w=w: torch.matmul(x, w),
+                   _nbytes(x, w, y), 2.0 * m * n * k, "f32", F32_REL))
     cases["fp16_matmul"] = mm
 
     q8 = []
@@ -323,6 +361,41 @@ def kernel_cases():
         ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
         ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)))
+
+    # the sLSTM recurrence at xlstm-350m's width (4 heads of 256): the
+    # prompts of phase d, its decode step from a lane's state, and gates
+    # driven far into saturation (lane 0: i >> 0, f << 0; lane 1: the
+    # reverse). No single PyTorch call computes the recurrence.
+    f32 = torch.float32
+    sl = []
+    h, hd = 4, 256
+    for label, S, b, init, sat in (
+            ("prefill B=1 S=256", 256, 1, True, False),
+            ("prefill B=1 S=77 (ragged)", 77, 1, True, False),
+            ("decode B=4 S=1 from a non-initial state", 1, 4, False, False),
+            ("saturated gates B=2 S=64", 64, 2, False, True)):
+        wx = randn((S, 4, b, h, hd), f32)
+        if sat:
+            wx[:, 0, 0] += 60.0
+            wx[:, 1, 0] -= 60.0
+            wx[:, 0, 1] -= 60.0
+            wx[:, 1, 1] += 60.0
+        r = randn((4, h, hd, hd), f32, hd ** -0.5)
+        if init:
+            st = torch.zeros((4, b, h, hd), device=dev)
+            st[3] = -1e30
+        else:    # c, n > 0, h and a finite m, as a lane's pool state
+            st = torch.stack([randn((b, h, hd), f32),
+                              randn((b, h, hd), f32).abs() + 0.5,
+                              randn((b, h, hd), f32, 0.5),
+                              randn((b, h, hd), f32)])
+        out = (torch.empty((S, b, h, hd), device=dev), torch.empty_like(st))
+        sl.append((f"{label} H=4 hd=256",
+                   lambda wx=wx, r=r, st=st: sl_ops.slstm_scan(wx, r, st),
+                   lambda wx=wx, r=r, st=st: sl_plain.slstm_scan(wx, r, st),
+                   None, _nbytes(wx, r, st, *out),
+                   2.0 * 4 * S * b * h * hd * hd, "f32", F32_REL))
+    cases["slstm_scan"] = sl
     return cases
 
 
@@ -342,7 +415,24 @@ KERNEL_META = {
     "q4_decode_attention": ("csrc/q4_attention.cu",
                             "src/repro/kernels/q4_attention/"
                             "q4_attention.py:78"),
+    "slstm_scan": ("csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan/slstm_scan.py:68"),
 }
+
+
+def _hold(name: str, label: str, got, want, rel: float) -> tuple:
+    """(max |kernel - plain|, tolerance); each output (a tensor, or each
+    of a tuple's) within ``rel`` of its own largest plain magnitude."""
+    if isinstance(want, tuple):
+        errs = [_hold(name, f"{label}, output {j}", g, w, rel)
+                for j, (g, w) in enumerate(zip(got, want))]
+        return max(e for e, _ in errs), min(t for _, t in errs)
+    err = _max_err(got, want)
+    tol = rel * float(want.float().abs().max())
+    if not (tol > 0 and err <= tol):
+        raise AssertionError(f"{name} [{label}]: max |kernel - plain| = "
+                             f"{err} > {tol}")
+    return err, tol
 
 
 def check_kernels() -> dict:
@@ -354,11 +444,7 @@ def check_kernels() -> dict:
             got = kern()
             want = plain()
             torch.cuda.synchronize()
-            err = _max_err(got, want)
-            tol = rel * float(want.float().abs().max())
-            if not (tol > 0 and err <= tol):
-                raise AssertionError(f"{name} [{label}]: max |kernel - "
-                                     f"plain| = {err} > {tol}")
+            err, tol = _hold(name, label, got, want, rel)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
             lib_ms = cuda_ms(lib) if lib is not None else None
             b_ms, b_by = bound(nb, ops, dt)
@@ -385,12 +471,14 @@ def launch_counters():
     from repro_torch.kernels.q4_matmul import ops as q4_ops
     from repro_torch.kernels.q8_attention import ops as qa_ops
     from repro_torch.kernels.q8_matmul import ops as q8_ops
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
     return {"fp16_matmul": mm_ops.fp16_matmul,
             "q8_matmul": q8_ops.q8_matmul,
             "flash_attention": fa_ops.flash_attention,
             "q8_decode_attention": qa_ops.q8_decode_attention,
             "q4_matmul": q4_ops.q4_matmul,
-            "q4_decode_attention": q4a_ops.q4_decode_attention}
+            "q4_decode_attention": q4a_ops.q4_decode_attention,
+            "slstm_scan": sl_ops.slstm_scan}
 
 
 def zero_counts() -> None:
@@ -402,7 +490,7 @@ def zero_counts() -> None:
 
 def read_counts(phase: str, expect: tuple) -> dict:
     """Launch counts of this phase; every expected kernel launched and
-    every dispatched call of the six ops went ("accel", "cuda")."""
+    every dispatched call of the seven ops went ("accel", "cuda")."""
     from repro_torch.kernels.api import dispatch_counters
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     routing = dispatch_counters()
@@ -613,6 +701,150 @@ def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
     return res, frames, counts
 
 
+# ----------------------------------------------------------------------------
+# Phase d: xlstm-350m served at full width
+# ----------------------------------------------------------------------------
+
+def xlstm_serve(model, params, prompts, platform, on_step=None):
+    """The prompts as token requests on 4 slots through
+    ``BatchScheduler``, 8 decode steps a tick, keeping the logits rows.
+    Returns (engine, scheduler, seconds spent in admission)."""
+    from repro_torch.breakdown import XLSTM_MAX_LEN
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.scheduler import BatchScheduler
+    eng = ServeEngine(model, params, n_slots=4, max_len=XLSTM_MAX_LEN,
+                      decode_block=8, platform=platform, keep_logits=True)
+    admit_s = [0.0]
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(req):
+        t0 = time.monotonic()
+        try:
+            return admit(req)     # ends in the first token's fetch
+        finally:
+            admit_s[0] += time.monotonic() - t0
+
+    def watched_step(k=None):
+        return step(k) if on_step is None else on_step(eng, step, k)
+
+    eng.admit, eng.step = timed_admit, watched_step
+    sched = BatchScheduler(eng, max_admit_per_tick=4)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(uid=i, tokens=p, max_new=MAX_NEW, eos_id=-1))
+    sched.run_until_drained(max_ticks=64)
+    return eng, sched, admit_s[0]
+
+
+def run_xlstm(phase: str) -> dict:
+    """Phase d on the kernels, checked, then on the plain versions.
+    Returns the launch counts."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from repro_torch.breakdown import XLSTM_MAX_LEN, xlstm_setup
+    from repro_torch.kernels.api import use_context
+
+    t0 = time.monotonic()
+    model, params, prompts = xlstm_setup(SEED)
+    cfg = model.cfg
+    n_par = sum(t.numel() for t in _tensors(params))
+    _log(f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} blocks "
+         f"((mLSTM, sLSTM) x {cfg.n_layers // 2}), {cfg.n_heads} heads, "
+         f"vocab {cfg.vocab}; {n_par} bf16 parameters, seeded init "
+         f"{time.monotonic() - t0:.1f} s; "
+         f"{model.lane_state_bytes(XLSTM_MAX_LEN)['state']} B of "
+         f"recurrent state a lane")
+    xlstm_serve(model, params, [prompts[0][:8]], None)   # warm-up
+
+    # every synchronising CUDA call of a decode tick, counted by
+    # torch.cuda's sync debug mode over the whole run: exactly one a tick
+    # (the token block's fetch). Admission's syncs are outside the ticks.
+    syncs, sync_sites, in_step = [], [], [False]
+
+    def show(message, category, filename, lineno, *_a, **_k):
+        if in_step[0] and "synchroniz" in str(message):
+            # the innermost frame of the port: which call synced
+            port = [f for f in traceback.extract_stack()
+                    if "repro_torch" in f.filename]
+            sync_sites.append(
+                f"{os.path.basename(port[-1].filename)}:{port[-1].lineno}"
+                if port else f"{filename}:{lineno}")
+
+    def on_step(eng, step, k):
+        active, n0 = eng.n_active, len(sync_sites)
+        in_step[0] = True
+        try:
+            out = step(k)
+        finally:
+            in_step[0] = False
+        if active:
+            syncs.append(len(sync_sites) - n0)
+        return out
+
+    zero_counts()
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng, sched, admit_s = xlstm_serve(model, params, prompts,
+                                              "h100-sxm", on_step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts(phase, ("slstm_scan", "fp16_matmul"))
+    res = sched.results
+    for i in range(len(prompts)):
+        if res[i].error:
+            raise AssertionError(f"[{phase}] request {i}: {res[i].error}")
+        check_tokens(phase, res[i].out, cfg.vocab)
+    m = sched.metrics
+    n_tok = sum(len(res[i].out) for i in range(len(prompts)))
+    decode_s = wall - admit_s
+    _log(f"[{phase}] wall_s={wall:.4f} prefill_s={admit_s:.4f} "
+         f"decode_s={decode_s:.4f} tokens={n_tok} decode_tok_per_s="
+         f"{(n_tok - len(prompts)) / decode_s:.1f} ticks={m.ticks} "
+         f"decode_ticks={eng._ticks} host_syncs={eng._host_syncs} "
+         f"device_syncs_per_tick={syncs}")
+    if eng._host_syncs != eng._ticks or len(syncs) != eng._ticks \
+            or any(n != 1 for n in syncs):
+        raise AssertionError(f"[{phase}] decode ticks {eng._ticks}, host "
+                             f"fetches {eng._host_syncs}, device syncs a "
+                             f"tick {syncs} (at {sync_sites}): expected "
+                             f"one each")
+    cr = eng.cache_report()
+    _log(f"[{phase}] cache: state_bytes_total={cr['state_bytes_total']} "
+         f"state_bytes_per_step={cr['state_bytes_per_step']} "
+         f"kv_bytes_total={cr['kv_bytes_total']}")
+    er = eng.energy_report()
+    _log(f"[{phase}] energy_report[{er['platform']}]: " + " ".join(
+        f"{k}={er[k]}" for k in ("tokens", "decode_steps", "ticks",
+                                 "host_syncs", "weight_bytes",
+                                 "cache_bytes_per_step",
+                                 "stream_bytes_total", "latency_s",
+                                 "bound", "power_w", "joules_per_token",
+                                 "accel_flops_share")))
+    with use_context(plain_context()):
+        _, ref, _ = xlstm_serve(model, params, prompts, None)
+    logits_check(phase, [(res[i].out, res[i].logits, ref.results[i].out,
+                          ref.results[i].logits)
+                         for i in range(len(prompts))], cfg.vocab,
+                 LOGIT_REL_TOL_XLSTM)
+    return counts
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -705,6 +937,10 @@ def main() -> int:
                      plain.results[i].logits)
     _log(f"[{phase}] tokens of the 4 requests equal the plain serve's, "
          f"but for near-ties")
+
+    del params, qparams, draft, model
+    torch.cuda.empty_cache()
+    add(run_xlstm("d: serve xlstm-350m 4x4"))
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

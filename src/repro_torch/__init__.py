@@ -2,9 +2,10 @@
 NVIDIA H100.
 
 A package of its own beside the JAX reference ``repro``: it imports
-``torch`` and nothing of JAX or of ``repro``. Each Pallas kernel of the
-main path has a hand-written CUDA kernel under ``csrc/`` with a plain
-PyTorch version beside it (``kernels/<op>/``). Entry points run on
+``torch`` and nothing of JAX or of ``repro``. It serves the paper's
+whisper-tiny.en and the decoder-only xlstm-350m. Each Pallas kernel of
+the JAX package has a hand-written CUDA kernel under ``csrc/`` with a
+plain PyTorch version beside it (``kernels/<op>/``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -1,18 +1,25 @@
-"""Where the time of one transcription goes, on the card.
+"""Where the time of one transcription, or of one xLSTM serve, goes on
+the card.
 
     python -m repro_torch.breakdown [--cache-dtype bf16|q8_0|q4_0]
                                     [--spec-k K]
+    python -m repro_torch.breakdown --arch xlstm-350m
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
 decode steps a tick. ``--cache-dtype q8_0`` serves Q8_0 weights with the
 q8_0 cache, ``bf16`` and ``q4_0`` bf16 weights with that cache;
 ``--spec-k K`` makes each tick 8 / K speculative rounds (K - 1 draft
-steps on Q4_0 weights, one verify forward), always on bf16 weights. It
-reports, after one warm-up transcription:
+steps on Q4_0 weights, one verify forward), always on bf16 weights.
+``--arch xlstm-350m`` runs instead the configuration of
+``chip_smoke.py``'s phase d: xlstm-350m at full width with seeded random
+bf16 weights, 4 token requests of 64, 128, 192 and 256 ids admitted
+into 4 slots, 32 new tokens each at 8 decode steps a tick. It reports,
+after one warm-up run:
 
-* host-clock seconds of each stage (frontend, encode, prefill, decode),
-  each ended by a device synchronize, from a run without the profiler;
+* host-clock seconds of each stage (frontend, encode, prefill, decode;
+  for xLSTM prefill of the 4 prompts, decode), each ended by a device
+  synchronize, from a run without the profiler;
 * for the first decode tick of a further run, under ``torch.profiler``:
   the summed device time of its kernels and copies, their launch count,
   the kernels that take the most device time, and the device's busy
@@ -36,10 +43,14 @@ from repro_torch.audio.stream import synth_waveform
 from repro_torch.configs import get_config
 from repro_torch.models.model import build
 from repro_torch.quantize import quantize_tree
-from repro_torch.serving.engine import AudioRequest, ServeEngine
+from repro_torch.serving.engine import AudioRequest, Request, ServeEngine
 
 MAX_NEW = 32
 DECODE_BLOCK = 8
+#: phase d of chip_smoke.py, which imports these: prompt lengths, and a
+#: lane's length (the longest prompt, its new tokens and 32 to spare)
+XLSTM_PROMPTS = (64, 128, 192, 256)
+XLSTM_MAX_LEN = max(XLSTM_PROMPTS) + MAX_NEW + 32
 
 
 def _timed(fn):
@@ -93,6 +104,77 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
     one(False)                          # warm-up: handles, kernel loads
     stages = one(False)
     prof = one(True)
+    return {"cache_dtype": cache_dtype, "spec_k": spec_k,
+            "decode_block": DECODE_BLOCK, "stages": stages,
+            "decode_tick": _tick_report(prof, stages)}
+
+
+def xlstm_setup(seed: int = 0):
+    """The configuration of ``chip_smoke.py``'s phase d: xlstm-350m at
+    full width with seeded random weights cast to bf16 on the card, and
+    the ``XLSTM_PROMPTS`` prompts' ids drawn from ``seed``. Returns
+    (model, params, prompts)."""
+    import numpy as np
+    cfg = get_config("xlstm-350m")
+    model = build(cfg)
+    params = _bf16(model.init_values(torch.Generator().manual_seed(seed),
+                                     device="cuda"))
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(3, cfg.vocab, size=n).tolist()
+               for n in XLSTM_PROMPTS]
+    return model, params, prompts
+
+
+def run_xlstm(seed: int = 0) -> dict:
+    """The breakdown of ``chip_smoke.py``'s phase d."""
+    model, params, prompts = xlstm_setup(seed)
+
+    def one(profile_tick: bool):
+        eng = ServeEngine(model, params, n_slots=len(prompts),
+                          max_len=XLSTM_MAX_LEN,
+                          decode_block=DECODE_BLOCK, platform="h100-sxm")
+
+        def admit_all():
+            return [eng.admit(Request(uid=i, tokens=p, max_new=MAX_NEW,
+                                      eos_id=-1))
+                    for i, p in enumerate(prompts)]
+
+        sts, t_pre = _timed(admit_all)
+        if profile_tick:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                eng.step()
+            return prof
+        t0 = time.monotonic()
+        while eng.n_active:
+            eng.step()
+        t_dec = time.monotonic() - t0
+        cr = eng.cache_report()
+        return {"prefill_s": t_pre, "decode_s": t_dec,
+                "decode_tok_per_s":
+                    sum(len(st.out) - 1 for st in sts) / t_dec,
+                "ticks": eng._ticks, "host_syncs": eng._host_syncs,
+                "state_bytes_total": cr["state_bytes_total"],
+                "state_bytes_per_step": cr["state_bytes_per_step"]}
+
+    one(False)                          # warm-up: handles, kernel loads
+    stages = one(False)
+    prof = one(True)
+    return {"arch": model.cfg.name, "lanes": len(prompts),
+            "decode_block": DECODE_BLOCK, "stages": stages,
+            "decode_tick": _tick_report(prof, stages)}
+
+
+def _bf16(tree):
+    if isinstance(tree, dict):
+        return {k: _bf16(v) for k, v in tree.items()}
+    return tree.to(torch.bfloat16)
+
+
+def _tick_report(prof, stages: dict) -> dict:
+    """Device time of the profiled tick against an unprofiled tick's
+    wall time, and its kernels by device time."""
     t_tick = stages["decode_s"] / stages["ticks"]
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -103,18 +185,17 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
         s[0] += 1
         s[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    tick = {"unprofiled_wall_s": t_tick, "device_s": dev_us * 1e-6,
+    return {"unprofiled_wall_s": t_tick, "device_s": dev_us * 1e-6,
             "busy_share": dev_us * 1e-6 / t_tick,
             "kernel_launches": len(kernels),
             "top": [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
                     for n, (c, us) in top]}
-    return {"cache_dtype": cache_dtype, "spec_k": spec_k,
-            "decode_block": DECODE_BLOCK, "stages": stages,
-            "decode_tick": tick}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=["whisper-tiny-en", "xlstm-350m"],
+                    default="whisper-tiny-en")
     ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
                     help="the KV-cache tier; q8_0 also quantizes the "
@@ -125,7 +206,13 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
-    r = run(args.cache_dtype, args.spec_k)
+    if args.arch == "xlstm-350m":
+        if args.cache_dtype != "bf16" or args.spec_k:
+            raise SystemExit("xlstm-350m serves a bf16 state pool without "
+                             "speculative decoding")
+        r = run_xlstm()
+    else:
+        r = run(args.cache_dtype, args.spec_k)
     for k, v in r["stages"].items():
         print(f"{k}: {v}")
     t = r["decode_tick"]

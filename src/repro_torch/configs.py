@@ -1,8 +1,8 @@
-"""Architecture configs for the port: ``ArchConfig``, ``reduced()`` and the
-paper's Whisper models.
+"""Architecture configs for the port: ``ArchConfig``, ``reduced()`` and
+the models the port serves: the paper's Whisper model and xlstm-350m.
 
 A copy of the JAX package's ``repro.configs`` (the port imports nothing
-from it), cut to the encoder-decoder models this slice serves.
+from it), cut to the models the port serves so far.
 ``reduced()`` produces the CPU-test shrink of a config with the same
 rule as the reference, so both packages build identically shaped
 parameters from one config name.
@@ -90,7 +90,16 @@ WHISPER_TINY_EN = ArchConfig(
     source="whisper.cpp / arXiv:2212.04356",
 )
 
-_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN}
+# d_ff=0: the blocks carry their own 2x up/down projections (proj_factor);
+# 24 blocks = 12 (mLSTM, sLSTM) pairs
+XLSTM_350M = ArchConfig(
+    name="xlstm-350m", family="ssm",
+    n_layers=24, d_model=1024, n_heads=4, n_kv_heads=4, d_ff=0,
+    vocab=50304, xlstm=True, proj_factor=2.0,
+    source="arXiv:2405.04517 (unverified tier)",
+)
+
+_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN, "xlstm_350m": XLSTM_350M}
 
 
 def list_archs() -> list[str]:

@@ -240,6 +240,8 @@ def _register_builtin_ops() -> None:
     from repro_torch.kernels.q8_attention import plain as qa_plain
     from repro_torch.kernels.q8_matmul import ops as q8_ops
     from repro_torch.kernels.q8_matmul import plain as q8_plain
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
+    from repro_torch.kernels.slstm_scan import plain as sl_plain
 
     f32 = torch.float32
 
@@ -322,6 +324,18 @@ def _register_builtin_ops() -> None:
             "torch": _decode_attn_backends(
                 q4a_plain.q4_decode_attention,
                 q4a_plain.q4_decode_attention_cache)},
+    ))
+
+    register(KernelOp(
+        name="slstm_scan",
+        doc="sLSTM recurrence over a whole sequence, state on chip.",
+        # count = 4 * S: four gate recurrence products (B*H, hd) @ (hd, hd)
+        # per time step, as the reference's spec
+        spec=lambda wx, r_all, state0: KernelSpec(
+            "slstm_scan", m=wx.shape[2] * wx.shape[3], n=wx.shape[-1],
+            k=wx.shape[-1], dtype="f32", count=4 * wx.shape[0],
+            tag="ssm"),
+        backends={"cuda": sl_ops.slstm_scan, "torch": sl_plain.slstm_scan},
     ))
 
 

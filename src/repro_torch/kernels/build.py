@@ -35,6 +35,7 @@ SOURCES = {
     "q8_attention": "q8_attention.cu",
     "q4_matmul": "q4_matmul.cu",
     "q4_attention": "q4_attention.cu",
+    "slstm_scan": "slstm_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

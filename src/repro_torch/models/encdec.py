@@ -20,7 +20,8 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (embed, layer_slice, layernorm,
                                        logits_head, mlp, ninit, pad_vocab,
-                                       sinusoidal_positions, take_rows)
+                                       sinusoidal_positions, stack_layers,
+                                       take_rows)
 from repro_torch.quantize import QTENSORS, as_array
 
 MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
@@ -56,12 +57,6 @@ def _init_dec_layer(gen, cfg: ArchConfig, device) -> dict:
     }
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     """Parameters with the reference's shapes and distributions
     (``models/encdec.py:58-75``): scaled normals, N(0, 0.02^2) decoder
@@ -72,11 +67,11 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
         "embed": {"table": ninit(gen, (pad_vocab(cfg.vocab), d), d, device)},
         "dec_pos": (0.02 * torch.randn((MAX_DEC_POS, d), generator=gen,
                                        device=gen.device)).to(device),
-        "enc_layers": _stack([_init_enc_layer(gen, cfg, device)
-                              for _ in range(cfg.enc_layers)]),
+        "enc_layers": stack_layers([_init_enc_layer(gen, cfg, device)
+                                    for _ in range(cfg.enc_layers)]),
         "enc_ln": _init_layernorm(d, device),
-        "dec_layers": _stack([_init_dec_layer(gen, cfg, device)
-                              for _ in range(cfg.n_layers)]),
+        "dec_layers": stack_layers([_init_dec_layer(gen, cfg, device)
+                                    for _ in range(cfg.n_layers)]),
         "dec_ln": _init_layernorm(d, device),
     }
 
@@ -173,7 +168,7 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         return logits, cache
     if mode == "train":
         return logits, None
-    return logits, {"layers": _stack(per_layer)}
+    return logits, {"layers": stack_layers(per_layer)}
 
 
 def init_encdec_cache(cfg: ArchConfig, batch: int, max_len: int,

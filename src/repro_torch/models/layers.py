@@ -1,5 +1,5 @@
 """Shared model primitives of the port (the JAX package's
-``models/layers.py``, Whisper paths).
+``models/layers.py``, the Whisper and xLSTM paths).
 
 Parameters are nested dicts of tensors; a stacked layer tree keeps its
 leading layer axis and ``layer_slice`` takes one layer out of it. The
@@ -7,9 +7,11 @@ matrix products route through the kernel-dispatch API: ``mm`` / ``mm_out``
 send 2-D weights to ``fp16_matmul``, Q8_0 weights to ``q8_matmul`` and
 Q4_0 weights (the speculative draft's) to ``q4_matmul``; the 3-D per-head
 projections (QKV) stay ``torch.matmul``, as the reference leaves them to
-XLA. A Q4_0 vocab table is widened to bf16, never to an f32 plane, for
-the embedding and the tied head, as the reference does outside any
-kernel.
+XLA. A Q4_0 vocab table is widened to bf16 for the embedding and the
+tied head, as the reference does outside any kernel; the tied head then
+multiplies in f32 with f32 accumulation, the reference's bf16 x bf16 ->
+f32 product. An untied head (xLSTM's ``lm_head``) is ``mm`` in f32, so
+it runs on ``fp16_matmul`` with f32 operands, as in the reference.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ def layer_slice(tree, i: int):
     if isinstance(tree, QTENSORS):
         return type(tree)(tree.q[i], tree.scale[i])
     return tree[i]
+
+
+def stack_layers(trees: list):
+    """Stack per-layer parameter (or cache) trees on a new leading axis:
+    the inverse of ``layer_slice``."""
+    if isinstance(trees[0], dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _q4_row_codes(leaf: Q4Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -135,6 +145,19 @@ def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
 # Norms, positions, embedding, head, MLP
 # ----------------------------------------------------------------------------
 
+def init_rmsnorm(d: int, device) -> torch.Tensor:
+    return torch.ones(d, device=device)
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in f32, returned in x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * w.to(torch.float32)).to(dt)
+
+
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim in f32, with the population variance
     (``jnp.var``; ``torch.var`` defaults to the unbiased one)."""
@@ -165,6 +188,12 @@ def pad_vocab(v: int, mult: int = VOCAB_MULT) -> int:
     return -(-v // mult) * mult
 
 
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   device) -> dict:
+    """The (padded-vocab, d) token table, scaled normal."""
+    return {"table": ninit(gen, (pad_vocab(vocab), d), d, device)}
+
+
 def embed(p: dict, tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Token rows of the (padded-vocab, d) table, in ``compute_dtype``. A
@@ -176,19 +205,26 @@ def embed(p: dict, tokens: torch.Tensor,
 
 
 def logits_head(p: dict, x: torch.Tensor, vocab: int,
-                softcap: Optional[float] = None) -> torch.Tensor:
-    """Tied head: f32 x @ table^T over the padded vocab; padding ids get
-    a large negative logit. A Q4 table (the draft's) is widened to bf16
-    and multiplied with bf16 x, accumulated in f32 by the library GEMM
-    and rounded to bf16 before the f32 cast: the draft's argmax only
-    proposes tokens, which the verify forward keeps or rejects."""
-    tbl = p["table"]
-    if isinstance(tbl, Q4Tensor):
-        y = (x.to(torch.bfloat16) @ _dequant_q4_bf16(tbl).T).float()
+                softcap: Optional[float] = None,
+                head=None) -> torch.Tensor:
+    """Project to the padded vocab in f32; padding ids get a large
+    negative logit. ``head`` (d, padded vocab), where the model has an
+    untied one, is ``mm`` in f32; else the tied table: x @ table^T in
+    f32. A Q4 table (the draft's) is widened to bf16 and multiplied with
+    bf16-rounded x as f32 operands: each product of two bf16 values is
+    exact in f32, so this is the reference's bf16 x bf16 -> f32 einsum,
+    accumulated in f32 and never rounded to bf16."""
+    if head is not None:
+        y = mm(x, head, torch.float32)
     else:
-        if isinstance(tbl, Q8Tensor):
-            tbl = dequantize_q8_0(tbl, axis=-2)
-        y = x.to(torch.float32) @ tbl.to(torch.float32).T
+        tbl = p["table"]
+        if isinstance(tbl, Q4Tensor):
+            y = x.to(torch.bfloat16).float() \
+                @ _dequant_q4_bf16(tbl).float().T
+        else:
+            if isinstance(tbl, Q8Tensor):
+                tbl = dequantize_q8_0(tbl, axis=-2)
+            y = x.to(torch.float32) @ tbl.to(torch.float32).T
     if softcap is not None:
         y = softcap * torch.tanh(y / softcap)
     vp = y.shape[-1]

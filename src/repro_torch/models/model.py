@@ -1,5 +1,6 @@
-"""Model API of the port (the enc-dec part of the JAX package's
-``models/model.py``) and the per-lane serving state spec."""
+"""Model API of the port (the JAX package's ``models/model.py``, for the
+encoder-decoder Whisper model and the decoder-only families ported so
+far) and the per-lane serving state spec."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import transformer as tf_mod
 from repro_torch.platforms import resolve_device
 
 
@@ -56,11 +58,28 @@ class LaneStateSpec:
         return tuple(out)
 
 
-def _require_enc_dec(cfg: ArchConfig) -> None:
-    if not cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the decoder-only families are not ported yet "
-            f"(ROADMAP queue 1, item 14)")
+_RECURRENT_KIND = {"mlstm": "mstate", "slstm": "sstate"}
+
+#: the key sets of a KV-plane dict in a cache tree (bf16, q8_0, q4_0)
+_KV_PLANE_KEYS = ({"k", "v"}, {"kq", "ks", "vq", "vs"},
+                 {"kp", "ks", "vp", "vs"})
+
+
+def cache_bytes(tree) -> tuple[int, int]:
+    """(KV-plane bytes, recurrent-state bytes) of a cache tree."""
+    if isinstance(tree, dict):
+        if set(tree) in _KV_PLANE_KEYS:
+            return sum(_nbytes(v) for v in tree.values()), 0
+        kv = st = 0
+        for sub in tree.values():
+            a, b = cache_bytes(sub)
+            kv, st = kv + a, st + b
+        return kv, st
+    return 0, _nbytes(tree)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,18 +91,22 @@ class Model:
         """Fresh parameters drawn from ``generator`` (the reference's
         shapes and distributions), placed on ``device`` (default
         ``cuda``)."""
-        _require_enc_dec(self.cfg)
-        return encdec_mod.init_encdec(generator, self.cfg,
-                                      resolve_device(device))
+        device = resolve_device(device)
+        if self.cfg.enc_dec:
+            return encdec_mod.init_encdec(generator, self.cfg, device)
+        return tf_mod.init_decoder(generator, self.cfg, device)
 
     def forward(self, values, batch: dict, *, mode: str = "train",
                 cache=None, pos=None):
-        """Returns (logits, new_cache). ``batch``: ``tokens``, and
-        ``enc_frames`` or ``enc_states`` (train/prefill; states skip the
-        encoder) or ``enc_lens`` (decode: per-lane valid encoder
-        lengths)."""
+        """Returns (logits, new_cache). ``batch``: ``tokens``; for the
+        enc-dec model also ``enc_frames`` or ``enc_states``
+        (train/prefill; states skip the encoder) or ``enc_lens`` (decode:
+        per-lane valid encoder lengths). A decoder-only decode writes the
+        new recurrent state into ``cache`` in place and returns it."""
         cfg = self.cfg
-        _require_enc_dec(cfg)
+        if not cfg.enc_dec:
+            return tf_mod.decoder_forward(values, cfg, batch["tokens"],
+                                          mode=mode, cache=cache, pos=pos)
         if mode == "decode":
             return encdec_mod.decode_tokens(
                 values, cfg, batch["tokens"], mode="decode", cache=cache,
@@ -96,25 +119,48 @@ class Model:
 
     def encode(self, values, frames: torch.Tensor) -> torch.Tensor:
         """Encoder-only pass: (B, S, d_model) frames -> states."""
-        _require_enc_dec(self.cfg)
+        if not self.cfg.enc_dec:
+            raise ValueError(f"{self.cfg.name} is not encoder-decoder")
         return encdec_mod.encode(values, self.cfg, frames)
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 1500,
                    dtype=torch.bfloat16, device: Optional[Any] = None):
-        """Stacked self/cross cache planes; ``dtype`` a tensor dtype,
-        ``"q8_0"`` or ``"q4_0"``."""
-        _require_enc_dec(self.cfg)
+        """Stacked cache planes: self/cross KV (enc-dec) or per-segment
+        recurrent state (decoder-only, ``enc_len`` unused). ``dtype`` a
+        tensor dtype, ``"q8_0"`` or ``"q4_0"`` (KV planes only; recurrent
+        state stays bf16)."""
+        if not self.cfg.enc_dec:
+            return tf_mod.init_decoder_cache(self.cfg, batch, max_len,
+                                             dtype, device)
         return encdec_mod.init_encdec_cache(self.cfg, batch, max_len,
                                             enc_len, dtype, device)
 
     def state_spec(self) -> LaneStateSpec:
         """The per-lane serving state of this model."""
         cfg = self.cfg
-        _require_enc_dec(cfg)
-        return LaneStateSpec(
-            family=cfg.family, self_kv=True, cross_kv=True,
-            quant_tiers=("q8_0", "q4_0") if cfg.head_dim % 32 == 0
-            else ())
+        if cfg.enc_dec:
+            return LaneStateSpec(
+                family=cfg.family, self_kv=True, cross_kv=True,
+                quant_tiers=("q8_0", "q4_0") if cfg.head_dim % 32 == 0
+                else ())
+        # decoder-only: the ported blocks (mLSTM, sLSTM) carry recurrent
+        # state only, with no KV plane to quantize
+        recurrent = tuple(_RECURRENT_KIND[bt]
+                          for bt, _ in tf_mod.segment_pattern(cfg))
+        return LaneStateSpec(family=cfg.family, self_kv=False,
+                             cross_kv=False, recurrent=recurrent,
+                             prefill_exact=True, quant_tiers=())
+
+    def lane_state_bytes(self, max_len: int, enc_len: int = 1500,
+                         dtype=torch.bfloat16) -> dict:
+        """Per-lane state footprint by kind, in bytes: ``{"kv": ...,
+        "state": ..., "total": ...}``. ``kv`` grows with ``max_len`` (and
+        ``enc_len`` for cross K/V); ``state`` is the constant-size
+        recurrent footprint. Counted on the ``meta`` device: nothing is
+        allocated."""
+        cache = self.init_cache(1, max_len, enc_len, dtype, device="meta")
+        kv, st = cache_bytes(cache)
+        return {"kv": kv, "state": st, "total": kv + st}
 
 
 def build(cfg: ArchConfig) -> Model:

@@ -1,0 +1,314 @@
+"""xLSTM blocks of the port (the JAX package's ``models/xlstm.py``): mLSTM
+(chunked-parallel prefill, recurrent decode) and sLSTM.
+
+mLSTM is a gated matrix-memory linear recurrence. Prefill runs its
+chunked form (intra-chunk quadratic + carried (C, n, m) state with the
+running-max stabiliser); decode runs one recurrent step. Both are torch
+ops, as the reference computes them in inline einsums outside any Pallas
+kernel.
+
+sLSTM has a true sequential dependency (block-diagonal recurrent matrices
+per head). Its input projections for all time steps (``_slstm_wx``) and
+the stacked recurrent weights (``_stacked_r``) are torch ops; the
+recurrence itself goes through ``dispatch("slstm_scan", ...)``, at
+prefill over the whole prompt and at decode with S = 1, so on the card it
+runs on the hand-written kernel (``csrc/slstm_scan.cu``). The reference's
+model runs the same step math as a ``lax.scan`` over ``_slstm_step`` and
+never calls its ``slstm_scan`` op: the port routes through the op on
+purpose (ROADMAP queue 3).
+
+The recurrent state cache declares its storage dtype (bf16 in a serving
+pool): steps compute in f32 and cast back to the cache's dtype on write,
+exactly as the reference, so the tokens served depend on the same bf16
+rounding of the state that prefill hands to decode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ArchConfig
+from repro_torch.kernels.api import dispatch
+from repro_torch.models.layers import init_rmsnorm, ninit, rmsnorm
+
+MCHUNK = 128
+
+GATES = ("i", "f", "z", "o")
+
+_BF16 = torch.bfloat16
+_F32 = torch.float32
+
+
+def _bf16_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in bf16 (the reference's bf16 einsums), weights cast per
+    call as the reference's ``.astype`` does."""
+    return x.to(_BF16) @ w.to(_BF16)
+
+
+def _r(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_BF16).to(_F32)
+
+
+# jax evaluates an activation of a bf16 array op by op, each result
+# rounded to bf16 and its constants too; the port rounds at the same
+# places (bit-equal to jax.nn.silu / jax.nn.gelu on bf16), where one
+# fused f32 evaluation would differ by a bf16 ulp in a fifth of the
+# elements and drift the served tokens apart
+
+def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu of a bf16 tensor: x * logistic(x)."""
+    xf = x.to(_F32)
+    return (xf * _r(1.0 / _r(1.0 + _r(torch.exp(-xf))))).to(_BF16)
+
+
+def _gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu (tanh form) of a bf16 tensor, constants in bf16."""
+    xf = x.to(_F32)
+    inner = _r(xf + _r(0.044677734375 * _r(_r(xf * xf) * xf)))
+    cdf = _r(0.5 * _r(1.0 + _r(torch.tanh(_r(0.796875 * inner)))))
+    return (xf * cdf).to(_BF16)
+
+
+# ----------------------------------------------------------------------------
+# mLSTM
+# ----------------------------------------------------------------------------
+
+def _mdims(cfg: ArchConfig):
+    d_in = int(cfg.proj_factor * cfg.d_model)
+    h = cfg.n_heads
+    return d_in, h, d_in // h
+
+
+def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    d = cfg.d_model
+    d_in, h, _ = _mdims(cfg)
+    return {
+        "w_up": ninit(gen, (d, d_in), d, device),
+        "w_gate": ninit(gen, (d, d_in), d, device),
+        "wq": ninit(gen, (d_in, d_in), d_in, device),
+        "wk": ninit(gen, (d_in, d_in), d_in, device),
+        "wv": ninit(gen, (d_in, d_in), d_in, device),
+        "wi": ninit(gen, (d_in, h), d_in, device),
+        "wf": ninit(gen, (d_in, h), d_in, device),
+        "f_bias": torch.full((h,), 3.0, device=device),
+        "out_norm": init_rmsnorm(d_in, device),
+        "w_down": ninit(gen, (d_in, d), d_in, device),
+    }
+
+
+def _mlstm_core_chunked(q, k, v, i_raw, logf, state, chunk=MCHUNK):
+    """q/k/v: (B, S, H, hd); i_raw/logf: (B, S, H); state: (C, n, m) with
+    C (B, H, hd, hd), n (B, H, hd), m (B, H), f32. Returns (y, state)."""
+    b, s, h, hd = q.shape
+    scale = hd ** -0.5
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        # padded steps add nothing (i = -1e30) and keep everything (logf 0)
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-1e30)
+        logf = F.pad(logf, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))[None, :, :, None]
+    C, n, m = state
+    ys = []
+    for c0 in range(0, nc * chunk, chunk):
+        sl = slice(c0, c0 + chunk)
+        qq, kk, vv = (t[:, sl].to(_F32) for t in (q, k, v))
+        ii, ff = i_raw[:, sl], logf[:, sl]
+        Fc = torch.cumsum(ff, dim=1)                          # (b, t, h)
+        # log weights: intra D[t, s] = F_t - F_s + i_s (s <= t)
+        Dlog = Fc[:, :, None, :] - Fc[:, None, :, :] + ii[:, None, :, :]
+        Dlog = torch.where(tri, Dlog, -torch.inf)
+        # inter weight of the carried state: F_t + m_prev
+        inter_log = Fc + m[:, None, :]                        # (b, t, h)
+        m_t = torch.maximum(Dlog.amax(dim=2), inter_log)
+        m_t = torch.clamp(m_t, min=-1e30)
+        w_intra = torch.exp(Dlog - m_t[:, :, None, :])        # (b, t, s, h)
+        w_inter = torch.exp(inter_log - m_t)                  # (b, t, h)
+
+        qk = torch.einsum("bthd,bshd->bths", qq, kk) * scale   # (b, t, h, s)
+        sc = qk * w_intra.transpose(2, 3)
+        num_intra = torch.einsum("bths,bshd->bthd", sc, vv)
+        den_intra = sc.sum(dim=-1)                            # (b, t, h)
+        qC = torch.einsum("bthd,bhde->bthe", qq, C) * scale
+        qn = torch.einsum("bthd,bhd->bth", qq, n) * scale
+        num = num_intra + qC * w_inter[..., None]
+        den = den_intra + qn * w_inter
+        den = torch.maximum(den.abs(), torch.exp(-m_t))
+        ys.append(num / den[..., None])
+
+        # carry to the chunk's end
+        F_end = Fc[:, -1, :]                                  # (b, h)
+        m_new = torch.maximum(F_end + m,
+                              (F_end[:, None] - Fc + ii).amax(dim=1))
+        w_state = torch.exp(F_end[:, None] - Fc + ii - m_new[:, None])
+        decay = torch.exp(F_end + m - m_new)
+        C = C * decay[..., None, None] + torch.einsum(
+            "bshd,bshe,bsh->bhde", kk, vv, w_state)
+        n = n * decay[..., None] + torch.einsum("bshd,bsh->bhd", kk,
+                                                w_state)
+        m = m_new
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y, (C, n, m)
+
+
+def _mlstm_core_step(q, k, v, i_raw, logf, state):
+    """One decode step. q/k/v: (B, H, hd); i_raw/logf: (B, H)."""
+    C, n, m = state
+    scale = q.shape[-1] ** -0.5
+    q, k, v = q.to(_F32), k.to(_F32), v.to(_F32)
+    m_new = torch.maximum(logf + m, i_raw)
+    decay = torch.exp(logf + m - m_new)
+    gain = torch.exp(i_raw - m_new)
+    C = C * decay[..., None, None] \
+        + gain[..., None, None] * torch.einsum("bhd,bhe->bhde", k, v)
+    n = n * decay[..., None] + gain[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q, C) * scale
+    den = torch.einsum("bhd,bhd->bh", q, n) * scale
+    den = torch.maximum(den.abs(), torch.exp(-m_new))
+    return num / den[..., None], (C, n, m_new)
+
+
+def _init_mstate(b, h, hd, device):
+    return (torch.zeros((b, h, hd, hd), device=device),
+            torch.zeros((b, h, hd), device=device),
+            torch.full((b, h), -1e30, device=device))
+
+
+def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                mode: str = "train", cache: Optional[dict] = None):
+    """x: (B, S, d). Returns (out (B, S, d) in x's dtype, new cache or
+    None). ``cache`` ``{C, n, m}`` is the lane state (decode) or, at
+    prefill, names the storage dtype of the state returned."""
+    b, s, _ = x.shape
+    d_in, h, hd = _mdims(cfg)
+    u = _bf16_mm(x, p["w_up"])
+    g = _silu_bf16(_bf16_mm(x, p["w_gate"]))
+    q = _bf16_mm(u, p["wq"]).reshape(b, s, h, hd)
+    k = _bf16_mm(u, p["wk"]).reshape(b, s, h, hd)
+    v = _bf16_mm(u, p["wv"]).reshape(b, s, h, hd)
+    uf = u.to(_F32)
+    i_raw = uf @ p["wi"].to(_F32)
+    logf = F.logsigmoid(uf @ p["wf"].to(_F32) + p["f_bias"].to(_F32))
+
+    cdt = cache["C"].dtype if cache is not None else _F32
+    if mode == "decode":
+        assert cache is not None
+        state = tuple(cache[key].to(_F32) for key in ("C", "n", "m"))
+        y, (C, n, m) = _mlstm_core_step(q[:, 0], k[:, 0], v[:, 0],
+                                        i_raw[:, 0], logf[:, 0], state)
+        y = y[:, None]
+        new_cache = {"C": C.to(cdt), "n": n.to(cdt), "m": m.to(cdt)}
+    else:
+        state = _init_mstate(b, h, hd, x.device)
+        y, (C, n, m) = _mlstm_core_chunked(q, k, v, i_raw, logf, state)
+        new_cache = {"C": C.to(cdt), "n": n.to(cdt), "m": m.to(cdt)} \
+            if mode == "prefill" else None
+
+    y = y.reshape(b, -1, d_in).to(x.dtype)
+    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * g[:, :y.shape[1]]
+    out = _bf16_mm(y, p["w_down"]).to(x.dtype)
+    return out, new_cache
+
+
+def init_mlstm_cache(cfg: ArchConfig, batch: int, dtype=_BF16,
+                     device=None) -> dict:
+    """Per-lane mLSTM state ``{C: (b, h, hd, hd), n: (b, h, hd), m: (b,
+    h)}`` in the storage ``dtype`` (every leaf, ``m`` included)."""
+    _, h, hd = _mdims(cfg)
+    C, n, m = _init_mstate(batch, h, hd, device)
+    return {"C": C.to(dtype), "n": n.to(dtype), "m": m.to(dtype)}
+
+
+# ----------------------------------------------------------------------------
+# sLSTM
+# ----------------------------------------------------------------------------
+
+def init_slstm(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    up = int(cfg.proj_factor * d)
+
+    def gate():
+        return {"w": ninit(gen, (d, h, hd), d, device),
+                "r": ninit(gen, (h, hd, hd), hd, device),
+                "b": torch.zeros((h, hd), device=device)}
+
+    return {
+        "i": gate(), "f": gate(), "z": gate(), "o": gate(),
+        "out_norm": init_rmsnorm(d, device),
+        "w_up": ninit(gen, (d, up), d, device),
+        "w_down": ninit(gen, (up, d), up, device),
+    }
+
+
+def _slstm_wx(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Input pre-activations of all time steps at once: (4, B, S, H, hd),
+    f32. The reference's bf16 x bf16 einsum with f32 accumulation: bf16
+    operands widened to f32 give exact products."""
+    b, s, d = x.shape
+    xb = x.to(_BF16).to(_F32).reshape(b * s, d)
+    out = []
+    for g in GATES:
+        w = p[g]["w"]
+        wf = w.to(_BF16).to(_F32).reshape(d, -1)
+        y = (xb @ wf).reshape(b, s, *w.shape[1:])
+        out.append(y + p[g]["b"].to(_F32))
+    return torch.stack(out)
+
+
+def _stacked_r(p: dict) -> torch.Tensor:
+    """(4, H, hd, hd) stacked recurrent weights, f32."""
+    return torch.stack([p[g]["r"].to(_F32) for g in GATES])
+
+
+def _init_sstate(b, h, hd, device) -> torch.Tensor:
+    """Stacked (c, n, h, m) initial state, (4, b, h, hd) f32."""
+    st = torch.zeros((4, b, h, hd), device=device)
+    st[3] = -1e30
+    return st
+
+
+SSTATE_KEYS = ("c", "n", "h", "m")
+
+
+def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                mode: str = "train", cache: Optional[dict] = None):
+    """x: (B, S, d). The recurrence over all S steps is one
+    ``slstm_scan`` call: from the lane state at decode (S = 1), from the
+    initial state otherwise. Returns (out, new cache or None)."""
+    b, s, d = x.shape
+    h_, hd = cfg.n_heads, d // cfg.n_heads
+    cdt = cache["c"].dtype if cache is not None else _F32
+    if mode == "decode":
+        assert cache is not None
+        state0 = torch.stack([cache[key].to(_F32) for key in SSTATE_KEYS])
+    else:
+        state0 = _init_sstate(b, h_, hd, x.device)
+    wx = _slstm_wx(p, x).permute(2, 0, 1, 3, 4).contiguous()  # (S,4,B,H,hd)
+    hs, state = dispatch("slstm_scan", wx, _stacked_r(p), state0)
+    y = hs.permute(1, 0, 2, 3).reshape(b, s, d)
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = {key: state[i].to(cdt)
+                     for i, key in enumerate(SSTATE_KEYS)}
+
+    y = rmsnorm(p["out_norm"], y.to(x.dtype), cfg.norm_eps)
+    u = _gelu_bf16(_bf16_mm(y, p["w_up"]))
+    out = _bf16_mm(u, p["w_down"])
+    return out.to(x.dtype), new_cache
+
+
+def init_slstm_cache(cfg: ArchConfig, batch: int, dtype=_BF16,
+                     device=None) -> dict:
+    """Per-lane sLSTM state, four (b, h, hd) leaves in the storage
+    ``dtype``."""
+    h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    st = _init_sstate(batch, h, hd, device)
+    return {key: st[i].to(dtype) for i, key in enumerate(SSTATE_KEYS)}

@@ -1,12 +1,18 @@
 """Slot-pool serving engine of the port (the JAX package's
-``serving/engine.py``, enc-dec with bf16, q8_0 and q4_0 caches, and
-self-speculative decoding).
+``serving/engine.py``): the enc-dec Whisper model with bf16, q8_0 and
+q4_0 caches and self-speculative decoding, and decoder-only recurrent
+lanes (xLSTM) with a bf16 state pool.
 
-The engine owns a fixed pool of ``n_slots`` cache slots: one stacked
-self/cross KV cache on the device. Admission prefills one request at a
-bucketed token length (powers of two from 32), quantizes the prefill
-cache for a q8_0 or q4_0 pool, writes it into a free slot **in place**
-and fetches one scalar, the first token.
+The engine owns a fixed pool of ``n_slots`` cache slots on the device:
+stacked self/cross KV planes, or stacked per-segment recurrent state,
+as the model's ``LaneStateSpec`` declares. Admission prefills one
+request, at a bucketed token length (powers of two from 32) for KV
+lanes or at the exact prompt length for recurrent lanes
+(``prefill_exact``: padding would be folded into the state), quantizes
+the prefill cache for a q8_0 or q4_0 pool, writes it into a free slot
+**in place** and fetches one scalar, the first token. A decode step
+writes each lane's new K/V row, or its whole new recurrent state, into
+the pool in place.
 
 Decode state lives on the device: last token, position, encoder length,
 the active mask, EOS ids, ``max_new`` budgets and emitted counts. One
@@ -43,7 +49,7 @@ from repro_torch.kernels.api import (DispatchContext, dispatch_counters,
 from repro_torch.kernels.q4_attention.ops import cache_traffic_ratio_q4
 from repro_torch.kernels.q8_attention.ops import cache_traffic_ratio
 from repro_torch.models.attention import quantize_kv_cache
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, cache_bytes
 from repro_torch.platforms import Platform, get_platform, resolve_device
 from repro_torch.quantize import QTENSORS, quantize_tree, stored_bytes
 from repro_torch.serving.lanestate import LaneStatePool
@@ -65,6 +71,7 @@ class RejectCode(enum.Enum):
     AMBIGUOUS_ENC_INPUT = "ambiguous_enc_input"  # frames AND states given
     BAD_ENC_SHAPE = "bad_enc_shape"              # misshapen frames/states
     ENC_OVERFLOW = "enc_overflow"                # frames exceed pool enc_len
+    ENC_ON_DECODER_ONLY = "enc_on_decoder_only"  # frames for a decoder-only
     CANCELLED = "cancelled"                      # aborted in flight
 
 
@@ -208,10 +215,17 @@ class ServeEngine:
                              f"{self.device}")
         cfg = model.cfg
         self.spec = model.state_spec()
-        if cache_dtype in QUANT_TIERS \
-                and not self.spec.supports_tier(cache_dtype):
-            raise ValueError(f"{cfg.name} cannot hold a {cache_dtype} KV "
-                             f"cache (head_dim={cfg.head_dim})")
+        self.enc_dec = bool(cfg.enc_dec)
+        if cache_dtype in QUANT_TIERS:
+            if not self.spec.self_kv and not self.spec.cross_kv:
+                raise ValueError(
+                    f"cache_dtype={cache_dtype!r} quantizes attention KV "
+                    f"planes; {cfg.name} lanes carry only recurrent "
+                    f"state ({'/'.join(self.spec.recurrent)}): serve it "
+                    f"with cache_dtype='bf16'")
+            if not self.spec.supports_tier(cache_dtype):
+                raise ValueError(f"{cfg.name} cannot hold a {cache_dtype} "
+                                 f"KV cache (head_dim={cfg.head_dim})")
         self.spec_k = int(spec_k)
         self.draft_dtype = draft_dtype
         self.draft_params = None
@@ -222,6 +236,12 @@ class ServeEngine:
             if draft_dtype not in QUANT_TIERS:
                 raise ValueError(f"draft_dtype {draft_dtype!r}: expected "
                                  f"one of {QUANT_TIERS}")
+            if not self.spec.self_kv:
+                raise ValueError(
+                    f"speculative decoding rewinds self-KV write "
+                    f"cursors; {cfg.name} lanes carry "
+                    f"{'/'.join(self.spec.recurrent) or 'no'} recurrent "
+                    f"state, which cannot be rolled back")
             if int(decode_block) % self.spec_k:
                 raise ValueError(
                     f"decode_block ({decode_block}) must be a multiple "
@@ -287,14 +307,19 @@ class ServeEngine:
                   eos: int, max_new: int, n_out: int,
                   active: bool) -> None:
         """Write one lane's device-resident decode state (admit / free;
-        host -> device only)."""
-        self._tokens[slot, 0] = token
-        self._pos[slot] = pos
-        self._enc_lens[slot] = enc_len
-        self._lane_eos[slot] = eos
-        self._lane_max[slot] = max_new
-        self._lane_out[slot] = n_out
-        self._lane_active[slot] = active
+        host -> device only). The values travel in one asynchronous
+        copy: a Python scalar written into a CUDA tensor is a blocking
+        copy each, which would wait on the device seven times a lane."""
+        vals = torch.tensor([token, pos, enc_len, eos, max_new, n_out,
+                             int(active)], dtype=torch.int64)
+        vals = vals.to(self.device, non_blocking=True)
+        self._tokens[slot, 0] = vals[0]
+        self._pos[slot] = vals[1]
+        self._enc_lens[slot] = vals[2]
+        self._lane_eos[slot] = vals[3]
+        self._lane_max[slot] = vals[4]
+        self._lane_out[slot] = vals[5]
+        self._lane_active[slot] = vals[6] != 0
 
     def validate(self, req: Request) -> Optional[Rejection]:
         """A ``Rejection`` if this engine can never serve ``req``, else
@@ -312,6 +337,13 @@ class ServeEngine:
                              + (f"+{headroom} speculative headroom"
                                 if headroom else "")
                              + f" vs {self.max_len})")
+        if not self.enc_dec:
+            if req.enc_frames is not None or req.enc_states is not None:
+                return Rejection(C.ENC_ON_DECODER_ONLY,
+                                 f"request {req.uid}: encoder input on "
+                                 f"decoder-only model "
+                                 f"{self.model.cfg.name}")
+            return None
         if req.enc_frames is None and req.enc_states is None:
             return Rejection(C.MISSING_ENC_INPUT,
                              f"request {req.uid}: enc-dec model "
@@ -352,21 +384,25 @@ class ServeEngine:
             raise RejectionError(err)
         n = len(req.tokens)
         slot = self.free.pop()
-        bucket = min(_bucket(n), self.max_len)
+        # recurrent lanes fold every input position into the state, so
+        # they prefill at the exact prompt length; KV lanes at a bucket
+        bucket = n if self.spec.prefill_exact \
+            else min(_bucket(n), self.max_len)
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n] = torch.as_tensor(req.tokens, dtype=torch.int64)
-        batch = {"tokens": toks.to(self.device)}
-        if req.enc_states is not None:
+        batch = {"tokens": toks.to(self.device, non_blocking=True)}
+        enc_s = 0     # token requests on a decoder-only model
+        if self.enc_dec and req.enc_states is not None:
             # precomputed states (chunked encode) skip the encoder
             batch["enc_states"] = self._enc_tensor(req.enc_states) \
                 .to(torch.bfloat16)
-        else:
+            enc_s = int(_shape(req.enc_states)[0])
+        elif self.enc_dec:
             # encoded at the exact frame count: bidirectional attention
             # would mix bucket padding into every state
             batch["enc_frames"] = self._enc_tensor(req.enc_frames) \
                 .to(torch.float32)
-        enc_s = int(_shape(req.enc_states if req.enc_states is not None
-                           else req.enc_frames)[0])
+            enc_s = int(_shape(req.enc_frames)[0])
         with use_context(self.dispatch_ctx):
             one = self.model.init_cache(1, self.max_len, self.enc_len,
                                         device=self.device)
@@ -454,7 +490,9 @@ class ServeEngine:
             | (pos >= self.max_len - 1)
 
     def _plain_step(self, batch, tokens, pos, active, n_out):
-        """One greedy decode step over the whole pool."""
+        """One greedy decode step over the whole pool. ``forward`` writes
+        the step's K/V rows or recurrent states into ``self.cache`` in
+        place, so the cache it returns is the pool itself."""
         batch["tokens"] = tokens
         logits, _ = self.model.forward(self.params, batch, mode="decode",
                                        cache=self.cache, pos=pos)
@@ -611,11 +649,11 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def cache_report(self) -> dict:
-        """Cache footprint and the decode step's cache stream (every
-        position of the pool is streamed and masked after the dot, the
-        paper's LOAD term)."""
-        kv_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(self.cache))
+        """Cache footprint and the decode step's cache stream: every
+        position of the KV pool is streamed and masked after the dot (the
+        paper's LOAD term), and recurrent state is read and fully
+        rewritten every step, so it streams twice a step."""
+        kv_bytes, state_bytes = cache_bytes(self.cache)
         cfg = self.model.cfg
         dt = self.cache_dtype if self.cache_dtype in QUANT_TIERS else "bf16"
         per_tok = 2 * cfg.n_layers * stored_bytes(
@@ -625,9 +663,9 @@ class ServeEngine:
             "family": self.spec.family,
             "state_kinds": list(self.spec.state_kinds),
             "kv_bytes_total": kv_bytes,
-            "state_bytes_total": 0,
-            "state_bytes_per_step": 0,
-            "bytes_per_step": kv_bytes,
+            "state_bytes_total": state_bytes,
+            "state_bytes_per_step": 2 * state_bytes,
+            "bytes_per_step": kv_bytes + 2 * state_bytes,
             "self_kv_bytes_per_token": per_tok,
             "traffic_ratio_vs_bf16":
                 cache_traffic_ratio() if self.cache_dtype == "q8_0"

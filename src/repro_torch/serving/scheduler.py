@@ -2,7 +2,8 @@
 package's ``serving/scheduler.py``, one-shot requests).
 
 FCFS over a ``ServeEngine``. One ``tick()``: admit waiting requests while
-slots are free (each admit is one bucketed prefill), run one engine tick
+slots are free (each admit is one prefill: at a bucketed length for KV
+lanes, at the exact prompt length for recurrent ones), run one engine tick
 (``decode_block`` decode steps, one host fetch), collect finished
 requests. Streaming audio requests are not ported yet (ROADMAP queue 1,
 item 7).

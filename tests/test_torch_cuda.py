@@ -9,8 +9,9 @@ is absent:
 
 Shapes are the main path's (whisper-tiny.en: d_model 384, 6 heads of 64,
 d_ff 1536, 1500 encoder frames, the 32-token prefill bucket, decode at a
-few lanes, the speculative verify's 4 queries a lane) plus small ragged
-ones. Both sides accumulate in f32 in a
+few lanes, the speculative verify's 4 queries a lane; xlstm-350m: the
+sLSTM recurrence over 4 heads of 256 and the f32 head (4,1024) @
+(1024,51200)) plus small ragged ones. Both sides accumulate in f32 in a
 different order, so f32 results agree to ~1e-5 relative; results stored
 in bf16 agree to one bf16 rounding of each side, at most 2^-7 of the
 largest output (``assert_bf16_close``). The attention cases also run
@@ -35,6 +36,8 @@ from repro_torch.kernels.q8_attention import ops as qa_ops
 from repro_torch.kernels.q8_attention import plain as qa_plain
 from repro_torch.kernels.q8_matmul import ops as q8_ops
 from repro_torch.kernels.q8_matmul import plain as q8_plain
+from repro_torch.kernels.slstm_scan import ops as sl_ops
+from repro_torch.kernels.slstm_scan import plain as sl_plain
 from repro_torch.quantize import (Q4Tensor, Q8Tensor, quantize_q4_0,
                                   quantize_q8_0)
 
@@ -322,3 +325,100 @@ def test_q4_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         q4a_ops.q4_decode_attention(q, kp.to(torch.int8), ks,
                                     kp.to(torch.int8), ks, 8)
+
+
+# ----------------------------------------------------------------------------
+# slstm_scan (xlstm-350m's sLSTM recurrence)
+# ----------------------------------------------------------------------------
+
+def _slstm_inputs(rng, dev, s, b, h, hd, init):
+    wx = _randn(rng, (s, 4, b, h, hd), dev)
+    r = _randn(rng, (4, h, hd, hd), dev, scale=hd ** -0.5)
+    if init:
+        st = torch.zeros((4, b, h, hd), device=dev)
+        st[3] = -1e30
+    else:   # a lane's pool state: c, n > 0, h, a finite m
+        st = torch.stack([_randn(rng, (b, h, hd), dev),
+                          _randn(rng, (b, h, hd), dev).abs() + 0.5,
+                          _randn(rng, (b, h, hd), dev, scale=0.5),
+                          _randn(rng, (b, h, hd), dev)])
+    return wx, r, st
+
+
+def assert_f32_close(got, want):
+    """f32 summation order only: 1e-5 of the largest output."""
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("s,b,h,hd,init", [
+    (256, 1, 4, 256, True), (77, 1, 4, 256, True), (1, 4, 4, 256, False),
+    (13, 2, 2, 32, False), (5, 3, 4, 100, False), (1, 1, 1, 1, False)])
+def test_slstm_scan_kernel(dev, s, b, h, hd, init):
+    """Prefill from the initial state, decode from a non-initial one,
+    and ragged head widths (hd not a multiple of 32): hs and every leaf
+    of the final state against the plain version."""
+    wx, r, st = _slstm_inputs(np.random.default_rng(s + hd), dev, s, b, h,
+                              hd, init)
+    n0 = sl_ops.slstm_scan.launches
+    hk, sk = sl_ops.slstm_scan(wx, r, st)
+    torch.cuda.synchronize()
+    assert sl_ops.slstm_scan.launches == n0 + 1
+    hp, sp = sl_plain.slstm_scan(wx, r, st)
+    assert hk.shape == hp.shape and sk.shape == sp.shape
+    assert_f32_close(hk, hp)
+    for leaf in range(4):
+        assert_f32_close(sk[leaf], sp[leaf])
+
+
+def test_slstm_scan_kernel_saturated_gates(dev):
+    """i >> 0 with f << 0 on lane 0 and the reverse on lane 1: finite,
+    and the plain version's answer."""
+    wx, r, st = _slstm_inputs(np.random.default_rng(5), dev, 64, 2, 4, 256,
+                              False)
+    wx[:, 0, 0] += 60.0
+    wx[:, 1, 0] -= 60.0
+    wx[:, 0, 1] -= 60.0
+    wx[:, 1, 1] += 60.0
+    hk, sk = sl_ops.slstm_scan(wx, r, st)
+    hp, sp = sl_plain.slstm_scan(wx, r, st)
+    assert torch.isfinite(hk).all() and torch.isfinite(sk).all()
+    assert_f32_close(hk, hp)
+    for leaf in range(4):
+        assert_f32_close(sk[leaf], sp[leaf])
+
+
+def test_slstm_scan_kernel_continues_from_its_state(dev):
+    """Two launches, the second from the first's final state, equal one
+    launch over both halves: decode resumes where prefill stopped."""
+    wx, r, st = _slstm_inputs(np.random.default_rng(8), dev, 40, 2, 4, 256,
+                              True)
+    h_all, s_all = sl_ops.slstm_scan(wx, r, st)
+    h1, s1 = sl_ops.slstm_scan(wx[:25].contiguous(), r, st)
+    h2, s2 = sl_ops.slstm_scan(wx[25:].contiguous(), r, s1)
+    assert_f32_close(torch.cat([h1, h2]), h_all)
+    assert_f32_close(s2, s_all)
+
+
+def test_slstm_scan_kernel_refuses_what_it_does_not_take(dev):
+    wx, r, st = _slstm_inputs(np.random.default_rng(0), dev, 3, 1, 1, 512,
+                              True)
+    with pytest.raises(ValueError, match="256"):
+        sl_ops.slstm_scan(wx, r, st)
+    wx, r, st = _slstm_inputs(np.random.default_rng(0), dev, 3, 1, 2, 32,
+                              True)
+    with pytest.raises(TypeError):
+        sl_ops.slstm_scan(wx.half(), r, st)
+    with pytest.raises(ValueError):
+        sl_ops.slstm_scan(wx, r.cpu(), st)
+
+
+@pytest.mark.parametrize("m", [4, 77, 256])
+def test_fp16_matmul_kernel_at_the_xlstm_head(dev, m):
+    """xlstm-350m's untied head in f32: (m, 1024) @ (1024, 51200), at
+    a decode step of 4 lanes and at prefill of a ragged 77-id prompt
+    and of the longest prompt of chip_smoke.py's xLSTM phase."""
+    rng = np.random.default_rng(11)
+    x = _randn(rng, (m, 1024), dev)
+    w = _randn(rng, (1024, 51200), dev, scale=1024 ** -0.5)
+    assert_f32_close(mm_ops.fp16_matmul(x, w), mm_plain.fp16_matmul(x, w))

@@ -25,13 +25,15 @@ from repro.core.quantize import quantize_tree as j_quantize_tree
 from repro.kernels.api import DispatchContext as JDispatchContext
 from repro.kernels.api import use_context as j_use_context
 from repro.models.attention import quantize_kv_cache as j_quantize_kv
+from repro.models.layers import logits_head as j_logits_head
 from repro.models.model import build as j_build
 from repro_torch.audio.features import audio_frames, log_mel, log_mel_ref
 from repro_torch.audio.stream import synth_waveform
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models.attention import quantize_kv_cache
+from repro_torch.models.layers import logits_head
 from repro_torch.models.model import build
 
 MAX_ABS = 0.05
@@ -242,7 +244,12 @@ def test_verify_forward_matches_jax(models, cache_tier):
 
 def test_draft_step_on_q4_params_matches_jax(models):
     """One decode step of the speculative draft: Q4_0 weights through
-    q4_matmul, the Q4 vocab table widened to bf16, on a q4_0 cache."""
+    q4_matmul, the Q4 vocab table widened to bf16, on a q4_0 cache. The
+    draft's tied head alone, on one bf16 input, to f32 accumulation
+    order: the reference's bf16 x bf16 -> f32 product, never rounded to
+    bf16 (within 1e-5 of the largest logit; a bf16 rounding of the
+    logits would be up to 2 ** -9 of it). The whole step to
+    ``assert_near``, whose bf16 GEMMs upstream of the head set it."""
     jm, tm, jp = models
     jq4 = j_quantize_tree(jp, tier="q4_0")
     tq4 = _bridge(jq4)
@@ -259,3 +266,10 @@ def test_draft_step_on_q4_params_matches_jax(models):
                        mode="decode", cache=_bridge(jc),
                        pos=torch.tensor([4]))
     assert_near(td.numpy()[..., :VOCAB], _f32(jd)[..., :VOCAB])
+    x = jnp.asarray(rng.standard_normal((1, 3, 128)), jnp.bfloat16)
+    want = _f32(j_logits_head(jq4["embed"], x, VOCAB))
+    got = logits_head(tq4["embed"], tensor_from_numpy(np.asarray(x)),
+                      VOCAB).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got[..., :VOCAB], want[..., :VOCAB], rtol=0,
+                               atol=1e-5 * np.abs(want[..., :VOCAB]).max())

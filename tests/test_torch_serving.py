@@ -207,6 +207,17 @@ def test_engine_validates_and_refuses_unported_features(setup):
                                device="cpu")
     with pytest.raises(ValueError):
         ServeEngine(tm, tparams, device="meta")
+    # the xLSTM family is ported: a reduced xlstm-350m engine constructs;
+    # the other decoder-only families are not in the port's registry
+    xm = build(t_reduced(t_get_config("xlstm-350m")))
+    eng = ServeEngine(xm, xm.init_values(torch.Generator().manual_seed(0),
+                                         device="cpu"),
+                      n_slots=2, max_len=32, device="cpu")
+    assert eng.spec.recurrent == ("mstate", "sstate")
+    assert eng.cache_report()["state_bytes_total"] > 0
+    for name in ("qwen3-moe-30b-a3b", "gemma2-2b", "zamba2-7b"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            t_get_config(name)
 
 
 # ------------------------------------------------ speculative decoding
