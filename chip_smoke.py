@@ -13,11 +13,16 @@ JAX package. Phases:
    from its plain PyTorch version, its time, the plain version's time,
    one PyTorch library call's time as a yardstick (never used by the
    port) and the least time the card could take (bytes at 3.35 TB/s or
-   operations at the dtype's peak, whichever is larger);
+   operations at the dtype's peak, whichever is larger). ``ms`` times
+   back-to-back calls from the host; ``graph_ms`` the same 20 calls
+   captured once in a CUDA graph and replayed, for the kernel and for
+   the library call: at decode shapes ``ms`` is the host's ~20 µs a
+   call, and ``graph_ms`` the card's work;
 3. ``repro_torch.transcribe`` of 30 s of synthetic audio (1500 encoder
    frames, one chunk) at full whisper-tiny.en width, seeded random
    weights, 32 new tokens: bf16 weights with a bf16 cache, then Q8_0
-   weights with the q8_0 cache;
+   weights with the q8_0 cache. Each prints ``pre_decode_s`` (wall less
+   decode: the frontend, the encoder and the prefill);
 4. a serve phase: 4 audio requests on 4 slots, 8 decode steps a tick,
    through ``BatchScheduler`` (Q8_0 weights, q8_0 cache);
 5. the q4_0 tier and self-speculative decoding, bf16 weights:
@@ -124,6 +129,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured once in a
+    ``torch.cuda.CUDAGraph`` and replayed: the card's work without the
+    host's ~20 µs a call, which ``cuda_ms`` measures at small shapes."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     """(least ms, what bounds it) for moving ``nbytes`` and doing ``ops``."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -215,54 +246,104 @@ def kernel_cases():
                    _nbytes(x, w, y), 2.0 * m * n * k, "f32", F32_REL))
     cases["fp16_matmul"] = mm
 
+    # the main path's shapes (bf16 x and out); the verify's rows at the
+    # GEMV/tile threshold (q8_ops.GEMV_MAX_M = 16) and one on each side;
+    # f16 x (tensor cores on f16 operands) and f32 x (f32 arithmetic)
     q8 = []
-    for label, m, k, n in (("encoder MLP up", 1500, 384, 1536),
-                           ("encoder MLP down", 1500, 1536, 384),
-                           ("decode MLP up, 4 lanes", 4, 384, 1536),
-                           ("decode MLP down, 4 lanes", 4, 1536, 384)):
-        x = randn((m, k))
-        w = quantize_q8_0(randn((k, n), torch.float32, k ** -0.5), axis=0)
-        wd = dequantize_q8_0(w, bf, axis=0)
-        y = torch.empty((m, n), dtype=bf, device=dev)
+    f16, f32 = torch.float16, torch.float32
+    for label, m, k, n, dt in (
+            ("encoder MLP up", 1500, 384, 1536, bf),
+            ("encoder MLP down", 1500, 1536, 384, bf),
+            ("encoder wo", 1500, 384, 384, bf),
+            ("prefill MLP up", 32, 384, 1536, bf),
+            ("decode MLP up, 4 lanes", 4, 384, 1536, bf),
+            ("decode MLP down, 4 lanes", 4, 1536, 384, bf),
+            ("decode wo, 1 lane", 1, 384, 384, bf),
+            ("verify MLP down, 15 rows", 15, 1536, 384, bf),
+            ("verify MLP down, 16 rows", 16, 1536, 384, bf),
+            ("verify MLP down, 17 rows", 17, 1536, 384, bf),
+            ("verify MLP up, 16 rows", 16, 1536, 1536, bf),
+            ("encoder MLP down (f16 x)", 1500, 1536, 384, f16),
+            ("decode MLP down, 4 lanes (f16 x)", 4, 1536, 384, f16),
+            ("encoder MLP down (f32 x)", 1500, 1536, 384, f32),
+            ("decode MLP down, 4 lanes (f32 x)", 4, 1536, 384, f32)):
+        x = randn((m, k), dt)
+        w = quantize_q8_0(randn((k, n), f32, k ** -0.5), axis=0)
+        wd = dequantize_q8_0(w, dt, axis=0)
+        y = torch.empty((m, n), dtype=dt, device=dev)
         q8.append((f"{label} ({m},{k})@({k},{n})",
-                   lambda x=x, w=w: q8_ops.q8_matmul(x, w, out_dtype=bf),
-                   lambda x=x, w=w: q8_plain.q8_matmul(x, w.q, w.scale, bf),
+                   lambda x=x, w=w, o=dt: q8_ops.q8_matmul(x, w, out_dtype=o),
+                   lambda x=x, w=w, o=dt: q8_plain.q8_matmul(x, w.q, w.scale,
+                                                             o),
                    lambda x=x, wd=wd: torch.matmul(x, wd),
-                   _nbytes(x, w.q, w.scale, y), 2.0 * m * n * k, "bf16",
-                   BF16_REL))
+                   _nbytes(x, w.q, w.scale, y), 2.0 * m * n * k,
+                   {bf: "bf16", f16: "f16", f32: "f32"}[dt],
+                   F32_REL if dt == f32 else BF16_REL))
     cases["q8_matmul"] = q8
 
-    def tail_only(v, n_tail):
-        """v zeroed but on its last ``n_tail`` keys (axis 1)."""
-        out = torch.zeros_like(v)
-        out[:, -n_tail:] = v[:, -n_tail:]
-        return out
+    def pairs(sq, skv, causal, window):
+        """Unmasked (query, key) pairs: the products the masks leave."""
+        qp = np.arange(sq)[:, None]
+        kp = np.arange(skv)[None, :]
+        keep = np.ones((sq, skv), bool)
+        if causal:
+            keep &= kp <= qp
+        if window:
+            keep &= (qp - kp) < window
+        return float(keep.sum())
 
+    # the main path's three (B*H = 6, D = 64); then the KV-split path:
+    # few queries against the 1500 encoder frames, a ragged Skv whose
+    # last tile holds 1 key (65) or 29 (1501), GQA, a window (with rows
+    # whose every key is masked: Sq > Skv), softcap and D = 32. Each also
+    # with V only on the last 3 keys a row sees: the output is what the
+    # ragged last KV tile holds, so dropping or mis-masking it fails
     fa = []
-    for label, sq, skv, causal in (("encoder self, bidirectional", 1500,
-                                    1500, False),
-                                   ("decoder prefill, causal", 32, 32, True),
-                                   ("cross prefill", 32, 1500, False)):
-        h, d = 6, 64
-        q, k, v = randn((1, sq, h, d)), randn((1, skv, h, d)), \
-            randn((1, skv, h, d))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = sum(min(i + 1, skv) for i in range(sq)) if causal \
-            else sq * skv
-        # V only on the last 3 keys: the output is what the ragged last
-        # KV tile holds, so dropping or mis-masking it fails
-        vtail = tail_only(v, 3)
-        for tag, vv, lib in (
-                ("", v, lambda qt=qt, kt=kt, vt=vt, c=causal:
-                    F.scaled_dot_product_attention(qt, kt, vt, is_causal=c)),
-                (", V on the last 3 keys", vtail, None)):
-            fa.append((f"{label} B*H=6 Sq={sq} Skv={skv} D=64{tag}",
-                       lambda q=q, k=k, v=vv, c=causal:
-                           fa_ops.flash_attention(q, k, v, causal=c),
-                       lambda q=q, k=k, v=vv, c=causal:
-                           fa_plain.flash_attention(q, k, v, causal=c),
-                       lib, _nbytes(q, k, v, q), 4.0 * pairs * h * d, "bf16",
-                       BF16_REL))
+    for label, b, sq, skv, h, hkv, d, causal, window, softcap in (
+            ("encoder self, bidirectional", 1, 1500, 1500, 6, 6, 64, False,
+             None, None),
+            ("decoder prefill, causal", 1, 32, 32, 6, 6, 64, True, None,
+             None),
+            ("cross prefill", 1, 32, 1500, 6, 6, 64, False, None, None),
+            ("split KV", 1, 1, 1500, 6, 6, 64, False, None, None),
+            ("split KV", 1, 16, 1500, 6, 6, 64, False, None, None),
+            ("split KV", 1, 33, 1500, 6, 6, 64, False, None, None),
+            ("split KV, ragged", 1, 32, 1501, 6, 6, 64, False, None, None),
+            ("split KV, ragged", 2, 40, 65, 6, 6, 64, False, None, None),
+            ("split KV, GQA", 2, 16, 1500, 4, 2, 32, False, None, None),
+            ("split KV, causal window", 1, 33, 1500, 6, 6, 64, True, 100,
+             None),
+            ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 32,
+             True, 16, None),
+            ("split KV, softcap", 1, 16, 1500, 4, 1, 64, False, None,
+             5.0)):
+        q, k, v = randn((b, sq, h, d)), randn((b, skv, hkv, d)), \
+            randn((b, skv, hkv, d))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        plain_only = hkv != h or window or softcap
+        # causal: the last keys a row sees are those before min(Sq, Skv);
+        # the keys after them keep V and must weigh 0
+        vtail = v.clone()
+        vtail[:, :(min(sq, skv) if causal else skv) - 3] = 0
+        for tag, vv in (("", v), (", V on the last 3 keys seen", vtail)):
+            lib = None
+            if not (tag or plain_only):
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                lib = (lambda qt=qt, kt=kt, vt=vt, c=causal:
+                       F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=c))
+            opts = "".join(f" {n}={kw[n]}" for n in ("window", "softcap")
+                           if kw[n])
+            fa.append((f"{label} B*H={b * h} Hkv={hkv} Sq={sq} Skv={skv} "
+                       f"D={d}{' causal' if causal else ''}{opts}{tag}",
+                       lambda q=q, k=k, v=vv, kw=kw:
+                           fa_ops.flash_attention(q, k, v, **kw),
+                       lambda q=q, k=k, v=vv, kw=kw:
+                           fa_plain.flash_attention(q, k, v, **kw),
+                       lib, _nbytes(q, k, v, q),
+                       4.0 * pairs(sq, skv, causal, window) * b * h * d,
+                       "bf16", BF16_REL))
     cases["flash_attention"] = fa
 
     q4 = []
@@ -446,13 +527,19 @@ def check_kernels() -> dict:
             torch.cuda.synchronize()
             err, tol = _hold(name, label, got, want, rel)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            lib_ms = cuda_ms(lib) if lib is not None else None
+            g_ms = graph_ms(kern)
+            lib_ms = lib_g_ms = None
+            if lib is not None:
+                lib_ms, lib_g_ms = cuda_ms(lib), graph_ms(lib)
             b_ms, b_by = bound(nb, ops, dt)
+
+            def fmt(t):
+                return "None" if t is None else f"{t:.4f}"
             _log(f"kernel {name} [{label}]: max_abs_err={err:.3g} "
-                 f"(tol {tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                 f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
-                 f" bound_ms={b_ms:.5f} ({b_by}) bound/ms="
-                 f"{b_ms / ms:.3f}")
+                 f"(tol {tol:.3g}) ms={ms:.4f} graph_ms={g_ms:.4f} "
+                 f"plain_ms={plain_ms:.4f} library_ms={fmt(lib_ms)} "
+                 f"library_graph_ms={fmt(lib_g_ms)} bound_ms={b_ms:.5f} "
+                 f"({b_by}) bound/graph_ms={b_ms / g_ms:.3f}")
             if i == 0:
                 rows[name] = dict(max_abs_err=err, ms=ms,
                                   plain_ms=plain_ms, bound_ms=b_ms,
@@ -626,7 +713,9 @@ def run_transcribe(model, params, x, phase: str, expect: tuple,
                              f"{r.host_syncs} vs ticks {r.ticks}")
     tps = (len(r.tokens) - 1) / r.decode_s
     _log(f"[{phase}] tokens {r.tokens}")
+    # encode and prefill: what the encoder's flash attention and GEMMs set
     _log(f"[{phase}] wall_s={r.wall_s:.4f} decode_s={r.decode_s:.4f} "
+         f"pre_decode_s={r.wall_s - r.decode_s:.4f} "
          f"decode_tok_per_s={tps:.1f} ticks={r.ticks} "
          f"host_syncs={r.host_syncs} decode_steps={r.decode_steps} "
          f"modeled_j_per_audio_s={r.energy['joules_per_audio_s']:.4g}")

@@ -47,6 +47,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _build_s: dict[str, float] = {}
+_sms: dict[int, int] = {}
 
 
 def _build_root() -> pathlib.Path:
@@ -141,9 +142,32 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc} ({msg})")
 
 
+# the current stream's raw handle, without building a Python Stream
+# object on every launch; builds of PyTorch that lack it take the public
+# call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (132 on an H100
+    SXM): what a wrapper fills when it splits work across blocks."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sms[idx]
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

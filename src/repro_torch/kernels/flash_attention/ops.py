@@ -6,6 +6,12 @@ The kernel takes bf16 with head_dim 64 (whisper-tiny.en) or 32 (its
 reduced configuration); calls outside that raise on every device. On
 CUDA tensors it launches the kernel, which reads KV heads by index and
 masks a ragged S itself; on CPU tensors it runs the plain version.
+
+Where the kernel's query tiles leave the card empty (the cross-attention
+prefill: 32 queries against 1500 frames; the encoder's 72 tiles), the
+wrapper splits each tile's KV range across blocks (``kv_splits``) and
+hands the kernel a workspace for the splits' partial softmax states,
+which a second kernel combines in order.
 """
 
 from __future__ import annotations
@@ -19,16 +25,38 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import plain
 
 HEAD_DIMS = (32, 64)
+BQ = 128   # queries a block of the kernel (csrc/flash_attention.cu)
+BKV = 64   # keys a KV tile
+RESIDENT = 2   # blocks an SM holds at head_dim 64 (registers)
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    lib.flash_attention.argtypes = _ARGTYPES
-    lib.flash_attention.restype = ctypes.c_int
-    return lib
+def kv_splits(b: int, sq: int, skv: int, h: int, sms: int) -> int:
+    """How many blocks share one query tile's KV range: as many splits
+    of whole KV tiles as the ``sms`` SMs hold blocks beside the query
+    tiles (B*H*ceil(Sq/BQ)), at ``RESIDENT`` blocks an SM; 1 where the
+    query tiles alone fill that."""
+    ctas = build.cdiv(sq, BQ) * b * h
+    tiles = build.cdiv(skv, BKV)
+    want = RESIDENT * sms // ctas
+    if want <= 1 or tiles <= 1:
+        return 1
+    per = build.cdiv(tiles, want)   # tiles a split
+    return build.cdiv(tiles, per)
+
+
+_entry = []   # the C entry point, typed once
+
+
+def _kernel():
+    if not _entry:
+        fn = build.load("flash_attention").flash_attention
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _entry.append(fn)
+    return _entry[0]
 
 
 def _check(q, k, v, window) -> None:
@@ -68,10 +96,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        skv, h, hkv, d, int(causal), int(window or 0),
-        float(softcap or 0.0), build.stream(q.device))
+    splits = kv_splits(b, sq, skv, h, build.sm_count(q.device))
+    part_o = part_ml = None
+    if splits > 1:   # each split's acc (D floats a row), then its (m, l)
+        rows = splits * b * h * sq
+        work = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        part_o = work.data_ptr()
+        part_ml = part_o + rows * d * 4
+    rc = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_o,
+        part_ml, b, sq, skv, h, hkv, d, int(causal), int(window or 0),
+        float(softcap or 0.0), splits, build.stream(q.device))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

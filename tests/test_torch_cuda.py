@@ -87,18 +87,35 @@ def test_fp16_matmul_kernel(dev, dtype, m, k, n):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1500, 384, 384), (1500, 384, 1536),
                                    (1500, 1536, 384), (32, 384, 1536),
                                    (4, 1536, 384), (1, 384, 384),
-                                   (7, 64, 50)])
-def test_q8_matmul_kernel(dev, m, k, n):
+                                   # N % 16 != 0: element loads, GEMV
+                                   # and tile
+                                   (7, 64, 50), (33, 96, 70),
+                                   # the GEMV/tile threshold (16 rows) and
+                                   # one row on each side of it
+                                   (15, 1536, 384), (16, 1536, 384),
+                                   (17, 1536, 384), (15, 1536, 1536),
+                                   (16, 1536, 1536), (17, 1536, 1536)])
+def test_q8_matmul_kernel(dev, dtype, m, k, n):
+    """The tile layout (M > 16, tensor cores for bf16 and f16 x, f32
+    FMAs for f32 x) and the split-K GEMV layout (M <= 16), against the
+    plain version in f32, and rounded to x's type."""
+    assert q8_ops.GEMV_MAX_M == 16
     rng = np.random.default_rng(m * k + n)
-    x = _randn(rng, (m, k), dev, torch.bfloat16)
+    x = _randn(rng, (m, k), dev, dtype)
     w = quantize_q8_0(_randn(rng, (k, n), dev, scale=k ** -0.5), axis=0)
+    before = q8_ops.q8_matmul.launches
     got = q8_ops.q8_matmul(x, w, out_dtype=torch.float32)
     torch.cuda.synchronize()
+    assert q8_ops.q8_matmul.launches == before + 1
     want = q8_plain.q8_matmul(x, w.q, w.scale, torch.float32)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if dtype != torch.float32:
+        assert_bf16_close(q8_ops.q8_matmul(x, w, out_dtype=dtype), want)
 
 
 @pytest.mark.parametrize("tail", [None, 3])
@@ -110,6 +127,20 @@ def test_q8_matmul_kernel(dev, m, k, n):
     (2, 70, 70, 4, 2, 32, True, 16, None),          # sliding window
     (1, 50, 50, 2, 1, 64, True, None, 5.0),         # softcap
     (1, 45, 20, 4, 4, 64, True, None, None),        # sq > skv, causal
+    # KV split across blocks (few queries against 1500 frames) and the
+    # combine: Sq 1, 16 and 33; a ragged Skv whose last tile holds 29
+    # keys (1501) or 1 (65); GQA with D = 32; a causal window, whose
+    # splits past the diagonal hold no key a row sees; rows whose every
+    # key is masked (causal window, Sq > Skv); softcap
+    (1, 1, 1500, 6, 6, 64, False, None, None),
+    (1, 16, 1500, 6, 6, 64, False, None, None),
+    (1, 33, 1500, 6, 6, 64, False, None, None),
+    (1, 32, 1501, 6, 6, 64, False, None, None),
+    (2, 40, 65, 6, 6, 64, False, None, None),
+    (2, 16, 1500, 4, 2, 32, False, None, None),
+    (1, 33, 1500, 6, 6, 64, True, 100, None),
+    (1, 200, 65, 2, 1, 32, True, 16, None),
+    (1, 16, 1500, 4, 1, 64, False, None, 5.0),
 ])
 def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
                                 softcap, tail):
@@ -117,8 +148,10 @@ def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
     q = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
     k = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
     v = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
-    if tail:   # V only on the last keys: the output is the ragged tile's
-        v[:, :-tail] = 0
+    if tail:   # V only on the last keys a row sees (causal: the keys
+        # before min(Sq, Skv); the later keys keep V and must weigh 0):
+        # the output is the ragged tile's
+        v[:, :(min(sq, skv) if causal else skv) - tail] = 0
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()

@@ -34,6 +34,7 @@ from repro.kernels.q8_matmul.ops import q8_matmul as j_q8mm
 from repro.models.attention import chunked_attention
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import api
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fp16_matmul.ops import fp16_matmul, offload_info
 from repro_torch.kernels.q4_attention.ops import (
@@ -42,6 +43,7 @@ from repro_torch.kernels.q4_attention.ops import (
 from repro_torch.kernels.q4_matmul.ops import q4_matmul
 from repro_torch.kernels.q8_attention.ops import (q8_decode_attention,
                                                   q8_decode_attention_cache)
+from repro_torch.kernels.q8_matmul import ops as q8_ops
 from repro_torch.kernels.q8_matmul.ops import q8_matmul
 from repro_torch.kernels.registry import KernelSpec
 from repro_torch.quantize import Q4Tensor, Q8Tensor
@@ -122,6 +124,77 @@ def test_flash_attention_sq_ne_skv_matches_reference_host_path(causal):
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
                                atol=3e-2)
+
+
+H100_SMS = 132
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,want", [
+    (1, 1500, 1500, 6, 3),     # encoder: 12 x 6 = 72 query tiles x 3
+    (1, 32, 32, 6, 1),         # decoder prefill: one KV tile
+    (1, 32, 1500, 6, 24),      # cross prefill: 6 tiles x 24 splits
+    (4, 32, 1500, 6, 8),       # cross prefill of 4 admissions at once
+    (1, 1, 1500, 6, 24),
+    (1, 32, 1501, 6, 24),      # ragged: the last tile holds 29 keys
+    (2, 40, 65, 6, 2),         # 2 KV tiles, the second holds 1 key
+    (1, 200, 65, 2, 2),
+])
+def test_flash_attention_kv_splits(b, sq, skv, h, want):
+    """The wrapper's KV split: whole 64-key tiles a split, as many
+    splits as keep every block resident (RESIDENT blocks an SM), none of
+    them empty; none where the query tiles alone fill that."""
+    splits = fa_ops.kv_splits(b, sq, skv, h, H100_SMS)
+    assert splits == want
+    ctas = _cdiv(sq, fa_ops.BQ) * b * h
+    tiles = _cdiv(skv, fa_ops.BKV)
+    assert 1 <= splits <= max(1, tiles)
+    per = _cdiv(tiles, splits)          # what the C entry point derives
+    assert (splits - 1) * per < tiles   # the last split holds a tile
+    if splits > 1:
+        assert ctas * splits <= fa_ops.RESIDENT * H100_SMS
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 1536, 384, 48),      # decode MLP down: 3 column tiles x 48
+    (4, 384, 1536, 12),      # decode MLP up: 12 column tiles x 12
+    (1, 384, 384, 12),       # one split a scale block: 36 blocks
+    (16, 1536, 384, 12),     # the verify's rows, at the threshold
+    (16, 1536, 1536, 3),
+    (7, 64, 50, 2),
+    (1, 6144, 132 * 128, 3),  # at most 64 scale blocks a split
+    (17, 1536, 384, 24),     # above it, the tile layout: 6 tiles x 24
+    (32, 1536, 384, 24),     # the prefill's MLP down
+    (32, 384, 1536, 6),
+    (1500, 1536, 384, 2),    # encoder MLP down: 144 tiles x 2 of 12 stages
+    (1500, 384, 384, 1),     # 144 tiles of 6 stages: not split
+    (1500, 384, 1536, 1),    # 576 tiles: the wide tile, not split
+])
+def test_q8_matmul_k_splits(m, k, n, want):
+    """The split of K across blocks. GEMV layout (M <= 16): whole 32-row
+    scale blocks, at most 64 a split, enough splits to reach the SMs.
+    Tile layout: whole stages, every block resident, at least 8 stages a
+    split where the tiles alone cover the SMs; none for f32 x (its f32
+    loop) or where the wide tile takes the call."""
+    assert q8_ops.GEMV_MAX_M == 16
+    splits = q8_ops.k_splits(m, n, k, H100_SMS)
+    assert splits == want
+    blocks = k // 32
+    if m > q8_ops.GEMV_MAX_M:
+        assert q8_ops.k_splits(m, n, k, H100_SMS, x_f32=True) == 1
+        stages = _cdiv(blocks, q8_ops.TILE_SB)
+        tiles = _cdiv(m, 64) * _cdiv(n, 64)
+        assert (splits - 1) * _cdiv(stages, splits) < stages
+        assert tiles * splits <= max(tiles, q8_ops.TILE_RESIDENT * H100_SMS)
+        return
+    per = _cdiv(blocks, splits)         # what the C entry point derives
+    assert 1 <= per <= q8_ops.GEMV_MAX_BLOCKS
+    assert (splits - 1) * per < blocks
+    ctas = _cdiv(n, q8_ops.GEMV_BN) * _cdiv(m, q8_ops.GEMV_MT)
+    assert ctas * splits >= H100_SMS or splits == blocks
 
 
 def _q8_cache(rng, shape):
