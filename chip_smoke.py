@@ -50,7 +50,13 @@ Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
 values live only in the last keys before the end or a lane's length, and
 past a lane's length a large poison: a kernel that drops the ragged last
-KV tile, stops short of ``length`` or reads past it fails there.
+KV tile, stops short of ``length`` or reads past it fails there. The
+decode attentions also run at lengths on and one past a boundary of the
+chunks their wrapper splits the cache into, at a length of 1, with a
+lane of length 0 beside full ones, and over 65,536 positions; the dense
+GEMM at every decoder shape (1 and 4 lanes, the 16-row verify), on rows
+that are not 16-byte aligned, and at the xLSTM head with f32 x and the
+bf16 weight as stored.
 
 The f32 cases of phase 2 (the frontend GEMMs, the xLSTM head at a
 decode step and at prefill of every prompt position, the sLSTM
@@ -183,6 +189,7 @@ def kernel_cases():
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build, decode
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
@@ -217,6 +224,12 @@ def kernel_cases():
             ("encoder wo", 1500, 384, 384, bf),
             ("prefill MLP up", 32, 384, 1536, bf),
             ("decode MLP up, 4 lanes", 4, 384, 1536, bf),
+            ("decode wo, 1 lane", 1, 384, 384, bf),
+            ("decode MLP up, 1 lane", 1, 384, 1536, bf),
+            ("decode MLP down, 1 lane", 1, 1536, 384, bf),
+            ("decode MLP down, 4 lanes", 4, 1536, 384, bf),
+            ("verify MLP down, 16 rows", 16, 1536, 384, bf),
+            ("ragged, rows not 16-byte aligned", 33, 45, 70, bf),
             ("frontend mel (f32)", 3000, 201, 80, torch.float32),
             ("frontend projection (f32)", 1500, 80, 384, torch.float32)):
         x, w = randn((m, k), dt), randn((k, n), dt, k ** -0.5)
@@ -244,6 +257,19 @@ def kernel_cases():
                    lambda x=x, w=w: mm_plain.fp16_matmul(x, w),
                    lambda x=x, w=w: torch.matmul(x, w),
                    _nbytes(x, w, y), 2.0 * m * n * k, "f32", F32_REL))
+    # the head as phase d runs it: f32 activations @ the bf16 lm_head as
+    # it is stored, widened in the kernel; the library call multiplies
+    # the f32-widened weight, as the head did before
+    x = randn((4, k), torch.float32)
+    w = randn((k, n), torch.float32, k ** -0.5)
+    wb = w.to(bf)
+    y = torch.empty((4, n), dtype=torch.float32, device=dev)
+    mm.append((f"xlstm head, decode, 4 lanes (f32 x, bf16 w) (4,{k})@({k},"
+               f"{n})",
+               lambda x=x, wb=wb: mm_ops.fp16_matmul(x, wb),
+               lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb),
+               lambda x=x, w=wb.float(): torch.matmul(x, w),
+               _nbytes(x, wb, y), 2.0 * 4 * n * k, "f32", F32_REL))
     cases["fp16_matmul"] = mm
 
     # the main path's shapes (bf16 x and out); the verify's rows at the
@@ -382,7 +408,8 @@ def kernel_cases():
         row_b = 2 * 64 * code_b + 2 * 2 * 64 // 32
         out = []
         for label, b, nq, s_len, lens in specs:
-            L, h, d = 4, 6, 64
+            # the stacked layers of a long cache: one is enough
+            L, h, d = (4 if s_len <= 4096 else 1), 6, 64
             ln = torch.tensor(lens, device=dev)
             ln2 = ln if ln.dim() == 2 else ln[:, None].expand(b, nq)
             first = ln2[:, 0].tolist()
@@ -390,7 +417,8 @@ def kernel_cases():
             vf = randn((L, b, s_len, h, d), torch.float32)
             vtail = torch.zeros_like(vf)
             for i, n0 in enumerate(first):
-                vtail[:, i, n0 - 3:n0] = vf[:, i, n0 - 3:n0]
+                lo = max(n0 - 3, 0)
+                vtail[:, i, lo:n0] = vf[:, i, lo:n0]
                 vtail[:, i, n0:] = 8.0 * vf[:, i, n0:]
             kt = quant(kf, axis=-1)
             q = randn((b, nq, h, d))
@@ -426,12 +454,32 @@ def kernel_cases():
     cross = [1500, 1000, 500, 1250]
     verify = [[33 + j, 20 + j, 9 + j, 27 + j] for j in range(4)]
     verify = [list(r) for r in zip(*verify)]       # (B, Q): pos + j + 1
+    # the cache's chunks as the wrapper splits S=1500 across CTAs: a
+    # length that ends on a chunk's last position, one a position past
+    # it, a length of 1, a lane of length 0 beside full ones, and an S
+    # above the ~58,000 positions a softmax held in one block's shared
+    # memory could take
+    sms = build.sm_count(dev)
+    ch1 = decode.chunk_plan(1, 6, 1, 1500, sms)[0]
+    ch4 = decode.chunk_plan(4, 6, 1, 1500, sms)[0]
+    edges = (
+        ("cross decode, 1 lane, length on a chunk boundary", 1, 1, 1500,
+         [10 * ch1]),
+        ("cross decode, 1 lane, a position past a chunk boundary", 1, 1,
+         1500, [10 * ch1 + 1]),
+        ("cross decode, 4 lanes, lengths on and past a chunk boundary", 4,
+         1, 1500, [2 * ch4, 2 * ch4 + 1, 1500, 3 * ch4]),
+        ("decode, 1 lane, length 1", 1, 1, 1500, [1]),
+        ("cross decode, 4 lanes, one of length 0", 4, 1, 1500,
+         [1500, 0, 1500, 1500]),
+        ("decode, 1 lane, S beyond one block's shared memory", 1, 1, 65536,
+         [65536]))
     cases["q8_decode_attention"] = decode_cases("q8_0", (
         ("cross decode, 4 lanes", 4, 1, 1500, cross),
         ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
         ("cross decode, 1 lane", 1, 1, 1500, [1500]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
-        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)))
+        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)) + edges)
     # phases a and b run one slot: S is 35 (a) or 38 (b, spec headroom)
     cases["q4_decode_attention"] = decode_cases("q4_0", (
         ("cross decode, 1 lane", 1, 1, 1500, [1500]),
@@ -441,7 +489,7 @@ def kernel_cases():
         ("cross decode, 4 lanes", 4, 1, 1500, cross),
         ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
-        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)))
+        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)) + edges)
 
     # the sLSTM recurrence at xlstm-350m's width (4 heads of 256): the
     # prompts of phase d, its decode step from a lane's state, and gates

@@ -16,38 +16,31 @@
 //  * returns 0 for a query of length 0 (nothing to attend).
 //
 // Bound on this card: bytes. Each packed byte (two codes) and scale is
-// read once per query and feeds 4 FLOP. The kernel body, shared with the
-// Q8_0 cache, is in decode_attention.cuh; this file gives it the nibble
-// code format: a K scale block is one 16-byte load (32 codes), unpacked
-// in registers, and a V code is one nibble of a byte.
+// read once a lane, for all of its queries, and feeds 4 FLOP a query.
+// The kernel body, shared with the Q8_0 cache, is in
+// decode_attention.cuh: it splits the positions across CTAs and merges
+// their partial softmaxes. This file gives it the nibble code format: a
+// lane's 16 codes of a row are one 8-byte load, unpacked in registers.
 
 #include "decode_attention.cuh"
 
 namespace {
 
-// dot of the eight codes packed in one 32-bit word (byte i: dims 2i, 2i+1
-// in its low and high nibble, +8 bias) with qv[0..7]
-__device__ __forceinline__ float dot8(unsigned w, const float* qv) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned byte = (w >> (8 * i)) & 0xffu;
-    s = fmaf(qv[2 * i], static_cast<float>(static_cast<int>(byte & 0xfu) - 8), s);
-    s = fmaf(qv[2 * i + 1], static_cast<float>(static_cast<int>(byte >> 4) - 8), s);
-  }
-  return s;
-}
-
 struct Q4Codes {
   using code_t = uint8_t;
-  static __device__ __forceinline__ float dot_block(const uint8_t* row, int blk,
-                                                    const float* qv) {
-    const uint4 pk = reinterpret_cast<const uint4*>(row)[blk];
-    return dot8(pk.x, qv) + dot8(pk.y, qv + 8) + dot8(pk.z, qv + 16) +
-           dot8(pk.w, qv + 24);
+  using raw_t = uint2;
+  static __device__ __forceinline__ uint2 load(const uint8_t* row, int sub) {
+    return __ldg(reinterpret_cast<const uint2*>(row) + sub);
   }
-  static __device__ __forceinline__ float code(const uint8_t* row, int d) {
-    return static_cast<float>(static_cast<int>((row[d / 2] >> (4 * (d & 1))) & 0xfu) - 8);
+  // the 16 codes (byte i: dims 2i and 2i + 1 in its low and high nibble,
+  // +8 bias) as f32: 2^23 + nibble built bitwise, less 2^23 + 8 (exact)
+  static __device__ __forceinline__ void widen16(uint2 r, float* c) {
+    const uint32_t w[2] = {r.x, r.y};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t nib = (w[i / 8] >> (4 * (i % 8))) & 0xfu;
+      c[i] = __uint_as_float(0x4B000000u | nib) - 8388616.f;
+    }
   }
 };
 
@@ -58,15 +51,20 @@ struct Q4Codes {
 // bytes at b*kv_sb + s*kv_ss + hk*kv_sh; ks/vs: f16 scales, D/32 per
 // row, strides sc_*; lens: (B, Q) int32, query (b, qi) attends
 // [0, lens[b*Q + qi]); o: like q; q and o bf16. Strides are in elements.
-// D % 32 == 0, D <= 128, and every packed row 16-byte aligned.
+// D % 32 == 0, D <= 128, and every packed row 16-byte aligned. Positions
+// are split into nchunks chunks of chunk positions (chunk * nchunks >=
+// S); with nchunks > 1, part holds B * Q * H * nchunks * (D + 2) floats
+// of partials.
 extern "C" int q4_decode_attention(
     const void* q, long long q_sb, long long q_sq, long long q_sh,
     const void* kp, const void* vp, long long kv_sb, long long kv_ss,
     long long kv_sh, const void* ks, const void* vs, long long sc_sb,
     long long sc_ss, long long sc_sh, const void* lens, void* o,
-    long long o_sb, long long o_sq, long long o_sh, int B, int Q, int H,
-    int Hkv, int S, int D, void* stream) {
+    long long o_sb, long long o_sq, long long o_sh, void* part, int B,
+    int Q, int H, int Hkv, int S, int D, int chunk, int nchunks,
+    void* stream) {
   return launch_decode_attention<Q4Codes>(
       q, q_sb, q_sq, q_sh, kp, vp, kv_sb, kv_ss, kv_sh, ks, vs, sc_sb, sc_ss,
-      sc_sh, lens, o, o_sb, o_sq, o_sh, B, Q, H, Hkv, S, D, stream);
+      sc_sh, lens, o, o_sb, o_sq, o_sh, part, B, Q, H, Hkv, S, D, chunk,
+      nchunks, stream);
 }

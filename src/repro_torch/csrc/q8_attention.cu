@@ -16,41 +16,37 @@
 //    the card,
 //  * returns 0 for a query of length 0 (nothing to attend).
 //
-// Bound on this card: bytes. Each code and scale is read once and feeds
-// 2 FLOP (q.k and p.v), ~2 FLOP/byte against the H100's ~600 int8
-// OP/byte ridge. The kernel body, shared with the Q4_0 cache, is in
-// decode_attention.cuh; this file gives it the int8 code format: a K
-// scale block is two 16-byte loads, a V code one byte read coalesced
-// across the warp.
+// Bound on this card: bytes. Each code and scale is read once a lane,
+// for all of its queries, and feeds 2 FLOP a query (q.k and p.v), ~2
+// FLOP/byte against the H100's ~600 int8 OP/byte ridge. The kernel body,
+// shared with the Q4_0 cache, is in decode_attention.cuh: it splits the
+// positions across CTAs and merges their partial softmaxes. This file
+// gives it the int8 code format: a lane's 16 codes of a row are one
+// 16-byte load, widened to f32 bitwise.
 
 #include "decode_attention.cuh"
 
 namespace {
 
-// dot of four int8 codes packed little-endian in one int with q[0..3]
-__device__ __forceinline__ float dot4(int packed, const float* qv) {
-  return qv[0] * static_cast<float>(static_cast<int8_t>(packed & 0xff)) +
-         qv[1] * static_cast<float>(static_cast<int8_t>((packed >> 8) & 0xff)) +
-         qv[2] * static_cast<float>(static_cast<int8_t>((packed >> 16) & 0xff)) +
-         qv[3] * static_cast<float>(static_cast<int8_t>((packed >> 24) & 0xff));
+// code i (0..3) of a word of four int8 codes biased bytewise to c + 128,
+// as f32: 2^23 + (c + 128) built bitwise, less 2^23 + 128 (exact)
+__device__ __forceinline__ float biased_byte_f32(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + i)) -
+         8388736.f;
 }
 
 struct Q8Codes {
   using code_t = int8_t;
-  static __device__ __forceinline__ float dot_block(const int8_t* row, int blk,
-                                                    const float* qv) {
-    const int4* r = reinterpret_cast<const int4*>(row) + 2 * blk;
-    float pd = 0.f;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int4 pk = r[c];
-      const float* qc = qv + c * 16;
-      pd += dot4(pk.x, qc) + dot4(pk.y, qc + 4) + dot4(pk.z, qc + 8) + dot4(pk.w, qc + 12);
-    }
-    return pd;
+  using raw_t = uint4;
+  static __device__ __forceinline__ uint4 load(const int8_t* row, int sub) {
+    return __ldg(reinterpret_cast<const uint4*>(row) + sub);
   }
-  static __device__ __forceinline__ float code(const int8_t* row, int d) {
-    return static_cast<float>(row[d]);
+  // the 16 codes, c + 128 bytewise, as f32 less 128
+  static __device__ __forceinline__ void widen16(uint4 r, float* c) {
+    const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u,
+                           r.z ^ 0x80808080u, r.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[i] = biased_byte_f32(w[i / 4], i % 4);
   }
 };
 
@@ -61,15 +57,19 @@ struct Q8Codes {
 // s*kv_ss + hk*kv_sh; ks/vs: f16 scales, D/32 per row, strides sc_*;
 // lens: (B, Q) int32, query (b, qi) attends [0, lens[b*Q + qi]); o: like
 // q; q and o bf16. Strides are in elements. D % 32 == 0, D <= 128, and
-// every code row 16-byte aligned.
+// every code row 16-byte aligned. Positions are split into nchunks chunks
+// of chunk positions (chunk * nchunks >= S); with nchunks > 1, part holds
+// B * Q * H * nchunks * (D + 2) floats of partials.
 extern "C" int q8_decode_attention(
     const void* q, long long q_sb, long long q_sq, long long q_sh,
     const void* kq, const void* vq, long long kv_sb, long long kv_ss,
     long long kv_sh, const void* ks, const void* vs, long long sc_sb,
     long long sc_ss, long long sc_sh, const void* lens, void* o,
-    long long o_sb, long long o_sq, long long o_sh, int B, int Q, int H,
-    int Hkv, int S, int D, void* stream) {
+    long long o_sb, long long o_sq, long long o_sh, void* part, int B,
+    int Q, int H, int Hkv, int S, int D, int chunk, int nchunks,
+    void* stream) {
   return launch_decode_attention<Q8Codes>(
       q, q_sb, q_sq, q_sh, kq, vq, kv_sb, kv_ss, kv_sh, ks, vs, sc_sb, sc_ss,
-      sc_sh, lens, o, o_sb, o_sq, o_sh, B, Q, H, Hkv, S, D, stream);
+      sc_sh, lens, o, o_sb, o_sq, o_sh, part, B, Q, H, Hkv, S, D, chunk,
+      nchunks, stream);
 }

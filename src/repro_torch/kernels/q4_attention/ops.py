@@ -52,9 +52,9 @@ def _check_planes(q, kp, ks, vp, vs, d: int) -> None:
     if kp.dtype != torch.uint8 or vp.dtype != torch.uint8 \
             or ks.dtype != torch.float16 or vs.dtype != torch.float16:
         raise TypeError(f"{_NAME}: codes must be uint8 and scales f16")
-    if d % QBLOCK or d > decode.NT:
+    if d % QBLOCK or d > decode.D_MAX:
         raise ValueError(f"{_NAME}: head_dim {d} must be a multiple of "
-                         f"{QBLOCK} and at most {decode.NT}")
+                         f"{QBLOCK} and at most {decode.D_MAX}")
 
 
 def q4_decode_attention(q, kp, ks, vp, vs, length) -> torch.Tensor:

@@ -47,9 +47,9 @@ def _check_planes(q, kq, ks, vq, vs, d: int) -> None:
     if kq.dtype != torch.int8 or vq.dtype != torch.int8 \
             or ks.dtype != torch.float16 or vs.dtype != torch.float16:
         raise TypeError(f"{_NAME}: codes must be int8 and scales f16")
-    if d % QBLOCK or d > decode.NT:
+    if d % QBLOCK or d > decode.D_MAX:
         raise ValueError(f"{_NAME}: head_dim {d} must be a multiple of "
-                         f"{QBLOCK} and at most {decode.NT}")
+                         f"{QBLOCK} and at most {decode.D_MAX}")
 
 
 def q8_decode_attention(q, kq, ks, vq, vs, length) -> torch.Tensor:

@@ -10,8 +10,10 @@ projections (QKV) stay ``torch.matmul``, as the reference leaves them to
 XLA. A Q4_0 vocab table is widened to bf16 for the embedding and the
 tied head, as the reference does outside any kernel; the tied head then
 multiplies in f32 with f32 accumulation, the reference's bf16 x bf16 ->
-f32 product. An untied head (xLSTM's ``lm_head``) is ``mm`` in f32, so
-it runs on ``fp16_matmul`` with f32 operands, as in the reference.
+f32 product. An untied head (xLSTM's ``lm_head``) is ``mm`` in f32: it
+runs on ``fp16_matmul`` with f32 activations and the bf16 weight as it
+is stored, widened in the kernel, the reference's f32 x f32 product
+without an f32 copy of the weight.
 """
 
 from __future__ import annotations
@@ -112,11 +114,17 @@ def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
         y = dispatch(op, x.reshape(-1, k).contiguous(), w2,
                      out_dtype=compute_dtype)
         return y.reshape(*lead, *w.q.shape[1:])
-    w = w.to(compute_dtype)
     x = x.to(compute_dtype)
     if w.dim() == 2:
+        # an f32 product takes a bf16 or f16 weight as it is stored and
+        # widens it in the kernel (the untied head): the same f32
+        # products, without an f32 copy of the weight each call
+        if not (compute_dtype == torch.float32
+                and w.dtype in (torch.bfloat16, torch.float16)):
+            w = w.to(compute_dtype)
         return dispatch("fp16_matmul", x.contiguous(), w.contiguous(),
                         out_dtype=compute_dtype)
+    w = w.to(compute_dtype)
     if w.dim() == 3:   # (k, heads, head_dim)
         y = x.reshape(-1, k) @ w.reshape(k, -1)
         return y.reshape(*lead, *w.shape[1:])

@@ -71,7 +71,14 @@ def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):
 @pytest.mark.parametrize("m,k,n", [(3000, 201, 80), (1500, 80, 384),
                                    (1500, 384, 1536), (1500, 1536, 384),
                                    (32, 384, 384), (4, 384, 1536),
-                                   (1, 1536, 384), (33, 45, 70)])
+                                   (1, 1536, 384), (33, 45, 70),
+                                   # the decoder's GEMVs, and the verify's
+                                   # rows on each side of the GEMV/tile
+                                   # threshold (16 rows)
+                                   (1, 384, 384), (1, 384, 1536),
+                                   (4, 1536, 384), (15, 1536, 384),
+                                   (16, 1536, 384), (17, 1536, 384),
+                                   (32, 1536, 384), (1500, 384, 384)])
 def test_fp16_matmul_kernel(dev, dtype, m, k, n):
     rng = np.random.default_rng(m + k + n)
     x = _randn(rng, (m, k), dev, dtype)
@@ -157,6 +164,34 @@ def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
     torch.cuda.synchronize()
     want = fa_plain.flash_attention(q, k, v, **kw)
     assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 51200), (1, 384, 70),
+                                   (16, 1536, 384), (77, 1024, 512),
+                                   (33, 45, 70)])
+def test_fp16_matmul_kernel_f32_x_16_bit_w(dev, wdtype, m, k, n):
+    """f32 x with a bf16 or f16 w widened in the kernel (the xLSTM head
+    reads its bf16 lm_head as stored): the plain version's f32 products,
+    to f32 summation order, in the GEMV and in the FMA loop."""
+    rng = np.random.default_rng(m + n + k)
+    x = _randn(rng, (m, k), dev)
+    w = _randn(rng, (k, n), dev, wdtype, k ** -0.5)
+    before = mm_ops.fp16_matmul.launches
+    got = mm_ops.fp16_matmul(x, w)
+    torch.cuda.synchronize()
+    assert mm_ops.fp16_matmul.launches == before + 1
+    assert_f32_close(got, mm_plain.fp16_matmul(x, w))
+
+
+def test_fp16_matmul_kernel_refuses_other_pairs(dev):
+    x = torch.zeros((4, 64), device=dev, dtype=torch.float16)
+    for xd, wd in ((torch.float16, torch.bfloat16),
+                   (torch.bfloat16, torch.float16),
+                   (torch.float16, torch.float32)):
+        with pytest.raises(TypeError):
+            mm_ops.fp16_matmul(x.to(xd), torch.zeros((64, 8), device=dev,
+                                                     dtype=wd))
 
 
 def _q8_planes(rng, shape, dev):
@@ -338,6 +373,58 @@ def test_decode_attention_cache_kernel_multi_query(dev, tier, L, b, nq, s,
     got = kern(q, kc, ks, vc, vs, lens, layer)
     torch.cuda.synchronize()
     want = plain(q, kc, ks, vc, vs, lens, layer)
+    assert_bf16_close(got, want)
+
+
+def _chunked_case(tier, rng, dev, L, b, nq, s, h, hkv, d, lens):
+    """Cache planes of ``tier`` with V only on the 3 positions before
+    each lane's first length and a large V past it, and the kernel's and
+    the plain version's outputs on layer L - 1."""
+    q = _randn(rng, (b, nq, h, d), dev, torch.bfloat16)
+    kc, ks = _planes(tier, rng, (L, b, s, hkv, d), dev)
+    v = _randn(rng, (L, b, s, hkv, d), dev)
+    n = lens if lens.dim() == 1 else lens[:, 0]
+    pos = torch.arange(s, device=dev)[None, None, :, None, None]
+    n = n[None, :, None, None, None]
+    v = torch.where(pos >= n, 8.0 * v, torch.where(pos >= n - 3, v, 0.0))
+    vc, vs = _planes(tier, rng, None, dev, v=v)
+    kern, plain = _OPS[tier][2:]
+    got = kern(q, kc, ks, vc, vs, lens, L - 1)
+    torch.cuda.synchronize()
+    return got, plain(q, kc, ks, vc, vs, lens, L - 1)
+
+
+@pytest.mark.parametrize("tier", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("b,at", [(1, [10, 0]), (1, [10, 1]), (1, [0, 1]),
+                                  (4, [2, 0]), (4, [2, 1])])
+def test_decode_attention_kernel_at_chunk_boundaries(dev, tier, b, at):
+    """S = 1500 split across CTAs as the wrapper plans it (decode.
+    chunk_plan): a length on a chunk's end, one a position past it, a
+    length of 1, and beside them a lane of length 0, which returns 0."""
+    from repro_torch.kernels import build, decode
+    chunk, nch = decode.chunk_plan(b, 6, 1, 1500, build.sm_count(dev))
+    assert nch > 1
+    first = at[0] * chunk + at[1]
+    lens = torch.tensor([first, 0, 1500, 2 * chunk][:b] if b > 1 else
+                        [first], device=dev)
+    got, want = _chunked_case(tier, np.random.default_rng(first + b), dev,
+                              2, b, 1, 1500, 6, 6, 64, lens)
+    assert_bf16_close(got, want)
+    if b > 1:
+        assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tier", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("L,b,nq,s,h,hkv,d", [
+    (2, 2, 4, 1500, 6, 6, 64),     # the verify's (B, Q) lengths, chunked
+    (2, 2, 3, 1500, 4, 2, 32),     # GQA (4 heads over 2), D = 32
+    (1, 1, 1, 65536, 6, 6, 64),    # S beyond one block's shared memory
+    (1, 1, 4, 65536, 6, 6, 64)])
+def test_decode_attention_kernel_split_s(dev, tier, L, b, nq, s, h, hkv, d):
+    rng = np.random.default_rng(s + nq + d)
+    first = torch.from_numpy(rng.integers(s // 2, s - nq + 2, b)).to(dev)
+    lens = first[:, None] + torch.arange(nq, device=dev)[None, :]
+    got, want = _chunked_case(tier, rng, dev, L, b, nq, s, h, hkv, d, lens)
     assert_bf16_close(got, want)
 
 

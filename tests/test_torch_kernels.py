@@ -33,9 +33,10 @@ from repro.kernels.q8_attention.xla import q8_decode_attention_xla
 from repro.kernels.q8_matmul.ops import q8_matmul as j_q8mm
 from repro.models.attention import chunked_attention
 from repro_torch.bridge import tensor_from_numpy
-from repro_torch.kernels import api
+from repro_torch.kernels import api, decode
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.fp16_matmul import ops as mm_ops
 from repro_torch.kernels.fp16_matmul.ops import fp16_matmul, offload_info
 from repro_torch.kernels.q4_attention.ops import (
     cache_traffic_ratio_q4, q4_decode_attention, q4_decode_attention_cache,
@@ -443,3 +444,150 @@ def test_wrappers_validate_calls_before_choosing_a_path():
     with pytest.raises(ValueError):   # K = 64 against 24 packed rows
         q4_matmul(x, Q4Tensor(torch.zeros(24, 8, dtype=torch.uint8),
                               torch.zeros(2, 8, dtype=torch.float16)))
+
+
+# ----------------------------------------------------------------------------
+# The Hopper redesigns' planners (pure Python; the wrappers pass their
+# choice to the C entry points), and the mixed-type GEMM
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hkv,rows,s,sms,want", [
+    (1, 6, 1, 1500, H100_SMS, (64, 24)),     # phases a, b: 144 CTAs
+    (4, 6, 1, 1500, H100_SMS, (224, 7)),     # serve, c: 168 CTAs
+    (1, 6, 4, 1500, H100_SMS, (64, 24)),     # cross verify, 1 lane
+    (4, 6, 4, 1500, H100_SMS, (224, 7)),     # cross verify, 4 lanes
+    (1, 6, 1, 35, H100_SMS, (64, 1)),        # self decode: one chunk
+    (4, 6, 4, 64, H100_SMS, (64, 1)),        # self verify
+    (1, 6, 1, 65536, H100_SMS, (512, 128)),  # above the old shared-memory cap
+    (24, 1, 1, 1500, H100_SMS, (224, 7)),    # the flat (BH, Q, D) form
+    (2, 2, 6, 40, 8, (64, 1)),               # reduced GQA: 2 row groups
+    (3, 2, 3, 100, 8, (64, 2)),
+    (1, 1, 1, 0, H100_SMS, (64, 1)),         # an empty cache: one chunk
+])
+def test_decode_attention_chunk_plan(b, hkv, rows, s, sms, want):
+    """The split of the cache positions across CTAs: whole multiples of
+    CHUNK_ALIGN, between CHUNK_MIN and CHUNK_MAX, covering [0, S)
+    exactly once; at the main path's shapes the CTAs reach the SMs."""
+    chunk, nch = decode.chunk_plan(b, hkv, rows, s, sms)
+    assert (chunk, nch) == want
+    assert chunk % decode.CHUNK_ALIGN == 0
+    assert decode.CHUNK_MIN <= chunk <= decode.CHUNK_MAX
+    covered = [p for c in range(nch)
+               for p in range(c * chunk, min(s, (c + 1) * chunk))]
+    assert covered == list(range(s))
+    assert nch == 1 or (nch - 1) * chunk < s     # no chunk is empty
+    ctas = b * hkv * _cdiv(rows, decode.ROWS_MAX) * nch
+    if s == 1500 and sms == H100_SMS:
+        assert ctas >= sms
+
+
+TBF, TF16, TF32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("m,n,k,xd,wd,aligned,want", [
+    (1500, 1536, 384, TBF, TBF, True, ("tile", 0, 0)),   # MLP up: 144 tiles
+    (1500, 384, 1536, TBF, TBF, True, ("tile", 1, 0)),   # MLP down: 64x128
+    (1500, 384, 384, TBF, TBF, True, ("tile", 1, 0)),    # wo
+    (1500, 1536, 384, TF16, TF16, True, ("tile", 0, 0)),
+    (32, 1536, 384, TBF, TBF, True, ("tile", 2, 0)),     # the prefill: 64x64
+    (32, 384, 1536, TBF, TBF, True, ("tile", 2, 0)),
+    (17, 384, 1536, TBF, TBF, True, ("tile", 2, 0)),     # one above the GEMV
+    (16, 384, 1536, TBF, TBF, True, ("gemv", 16, 8)),    # the verify's rows
+    (15, 384, 1536, TBF, TBF, True, ("gemv", 16, 8)),
+    (4, 384, 1536, TBF, TBF, True, ("gemv", 16, 8)),     # decode, 4 lanes
+    (1, 384, 384, TBF, TBF, True, ("gemv", 16, 8)),      # decode, 1 lane
+    (1, 384, 384, TF32, TF32, True, ("gemv", 32, 8)),
+    (4, 51200, 1024, TF32, TBF, True, ("gemv", 16, 1)),  # the xLSTM head
+    (4, 51200, 1024, TF32, TF32, True, ("gemv", 32, 1)),
+    (7, 50, 64, TBF, TBF, False, ("gemv", 16, 8)),       # any alignment
+    (256, 51200, 1024, TF32, TBF, True, ("fma", 0, 0)),  # head at prefill
+    (3000, 80, 201, TF32, TF32, True, ("fma", 0, 0)),    # the frontend
+    (33, 70, 45, TBF, TBF, True, ("fma", 0, 0)),         # rows not 16 B
+    (1500, 1536, 384, TBF, TBF, False, ("fma", 0, 0)),   # unaligned base
+    (64, 48, 384, TBF, TBF, True, ("fma", 0, 0)),        # N under a box
+])
+def test_fp16_matmul_plan(m, n, k, xd, wd, aligned, want):
+    """The layout the wrapper picks by M, dtype and alignment: the GEMV
+    at or under 16 rows for every operand pair (a cluster of up to 8
+    CTAs splitting K where the column tiles leave SMs idle), the wgmma
+    tile above it for 16-byte aligned bf16 or f16 operands, and the f32
+    FMA loop for f32 x or unaligned rows."""
+    names = {mm_ops.FMA: "fma", mm_ops.TILE: "tile", mm_ops.GEMV: "gemv"}
+    layout, p0, p1 = mm_ops.plan(m, n, k, xd, wd, H100_SMS, aligned)
+    assert (names[layout], p0, p1) == want
+    if layout == mm_ops.GEMV:
+        vec = 16 // (4 if wd == TF32 else 2)
+        tiles = _cdiv(n, p0 * vec)
+        assert 1 <= p1 <= mm_ops.CLUSTER_MAX
+        assert tiles * p1 >= H100_SMS or p1 == mm_ops.CLUSTER_MAX
+        assert mm_ops._gemv_smem(k, p1, 16) <= mm_ops.GEMV_SMEM
+
+
+def test_fp16_matmul_plan_refuses_x_it_cannot_stage():
+    with pytest.raises(ValueError, match="staging"):
+        mm_ops.plan(16, 384, 65536, TBF, TBF, H100_SMS)
+
+
+@pytest.mark.parametrize("xd", [TF32, TBF, TF16])
+@pytest.mark.parametrize("wd", [TF32, TBF, TF16])
+def test_fp16_matmul_operand_pairs(xd, wd):
+    """Equal types, or f32 x with a bf16 or f16 w (widened as it is
+    read: the same f32 products); every other pair raises TypeError."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 24)).astype(np.float32))
+    x, w = x.to(xd), w.to(wd)
+    if xd != wd and xd != TF32:
+        with pytest.raises(TypeError):
+            fp16_matmul(x, w)
+        return
+    got = fp16_matmul(x, w, out_dtype=TF32)
+    want = x.double() @ w.double()
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+def _head_inputs(seed):
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((2, 3, 64)), jnp.float32)
+    head = jnp.asarray(rng.standard_normal((64, 128)) * 64 ** -0.5, BF)
+    return x, head
+
+
+def test_mm_f32_with_a_bf16_weight_matches_jax(monkeypatch):
+    """mm(x_f32, w_bf16, f32): the reference widens w to f32 and
+    multiplies; the port passes w as it is stored (the kernel widens it
+    in the tile) and gets the same f32 products, to 1e-5 of the
+    largest output."""
+    from repro.models.layers import mm as j_mm
+    from repro_torch.kernels.fp16_matmul import plain as mm_plain
+    from repro_torch.models.layers import mm
+    x, w = _head_inputs(12)
+    seen = []
+    real = mm_plain.fp16_matmul
+
+    def spy(a, b, out_dtype=torch.float32):
+        seen.append(b.dtype)
+        return real(a, b, out_dtype)
+    monkeypatch.setattr(mm_plain, "fp16_matmul", spy)
+    got = mm(_t(x), _t(w), torch.float32)
+    want = _np(j_mm(x, w, jnp.float32))
+    assert seen == [torch.bfloat16] and got.dtype == torch.float32
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-5 * np.abs(want).max(), err
+
+
+def test_logits_head_with_an_untied_bf16_head_matches_jax():
+    """The xLSTM head: f32 activations against a bf16 (d, padded vocab)
+    head, padding ids at -1e9, to 1e-5 of the largest real logit."""
+    from repro.models.layers import logits_head as j_logits_head
+    from repro_torch.models.layers import logits_head
+    x, head = _head_inputs(13)
+    vocab = 100
+    table = jnp.zeros((128, 64), BF)
+    want = _np(j_logits_head({"table": table}, x, vocab, head=head))
+    got = logits_head({"table": _t(table)}, _t(x), vocab,
+                      head=_t(head)).numpy()
+    err = np.abs(got[..., :vocab] - want[..., :vocab]).max()
+    assert err <= 1e-5 * np.abs(want[..., :vocab]).max(), err
+    np.testing.assert_allclose(got[..., vocab:], want[..., vocab:],
+                               rtol=1e-6)
