@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import torch
@@ -172,6 +173,11 @@ def _bf16(tree):
     return tree.to(torch.bfloat16)
 
 
+#: the port's kernels (csrc/): top-level anonymous namespace, its names
+PORT_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::"
+                         r"(mm|q4|q8|slstm|flash|decode)_\w*kernel\b")
+
+
 def _tick_report(prof, stages: dict) -> dict:
     """Device time of the profiled tick against an unprofiled tick's
     wall time, and its kernels by device time."""
@@ -184,12 +190,18 @@ def _tick_report(prof, stages: dict) -> dict:
         s = by_name.setdefault(e.name, [0, 0.0])
         s[0] += 1
         s[1] += e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+
+    def rows(items):
+        return [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
+                for n, (c, us) in items]
+    # the port's own kernels wherever they rank
     return {"unprofiled_wall_s": t_tick, "device_s": dev_us * 1e-6,
             "busy_share": dev_us * 1e-6 / t_tick,
             "kernel_launches": len(kernels),
-            "top": [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
-                    for n, (c, us) in top]}
+            "top": rows(ranked[:10]),
+            "port_kernels": rows([kv for kv in ranked
+                                  if PORT_KERNEL.match(kv[0])])}
 
 
 def main() -> None:
@@ -220,6 +232,9 @@ def main() -> None:
           f"device_s={t['device_s']} "
           f"busy_share={t['busy_share']} launches={t['kernel_launches']}")
     for row in t["top"]:
+        print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
+    print("the port's kernels:")
+    for row in t["port_kernels"]:
         print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
     print(json.dumps(r))
 

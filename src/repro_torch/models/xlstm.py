@@ -264,8 +264,12 @@ def _slstm_wx(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _stacked_r(p: dict) -> torch.Tensor:
-    """(4, H, hd, hd) stacked recurrent weights, f32."""
-    return torch.stack([p[g]["r"].to(_F32) for g in GATES])
+    """(4, H, hd, hd) stacked recurrent weights: bf16 as stored (no f32
+    copy; ``slstm_scan`` widens each element as it reads it, and a bf16
+    value is exact in f32), f32 otherwise."""
+    rs = [p[g]["r"] for g in GATES]
+    dt = _BF16 if all(r.dtype == _BF16 for r in rs) else _F32
+    return torch.stack([r.to(dt) for r in rs])
 
 
 def _init_sstate(b, h, hd, device) -> torch.Tensor:

@@ -279,7 +279,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                                    (1, 1536, 384), (4, 384, 384),
                                    (4, 384, 1536), (4, 1536, 384),
                                    (7, 64, 50), (33, 96, 70),
-                                   (1500, 384, 1536)])
+                                   # the GEMV's last row count, and one
+                                   # past it (the row tile)
+                                   (16, 384, 1536), (16, 1536, 384),
+                                   (17, 384, 384), (1500, 384, 1536)])
 def test_q4_matmul_kernel(dev, dtype, m, k, n):
     rng = np.random.default_rng(m * k + n + 1)
     x = _randn(rng, (m, k), dev, dtype)
@@ -292,6 +295,37 @@ def test_q4_matmul_kernel(dev, dtype, m, k, n):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     got16 = q4_ops.q4_matmul(x, w, out_dtype=torch.bfloat16)
     assert_bf16_close(got16, want)
+
+
+@pytest.mark.parametrize("layout,cgw", [(q4_ops.MMA, 0), (q4_ops.GEMV, 1),
+                                        (q4_ops.GEMV, 2)])
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("m,k,n", [(4, 384, 1536), (1, 1536, 384),
+                                   # N not a multiple of 16: byte loads
+                                   # and a ragged last column group; 16 rows
+                                   (3, 384, 200), (2, 1536, 77),
+                                   (16, 384, 96)])
+def test_q4_matmul_gemv_at_each_cluster_split(dev, monkeypatch, layout, cgw,
+                                              ranks, m, k, n):
+    """Both GEMVs (the tensor cores, and the CUDA cores at every
+    column-group width) with K split across 1-8 CTAs of a cluster (each a
+    whole number of 8-row runs of the packed w; every split here leaves no
+    rank empty) and 1-8 warps a CTA."""
+    rng = np.random.default_rng(ranks * 31 + cgw + n)
+    x = _randn(rng, (m, k), dev, torch.bfloat16)
+    w = quantize_q4_0(_randn(rng, (k, n), dev, scale=k ** -0.5), axis=0)
+    want = q4_plain.q4_matmul(x, w.q, w.scale, torch.float32)
+    ran = 0
+    for warps in (1, 2, 4, 8):
+        if not q4_ops.gemv_fits(k, cgw, warps, ranks):
+            continue
+        monkeypatch.setattr(q4_ops, "plan", lambda *a, p=(
+            layout, cgw, warps, ranks): p)
+        got = q4_ops.q4_matmul(x, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        ran += 1
+    assert ran == 4
 
 
 def _planes(tier, rng, shape, dev, v=None):
@@ -489,6 +523,54 @@ def test_slstm_scan_kernel(dev, s, b, h, hd, init):
     assert_f32_close(hk, hp)
     for leaf in range(4):
         assert_f32_close(sk[leaf], sp[leaf])
+
+
+# outputs of a run that may differ from the plain version bit for bit:
+# the f64 dot's order is the kernel's own, and a sum within ~2^-45 of an
+# f32 rounding boundary (a tie) may round the other way. One tie at the
+# last step moves at most the 5 outputs of its (lane, column): hs, c, n,
+# h, m; no more than one is expected in these runs.
+SLSTM_TIES = 5
+
+
+def _differing(got, want) -> int:
+    return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("s,b,init", [(256, 1, True), (1, 4, False),
+                                      (9, 3, False)])
+def test_slstm_scan_kernel_bit_equal_to_plain(dev, monkeypatch, cluster, s,
+                                              b, init):
+    """The cluster layout at xlstm-350m's width (4 heads of 256) against
+    the plain version bit for bit, but for SLSTM_TIES: prefill of the
+    longest prompt on one lane, a decode step of 4 lanes, and 3 lanes (a
+    group with a lane past B)."""
+    wx, r, st = _slstm_inputs(np.random.default_rng(s + b), dev, s, b, 4,
+                              256, init)
+    monkeypatch.setattr(sl_ops, "plan", lambda *a: (sl_ops.CLUSTER,
+                                                    cluster))
+    got = sl_ops.slstm_scan(wx, r, st)
+    torch.cuda.synchronize()
+    want = sl_plain.slstm_scan(wx, r, st)
+    assert _differing(got, want) <= SLSTM_TIES
+
+
+@pytest.mark.parametrize("s,b,hd", [(256, 1, 256), (1, 4, 256),
+                                    (13, 2, 32), (5, 3, 100)])
+def test_slstm_scan_kernel_takes_a_bf16_r(dev, s, b, hd):
+    """R in bf16 as the model stores it: exactly the result of the same
+    values widened to f32 (both layouts), and the plain version's."""
+    wx, r, st = _slstm_inputs(np.random.default_rng(hd + s), dev, s, b, 4,
+                              hd, False)
+    rb = r.to(torch.bfloat16)
+    got = sl_ops.slstm_scan(wx, rb, st)
+    same = sl_ops.slstm_scan(wx, rb.float(), st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, same))
+    want = sl_plain.slstm_scan(wx, rb, st)
+    assert_f32_close(got[0], want[0])
+    assert_f32_close(got[1], want[1])
 
 
 def test_slstm_scan_kernel_saturated_gates(dev):

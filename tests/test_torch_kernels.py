@@ -41,12 +41,14 @@ from repro_torch.kernels.fp16_matmul.ops import fp16_matmul, offload_info
 from repro_torch.kernels.q4_attention.ops import (
     cache_traffic_ratio_q4, q4_decode_attention, q4_decode_attention_cache,
     quantize_kv_q4)
+from repro_torch.kernels.q4_matmul import ops as q4_ops
 from repro_torch.kernels.q4_matmul.ops import q4_matmul
 from repro_torch.kernels.q8_attention.ops import (q8_decode_attention,
                                                   q8_decode_attention_cache)
 from repro_torch.kernels.q8_matmul import ops as q8_ops
 from repro_torch.kernels.q8_matmul.ops import q8_matmul
 from repro_torch.kernels.registry import KernelSpec
+from repro_torch.kernels.slstm_scan import ops as sl_ops
 from repro_torch.quantize import Q4Tensor, Q8Tensor
 
 BF = jnp.bfloat16
@@ -521,6 +523,56 @@ def test_fp16_matmul_plan(m, n, k, xd, wd, aligned, want):
         assert 1 <= p1 <= mm_ops.CLUSTER_MAX
         assert tiles * p1 >= H100_SMS or p1 == mm_ops.CLUSTER_MAX
         assert mm_ops._gemv_smem(k, p1, 16) <= mm_ops.GEMV_SMEM
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 384, 1536), (4, 1536, 384), (4, 384, 384),   # the draft, 4 lanes
+    (1, 384, 1536), (1, 1536, 384), (1, 384, 384),   # the draft, 1 lane
+    (16, 1536, 384), (3, 384, 200), (2, 1536, 77),   # row groups, ragged N
+    (7, 64, 50), (1, 32, 16), (16, 65536, 384),      # tiny and long K
+    (17, 384, 384), (1500, 384, 1536)])              # the row tile
+@pytest.mark.parametrize("xd,aligned", [(torch.bfloat16, True),
+                                         (torch.float16, True),
+                                         (torch.float32, True),
+                                         (torch.bfloat16, False)])
+def test_q4_matmul_plan(m, k, n, xd, aligned):
+    """The Q4_0 GEMM's layout: at 2-16 rows the tensor-core GEMV for bf16
+    or f16 x on aligned rows, else (one row too) the CUDA-core GEMV, each
+    in a split the C entry point takes (every rank of the cluster a whole
+    number of 8-row runs of the packed w, none empty) that leaves a warp
+    MMA_CHUNKS 16-k chunks or a lane one packed row, as far as 8 ranks
+    reach; the row tile above 16 rows."""
+    layout, cgw, warps, ranks = q4_ops.plan(m, n, k, H100_SMS, xd, aligned)
+    if m > q4_ops.GEMV_MAX_M:
+        assert (layout, cgw, warps, ranks) == (q4_ops.ROWS, 0, 0, 0)
+        return
+    mma = m >= 2 and xd != torch.float32 and aligned
+    assert (layout, cgw) == ((q4_ops.MMA, 0) if mma else (q4_ops.GEMV, 1))
+    assert q4_ops.gemv_fits(k, cgw, warps, ranks)
+    rpr = q4_ops.rows_per_rank(k, ranks)
+    assert rpr % 8 == 0 and (ranks - 1) * rpr < k // 2 <= ranks * rpr
+    per_rank = 8 * q4_ops.MMA_CHUNKS * warps if mma else warps * 32
+    assert rpr <= 8 * _cdiv(per_rank, 8) or ranks == q4_ops.CLUSTER_MAX
+
+
+@pytest.mark.parametrize("b,h,hd,aligned,want", [
+    (1, 4, 256, True, ("cluster", 16)),   # phase d's prefill, one lane
+    (4, 4, 256, True, ("cluster", 16)),   # phase d's decode, 4 lanes
+    (7, 4, 256, True, ("cluster", 16)),   # two groups of lanes
+    (4, 4, 256, False, ("one", 0)),       # R not on 16 bytes
+    (2, 4, 32, True, ("one", 0)),         # the reduced xlstm-350m
+    (3, 4, 100, True, ("one", 0)),        # ragged heads
+    (1, 1, 1, True, ("one", 0)),
+])
+def test_slstm_scan_plan(b, h, hd, aligned, want):
+    """The sLSTM recurrence's layout: a cluster of CTAs per (head, group
+    of up to 4 lanes) at the full head width of 256, each rank holding
+    256 / cluster columns of R; one CTA per (lane, head) elsewhere."""
+    names = {sl_ops.CLUSTER: "cluster", sl_ops.ONE_CTA: "one"}
+    layout, cluster = sl_ops.plan(b, h, hd, aligned)
+    assert (names[layout], cluster) == want
+    if layout == sl_ops.CLUSTER:
+        assert cluster in (8, 16) and hd % (16 * cluster) == 0
 
 
 def test_fp16_matmul_plan_refuses_x_it_cannot_stage():

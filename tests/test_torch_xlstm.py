@@ -109,6 +109,50 @@ def test_slstm_scan_matches_the_reference_op(oracle, s):
                                    atol=F32_ATOL, rtol=F32_RTOL)
 
 
+@pytest.mark.parametrize("s", [13, 1])
+def test_slstm_scan_takes_a_bf16_r(s):
+    """R in bf16, as the model stores it: exactly the result of the same
+    values widened to f32, and the reference's op (its ``ref`` oracle,
+    which casts R to f32 itself) within F32_ATOL + F32_RTOL * |want|."""
+    wx, r, st = _scan_inputs(s, seed=4)
+    rb = torch.from_numpy(r).to(torch.bfloat16)
+    wt, stt = torch.from_numpy(wx), torch.from_numpy(st)
+    th, ts = sl_ops.slstm_scan(wt, rb, stt)
+    fh, fs = sl_ops.slstm_scan(wt, rb.float(), stt)
+    assert torch.equal(th, fh) and torch.equal(ts, fs)
+    jh, js = slstm_scan_ref(jnp.asarray(wx),
+                            jnp.asarray(rb.float().numpy(), jnp.bfloat16),
+                            jnp.asarray(st))
+    np.testing.assert_allclose(th.numpy(), _f32(jh), atol=F32_ATOL,
+                               rtol=F32_RTOL)
+    np.testing.assert_allclose(ts.numpy(), _f32(js), atol=F32_ATOL,
+                               rtol=F32_RTOL)
+
+
+def test_slstm_block_passes_r_as_stored(setup, monkeypatch):
+    """The sLSTM block hands ``slstm_scan`` its bf16 recurrent weights as
+    stored, stacked (4, H, hd, hd) without an f32 copy; f32 weights stay
+    f32."""
+    tp = setup[3]
+    tcfg = t_reduced(t_get_config("xlstm-350m"))
+    tpb = layer_slice(tp["segments"]["block1"]["slstm"], 0)
+    seen = []
+    real = tx.dispatch
+
+    def spy(name, *args, **kw):
+        if name == "slstm_scan":
+            seen.append(args[1].dtype)
+        return real(name, *args, **kw)
+    monkeypatch.setattr(tx, "dispatch", spy)
+    x = torch.zeros((1, 3, 128), dtype=torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        p = {**tpb, **{g: {**tpb[g], "r": tpb[g]["r"].to(dt)}
+                       for g in tx.GATES}}
+        tx.slstm_block(p, x, tcfg, mode="prefill",
+                       cache=tx.init_slstm_cache(tcfg, 1))
+    assert seen == [torch.bfloat16, torch.float32]
+
+
 def test_slstm_scan_saturated_gates_stay_finite():
     """i >> 0 and f << 0 (and the reverse): the stabiliser exponentiates
     differences only, so nothing overflows; same answer as the oracle."""
