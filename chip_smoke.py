@@ -20,9 +20,10 @@ JAX package. Phases:
    call, and ``graph_ms`` the card's work;
 3. ``repro_torch.transcribe`` of 30 s of synthetic audio (1500 encoder
    frames, one chunk) at full whisper-tiny.en width, seeded random
-   weights, 32 new tokens: bf16 weights with a bf16 cache, then Q8_0
-   weights with the q8_0 cache. Each prints ``pre_decode_s`` (wall less
-   decode: the frontend, the encoder and the prefill);
+   weights, 32 new tokens at 8 decode steps a tick: bf16 weights with a
+   bf16 cache, then Q8_0 weights with the q8_0 cache. Each prints
+   ``pre_decode_s`` (wall less decode: the frontend, the encoder and the
+   prefill);
 4. a serve phase: 4 audio requests on 4 slots, 8 decode steps a tick,
    through ``BatchScheduler`` (Q8_0 weights, q8_0 cache);
 5. the q4_0 tier and self-speculative decoding, bf16 weights:
@@ -34,17 +35,15 @@ JAX package. Phases:
       (4 requests on 4 slots, ``spec_k=4``), whose tokens must be those
       of a plain (``spec_k=0``) serve of the same requests.
    Each prints its draft steps, verify steps, acceptance rate and host
-   syncs per tick;
+   syncs per tick, and b and c their replayed ticks' tokens a second
+   against a's and the plain serve's;
 d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
    weights): 4 token requests (prompts of 64, 128, 192 and 256 ids drawn
    from the seed, 32 new tokens each) on 4 slots through
    ``BatchScheduler``, 8 decode steps a tick. The sLSTM recurrence runs
    on ``slstm_scan`` at prefill and decode, the untied f32 head on
    ``fp16_matmul``. It prints wall seconds, decode tok/s, ticks, host
-   syncs and the ``energy_report`` on ``h100-sxm``, and counts every
-   device-to-host synchronisation of the run (``torch.cuda``'s sync
-   debug mode): one per admission (the first token) and one per decode
-   tick, no more.
+   syncs and the ``energy_report`` on ``h100-sxm``.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -67,10 +66,24 @@ gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
-Before each phase of 3, 4, 5 and d every kernel's launch count is set to 0
-and the dispatch log cleared; after it the script requires that each
-kernel of that path launched and that every call of the seven ops was
-routed ``("accel", "cuda")``. The engine of each phase keeps the logits
+Every phase of 3, 4, 5 and d runs twice with the same engine settings:
+captured (the default: the engine's first tick of a size runs eagerly,
+the second captures it in a CUDA graph, every later one replays it) and
+eager (``cuda_graph=False``). The captured run must have made one
+capture per tick size and replayed from each size's second tick on; its
+tokens must equal the eager run's, and its logits rows be bit-equal to
+them or within ``CAPTURE_REL_TOL`` of the largest logit. Each run prints
+its captures, replays, tick times and the decode tokens a second of its
+replayed (or eager) ticks. Every decode tick of both runs is watched
+with ``torch.cuda``'s sync debug mode: one synchronising CUDA call (the
+token block's fetch) and one host fetch a tick, no more.
+
+Before each run every kernel's launch count is set to 0 and the
+dispatch log cleared; after it the script requires that each kernel of
+that path launched and that every call of the seven ops was routed
+``("accel", "cuda")``, and the captured run's counts (its replays add
+what the capture pass recorded) must equal the eager run's. The engine
+of each phase keeps the logits
 row each token was chosen from; the same phase is then run again on the
 plain versions (forced, on the card) and the two runs' rows must agree
 within ``LOGIT_REL_TOL`` of the largest logit (``LOGIT_REL_TOL_Q4`` with a
@@ -85,6 +98,7 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -112,6 +126,9 @@ LOGIT_REL_TOL_Q4 = 0.05
 # rest of the model runs the same torch ops in both runs), ~13x headroom
 LOGIT_REL_TOL_XLSTM = 1e-5
 TIE_MARGIN = 0.25    # a token flip is allowed only below this logit gap
+# a phase's captured logits rows against its eager run's, over the largest
+# logit, where they are not bit-equal
+CAPTURE_REL_TOL = 1e-5
 # slstm_scan outputs of a phase-2 case that may differ from the plain
 # version bit for bit. The dot's exact products are summed in f64 in the
 # kernel's own order and rounded once to f32, so the two round apart only
@@ -650,9 +667,10 @@ def zero_counts() -> None:
     reset_dispatch_log()
 
 
-def read_counts(phase: str, expect: tuple) -> dict:
-    """Launch counts of this phase; every expected kernel launched and
-    every dispatched call of the seven ops went ("accel", "cuda")."""
+def read_counts(phase: str, expect: tuple) -> tuple:
+    """Launch counts and routing counters of this phase; every expected
+    kernel launched and every dispatched call of the seven ops went
+    ("accel", "cuda")."""
     from repro_torch.kernels.api import dispatch_counters
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     routing = dispatch_counters()
@@ -667,7 +685,153 @@ def read_counts(phase: str, expect: tuple) -> dict:
         raise AssertionError(f"[{phase}] calls not routed accel/cuda: {bad}")
     if not routing:
         raise AssertionError(f"[{phase}] no dispatched call at all")
-    return counts
+    return counts, routing
+
+
+_SYNCS = {"in_step": False, "sites": []}
+
+
+@contextlib.contextmanager
+def sync_debug():
+    """Count every synchronising CUDA call made inside a watched tick
+    (``watch_ticks``), with ``torch.cuda``'s sync debug mode, and note
+    the innermost frame of the port that made it."""
+    import traceback
+    import warnings
+
+    import torch
+
+    def show(message, category, filename, lineno, *_a, **_k):
+        if _SYNCS["in_step"] and "synchroniz" in str(message):
+            port = [f for f in traceback.extract_stack()
+                    if "repro_torch" in f.filename]
+            _SYNCS["sites"].append(
+                f"{os.path.basename(port[-1].filename)}:{port[-1].lineno}"
+                if port else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def watch_ticks(eng) -> list:
+    """Wrap ``eng.step``: for each tick with an active lane, (its tick
+    size, synchronising CUDA calls, host seconds, tokens emitted, whether
+    it replayed a graph it did not capture in the same tick, active lanes
+    at its start)."""
+    ticks = []
+    step = eng.step
+
+    def watched(k=None):
+        active, n0 = eng.n_active, len(_SYNCS["sites"])
+        r0, c0, g0 = eng.replays, eng.captures, eng._generated
+        _SYNCS["in_step"] = True
+        t0 = time.monotonic()
+        try:
+            return step(k)
+        finally:
+            _SYNCS["in_step"] = False
+            if active:
+                ticks.append((eng.decode_block if k is None else k,
+                              len(_SYNCS["sites"]) - n0,
+                              time.monotonic() - t0, eng._generated - g0,
+                              eng.replays > r0 and eng.captures == c0,
+                              active))
+
+    eng.step = watched
+    return ticks
+
+
+def tick_gate(phase: str, eng, ticks: list, captured: bool) -> None:
+    """One host fetch and one synchronising CUDA call a tick; a captured
+    engine replays from its second tick of each size on, with one
+    capture per size. Prints the ticks and, eager, the decode tokens a
+    second over them."""
+    syncs = [t[1] for t in ticks]
+    if eng._host_syncs != eng._ticks or len(ticks) != eng._ticks \
+            or any(n != 1 for n in syncs):
+        raise AssertionError(f"[{phase}] decode ticks {eng._ticks}, host "
+                             f"fetches {eng._host_syncs}, device syncs a "
+                             f"tick {syncs} (at {_SYNCS['sites'][-8:]}): "
+                             f"expected one each")
+    sizes = [t[0] for t in ticks]
+    repeated = {k for k in sizes if sizes.count(k) > 1}
+    if captured and (eng.captures != len(repeated)
+                     or eng.replays != len(ticks) - len(set(sizes))
+                     or not any(t[4] for t in ticks)):
+        raise AssertionError(f"[{phase}] {eng.captures} captures, "
+                             f"{eng.replays} replays for ticks of "
+                             f"{sizes}: expected one capture per size and "
+                             f"a replay from each size's second tick on")
+    if not captured and (eng.captures or eng.replays):
+        raise AssertionError(f"[{phase}] the eager engine captured")
+    tps = sum(t[3] for t in ticks) / sum(t[2] for t in ticks)
+    _log(f"[{phase}] {'captured' if captured else 'eager'}: captures="
+         f"{eng.captures} replays={eng.replays} tick_ms="
+         f"{[round(t[2] * 1e3, 3) for t in ticks]} device_syncs_per_tick="
+         f"{syncs}" + ("" if captured else f" tok_per_s={tps:.1f}"))
+
+
+def steady(phase: str, eng, ticks: list, again):
+    """The phase's work once more through its captured engine, whose
+    graphs it must only replay: every tick replays without a capture and
+    makes one synchronising CUDA call. Returns (what ``again`` returns,
+    decode tokens a second, the same per active lane)."""
+    import torch
+    c0 = eng.captures
+    ticks.clear()
+    out = again()
+    torch.cuda.synchronize()
+    if eng.captures != c0 or not ticks \
+            or not all(t[4] and t[1] == 1 for t in ticks):
+        raise AssertionError(f"[{phase}] the rerun captured ({c0} -> "
+                             f"{eng.captures}) or a tick did not replay "
+                             f"once with one sync: {ticks}")
+    emitted = sum(t[3] for t in ticks)
+    tps = emitted / sum(t[2] for t in ticks)
+    lane_tps = emitted / sum(t[2] * t[5] for t in ticks)
+    _log(f"[{phase}] steady (the same work again, every tick replayed): "
+         f"tick_ms={[round(t[2] * 1e3, 3) for t in ticks]} "
+         f"decode_tok_per_s={tps:.1f} per_lane={lane_tps:.1f}")
+    return out, tps, lane_tps
+
+
+def capture_check(phase: str, got: list, want: list) -> None:
+    """The captured run against the eager one (``cuda_graph=False``) with
+    the same engine settings: per request the same tokens, and the same
+    logits rows bit for bit or within ``CAPTURE_REL_TOL`` of the largest
+    logit. ``got`` / ``want``: (tokens, logits rows) per request."""
+    import torch
+    err, top, unequal = 0.0, 0.0, 0
+    for (gt, gl), (wt, wl) in zip(got, want):
+        if gt != wt:
+            raise AssertionError(f"[{phase}] captured tokens {gt} differ "
+                                 f"from the eager run's {wt}")
+        for g, w in zip(gl, wl):
+            unequal += not torch.equal(g, w)
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            top = max(top, float(w.float().abs().max()))
+    _log(f"[{phase}] captured vs eager: tokens equal, logits rows "
+         f"bit-equal {sum(len(w[1]) for w in want) - unequal} of "
+         f"{sum(len(w[1]) for w in want)}, max_abs_err={err:.4g} "
+         f"rel={err / top:.4g} (tol {CAPTURE_REL_TOL})")
+    if err > CAPTURE_REL_TOL * top:
+        raise AssertionError(f"[{phase}] captured logits off the eager "
+                             f"run's by {err / top:.4g} of the largest")
+
+
+def same_counts(phase: str, counts: dict, routing, want: tuple) -> None:
+    """The launches and routing counters a captured run counted (the
+    replays' recorded ones) equal those of the eager run."""
+    if counts != want[0] or routing != want[1]:
+        raise AssertionError(f"[{phase}] captured run counted {counts} "
+                             f"{dict(routing)}; the eager run {want[0]} "
+                             f"{dict(want[1])}")
 
 
 def plain_context():
@@ -759,74 +923,119 @@ def run_transcribe(model, params, x, phase: str, expect: tuple,
                    cache_dtype: str, spec_k: int = 0, draft=None):
     """One transcription through the engine ``transcribe`` would build
     (or, with ``spec_k``, a reused speculative engine), keeping its
-    logits; then the same on the plain versions. Returns (result,
-    launch counts)."""
+    logits, its ticks replayed from a CUDA graph; the same eagerly
+    (``cuda_graph=False``), which it must equal; the captured engine's
+    transcription again (``steady``); then the same on the plain
+    versions. Returns (result, launch counts, steady decode tok/s)."""
     import torch
 
     import repro_torch
     from repro_torch.kernels.api import use_context
     from repro_torch.serving.engine import ServeEngine
 
-    def run(platform):
+    def engine(platform, cuda_graph=None):
         eng = ServeEngine(model, params, n_slots=1,
                           max_len=1 + MAX_NEW + 2 + max(spec_k - 1, 0),
                           enc_len=1500, cache_dtype=cache_dtype,
                           decode_block=8, platform=platform,
                           keep_logits=True, spec_k=spec_k,
-                          draft_params=draft)
-        return repro_torch.transcribe(x, model=model, params=params,
-                                      engine=eng, chunk_frames=1500,
-                                      max_new=MAX_NEW)
+                          draft_params=draft, cuda_graph=cuda_graph)
+        ticks = watch_ticks(eng)
 
-    zero_counts()
-    r = run("h100-sxm")
-    torch.cuda.synchronize()
-    counts = read_counts(phase, expect)
-    check_tokens(phase, r.tokens, model.cfg.vocab)
-    if r.n_frames != 1500 or r.host_syncs != r.ticks:
-        raise AssertionError(f"[{phase}] frames {r.n_frames}, host syncs "
-                             f"{r.host_syncs} vs ticks {r.ticks}")
-    tps = (len(r.tokens) - 1) / r.decode_s
+        def go():
+            with sync_debug():
+                r = repro_torch.transcribe(x, model=model, params=params,
+                                           engine=eng, chunk_frames=1500,
+                                           max_new=MAX_NEW)
+            torch.cuda.synchronize()
+            return r
+        return go, ticks
+
+    results = {}
+    for captured in (True, False):
+        zero_counts()
+        go, ticks = engine("h100-sxm", None if captured else False)
+        r = go()
+        counts = read_counts(phase, expect)
+        check_tokens(phase, r.tokens, model.cfg.vocab)
+        if r.n_frames != 1500 or r.host_syncs != r.ticks:
+            raise AssertionError(f"[{phase}] frames {r.n_frames}, host "
+                                 f"syncs {r.host_syncs} vs ticks {r.ticks}")
+        tick_gate(phase, r.engine, ticks, captured)
+        results[captured] = (r, counts, go, ticks)
+    r, (counts, routing), go, ticks = results[True]
+    e, eager_counts, _, _ = results[False]
+    same_counts(phase, counts, routing, eager_counts)
+    capture_check(phase, [(r.tokens, r.logits)], [(e.tokens, e.logits)])
+    r2, tps, _ = steady(phase, r.engine, ticks, go)
+    if r2.tokens != r.tokens:
+        raise AssertionError(f"[{phase}] the rerun's tokens differ")
     _log(f"[{phase}] tokens {r.tokens}")
     # encode and prefill: what the encoder's flash attention and GEMMs set
-    _log(f"[{phase}] wall_s={r.wall_s:.4f} decode_s={r.decode_s:.4f} "
-         f"pre_decode_s={r.wall_s - r.decode_s:.4f} "
-         f"decode_tok_per_s={tps:.1f} ticks={r.ticks} "
-         f"host_syncs={r.host_syncs} decode_steps={r.decode_steps} "
-         f"modeled_j_per_audio_s={r.energy['joules_per_audio_s']:.4g}")
+    for tag, t in (("captured", r), ("eager", e), ("captured again", r2)):
+        _log(f"[{phase}] {tag}: wall_s={t.wall_s:.4f} decode_s="
+             f"{t.decode_s:.4f} pre_decode_s={t.wall_s - t.decode_s:.4f} "
+             f"decode_tok_per_s={(len(t.tokens) - 1) / t.decode_s:.1f} "
+             f"ticks={t.ticks} host_syncs={t.host_syncs} decode_steps="
+             f"{t.decode_steps} modeled_j_per_audio_s="
+             f"{t.energy['joules_per_audio_s']:.4g}")
     spec_line(phase, r.engine)
     with use_context(plain_context()):
-        ref = run(None)
+        ref = engine(None)[0]()
     logits_check(phase, [(r.tokens, r.logits, ref.tokens, ref.logits)],
                  model.cfg.vocab, _logit_tol(cache_dtype))
-    return r, counts
+    return r, counts, tps
 
 
 SERVE_SECONDS = (30.0, 20.0, 10.0, 25.0)
 
 
 def serve(model, params, frames, platform, cache_dtype: str,
-          spec_k: int = 0, draft=None):
+          spec_k: int = 0, draft=None, cuda_graph=None):
     """4 audio requests on 4 slots through ``BatchScheduler``, 8 decode
-    steps a tick; returns the engine and the scheduler."""
+    steps a tick. Returns the engine, the watched ticks and ``drain``,
+    which serves the requests (uids from its argument on) and returns
+    their states; it has run once, for uids 0-3."""
     from repro_torch.serving.engine import AudioRequest, ServeEngine
     from repro_torch.serving.scheduler import BatchScheduler
     eng = ServeEngine(model, params, n_slots=4, max_len=64, enc_len=1500,
                       cache_dtype=cache_dtype, decode_block=8,
                       platform=platform, keep_logits=True, spec_k=spec_k,
-                      draft_params=draft)
+                      draft_params=draft, cuda_graph=cuda_graph)
+    ticks = watch_ticks(eng)
     sched = BatchScheduler(eng, max_admit_per_tick=4)
-    for i, fr in enumerate(frames):
-        sched.submit(AudioRequest(uid=i, tokens=[1], max_new=MAX_NEW,
-                                  eos_id=-1, enc_frames=fr))
-    sched.run_until_drained(max_ticks=64)
-    return eng, sched
+
+    def drain(uid0: int = 0) -> list:
+        for i, fr in enumerate(frames):
+            sched.submit(AudioRequest(uid=uid0 + i, tokens=[1],
+                                      max_new=MAX_NEW, eos_id=-1,
+                                      enc_frames=fr))
+        with sync_debug():
+            sched.run_until_drained(max_ticks=64)
+        return [sched.results[uid0 + i] for i in range(len(frames))]
+
+    drain.first = drain()
+    return eng, ticks, drain
+
+
+def rerun(phase: str, eng, ticks, drain) -> float:
+    """``drain`` again through the captured engine (``steady``): the same
+    tokens as its first run. Returns the decode tokens a second of an
+    active lane."""
+    again, _, lane_tps = steady(phase, eng, ticks,
+                                lambda: drain(len(drain.first)))
+    if [st.out for st in again] != [st.out for st in drain.first]:
+        raise AssertionError(f"[{phase}] the rerun's tokens differ")
+    return lane_tps
 
 
 def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
               spec_k: int = 0, draft=None):
-    """The serve phase on the kernels, checked, then on the plain
-    versions. Returns (the scheduler's results, launch counts)."""
+    """The serve phase on the kernels, its ticks replayed from a CUDA
+    graph, checked; the same eagerly, which it must equal; the captured
+    engine's requests again (``rerun``); then on the plain versions.
+    Returns (the request states, the frames, launch counts, tok/s, the
+    steady decode tok/s of an active lane)."""
     import torch
 
     from repro_torch.audio.features import audio_frames
@@ -834,52 +1043,65 @@ def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
     from repro_torch.kernels.api import use_context
     waves = [synth_waveform(s, seed=i + 1)
              for i, s in enumerate(SERVE_SECONDS)]
-
-    zero_counts()
-    t0 = time.monotonic()
-    frames = [audio_frames(w, model.cfg.d_model, device="cuda")
-              for w in waves]
-    eng, sched = serve(model, params, frames, "h100-sxm", cache_dtype,
-                       spec_k, draft)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = read_counts(phase, expect)
-    res = sched.results
-    for i in range(len(frames)):
-        if res[i].error:
-            raise AssertionError(f"[{phase}] request {i}: {res[i].error}")
-        check_tokens(phase, res[i].out, model.cfg.vocab)
-    m = sched.metrics
-    n_tok = sum(len(res[i].out) for i in range(len(frames)))
-    _log(f"[{phase}] wall_s={wall:.4f} tokens={n_tok} tok_per_s="
-         f"{n_tok / wall:.1f} ticks={m.ticks} host_syncs={eng._host_syncs} "
-         f"mean_occupancy={m.mean_occupancy:.3f}")
+    n = len(waves)
+    runs = {}
+    for captured in (True, False):
+        zero_counts()
+        t0 = time.monotonic()
+        frames = [audio_frames(w, model.cfg.d_model, device="cuda")
+                  for w in waves]
+        eng, ticks, drain = serve(model, params, frames, "h100-sxm",
+                                  cache_dtype, spec_k, draft,
+                                  None if captured else False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts(phase, expect)
+        res = drain.first
+        for st in res:
+            if st.error:
+                raise AssertionError(f"[{phase}] request {st.req.uid}: "
+                                     f"{st.error}")
+            check_tokens(phase, st.out, model.cfg.vocab)
+        tick_gate(phase, eng, ticks, captured)
+        n_tok = sum(len(st.out) for st in res)
+        _log(f"[{phase}] {'captured' if captured else 'eager'}: wall_s="
+             f"{wall:.4f} tokens={n_tok} tok_per_s={n_tok / wall:.1f} "
+             f"ticks={eng._ticks} host_syncs={eng._host_syncs}")
+        runs[captured] = (eng, res, counts, n_tok / wall, frames, ticks,
+                          drain)
+    eng, res, (counts, routing), tps, frames, ticks, drain = runs[True]
+    _, eager_res, eager_counts, *_ = runs[False]
+    same_counts(phase, counts, routing, eager_counts)
+    capture_check(phase, [(st.out, st.logits) for st in res],
+                  [(st.out, st.logits) for st in eager_res])
+    lane_tps = rerun(phase, eng, ticks, drain)
     spec_line(phase, eng)
     with use_context(plain_context()):
-        _, ref = serve(model, params, frames, None, cache_dtype, spec_k,
-                       draft)
-    logits_check(phase, [(res[i].out, res[i].logits, ref.results[i].out,
-                          ref.results[i].logits)
-                         for i in range(len(frames))], model.cfg.vocab,
+        ref = serve(model, params, frames, None, cache_dtype, spec_k,
+                    draft)[2].first
+    logits_check(phase, [(st.out, st.logits, w.out, w.logits)
+                         for st, w in zip(res, ref)], model.cfg.vocab,
                  _logit_tol(cache_dtype))
-    return res, frames, counts
+    return res, frames, counts, tps, lane_tps
 
 
 # ----------------------------------------------------------------------------
 # Phase d: xlstm-350m served at full width
 # ----------------------------------------------------------------------------
 
-def xlstm_serve(model, params, prompts, platform, on_step=None):
+def xlstm_serve(model, params, prompts, platform, cuda_graph=None):
     """The prompts as token requests on 4 slots through
     ``BatchScheduler``, 8 decode steps a tick, keeping the logits rows.
-    Returns (engine, scheduler, seconds spent in admission)."""
+    Returns (engine, seconds spent in admission, the watched ticks,
+    ``drain``: as ``serve``'s, run once for uids 0-3)."""
     from repro_torch.breakdown import XLSTM_MAX_LEN
     from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch.serving.scheduler import BatchScheduler
     eng = ServeEngine(model, params, n_slots=4, max_len=XLSTM_MAX_LEN,
-                      decode_block=8, platform=platform, keep_logits=True)
+                      decode_block=8, platform=platform, keep_logits=True,
+                      cuda_graph=cuda_graph)
     admit_s = [0.0]
-    admit, step = eng.admit, eng.step
+    admit = eng.admit
 
     def timed_admit(req):
         t0 = time.monotonic()
@@ -888,23 +1110,27 @@ def xlstm_serve(model, params, prompts, platform, on_step=None):
         finally:
             admit_s[0] += time.monotonic() - t0
 
-    def watched_step(k=None):
-        return step(k) if on_step is None else on_step(eng, step, k)
-
-    eng.admit, eng.step = timed_admit, watched_step
+    eng.admit = timed_admit
+    ticks = watch_ticks(eng)
     sched = BatchScheduler(eng, max_admit_per_tick=4)
-    for i, p in enumerate(prompts):
-        sched.submit(Request(uid=i, tokens=p, max_new=MAX_NEW, eos_id=-1))
-    sched.run_until_drained(max_ticks=64)
-    return eng, sched, admit_s[0]
+
+    def drain(uid0: int = 0) -> list:
+        for i, p in enumerate(prompts):
+            sched.submit(Request(uid=uid0 + i, tokens=p, max_new=MAX_NEW,
+                                 eos_id=-1))
+        with sync_debug():
+            sched.run_until_drained(max_ticks=64)
+        return [sched.results[uid0 + i] for i in range(len(prompts))]
+
+    drain.first = drain()
+    return eng, admit_s[0], ticks, drain
 
 
-def run_xlstm(phase: str) -> dict:
-    """Phase d on the kernels, checked, then on the plain versions.
-    Returns the launch counts."""
-    import traceback
-    import warnings
-
+def run_xlstm(phase: str) -> tuple:
+    """Phase d on the kernels, its ticks replayed from a CUDA graph,
+    checked; the same eagerly, which it must equal; the captured engine's
+    requests again (``rerun``); then on the plain versions. Returns (the
+    launch counts, the steady decode tok/s of an active lane)."""
     import torch
 
     from repro_torch.breakdown import XLSTM_MAX_LEN, xlstm_setup
@@ -922,64 +1148,35 @@ def run_xlstm(phase: str) -> dict:
          f"recurrent state a lane")
     xlstm_serve(model, params, [prompts[0][:8]], None)   # warm-up
 
-    # every synchronising CUDA call of a decode tick, counted by
-    # torch.cuda's sync debug mode over the whole run: exactly one a tick
-    # (the token block's fetch). Admission's syncs are outside the ticks.
-    syncs, sync_sites, in_step = [], [], [False]
-
-    def show(message, category, filename, lineno, *_a, **_k):
-        if in_step[0] and "synchroniz" in str(message):
-            # the innermost frame of the port: which call synced
-            port = [f for f in traceback.extract_stack()
-                    if "repro_torch" in f.filename]
-            sync_sites.append(
-                f"{os.path.basename(port[-1].filename)}:{port[-1].lineno}"
-                if port else f"{filename}:{lineno}")
-
-    def on_step(eng, step, k):
-        active, n0 = eng.n_active, len(sync_sites)
-        in_step[0] = True
-        try:
-            out = step(k)
-        finally:
-            in_step[0] = False
-        if active:
-            syncs.append(len(sync_sites) - n0)
-        return out
-
-    zero_counts()
-    t0 = time.monotonic()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            eng, sched, admit_s = xlstm_serve(model, params, prompts,
-                                              "h100-sxm", on_step)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = read_counts(phase, ("slstm_scan", "fp16_matmul"))
-    res = sched.results
-    for i in range(len(prompts)):
-        if res[i].error:
-            raise AssertionError(f"[{phase}] request {i}: {res[i].error}")
-        check_tokens(phase, res[i].out, cfg.vocab)
-    m = sched.metrics
-    n_tok = sum(len(res[i].out) for i in range(len(prompts)))
-    decode_s = wall - admit_s
-    _log(f"[{phase}] wall_s={wall:.4f} prefill_s={admit_s:.4f} "
-         f"decode_s={decode_s:.4f} tokens={n_tok} decode_tok_per_s="
-         f"{(n_tok - len(prompts)) / decode_s:.1f} ticks={m.ticks} "
-         f"decode_ticks={eng._ticks} host_syncs={eng._host_syncs} "
-         f"device_syncs_per_tick={syncs}")
-    if eng._host_syncs != eng._ticks or len(syncs) != eng._ticks \
-            or any(n != 1 for n in syncs):
-        raise AssertionError(f"[{phase}] decode ticks {eng._ticks}, host "
-                             f"fetches {eng._host_syncs}, device syncs a "
-                             f"tick {syncs} (at {sync_sites}): expected "
-                             f"one each")
+    runs = {}
+    for captured in (True, False):
+        zero_counts()
+        t0 = time.monotonic()
+        eng, admit_s, ticks, drain = xlstm_serve(
+            model, params, prompts, "h100-sxm", None if captured else False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts(phase, ("slstm_scan", "fp16_matmul"))
+        res = drain.first
+        for st in res:
+            if st.error:
+                raise AssertionError(f"[{phase}] request {st.req.uid}: "
+                                     f"{st.error}")
+            check_tokens(phase, st.out, cfg.vocab)
+        tick_gate(phase, eng, ticks, captured)
+        n_tok = sum(len(st.out) for st in res)
+        decode_s = wall - admit_s
+        _log(f"[{phase}] {'captured' if captured else 'eager'}: wall_s="
+             f"{wall:.4f} prefill_s={admit_s:.4f} decode_s={decode_s:.4f} "
+             f"tokens={n_tok} decode_tok_per_s="
+             f"{(n_tok - len(prompts)) / decode_s:.1f} "
+             f"decode_ticks={eng._ticks} host_syncs={eng._host_syncs}")
+        runs[captured] = (eng, res, counts, ticks, drain)
+    eng, res, (counts, routing), ticks, drain = runs[True]
+    _, eager_res, eager_counts, *_ = runs[False]
+    same_counts(phase, counts, routing, eager_counts)
+    capture_check(phase, [(st.out, st.logits) for st in res],
+                  [(st.out, st.logits) for st in eager_res])
     cr = eng.cache_report()
     _log(f"[{phase}] cache: state_bytes_total={cr['state_bytes_total']} "
          f"state_bytes_per_step={cr['state_bytes_per_step']} "
@@ -992,13 +1189,13 @@ def run_xlstm(phase: str) -> dict:
                                  "stream_bytes_total", "latency_s",
                                  "bound", "power_w", "joules_per_token",
                                  "accel_flops_share")))
+    lane_tps = rerun(phase, eng, ticks, drain)
     with use_context(plain_context()):
-        _, ref, _ = xlstm_serve(model, params, prompts, None)
-    logits_check(phase, [(res[i].out, res[i].logits, ref.results[i].out,
-                          ref.results[i].logits)
-                         for i in range(len(prompts))], cfg.vocab,
+        ref = xlstm_serve(model, params, prompts, None)[3].first
+    logits_check(phase, [(st.out, st.logits, w.out, w.logits)
+                         for st, w in zip(res, ref)], cfg.vocab,
                  LOGIT_REL_TOL_XLSTM)
-    return counts
+    return counts, lane_tps
 
 
 def _tensors(tree):
@@ -1072,39 +1269,46 @@ def main() -> int:
 
     # the q4_0 tier and self-speculative decoding, bf16 target weights
     draft = quantize_tree(params, tier="q4_0")
-    ra, counts = run_transcribe(model, params, x, "a: transcribe q4_0",
-                                mm_fa + ("q4_decode_attention",), "q4_0")
+    ra, counts, a_tps = run_transcribe(model, params, x,
+                                       "a: transcribe q4_0",
+                                       mm_fa + ("q4_decode_attention",),
+                                       "q4_0")
     add(counts)
-    rb, counts = run_transcribe(
-        model, params, x, "b: transcribe q4_0 spec_k=4",
+    phase = "b: transcribe q4_0 spec_k=4"
+    rb, counts, b_tps = run_transcribe(
+        model, params, x, phase,
         mm_fa + ("q4_matmul", "q4_decode_attention"), "q4_0", spec_k=4,
         draft=draft)
     add(counts)
-    tokens_check("b: transcribe q4_0 spec_k=4", rb.tokens, ra.tokens,
-                 ra.logits)
+    tokens_check(phase, rb.tokens, ra.tokens, ra.logits)
+    _log(f"[{phase}] against a, steady decode: {b_tps:.1f} / {a_tps:.1f} "
+         f"tok/s = {b_tps / a_tps:.3f}x")
     phase = "c: serve q8_0 spec_k=4 4x4"
-    res, frames, counts = run_serve(
+    res, frames, counts, c_tps, c_lane = run_serve(
         model, params, phase, mm_fa + ("q4_matmul", "q8_decode_attention"),
         "q8_0", spec_k=4, draft=draft)
     add(counts)
     # c against a plain (spec_k=0) serve of the same requests
     t0 = time.monotonic()
-    _, plain = serve(model, params, frames, "h100-sxm", "q8_0")
+    eng, ticks, drain = serve(model, params, frames, "h100-sxm", "q8_0")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    n_tok = sum(len(plain.results[i].out) for i in range(len(frames)))
+    plain = drain.first
+    tick_gate(f"{phase}, its plain serve", eng, ticks, True)
+    p_lane = rerun(f"{phase}, its plain serve", eng, ticks, drain)
+    n_tok = sum(len(st.out) for st in plain)
     _log(f"[{phase}] the plain serve (spec_k=0): wall_s={wall:.4f} "
-         f"tokens={n_tok} tok_per_s={n_tok / wall:.1f} "
-         f"ticks={plain.metrics.ticks}")
-    for i in range(len(frames)):
-        tokens_check(phase, res[i].out, plain.results[i].out,
-                     plain.results[i].logits)
+         f"tokens={n_tok} tok_per_s={n_tok / wall:.1f}; c against it: "
+         f"tok/s {c_tps / (n_tok / wall):.3f}x, steady decode of a lane "
+         f"{c_lane:.1f} / {p_lane:.1f} = {c_lane / p_lane:.3f}x")
+    for st, w in zip(res, plain):
+        tokens_check(phase, st.out, w.out, w.logits)
     _log(f"[{phase}] tokens of the 4 requests equal the plain serve's, "
          f"but for near-ties")
 
     del params, qparams, draft, model
     torch.cuda.empty_cache()
-    add(run_xlstm("d: serve xlstm-350m 4x4"))
+    add(run_xlstm("d: serve xlstm-350m 4x4")[0])
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

@@ -2,8 +2,8 @@
 the card.
 
     python -m repro_torch.breakdown [--cache-dtype bf16|q8_0|q4_0]
-                                    [--spec-k K]
-    python -m repro_torch.breakdown --arch xlstm-350m
+                                    [--spec-k K] [--eager]
+    python -m repro_torch.breakdown --arch xlstm-350m [--eager]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
@@ -20,12 +20,15 @@ after one warm-up run:
 * host-clock seconds of each stage (frontend, encode, prefill, decode;
   for xLSTM prefill of the 4 prompts, decode), each ended by a device
   synchronize, from a run without the profiler;
-* for the first decode tick of a further run, under ``torch.profiler``:
+* for the third decode tick of a further run (the engine's first two
+  ticks run eagerly and capture its CUDA graph, so this one replays it;
+  with ``--eager`` every tick runs eagerly), under ``torch.profiler``:
   the summed device time of its kernels and copies, their launch count,
-  the kernels that take the most device time, and the device's busy
-  share, that device time over the mean wall time of an unprofiled tick
-  (1 - busy is the idle share). The profiler's own host cost is left
-  out that way.
+  the kernels that take the most device time, the copies and casts
+  (``copies``), and the device's busy share, that device time over the
+  mean wall time of the unprofiled run's ticks from the third on (1 -
+  busy is the idle share). The profiler's own host cost is left out
+  that way.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -62,7 +65,35 @@ def _timed(fn):
     return out, time.monotonic() - t0
 
 
-def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
+#: the unprofiled run's ticks from this one on set the tick's wall time;
+#: the profiled run profiles this tick
+STEADY_TICK = 2
+
+
+def _decode(eng, profile_tick: bool):
+    """Tick ``eng`` until its lanes finish; with ``profile_tick``, profile
+    tick ``STEADY_TICK`` and stop there. Returns (decode seconds, wall
+    seconds of each tick) or the profiler."""
+    walls = []
+    t0 = time.monotonic()
+    while eng.n_active:
+        if profile_tick and len(walls) == STEADY_TICK:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                eng.step()
+            return prof
+        t = time.monotonic()
+        eng.step()
+        walls.append(time.monotonic() - t)
+    if profile_tick:
+        raise ValueError(f"{len(walls)} ticks: too few to reach tick "
+                         f"{STEADY_TICK}")
+    return time.monotonic() - t0, walls
+
+
+def run(cache_dtype: str, spec_k: int = 0, seed: int = 0,
+        cuda_graph: bool = True) -> dict:
     model = build(get_config("whisper-tiny-en"))
     params = model.init_values(torch.Generator().manual_seed(seed),
                                device="cuda")
@@ -76,7 +107,8 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
                           max_len=MAX_NEW + 3 + max(spec_k - 1, 0),
                           enc_len=1500, cache_dtype=cache_dtype,
                           decode_block=DECODE_BLOCK, platform="h100-sxm",
-                          spec_k=spec_k, draft_params=draft)
+                          spec_k=spec_k, draft_params=draft,
+                          cuda_graph=cuda_graph)
         with torch.no_grad():
             frames, t_fe = _timed(lambda: audio_frames(
                 x, model.cfg.d_model, device="cuda"))
@@ -85,18 +117,13 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
             uid=0, tokens=[1], max_new=MAX_NEW, eos_id=-1,
             enc_states=states[0])))
         if profile_tick:
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                eng.step()
-            return prof
-        t0 = time.monotonic()
-        while eng.n_active:
-            eng.step()
-        t_dec = time.monotonic() - t0
+            return _decode(eng, True)
+        t_dec, walls = _decode(eng, False)
         return {"frontend_s": t_fe, "encode_s": t_enc,
                 "prefill_s": t_pre, "decode_s": t_dec,
                 "decode_tok_per_s": (len(st.out) - 1) / t_dec,
+                "tick_wall_s": walls, "captures": eng.captures,
+                "replays": eng.replays,
                 "ticks": eng._ticks, "host_syncs": eng._host_syncs,
                 "draft_steps": eng._draft_steps,
                 "verify_steps": eng._verify_steps,
@@ -106,8 +133,8 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0) -> dict:
     stages = one(False)
     prof = one(True)
     return {"cache_dtype": cache_dtype, "spec_k": spec_k,
-            "decode_block": DECODE_BLOCK, "stages": stages,
-            "decode_tick": _tick_report(prof, stages)}
+            "decode_block": DECODE_BLOCK, "cuda_graph": cuda_graph,
+            "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
 
 def xlstm_setup(seed: int = 0):
@@ -126,14 +153,15 @@ def xlstm_setup(seed: int = 0):
     return model, params, prompts
 
 
-def run_xlstm(seed: int = 0) -> dict:
+def run_xlstm(seed: int = 0, cuda_graph: bool = True) -> dict:
     """The breakdown of ``chip_smoke.py``'s phase d."""
     model, params, prompts = xlstm_setup(seed)
 
     def one(profile_tick: bool):
         eng = ServeEngine(model, params, n_slots=len(prompts),
                           max_len=XLSTM_MAX_LEN,
-                          decode_block=DECODE_BLOCK, platform="h100-sxm")
+                          decode_block=DECODE_BLOCK, platform="h100-sxm",
+                          cuda_graph=cuda_graph)
 
         def admit_all():
             return [eng.admit(Request(uid=i, tokens=p, max_new=MAX_NEW,
@@ -142,19 +170,14 @@ def run_xlstm(seed: int = 0) -> dict:
 
         sts, t_pre = _timed(admit_all)
         if profile_tick:
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                eng.step()
-            return prof
-        t0 = time.monotonic()
-        while eng.n_active:
-            eng.step()
-        t_dec = time.monotonic() - t0
+            return _decode(eng, True)
+        t_dec, walls = _decode(eng, False)
         cr = eng.cache_report()
         return {"prefill_s": t_pre, "decode_s": t_dec,
                 "decode_tok_per_s":
                     sum(len(st.out) - 1 for st in sts) / t_dec,
+                "tick_wall_s": walls, "captures": eng.captures,
+                "replays": eng.replays,
                 "ticks": eng._ticks, "host_syncs": eng._host_syncs,
                 "state_bytes_total": cr["state_bytes_total"],
                 "state_bytes_per_step": cr["state_bytes_per_step"]}
@@ -163,8 +186,8 @@ def run_xlstm(seed: int = 0) -> dict:
     stages = one(False)
     prof = one(True)
     return {"arch": model.cfg.name, "lanes": len(prompts),
-            "decode_block": DECODE_BLOCK, "stages": stages,
-            "decode_tick": _tick_report(prof, stages)}
+            "decode_block": DECODE_BLOCK, "cuda_graph": cuda_graph,
+            "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
 
 def _bf16(tree):
@@ -178,10 +201,17 @@ PORT_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::"
                          r"(mm|q4|q8|slstm|flash|decode)_\w*kernel\b")
 
 
+#: device work that copies or converts a tensor (torch's copy kernels
+#: and the CUDA memcpy / memset nodes)
+COPY = re.compile(r"copy|Memcpy|Memset|cast", re.IGNORECASE)
+
+
 def _tick_report(prof, stages: dict) -> dict:
-    """Device time of the profiled tick against an unprofiled tick's
-    wall time, and its kernels by device time."""
-    t_tick = stages["decode_s"] / stages["ticks"]
+    """Device time of the profiled tick against the wall time of the
+    unprofiled run's ticks from ``STEADY_TICK`` on, and its kernels by
+    device time."""
+    steady = stages["tick_wall_s"][STEADY_TICK:]
+    t_tick = sum(steady) / len(steady)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -200,6 +230,7 @@ def _tick_report(prof, stages: dict) -> dict:
             "busy_share": dev_us * 1e-6 / t_tick,
             "kernel_launches": len(kernels),
             "top": rows(ranked[:10]),
+            "copies": rows([kv for kv in ranked if COPY.search(kv[0])]),
             "port_kernels": rows([kv for kv in ranked
                                   if PORT_KERNEL.match(kv[0])])}
 
@@ -215,6 +246,10 @@ def main() -> None:
     ap.add_argument("--spec-k", type=int, default=0,
                     help="self-speculative rounds of K positions (K - 1 "
                          "Q4_0 draft steps, one verify); 0 = plain decode")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every decode tick eagerly "
+                         "(cuda_graph=False) instead of replaying its "
+                         "CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
@@ -222,9 +257,9 @@ def main() -> None:
         if args.cache_dtype != "bf16" or args.spec_k:
             raise SystemExit("xlstm-350m serves a bf16 state pool without "
                              "speculative decoding")
-        r = run_xlstm()
+        r = run_xlstm(cuda_graph=not args.eager)
     else:
-        r = run(args.cache_dtype, args.spec_k)
+        r = run(args.cache_dtype, args.spec_k, cuda_graph=not args.eager)
     for k, v in r["stages"].items():
         print(f"{k}: {v}")
     t = r["decode_tick"]
@@ -235,6 +270,9 @@ def main() -> None:
         print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
     print("the port's kernels:")
     for row in t["port_kernels"]:
+        print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
+    print("copies and casts:")
+    for row in t["copies"]:
         print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
     print(json.dumps(r))
 

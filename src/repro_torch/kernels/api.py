@@ -20,6 +20,13 @@ is no fallback: a kernel that cannot take a call raises.
 A ``DispatchContext`` carries the budget, the packing policy, backend
 overrides and the platform / tag stamped into each record; derive one
 from a registered platform with ``DispatchContext.for_platform``.
+
+A CUDA graph replays its kernels without running the Python that
+dispatched them, so neither the log nor a wrapper's ``launches`` count
+moves on a replay. ``recording()`` takes what one capture pass
+dispatched and launched out of the log into a ``TickRecord``, and
+``replay_record`` adds it back once per replay: the counts then read the
+same per tick as an uncaptured tick's.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
-from typing import Mapping, Optional
+from typing import Callable, Iterator, Mapping, Optional
 
 import torch
 
@@ -38,7 +45,8 @@ from repro_torch.kernels.registry import (BACKENDS, KernelOp, KernelSpec,
 __all__ = [
     "DispatchContext", "DispatchRecord", "dispatch", "dispatch_counters",
     "dispatch_trace", "reset_dispatch_log", "use_context",
-    "current_context", "decide",
+    "current_context", "decide", "launch_counts", "TickRecord",
+    "recording", "replay_record",
 ]
 
 #: budget of a context not derived from a platform (the reference's
@@ -129,6 +137,59 @@ def dispatch_counters() -> collections.Counter:
 def reset_dispatch_log() -> None:
     _trace.clear()
     _counters.clear()
+
+
+#: op name -> the wrapper whose ``launches`` attribute counts the launches
+#: of that op's kernel (filled by ``_register_builtin_ops``)
+_LAUNCHERS: dict[str, Callable] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by op (each wrapper's ``launches``)."""
+    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
+
+
+@dataclasses.dataclass
+class TickRecord:
+    """What one pass over a captured region dispatched and launched: the
+    routing counters, the trace records in order, and the launches by
+    op."""
+    counters: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    trace: list = dataclasses.field(default_factory=list)
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[TickRecord]:
+    """Record the dispatches and launches of the enclosed block into the
+    ``TickRecord`` it yields and leave the log and every ``launches``
+    count as they were before it: a graph capture, which runs nothing on
+    the card, counts nothing."""
+    global _trace, _counters
+    saved_trace, saved_counters = _trace, _counters
+    before = launch_counts()
+    rec = TickRecord()
+    _trace = collections.deque(maxlen=_TRACE_MAX)
+    _counters = collections.Counter()
+    try:
+        yield rec
+    finally:
+        rec.counters, rec.trace = _counters, list(_trace)
+        rec.launches = {name: n - before[name]
+                        for name, n in launch_counts().items()
+                        if n != before[name]}
+        _trace, _counters = saved_trace, saved_counters
+        for name, n in before.items():
+            _LAUNCHERS[name].launches = n
+
+
+def replay_record(rec: TickRecord) -> None:
+    """Count one replay of a recorded region, as if it had run again."""
+    _counters.update(rec.counters)
+    _trace.extend(rec.trace)
+    for name, n in rec.launches.items():
+        _LAUNCHERS[name].launches += n
 
 
 def _first_allowed(op: KernelOp, order, on_cuda: bool) -> str:
@@ -244,6 +305,14 @@ def _register_builtin_ops() -> None:
     from repro_torch.kernels.slstm_scan import plain as sl_plain
 
     f32 = torch.float32
+    _LAUNCHERS.update({
+        "fp16_matmul": mm_ops.fp16_matmul,
+        "q8_matmul": q8_ops.q8_matmul,
+        "flash_attention": fa_ops.flash_attention,
+        "q8_decode_attention": qa_ops.q8_decode_attention,
+        "q4_matmul": q4_ops.q4_matmul,
+        "q4_decode_attention": q4a_ops.q4_decode_attention,
+        "slstm_scan": sl_ops.slstm_scan})
 
     register(KernelOp(
         name="q8_matmul",

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
-from repro_torch.models.layers import mm, mm_out, ninit
+from repro_torch.models.layers import mm, mm_out, ninit, prepared
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
 NEG_INF = -1e30
@@ -57,7 +57,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
         # self-attention with plain weights: one QKV product over the
         # head-concatenated weight (the same per-element contraction)
         h, hk = cfg.n_heads, cfg.n_kv_heads
-        y = mm(x, torch.cat([wq, wk, wv], dim=1))
+        wqkv = prepared(p, "wqkv", lambda: torch.cat([wq, wk, wv], dim=1))
+        y = mm(x, wqkv)
         return (y[..., :h, :].contiguous(), y[..., h:h + hk, :].contiguous(),
                 y[..., h + hk:, :].contiguous())
     x_kv = x if x_kv is None else x_kv

@@ -20,8 +20,8 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (embed, layer_slice, layernorm,
                                        logits_head, mlp, ninit, pad_vocab,
-                                       sinusoidal_positions, stack_layers,
-                                       take_rows)
+                                       prepare_head, sinusoidal_positions,
+                                       stack_layers, take_rows)
 from repro_torch.quantize import QTENSORS, as_array
 
 MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
@@ -74,6 +74,35 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
                                     for _ in range(cfg.n_layers)]),
         "dec_ln": _init_layernorm(d, device),
     }
+
+
+#: the projection weights of an attention or MLP dict, which ``mm`` and
+#: ``mm_out`` multiply in bf16
+_PROJ = ("wq", "wk", "wv", "wo", "up", "gate", "down")
+
+
+def _bf16_proj(tree: dict) -> dict:
+    """``tree`` with every float projection weight in bf16, the dtype it
+    is multiplied in; quantized weights and norms as they are."""
+    return {k: _bf16_proj(v) if isinstance(v, dict)
+            else v.to(torch.bfloat16)
+            if k in _PROJ and isinstance(v, torch.Tensor) else v
+            for k, v in tree.items()}
+
+
+def prepare_serving(params: dict) -> dict:
+    """The serving tree of ``params``: what a decode step would derive
+    from the decoder's weights at every call, made once. The decoder's
+    float projection weights in bf16 (every product casts them so), the
+    self-attention's Q, K and V weights concatenated (``wqkv``, the
+    product ``attention`` makes one), and the tied head's f32 operand
+    (``head_f32``). The encoder's weights are as given."""
+    layers = _bf16_proj(params["dec_layers"])
+    sa = layers["self_attn"]
+    if all(isinstance(sa[k], torch.Tensor) for k in ("wq", "wk", "wv")):
+        sa["wqkv"] = torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=-2)
+    return {**params, "dec_layers": layers,
+            "embed": prepare_head(params["embed"])}
 
 
 def _n_stacked(tree) -> int:

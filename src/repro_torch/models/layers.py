@@ -14,6 +14,11 @@ f32 product. An untied head (xLSTM's ``lm_head``) is ``mm`` in f32: it
 runs on ``fp16_matmul`` with f32 activations and the bf16 weight as it
 is stored, widened in the kernel, the reference's f32 x f32 product
 without an f32 copy of the weight.
+
+A serving tree (``Model.prepare_serving``) carries tensors that a
+forward would otherwise derive from the weights at every call, such as
+the tied head's f32 operand (``prepare_head``); ``prepared`` reads one
+where it is present and makes it as before where it is not.
 """
 
 from __future__ import annotations
@@ -27,6 +32,17 @@ import torch.nn.functional as F
 from repro_torch.kernels.api import dispatch
 from repro_torch.quantize import (QBLOCK, QTENSORS, Q4Tensor, Q8Tensor,
                                   dequantize_q8_0, unpack_q4)
+
+
+_BF16 = torch.bfloat16
+_F32 = torch.float32
+
+
+def prepared(p: dict, key: str, make) -> torch.Tensor:
+    """``p[key]`` where ``prepare_serving`` stored it, else ``make()``:
+    the same tensor either way, made once or at this call."""
+    t = p.get(key)
+    return make() if t is None else t
 
 
 def ninit(gen: torch.Generator, shape, fan_in: int,
@@ -212,13 +228,34 @@ def embed(p: dict, tokens: torch.Tensor,
     return take_rows(tbl, tokens, compute_dtype)
 
 
+def tied_head_f32(tbl) -> torch.Tensor:
+    """The (padded vocab, d) f32 operand of the tied head: a float table
+    widened (the table itself when it is f32), a Q8 table dequantized in
+    f32, a Q4 table (the draft's) dequantized to bf16 as the reference's
+    ``_dequant_q4_bf16`` and then widened."""
+    if isinstance(tbl, Q4Tensor):
+        return _dequant_q4_bf16(tbl).float()
+    if isinstance(tbl, Q8Tensor):
+        return dequantize_q8_0(tbl, axis=-2)
+    return tbl.to(torch.float32)
+
+
+def prepare_head(p: dict) -> dict:
+    """An embedding dict with its tied head's f32 operand made once
+    (``head_f32``), which ``logits_head`` would otherwise make at every
+    call: 81.8 MB written a decode step for whisper-tiny.en's Q8_0 or Q4_0
+    table."""
+    return {**p, "head_f32": tied_head_f32(p["table"])}
+
+
 def logits_head(p: dict, x: torch.Tensor, vocab: int,
                 softcap: Optional[float] = None,
                 head=None) -> torch.Tensor:
     """Project to the padded vocab in f32; padding ids get a large
     negative logit. ``head`` (d, padded vocab), where the model has an
     untied one, is ``mm`` in f32; else the tied table: x @ table^T in
-    f32. A Q4 table (the draft's) is widened to bf16 and multiplied with
+    f32 (``tied_head_f32``, or ``p["head_f32"]`` where prepared). A Q4
+    table (the draft's) is widened to bf16 and multiplied with
     bf16-rounded x as f32 operands: each product of two bf16 values is
     exact in f32, so this is the reference's bf16 x bf16 -> f32 einsum,
     accumulated in f32 and never rounded to bf16."""
@@ -226,13 +263,10 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
         y = mm(x, head, torch.float32)
     else:
         tbl = p["table"]
-        if isinstance(tbl, Q4Tensor):
-            y = x.to(torch.bfloat16).float() \
-                @ _dequant_q4_bf16(tbl).float().T
-        else:
-            if isinstance(tbl, Q8Tensor):
-                tbl = dequantize_q8_0(tbl, axis=-2)
-            y = x.to(torch.float32) @ tbl.to(torch.float32).T
+        w = prepared(p, "head_f32", lambda: tied_head_f32(tbl))
+        xf = x.to(torch.bfloat16).float() if isinstance(tbl, Q4Tensor) \
+            else x.to(torch.float32)
+        y = xf @ w.T
     if softcap is not None:
         y = softcap * torch.tanh(y / softcap)
     vp = y.shape[-1]
@@ -240,10 +274,38 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
     return y - 1e9 * pad_mask.to(y.dtype)
 
 
+def _r(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_BF16).to(_F32)
+
+
+# jax evaluates an activation of a bf16 array op by op, each result
+# rounded to bf16 and its constants too; the port rounds at the same
+# places (bit-equal to jax.nn.silu / jax.nn.gelu on bf16), where one
+# fused f32 evaluation would differ by a bf16 ulp in a fifth of the
+# elements and drift the served tokens apart
+
+def silu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu of a bf16 tensor: x * logistic(x)."""
+    xf = x.to(_F32)
+    return (xf * _r(1.0 / _r(1.0 + _r(torch.exp(-xf))))).to(_BF16)
+
+
+def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu (tanh form) of a bf16 tensor, constants in bf16."""
+    xf = x.to(_F32)
+    inner = _r(xf + _r(0.044677734375 * _r(_r(xf * xf) * xf)))
+    cdf = _r(0.5 * _r(1.0 + _r(torch.tanh(_r(0.796875 * inner)))))
+    return (xf * cdf).to(_BF16)
+
+
 def _act(name: str):
-    # jax.nn.gelu defaults to the tanh approximation
-    return {"silu": F.silu,
-            "gelu": lambda t: F.gelu(t, approximate="tanh")}[name]
+    """The activation ``name`` as jax computes it: op by op for a bf16
+    tensor, in one pass otherwise (jax.nn.gelu defaults to the tanh
+    approximation)."""
+    fns = {"silu": (silu_bf16, F.silu),
+           "gelu": (gelu_bf16, lambda t: F.gelu(t, approximate="tanh"))}
+    per_op, fused = fns[name]
+    return lambda t: per_op(t) if t.dtype == _BF16 else fused(t)
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

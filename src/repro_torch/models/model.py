@@ -117,6 +117,17 @@ class Model:
         return encdec_mod.decode_tokens(values, cfg, batch["tokens"],
                                         enc_out, mode=mode, cache=cache)
 
+    def prepare_serving(self, values):
+        """The serving tree of ``values``: the tensors a forward derives
+        from the weights, and would remake at every call, made once and
+        added (the decoder's float projections of the enc-dec model are
+        stored in bf16, the dtype every product casts them to). A
+        forward on it equals one on ``values`` bit for bit; the weights
+        must not change while it is in use."""
+        if self.cfg.enc_dec:
+            return encdec_mod.prepare_serving(values)
+        return tf_mod.prepare_serving(values, self.cfg)
+
     def encode(self, values, frames: torch.Tensor) -> torch.Tensor:
         """Encoder-only pass: (B, S, d_model) frames -> states."""
         if not self.cfg.enc_dec:

@@ -23,7 +23,8 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
                                        layer_slice, logits_head, ninit,
-                                       pad_vocab, rmsnorm, stack_layers)
+                                       pad_vocab, prepare_head, rmsnorm,
+                                       stack_layers)
 
 _NOT_PORTED = "ROADMAP queue 1, item 14"
 
@@ -102,6 +103,24 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
         params["lm_head"] = ninit(gen, (cfg.d_model, pad_vocab(cfg.vocab)),
                                   cfg.d_model, device)
     return params
+
+
+_PREPARE = {"mlstm": xlstm_mod.prepare_mlstm,
+            "slstm": xlstm_mod.prepare_slstm}
+
+
+def prepare_serving(params: dict, cfg: ArchConfig) -> dict:
+    """The serving tree of ``params``: each block's weights with what its
+    forward derives from them made once (``xlstm.prepare_mlstm`` /
+    ``prepare_slstm``), and a tied head's f32 operand."""
+    segs = dict(params["segments"])
+    for j, (bt, _) in enumerate(segment_pattern(cfg)):
+        blk = segs[f"block{j}"]
+        segs[f"block{j}"] = {**blk, bt: _PREPARE[bt](blk[bt])}
+    out = {**params, "segments": segs}
+    if "lm_head" not in params:
+        out["embed"] = prepare_head(params["embed"])
+    return out
 
 
 def _write_state(pool, new, i: int) -> None:

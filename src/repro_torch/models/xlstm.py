@@ -9,7 +9,8 @@ kernel.
 
 sLSTM has a true sequential dependency (block-diagonal recurrent matrices
 per head). Its input projections for all time steps (``_slstm_wx``) and
-the stacked recurrent weights (``_stacked_r``) are torch ops; the
+the stacked recurrent weights (``_stacked_r``) are torch ops, their
+weights made once per serving tree (``prepare_slstm``); the
 recurrence itself goes through ``dispatch("slstm_scan", ...)``, at
 prefill over the whole prompt and at decode with S = 1, so on the card it
 runs on the hand-written kernel (``csrc/slstm_scan.cu``). The reference's
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
-from repro_torch.models.layers import init_rmsnorm, ninit, rmsnorm
+from repro_torch.models.layers import (gelu_bf16, init_rmsnorm, ninit,
+                                       prepared, rmsnorm, silu_bf16)
 
 MCHUNK = 128
 
@@ -46,30 +48,6 @@ def _bf16_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w in bf16 (the reference's bf16 einsums), weights cast per
     call as the reference's ``.astype`` does."""
     return x.to(_BF16) @ w.to(_BF16)
-
-
-def _r(t: torch.Tensor) -> torch.Tensor:
-    return t.to(_BF16).to(_F32)
-
-
-# jax evaluates an activation of a bf16 array op by op, each result
-# rounded to bf16 and its constants too; the port rounds at the same
-# places (bit-equal to jax.nn.silu / jax.nn.gelu on bf16), where one
-# fused f32 evaluation would differ by a bf16 ulp in a fifth of the
-# elements and drift the served tokens apart
-
-def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.silu of a bf16 tensor: x * logistic(x)."""
-    xf = x.to(_F32)
-    return (xf * _r(1.0 / _r(1.0 + _r(torch.exp(-xf))))).to(_BF16)
-
-
-def _gelu_bf16(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.gelu (tanh form) of a bf16 tensor, constants in bf16."""
-    xf = x.to(_F32)
-    inner = _r(xf + _r(0.044677734375 * _r(_r(xf * xf) * xf)))
-    cdf = _r(0.5 * _r(1.0 + _r(torch.tanh(_r(0.796875 * inner)))))
-    return (xf * cdf).to(_BF16)
 
 
 # ----------------------------------------------------------------------------
@@ -188,13 +166,15 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     b, s, _ = x.shape
     d_in, h, hd = _mdims(cfg)
     u = _bf16_mm(x, p["w_up"])
-    g = _silu_bf16(_bf16_mm(x, p["w_gate"]))
+    g = silu_bf16(_bf16_mm(x, p["w_gate"]))
     q = _bf16_mm(u, p["wq"]).reshape(b, s, h, hd)
     k = _bf16_mm(u, p["wk"]).reshape(b, s, h, hd)
     v = _bf16_mm(u, p["wv"]).reshape(b, s, h, hd)
     uf = u.to(_F32)
-    i_raw = uf @ p["wi"].to(_F32)
-    logf = F.logsigmoid(uf @ p["wf"].to(_F32) + p["f_bias"].to(_F32))
+    wi = prepared(p, "wi_f32", lambda: p["wi"].to(_F32))
+    wf = prepared(p, "wf_f32", lambda: p["wf"].to(_F32))
+    i_raw = uf @ wi
+    logf = F.logsigmoid(uf @ wf + p["f_bias"].to(_F32))
 
     cdt = cache["C"].dtype if cache is not None else _F32
     if mode == "decode":
@@ -214,6 +194,12 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * g[:, :y.shape[1]]
     out = _bf16_mm(y, p["w_down"]).to(x.dtype)
     return out, new_cache
+
+
+def prepare_mlstm(p: dict) -> dict:
+    """An mLSTM block's weights (one block's or stacked) with the f32
+    gate weights that ``mlstm_block`` would widen at every call."""
+    return {**p, "wi_f32": p["wi"].to(_F32), "wf_f32": p["wf"].to(_F32)}
 
 
 def init_mlstm_cache(cfg: ArchConfig, batch: int, dtype=_BF16,
@@ -248,6 +234,11 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     }
 
 
+def _widen_w(w: torch.Tensor) -> torch.Tensor:
+    """A gate's input weight rounded to bf16 and widened to f32."""
+    return w.to(_BF16).to(_F32)
+
+
 def _slstm_wx(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Input pre-activations of all time steps at once: (4, B, S, H, hd),
     f32. The reference's bf16 x bf16 einsum with f32 accumulation: bf16
@@ -257,19 +248,32 @@ def _slstm_wx(p: dict, x: torch.Tensor) -> torch.Tensor:
     out = []
     for g in GATES:
         w = p[g]["w"]
-        wf = w.to(_BF16).to(_F32).reshape(d, -1)
+        wf = prepared(p[g], "w_f32", lambda: _widen_w(w)).reshape(d, -1)
         y = (xb @ wf).reshape(b, s, *w.shape[1:])
         out.append(y + p[g]["b"].to(_F32))
     return torch.stack(out)
 
 
 def _stacked_r(p: dict) -> torch.Tensor:
-    """(4, H, hd, hd) stacked recurrent weights: bf16 as stored (no f32
-    copy; ``slstm_scan`` widens each element as it reads it, and a bf16
-    value is exact in f32), f32 otherwise."""
+    """(4, H, hd, hd) stacked recurrent weights (or (n, 4, H, hd, hd) for
+    n stacked blocks): bf16 as stored (no f32 copy; ``slstm_scan`` widens
+    each element as it reads it, and a bf16 value is exact in f32), f32
+    otherwise."""
     rs = [p[g]["r"] for g in GATES]
     dt = _BF16 if all(r.dtype == _BF16 for r in rs) else _F32
-    return torch.stack([r.to(dt) for r in rs])
+    return torch.stack([r.to(dt) for r in rs], dim=-4)
+
+
+def prepare_slstm(p: dict) -> dict:
+    """An sLSTM block's weights (one block's or stacked) with what
+    ``slstm_block`` would derive at every call made once: each gate's
+    widened input weight (``w_f32``; ~201 MB a decode step over
+    xlstm-350m's 12 sLSTM blocks) and the stacked recurrent weights
+    (``r_stacked``)."""
+    out = {**p, **{g: {**p[g], "w_f32": _widen_w(p[g]["w"])}
+                   for g in GATES}}
+    out["r_stacked"] = _stacked_r(p)
+    return out
 
 
 def _init_sstate(b, h, hd, device) -> torch.Tensor:
@@ -296,7 +300,9 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         state0 = _init_sstate(b, h_, hd, x.device)
     wx = _slstm_wx(p, x).permute(2, 0, 1, 3, 4).contiguous()  # (S,4,B,H,hd)
-    hs, state = dispatch("slstm_scan", wx, _stacked_r(p), state0)
+    hs, state = dispatch("slstm_scan", wx,
+                         prepared(p, "r_stacked", lambda: _stacked_r(p)),
+                         state0)
     y = hs.permute(1, 0, 2, 3).reshape(b, s, d)
     new_cache = None
     if mode in ("decode", "prefill"):
@@ -304,7 +310,7 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                      for i, key in enumerate(SSTATE_KEYS)}
 
     y = rmsnorm(p["out_norm"], y.to(x.dtype), cfg.norm_eps)
-    u = _gelu_bf16(_bf16_mm(y, p["w_up"]))
+    u = gelu_bf16(_bf16_mm(y, p["w_up"]))
     out = _bf16_mm(u, p["w_down"])
     return out.to(x.dtype), new_cache
 

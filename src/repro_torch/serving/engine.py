@@ -14,15 +14,36 @@ the prefill cache for a q8_0 or q4_0 pool, writes it into a free slot
 writes each lane's new K/V row, or its whole new recurrent state, into
 the pool in place.
 
-Decode state lives on the device: last token, position, encoder length,
-the active mask, EOS ids, ``max_new`` budgets and emitted counts. One
-tick (``step``) runs ``decode_block`` decode steps over the whole pool
-as a Python loop of device work with per-lane positions; EOS, max_new
-and max_len freeze finished lanes on the device, so a ``k``-step tick is
-token-identical to ``k`` single steps. The tick makes **one** host fetch,
-the ``(k, n_slots)`` token block with its emit mask (``_host_syncs``
-counts them); host Python then replays the emit mask to append tokens
-and free slots.
+Decode state lives on the device, in buffers the engine keeps for its
+life and updates in place: last token, position, encoder length, the
+active mask, EOS ids, ``max_new`` budgets and emitted counts. One tick
+(``step``) runs ``decode_block`` decode steps over the whole pool with
+per-lane positions; EOS, max_new and max_len freeze finished lanes on
+the device, so a ``k``-step tick is token-identical to ``k`` single
+steps. The tick makes **one** host fetch, the ``(k, n_slots)`` token
+block with its emit mask (``_host_syncs`` counts them); host Python then
+replays the emit mask to append tokens and free slots.
+
+On a CUDA device the tick is one CUDA graph, the counterpart of the
+reference's donated ``jax.jit``: the first tick of ``k`` steps runs
+eagerly (it also builds the kernels and the library handles), the next
+one captures the same body once, and every later tick of ``k`` steps
+replays it (``captures`` / ``replays`` count them). The graph reads the
+weights, the cache pool and the decode state by address, so admission
+and ``_free_slot`` write them in place; it writes the token block, the
+emit mask and the kept logits into its own buffers, which ``step_begin``
+clones for the caller. A capture or a replay that fails raises: there is
+no fallback to the eager tick. ``cuda_graph=False`` runs the eager tick
+on the card, for comparison; on the CPU the tick is always eager.
+The dispatch log and the kernels' launch counts are taken from the
+capture pass and added once per replay (``api.replay_record``), so they
+read per tick as an eager tick's. Routing is fixed at capture, as the
+reference's is at trace time.
+
+The weights a step multiplies are held in the model's serving tree
+(``Model.prepare_serving``): what a step would derive from them (the
+tied head's f32 operand, widened or stacked sLSTM weights, bf16
+projections) is made once per engine, not at every step.
 
 With ``spec_k > 0`` a tick runs ``decode_block // spec_k`` speculative
 rounds instead: ``spec_k - 1`` greedy draft steps on quantized draft
@@ -39,11 +60,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import gc
 import itertools
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels import api
 from repro_torch.kernels.api import (DispatchContext, dispatch_counters,
                                      dispatch_trace, use_context)
 from repro_torch.kernels.q4_attention.ops import cache_traffic_ratio_q4
@@ -182,7 +205,8 @@ class ServeEngine:
                  dispatch_ctx: Optional[DispatchContext] = None,
                  device=None, keep_logits: bool = False,
                  paged: bool = False, spec_k: int = 0,
-                 draft_dtype: str = "q4_0", draft_params: Any = None):
+                 draft_dtype: str = "q4_0", draft_params: Any = None,
+                 cuda_graph: Optional[bool] = None):
         """``device``: where the pool lives and decode runs (default
         ``cuda``; without CUDA pass ``device="cpu"``). ``params`` must
         already be on it. ``platform`` (a registered
@@ -198,7 +222,9 @@ class ServeEngine:
         forward; ``decode_block`` must be a multiple of it.
         ``keep_logits``: keep, in each ``RequestState.logits``, the
         (vocab,) logits row each of its tokens was chosen from, on the
-        device."""
+        device. ``cuda_graph``: replay each tick from a CUDA graph (the
+        default on a CUDA device) or run it eagerly (``False``; the only
+        form on the CPU, where ``True`` raises)."""
         if paged:
             raise NotImplementedError(
                 "paged KV is not ported yet (ROADMAP queue 1, item 13)")
@@ -209,6 +235,12 @@ class ServeEngine:
             raise ValueError(f"decode_block must be >= 1, got "
                              f"{decode_block}")
         self.device = resolve_device(device)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        elif cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs a CUDA device; the "
+                             f"engine runs on {self.device}")
+        self.cuda_graph = bool(cuda_graph)
         leaf = _first_leaf(params)
         if leaf.device != self.device:
             raise ValueError(f"params live on {leaf.device}, the engine on "
@@ -264,6 +296,11 @@ class ServeEngine:
                 tag=f"serve:{self.platform.name}#{next(_ENGINE_SEQ)}")
         self.model = model
         self.params = params
+        # what decode multiplies: the weights with their derived tensors
+        # made once (the draft's too); ``params`` stays as given
+        self._served = model.prepare_serving(params)
+        self._draft_served = None if self.draft_params is None \
+            else model.prepare_serving(self.draft_params)
         self.dispatch_ctx = dispatch_ctx
         self.n_slots = n_slots
         self.max_len = max_len
@@ -288,6 +325,13 @@ class ServeEngine:
         self._lane_eos = torch.zeros((n_slots,), **i64)
         self._lane_max = torch.zeros((n_slots,), **i64)
         self._lane_out = torch.zeros((n_slots,), **i64)
+        # k -> (graph, its output buffers, its TickRecord); the tick
+        # sizes that have run eagerly once
+        self._graphs: dict[int, tuple] = {}
+        self._warm: set[int] = set()
+        self._capture_stream = None
+        self.captures = 0
+        self.replays = 0
         # serving accounting (energy_report)
         self._ticks = 0
         self._decode_steps = 0
@@ -406,7 +450,7 @@ class ServeEngine:
         with use_context(self.dispatch_ctx):
             one = self.model.init_cache(1, self.max_len, self.enc_len,
                                         device=self.device)
-            logits, one = self.model.forward(self.params, batch,
+            logits, one = self.model.forward(self._served, batch,
                                              mode="prefill", cache=one)
             if self.cache_dtype in QUANT_TIERS:
                 one = quantize_kv_cache(one, self.cache_dtype)
@@ -437,7 +481,7 @@ class ServeEngine:
         with use_context(self.dispatch_ctx):
             for c in chunks:
                 fr = self._enc_tensor(c).to(torch.float32)
-                outs.append(self.model.encode(self.params, fr))
+                outs.append(self.model.encode(self._served, fr))
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     # ------------------------------------------------------------------
@@ -446,7 +490,9 @@ class ServeEngine:
         """Enqueue one tick of ``k`` (default ``decode_block``) decode
         steps, or of ``k // spec_k`` speculative rounds, on the device and
         return without waiting; None when no lane is active. Finished
-        lanes freeze on the device."""
+        lanes freeze on the device. The tick replays its CUDA graph where
+        the engine has one (see the module docstring); the returned
+        ``PendingTick`` owns its tensors either way."""
         if not self.active:
             return None
         k = self.decode_block if k is None else int(k)
@@ -455,30 +501,82 @@ class ServeEngine:
         if self.spec_k and k % self.spec_k:
             raise ValueError(f"decode block ({k}) must be a multiple of "
                              f"spec_k ({self.spec_k})")
+        with use_context(self.dispatch_ctx):
+            if self.cuda_graph and (k in self._graphs or k in self._warm):
+                tok_blk, emit_blk, logits = (
+                    t.clone() if t is not None else None
+                    for t in self._replay(k))
+            else:
+                tok_blk, emit_blk, logits = self._tick(k)
+                self._warm.add(k)
+        return PendingTick(k=k, tok_blk=tok_blk, emit_blk=emit_blk,
+                           logits=[] if logits is None
+                           else list(logits.unbind(0)))
+
+    def _tick(self, k: int):
+        """The body of a tick, eager or under capture: ``k`` steps (or
+        ``k // spec_k`` rounds) from the decode-state buffers, whose new
+        values it copies back into them. Returns the (k, n_slots) token
+        block, the emit mask and, with keep_logits, the (k, n_slots,
+        vocab) logits rows (else None)."""
         state = (self._tokens, self._pos, self._lane_active,
                  self._lane_out)
         batch = {"enc_lens": self._enc_lens}
         toks, emits, rows = [], [], []
-        with use_context(self.dispatch_ctx):
-            if self.spec_k:
-                for _ in range(k // self.spec_k):
-                    *state, o, emit, logits = self._spec_round(batch,
-                                                               *state)
-                    toks.append(o.T)
-                    emits.append(emit.T)
-                    rows.extend(logits.unbind(dim=1))
-            else:
-                for _ in range(k):
-                    *state, nxt, emit, logits = self._plain_step(batch,
-                                                                 *state)
-                    toks.append(nxt[None])
-                    emits.append(emit[None])
-                    rows.append(logits)
-        (self._tokens, self._pos, self._lane_active,
-         self._lane_out) = state
-        return PendingTick(k=k, tok_blk=torch.cat(toks),
-                           emit_blk=torch.cat(emits),
-                           logits=rows if self.keep_logits else [])
+        if self.spec_k:
+            for _ in range(k // self.spec_k):
+                *state, o, emit, logits = self._spec_round(batch, *state)
+                toks.append(o.T)
+                emits.append(emit.T)
+                rows.append(logits.transpose(0, 1))
+        else:
+            for _ in range(k):
+                *state, nxt, emit, logits = self._plain_step(batch, *state)
+                toks.append(nxt[None])
+                emits.append(emit[None])
+                rows.append(logits[None])
+        # the blocks first: a plain step's emit mask is its input active
+        # mask, the first step's being the buffer overwritten below
+        out = (torch.cat(toks), torch.cat(emits),
+               torch.cat(rows) if self.keep_logits else None)
+        for buf, new in zip((self._tokens, self._pos, self._lane_active,
+                             self._lane_out), state):
+            buf.copy_(new)
+        return out
+
+    def _replay(self, k: int):
+        """Replay the graph of a ``k``-step tick, capturing it first if
+        this is its first replay; returns the graph's output buffers."""
+        if k not in self._graphs:
+            graph = torch.cuda.CUDAGraph()
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            # capture on a side stream, without the device-wide
+            # synchronize of ``torch.cuda.graph``: a capture runs nothing,
+            # and the replay below is ordered on the current stream. The
+            # cyclic garbage collector waits until the capture ends: a
+            # dead engine it frees destroys its graphs, and a CUDA call
+            # that is not stream-ordered invalidates the capture
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(self._capture_stream), \
+                        api.recording() as rec:
+                    graph.capture_begin()
+                    try:
+                        out = self._tick(k)
+                    finally:
+                        graph.capture_end()
+            finally:
+                if gc_on:
+                    gc.enable()
+            self._graphs[k] = (graph, out, rec)
+            self.captures += 1
+        graph, out, rec = self._graphs[k]
+        graph.replay()
+        api.replay_record(rec)
+        self.replays += 1
+        return out
 
     def _stops(self, nxt, n_out, pos):
         """The on-device stop of a lane that emits ``nxt`` with ``n_out``
@@ -494,7 +592,7 @@ class ServeEngine:
         the step's K/V rows or recurrent states into ``self.cache`` in
         place, so the cache it returns is the pool itself."""
         batch["tokens"] = tokens
-        logits, _ = self.model.forward(self.params, batch, mode="decode",
+        logits, _ = self.model.forward(self._served, batch, mode="decode",
                                        cache=self.cache, pos=pos)
         nxt = logits[:, -1].argmax(dim=-1)
         emit = active
@@ -521,7 +619,7 @@ class ServeEngine:
         dtok, dpos, drafts = tokens, pos, []
         for _ in range(gamma):
             batch["tokens"] = dtok
-            logits, _ = self.model.forward(self.draft_params, batch,
+            logits, _ = self.model.forward(self._draft_served, batch,
                                            mode="decode", cache=self.cache,
                                            pos=dpos)
             dtok = logits[:, -1].argmax(dim=-1)[:, None]
@@ -529,7 +627,7 @@ class ServeEngine:
             drafts.append(dtok)
         drafts = torch.cat(drafts, dim=1)                      # (B, gamma)
         batch["tokens"] = torch.cat([tokens, drafts], dim=1)
-        logits, _ = self.model.forward(self.params, batch, mode="decode",
+        logits, _ = self.model.forward(self._served, batch, mode="decode",
                                        cache=self.cache, pos=pos)
         o = logits.argmax(dim=-1)                              # (B, spec_k)
         nb = tokens.shape[0]

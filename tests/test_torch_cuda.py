@@ -18,12 +18,22 @@ largest output (``assert_bf16_close``). The attention cases also run
 with V only on the last keys before the end (or before a lane's length,
 with a large V past it), so a kernel that drops the ragged last tile or
 reads short or past ``length`` fails.
+
+The serving engine's decode tick replayed from a CUDA graph is held to
+the eager tick (``cuda_graph=False``) at the reduced whisper-tiny.en
+(bf16, q8_0, q4_0, ``spec_k=4``) and xlstm-350m: tokens and logits bit
+for bit, one capture per tick size, one synchronising call a tick.
 """
+
+import gc
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import api
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import plain as fa_plain
 from repro_torch.kernels.fp16_matmul import ops as mm_ops
@@ -38,8 +48,10 @@ from repro_torch.kernels.q8_matmul import ops as q8_ops
 from repro_torch.kernels.q8_matmul import plain as q8_plain
 from repro_torch.kernels.slstm_scan import ops as sl_ops
 from repro_torch.kernels.slstm_scan import plain as sl_plain
+from repro_torch.models.model import build
 from repro_torch.quantize import (Q4Tensor, Q8Tensor, quantize_q4_0,
-                                  quantize_q8_0)
+                                  quantize_q8_0, quantize_tree)
+from repro_torch.serving.engine import AudioRequest, Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -624,3 +636,138 @@ def test_fp16_matmul_kernel_at_the_xlstm_head(dev, m):
     x = _randn(rng, (m, 1024), dev)
     w = _randn(rng, (1024, 51200), dev, scale=1024 ** -0.5)
     assert_f32_close(mm_ops.fp16_matmul(x, w), mm_plain.fp16_matmul(x, w))
+
+
+# ----------------------------------------------------------------------------
+# The decode tick captured in a CUDA graph, against the eager tick
+# ----------------------------------------------------------------------------
+
+def _tick_syncs(eng, k) -> list:
+    """Run one tick of ``k`` steps; where it made a synchronising CUDA
+    call (``torch.cuda``'s sync debug mode), one (file, line) each."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step(k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [(w.filename, w.lineno) for w in seen
+            if "synchroniz" in str(w.message)]
+
+
+def _serve_ticks(model, params, reqs, ks, cuda_graph, **kw):
+    """Admit ``reqs`` and tick until they finish, the ticks' sizes taken
+    in turn from ``ks``. Returns (outputs and logits rows by request,
+    the engine, synchronising calls a tick, the launches and routing
+    counters the ticks added)."""
+    eng = ServeEngine(model, params, n_slots=len(reqs), keep_logits=True,
+                      cuda_graph=cuda_graph, device="cuda", **kw)
+    sts = [eng.admit(r) for r in reqs]
+    launches0, counters0 = api.launch_counts(), api.dispatch_counters()
+    syncs = []
+    while eng.n_active:
+        syncs.append(_tick_syncs(eng, ks[len(syncs) % len(ks)]))
+    torch.cuda.synchronize()
+    launches = {k: n - launches0[k] for k, n in api.launch_counts().items()}
+    counters = api.dispatch_counters() - counters0
+    return ([(st.out, st.logits) for st in sts], eng, syncs, launches,
+            counters)
+
+
+def _whisper_case(cache, spec_k):
+    model = build(reduced(get_config("whisper-tiny-en")))
+    params = model.init_values(torch.Generator().manual_seed(0),
+                               device="cuda")
+    if cache == "q8_0" and not spec_k:
+        params = quantize_tree(params)
+    rng = np.random.default_rng(1)
+    reqs = [AudioRequest(uid=i, tokens=[1, 3 + i], max_new=n, eos_id=-1,
+                         enc_frames=rng.standard_normal((12 + 4 * i, 128))
+                         .astype(np.float32) * 0.5)
+            for i, n in enumerate((40, 23))]
+    return model, params, reqs, dict(max_len=64, enc_len=16,
+                                     cache_dtype=cache, spec_k=spec_k,
+                                     decode_block=4)
+
+
+def _xlstm_case():
+    model = build(reduced(get_config("xlstm-350m")))
+    params = model.init_values(torch.Generator().manual_seed(0),
+                               device="cuda")
+    params = _cast_tree(params, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, tokens=rng.integers(3, 500, size=n).tolist(),
+                    max_new=m, eos_id=-1)
+            for i, (n, m) in enumerate(((9, 40), (17, 23)))]
+    return model, params, reqs, dict(max_len=64)
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+@pytest.mark.parametrize("case", ["bf16", "q8_0", "q4_0", "spec_k=4",
+                                  "xlstm"])
+def test_captured_tick_equals_the_eager_tick(dev, case):
+    """Ticks of 4 and 8 steps in turn, captured and eager: the same
+    tokens and the same logits rows bit for bit, one capture per tick
+    size, one synchronising CUDA call a tick, and the same launches and
+    routing counted per tick (the replays' recorded ones). A first run
+    of the case, not held, leaves the process's one-time set-up (the
+    library handles' first use) outside the runs compared."""
+    if case == "xlstm":
+        model, params, reqs, kw = _xlstm_case()
+    else:
+        cache = "q4_0" if case == "q4_0" else \
+            "q8_0" if case in ("q8_0", "spec_k=4") else "bf16"
+        model, params, reqs, kw = _whisper_case(
+            cache, 4 if case == "spec_k=4" else 0)
+    _serve_ticks(model, params, reqs[:1], (4,), False, **kw)
+    runs = {g: _serve_ticks(model, params, reqs, (4, 8), g, **kw)
+            for g in (False, True)}
+    (got, eng, syncs, launches, counters) = runs[True]
+    (want, eager, eager_syncs, eager_launches, eager_counters) = runs[False]
+    for i, ((gt, gl), (wt, wl)) in enumerate(zip(got, want)):
+        assert gt == wt, (i, gt, wt)
+        assert len(gl) == len(wl) == len(gt)
+        for j, (g, w) in enumerate(zip(gl, wl)):
+            assert torch.equal(g, w), (
+                i, j, float((g - w).abs().max()), float(w.abs().max()))
+    assert eng.captures == 2 and eager.captures == 0
+    assert eng.replays == len(syncs) - 2 >= 2
+    assert all(len(n) == 1 for n in syncs), syncs
+    assert all(len(n) == 1 for n in eager_syncs), eager_syncs
+    assert launches == eager_launches and counters == eager_counters
+    assert all(key[1:] == ("accel", "cuda") for key in counters)
+
+
+def test_capture_with_a_dead_captured_engine_awaiting_collection(dev):
+    """A captured engine that dies in a reference cycle waits for the
+    cyclic collector, which frees its graphs whenever it runs; freeing
+    them inside the next engine's capture would invalidate that capture.
+    The collector runs at nearly every allocation here, and the capture
+    must hold it off."""
+    model, params, reqs, kw = _whisper_case("bf16", 0)
+
+    def captured_engine():
+        eng = ServeEngine(model, params, n_slots=2, cuda_graph=True,
+                          device="cuda", **kw)
+        eng.admit(reqs[0])
+        for _ in range(3):
+            eng.step(4)
+        return eng
+
+    dead = captured_engine()
+    assert dead.captures == 1
+    dead.cycle = dead
+    del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng = captured_engine()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert eng.captures == 1 and eng.replays == 2
