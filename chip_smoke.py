@@ -17,7 +17,12 @@ JAX package. Phases:
    back-to-back calls from the host; ``graph_ms`` the same 20 calls
    captured once in a CUDA graph and replayed, for the kernel and for
    the library call: at decode shapes ``ms`` is the host's ~20 µs a
-   call, and ``graph_ms`` the card's work;
+   call, and ``graph_ms`` the card's work. Then the frontend's two f32
+   products must give each row the same bits in calls of 1, 5, 10, 16,
+   17 rows as in the whole product, and ``StreamingFrontend`` over 30 s
+   at pushes of 1600 and of 173 samples must equal ``audio_frames``
+   bit for bit (where not, the first stage whose rows differ is named:
+   rfft, mel GEMM, pooling, projection GEMM);
 3. ``repro_torch.transcribe`` of 30 s of synthetic audio (1500 encoder
    frames, one chunk) at full whisper-tiny.en width, seeded random
    weights, 32 new tokens at 8 decode steps a tick: bf16 weights with a
@@ -37,6 +42,20 @@ JAX package. Phases:
    Each prints its draft steps, verify steps, acceptance rate and host
    syncs per tick, and b and c their replayed ticks' tokens a second
    against a's and the plain serve's;
+e. ``transcribe(stream=True)`` of the 30 s (Q8_0 weights, q8_0 cache): 93
+   chunks of 16 frames and a tail of 12, one a scheduler tick, 32 new
+   tokens at 8 steps a tick. The final transcript must equal the
+   one-shot ``transcribe`` of the same chunks (tokens, and logits rows
+   bit-equal or within ``CAPTURE_REL_TOL``). It prints the partial
+   hypotheses, the wall time from the first chunk's feed to the first
+   partial token, from the last chunk's feed to the final transcript,
+   and the mean feed of a later chunk (encode, ``cross_attn_kv``, the
+   in-place extension);
+f. a serve of 2 streams (30 s and 20 s, chunks of 16) beside 2 one-shot
+   requests (10 s and 25 s) on 4 slots (Q8_0, q8_0 cache), so the graph
+   replays while a stream extends the pool under other active lanes;
+   each stream's final tokens must equal a one-shot request of the same
+   chunks' states, and every stream be closed and every slot free;
 d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
    weights): 4 token requests (prompts of 64, 128, 192 and 256 ids drawn
    from the seed, 32 new tokens each) on 4 slots through
@@ -55,7 +74,8 @@ chunks their wrapper splits the cache into, at a length of 1, with a
 lane of length 0 beside full ones, and over 65,536 positions; the dense
 GEMM at every decoder shape (1 and 4 lanes, the 16-row verify), on rows
 that are not 16-byte aligned, and at the xLSTM head with f32 x and the
-bf16 weight as stored.
+bf16 weight as stored; the dense and Q8_0 GEMMs and flash attention at
+a streamed encoder chunk of 16 rows and its tail of 12.
 
 The f32 cases of phase 2 (the frontend GEMMs, the xLSTM head at a
 decode step and at prefill of every prompt position, the sLSTM
@@ -66,7 +86,8 @@ gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
-Every phase of 3, 4, 5 and d runs twice with the same engine settings:
+Every phase of 3, 4, 5, e, f and d runs twice with the same engine
+settings:
 captured (the default: the engine's first tick of a size runs eagerly,
 the second captures it in a CUDA graph, every later one replays it) and
 eager (``cuda_graph=False``). The captured run must have made one
@@ -257,6 +278,12 @@ def kernel_cases():
             ("decode MLP down, 4 lanes", 4, 1536, 384, bf),
             ("verify MLP down, 16 rows", 16, 1536, 384, bf),
             ("ragged, rows not 16-byte aligned", 33, 45, 70, bf),
+            ("encoder chunk MLP up", 16, 384, 1536, bf),
+            ("encoder chunk MLP down", 16, 1536, 384, bf),
+            ("encoder chunk wo", 16, 384, 384, bf),
+            ("encoder tail chunk MLP up", 12, 384, 1536, bf),
+            ("encoder tail chunk MLP down", 12, 1536, 384, bf),
+            ("encoder tail chunk wo", 12, 384, 384, bf),
             ("frontend mel (f32)", 3000, 201, 80, torch.float32),
             ("frontend projection (f32)", 1500, 80, 384, torch.float32)):
         x, w = randn((m, k), dt), randn((k, n), dt, k ** -0.5)
@@ -316,6 +343,12 @@ def kernel_cases():
             ("verify MLP down, 16 rows", 16, 1536, 384, bf),
             ("verify MLP down, 17 rows", 17, 1536, 384, bf),
             ("verify MLP up, 16 rows", 16, 1536, 1536, bf),
+            ("encoder chunk MLP up", 16, 384, 1536, bf),
+            ("encoder chunk MLP down", 16, 1536, 384, bf),
+            ("encoder chunk wo, cross_attn_kv", 16, 384, 384, bf),
+            ("encoder tail chunk MLP up", 12, 384, 1536, bf),
+            ("encoder tail chunk MLP down", 12, 1536, 384, bf),
+            ("encoder tail chunk wo, cross_attn_kv", 12, 384, 384, bf),
             ("encoder MLP down (f16 x)", 1500, 1536, 384, f16),
             ("decode MLP down, 4 lanes (f16 x)", 4, 1536, 384, f16),
             ("encoder MLP down (f32 x)", 1500, 1536, 384, f32),
@@ -357,6 +390,10 @@ def kernel_cases():
              None, None),
             ("decoder prefill, causal", 1, 32, 32, 6, 6, 64, True, None,
              None),
+            ("encoder chunk, bidirectional", 1, 16, 16, 6, 6, 64, False,
+             None, None),
+            ("encoder tail chunk, bidirectional", 1, 12, 12, 6, 6, 64, False,
+             None, None),
             ("cross prefill", 1, 32, 1500, 6, 6, 64, False, None, None),
             ("split KV", 1, 1, 1500, 6, 6, 64, False, None, None),
             ("split KV", 1, 16, 1500, 6, 6, 64, False, None, None),
@@ -639,6 +676,123 @@ def check_kernels() -> dict:
     return rows
 
 
+def check_frontend_rows() -> None:
+    """The frontend's two f32 x f32 products give each row the same bits
+    in a call of 1, 5, 10, 16, 17 rows as in the whole product (3000 or
+    1500 rows): the streaming frontend makes them over a push's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fp16_matmul import ops as mm_ops
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    for m, k, n in ((3000, 201, 80), (1500, 80, 384)):
+        x = torch.from_numpy(rng.random((m, k)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
+                             * k ** -0.5).to(dev)
+        full = mm_ops.fp16_matmul(x, w)
+        for rows in (1, 5, 10, 16, 17, m):
+            for at in sorted({0, 7 % (m - rows + 1), m - rows}):
+                part = mm_ops.fp16_matmul(x[at:at + rows].contiguous(), w)
+                if not torch.equal(part, full[at:at + rows]):
+                    raise AssertionError(f"fp16_matmul ({m},{k})@({k},{n}): "
+                                         f"rows {at}..{at + rows} differ "
+                                         f"from the whole product's")
+        _log(f"frontend rows ({m},{k})@({k},{n}): calls of 1, 5, 10, 16, "
+             f"17 and {m} rows bit-equal to the whole product's rows")
+
+
+# ----------------------------------------------------------------------------
+# The streaming frontend on the card
+# ----------------------------------------------------------------------------
+
+def frontend_stage_diff(x, d_model: int, ranges: list):
+    """The first stage of the frontend (rfft, mel GEMM, pooling,
+    projection GEMM) whose rows differ between the whole audio at once
+    and the mel-frame ranges a streaming run computed them in, each
+    stage fed the whole run's input; None where none differs."""
+    import torch
+
+    from repro_torch.audio import features as fe
+    from repro_torch.kernels.fp16_matmul import ops as mm_ops
+    dev = torch.device("cuda")
+    cfg = fe.FrontendConfig()
+    win = torch.from_numpy(fe.hann_window(cfg.n_fft)).to(dev)
+    fb = torch.from_numpy(fe.mel_filterbank(cfg).copy()).to(dev)
+    proj = torch.from_numpy(fe._cosine_projection(cfg.n_mels, d_model)
+                            .copy()).to(dev)
+    frames = torch.from_numpy(fe._frame_signal_np(x, cfg)).to(dev)
+
+    def rfft(f):
+        return torch.fft.rfft(f * win[None, :], dim=-1)
+
+    def mel(spec):
+        return mm_ops.fp16_matmul((spec.abs() ** 2).float().contiguous(), fb)
+
+    def pool(lm):
+        pad = -lm.shape[0] % cfg.stride
+        lm = torch.nn.functional.pad(lm, (0, 0, 0, pad))
+        return lm.reshape(-1, cfg.stride, cfg.n_mels).mean(dim=1)
+
+    def project(pooled):
+        return mm_ops.fp16_matmul(pooled.contiguous(), proj)
+
+    spec = rfft(frames)
+    mels = mel(spec)
+    lm = (torch.log10(torch.clamp(mels, min=fe.MEL_EPS)).clamp(
+        min=fe.LOG_FLOOR) + 4.0) / 4.0
+    pooled = pool(lm)
+    st = cfg.stride
+    # (stage, its function, its input and output over the whole audio,
+    # mel frames a row of each)
+    stages = (("rfft", rfft, frames, spec, 1, 1),
+              ("mel GEMM", mel, spec, mels, 1, 1),
+              ("pooling", pool, lm, pooled, 1, st),
+              ("projection GEMM", project, pooled, project(pooled), st, st))
+    for name, fn, inp, whole, p_in, p_out in stages:
+        for a, b in ranges:
+            got = fn(inp[a // p_in:-(-b // p_in)])
+            if not torch.equal(got, whole[a // p_out:-(-b // p_out)]):
+                return f"{name} (mel frames {a}..{b})"
+    return None
+
+
+def check_stream_frontend(x, d_model: int) -> None:
+    """``StreamingFrontend`` over the audio at pushes of 1600 samples
+    (100 ms packets) and of 173, then ``flush``, equals the one-shot
+    ``audio_frames`` on the card bit for bit."""
+    import torch
+
+    from repro_torch.audio.features import FrontendConfig, audio_frames
+    from repro_torch.audio.stream import StreamingFrontend
+    one = audio_frames(x, d_model, device="cuda")
+    n_mel = FrontendConfig().n_frames(len(x))
+    for step in (1600, 173):
+        t0 = time.monotonic()
+        sf = StreamingFrontend(d_model, device="cuda")
+        outs = [sf.push(x[i:i + step]) for i in range(0, len(x), step)]
+        outs.append(sf.flush())
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = torch.cat(outs)
+        if got.shape == one.shape and torch.equal(got, one):
+            _log(f"streaming frontend, pushes of {step} samples: "
+                 f"{len(outs) - 1} pushes, {got.shape[0]} frames bit-equal "
+                 f"to audio_frames ({wall:.3f} s wall)")
+            continue
+        ranges, e0 = [], 0
+        for o in outs:
+            if o.shape[0]:
+                e1 = e0 + o.shape[0]
+                ranges.append((2 * e0, min(2 * e1, n_mel)))
+                e0 = e1
+        stage = frontend_stage_diff(x, d_model, ranges)
+        raise AssertionError(f"streaming frontend, pushes of {step}: "
+                             f"{tuple(got.shape)} frames not bit-equal to "
+                             f"audio_frames {tuple(one.shape)}; first stage "
+                             f"whose rows differ: {stage}")
+
+
 # ----------------------------------------------------------------------------
 # Phases 3-4: the main path
 # ----------------------------------------------------------------------------
@@ -801,27 +955,29 @@ def steady(phase: str, eng, ticks: list, again):
     return out, tps, lane_tps
 
 
-def capture_check(phase: str, got: list, want: list) -> None:
+def capture_check(phase: str, got: list, want: list,
+                  what=("captured", "eager")) -> None:
     """The captured run against the eager one (``cuda_graph=False``) with
-    the same engine settings: per request the same tokens, and the same
-    logits rows bit for bit or within ``CAPTURE_REL_TOL`` of the largest
-    logit. ``got`` / ``want``: (tokens, logits rows) per request."""
+    the same engine settings (or the two runs ``what`` names): per
+    request the same tokens, and the same logits rows bit for bit or
+    within ``CAPTURE_REL_TOL`` of the largest logit. ``got`` / ``want``:
+    (tokens, logits rows) per request."""
     import torch
     err, top, unequal = 0.0, 0.0, 0
     for (gt, gl), (wt, wl) in zip(got, want):
-        if gt != wt:
-            raise AssertionError(f"[{phase}] captured tokens {gt} differ "
-                                 f"from the eager run's {wt}")
+        if gt != wt or len(gl) != len(wl):
+            raise AssertionError(f"[{phase}] {what[0]} tokens {gt} differ "
+                                 f"from the {what[1]} run's {wt}")
         for g, w in zip(gl, wl):
             unequal += not torch.equal(g, w)
             err = max(err, float((g.float() - w.float()).abs().max()))
             top = max(top, float(w.float().abs().max()))
-    _log(f"[{phase}] captured vs eager: tokens equal, logits rows "
+    _log(f"[{phase}] {what[0]} vs {what[1]}: tokens equal, logits rows "
          f"bit-equal {sum(len(w[1]) for w in want) - unequal} of "
          f"{sum(len(w[1]) for w in want)}, max_abs_err={err:.4g} "
          f"rel={err / top:.4g} (tol {CAPTURE_REL_TOL})")
     if err > CAPTURE_REL_TOL * top:
-        raise AssertionError(f"[{phase}] captured logits off the eager "
+        raise AssertionError(f"[{phase}] {what[0]} logits off the {what[1]} "
                              f"run's by {err / top:.4g} of the largest")
 
 
@@ -987,16 +1143,131 @@ def run_transcribe(model, params, x, phase: str, expect: tuple,
     return r, counts, tps
 
 
+STREAM_CHUNK = 16    # encoder frames a streamed chunk (the default)
+
+
+def watch_feeds(eng) -> list:
+    """Wrap ``eng.stream_feed``: for each feed, its host start and end and
+    CUDA events recorded around it on the stream."""
+    import torch
+    feeds, feed = [], eng.stream_feed
+
+    def timed(st, frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.monotonic()
+        ev[0].record()
+        try:
+            return feed(st, frames)
+        finally:
+            ev[1].record()
+            feeds.append((t0, time.monotonic(), *ev))
+
+    eng.stream_feed = timed
+    return feeds
+
+
+def run_stream(model, params, x, phase: str, expect: tuple):
+    """Phase e: ``transcribe(stream=True)`` of ``x`` in chunks of
+    ``STREAM_CHUNK`` frames, one a scheduler tick, through the engine
+    ``transcribe`` would build (q8_0 cache, 8 steps a tick), keeping its
+    logits, its ticks replayed from a CUDA graph; the same eagerly,
+    which it must equal; the captured engine's stream again
+    (``steady``); the one-shot ``transcribe`` of the same chunks on that
+    engine, whose tokens and logits rows the stream's final transcript
+    must equal; then the stream on the plain versions. Returns the
+    captured run's launch counts."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.api import use_context
+    from repro_torch.serving.engine import ServeEngine
+
+    def engine(platform, cuda_graph=None):
+        eng = ServeEngine(model, params, n_slots=1, max_len=1 + MAX_NEW + 2,
+                          enc_len=1500, cache_dtype="q8_0", decode_block=8,
+                          platform=platform, keep_logits=True,
+                          cuda_graph=cuda_graph)
+        ticks, feeds = watch_ticks(eng), watch_feeds(eng)
+
+        def go(stream=True):
+            feeds.clear()
+            with sync_debug():
+                r = repro_torch.transcribe(x, model=model, params=params,
+                                           engine=eng, max_new=MAX_NEW,
+                                           chunk_frames=STREAM_CHUNK,
+                                           stream=stream)
+            torch.cuda.synchronize()
+            return r, time.monotonic()
+        return go, ticks, feeds
+
+    def timings(tag, r, t_end, feeds):
+        """The stream's latencies: the first chunk's feed to its first
+        partial token (the feed ends in the anchor's fetch), the last
+        chunk's feed to the final transcript (finalize and its decode),
+        the mean feed of a later chunk (encode, cross_attn_kv and the
+        extension; CUDA events around it, and the host's enqueue)."""
+        first = feeds[0][1] - feeds[0][0]
+        last = t_end - feeds[-1][0]
+        ext = feeds[1:]
+        ev_ms = sum(a.elapsed_time(b) for *_, a, b in ext) / len(ext)
+        host_ms = sum(t1 - t0 for t0, t1, *_ in ext) / len(ext) * 1e3
+        _log(f"[{phase}] {tag}: feeds={len(feeds)} partials="
+             f"{len(r.partials)} first_partial_s={first:.4f} "
+             f"last_chunk_to_final_s={last:.4f} stream_feed_ms={ev_ms:.4f} "
+             f"(host {host_ms:.4f}) wall_s={r.wall_s:.4f} ticks={r.ticks} "
+             f"host_syncs={r.host_syncs}")
+
+    results = {}
+    for captured in (True, False):
+        zero_counts()
+        go, ticks, feeds = engine("h100-sxm", None if captured else False)
+        r, t_end = go()
+        counts = read_counts(phase, expect)
+        check_tokens(phase, r.tokens, model.cfg.vocab)
+        n_chunks = -(-r.n_frames // STREAM_CHUNK)
+        if r.n_frames != 1500 or len(feeds) != n_chunks \
+                or len(r.partials) != n_chunks + 1 \
+                or r.engine.n_streams or len(r.engine.free) != 1:
+            raise AssertionError(f"[{phase}] frames {r.n_frames}, feeds "
+                                 f"{len(feeds)}, partials "
+                                 f"{len(r.partials)}, open streams "
+                                 f"{r.engine.n_streams}")
+        tick_gate(phase, r.engine, ticks, captured)
+        timings("captured" if captured else "eager", r, t_end, feeds)
+        results[captured] = (r, counts, go, ticks, feeds)
+    r, (counts, routing), go, ticks, feeds = results[True]
+    e, eager_counts, *_ = results[False]
+    same_counts(phase, counts, routing, eager_counts)
+    capture_check(phase, [(r.tokens, r.logits)], [(e.tokens, e.logits)])
+    (r2, t_end), _, _ = steady(phase, r.engine, ticks, go)
+    if r2.tokens != r.tokens or r2.partials != r.partials:
+        raise AssertionError(f"[{phase}] the rerun's tokens differ")
+    timings("captured again", r2, t_end, feeds)
+    _log(f"[{phase}] tokens {r.tokens}")
+    one, _ = go(stream=False)
+    capture_check(phase, [(r.tokens, r.logits)], [(one.tokens, one.logits)],
+                  ("streamed", f"one-shot (chunks of {STREAM_CHUNK})"))
+    with use_context(plain_context()):
+        ref, _ = engine(None)[0]()
+    logits_check(phase, [(r.tokens, r.logits, ref.tokens, ref.logits)],
+                 model.cfg.vocab)
+    return counts
+
+
 SERVE_SECONDS = (30.0, 20.0, 10.0, 25.0)
 
 
 def serve(model, params, frames, platform, cache_dtype: str,
-          spec_k: int = 0, draft=None, cuda_graph=None):
+          spec_k: int = 0, draft=None, cuda_graph=None, streamed=()):
     """4 audio requests on 4 slots through ``BatchScheduler``, 8 decode
-    steps a tick. Returns the engine, the watched ticks and ``drain``,
-    which serves the requests (uids from its argument on) and returns
-    their states; it has run once, for uids 0-3."""
-    from repro_torch.serving.engine import AudioRequest, ServeEngine
+    steps a tick; those of the indices ``streamed`` stream their frames
+    in chunks of ``STREAM_CHUNK``, one a tick. Returns the engine, the
+    watched ticks and ``drain``, which serves the requests (uids from its
+    argument on) and returns their states; it has run once, for uids
+    0-3."""
+    from repro_torch.audio.stream import chunk_list
+    from repro_torch.serving.engine import (AudioRequest, ServeEngine,
+                                            StreamingAudioRequest)
     from repro_torch.serving.scheduler import BatchScheduler
     eng = ServeEngine(model, params, n_slots=4, max_len=64, enc_len=1500,
                       cache_dtype=cache_dtype, decode_block=8,
@@ -1007,11 +1278,12 @@ def serve(model, params, frames, platform, cache_dtype: str,
 
     def drain(uid0: int = 0) -> list:
         for i, fr in enumerate(frames):
-            sched.submit(AudioRequest(uid=uid0 + i, tokens=[1],
-                                      max_new=MAX_NEW, eos_id=-1,
-                                      enc_frames=fr))
+            kw = dict(uid=uid0 + i, tokens=[1], max_new=MAX_NEW, eos_id=-1)
+            sched.submit(StreamingAudioRequest(
+                chunks=chunk_list(fr, STREAM_CHUNK), **kw) if i in streamed
+                else AudioRequest(enc_frames=fr, **kw))
         with sync_debug():
-            sched.run_until_drained(max_ticks=64)
+            sched.run_until_drained(max_ticks=256)
         return [sched.results[uid0 + i] for i in range(len(frames))]
 
     drain.first = drain()
@@ -1030,12 +1302,14 @@ def rerun(phase: str, eng, ticks, drain) -> float:
 
 
 def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
-              spec_k: int = 0, draft=None):
+              spec_k: int = 0, draft=None, streamed=()):
     """The serve phase on the kernels, its ticks replayed from a CUDA
     graph, checked; the same eagerly, which it must equal; the captured
-    engine's requests again (``rerun``); then on the plain versions.
-    Returns (the request states, the frames, launch counts, tok/s, the
-    steady decode tok/s of an active lane)."""
+    engine's requests again (``rerun``); with ``streamed`` requests, the
+    streams' final tokens against one-shot requests of the same chunks'
+    states (``stream_gate``); then on the plain versions. Returns (the
+    request states, the frames, launch counts, tok/s, the steady decode
+    tok/s of an active lane)."""
     import torch
 
     from repro_torch.audio.features import audio_frames
@@ -1052,7 +1326,7 @@ def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
                   for w in waves]
         eng, ticks, drain = serve(model, params, frames, "h100-sxm",
                                   cache_dtype, spec_k, draft,
-                                  None if captured else False)
+                                  None if captured else False, streamed)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = read_counts(phase, expect)
@@ -1076,13 +1350,42 @@ def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
                   [(st.out, st.logits) for st in eager_res])
     lane_tps = rerun(phase, eng, ticks, drain)
     spec_line(phase, eng)
+    if streamed:
+        stream_gate(phase, eng, frames, streamed, res)
     with use_context(plain_context()):
         ref = serve(model, params, frames, None, cache_dtype, spec_k,
-                    draft)[2].first
+                    draft, streamed=streamed)[2].first
     logits_check(phase, [(st.out, st.logits, w.out, w.logits)
                          for st, w in zip(res, ref)], model.cfg.vocab,
                  _logit_tol(cache_dtype))
     return res, frames, counts, tps, lane_tps
+
+
+def stream_gate(phase: str, eng, frames, streamed, res) -> None:
+    """Every stream closed and every slot free; each stream's final
+    tokens equal those of a one-shot request with ``enc_states`` the
+    engine's ``encode_chunks`` of the same chunks, served on the same
+    engine."""
+    from repro_torch.audio.stream import chunk_list
+    from repro_torch.serving.engine import AudioRequest
+    from repro_torch.serving.scheduler import BatchScheduler
+    if eng.n_streams or len(eng.free) != eng.n_slots \
+            or not eng.lanestate.drained:
+        raise AssertionError(f"[{phase}] {eng.n_streams} open streams, "
+                             f"{len(eng.free)} free slots of {eng.n_slots}")
+    sched = BatchScheduler(eng, max_admit_per_tick=4)
+    for i in streamed:
+        states = eng.encode_chunks(chunk_list(frames[i], STREAM_CHUNK))
+        sched.submit(AudioRequest(uid=i, tokens=[1], max_new=MAX_NEW,
+                                  eos_id=-1, enc_states=states[0]))
+    sched.run_until_drained(max_ticks=64)
+    capture_check(phase, [(res[i].out, res[i].logits) for i in streamed],
+                  [(sched.results[i].out, sched.results[i].logits)
+                   for i in streamed],
+                  ("streamed", "one-shot (the same chunks' states)"))
+    _log(f"[{phase}] streams: partials "
+         f"{[len(res[i].partials) for i in streamed]}; open streams "
+         f"{eng.n_streams}, free slots {len(eng.free)} of {eng.n_slots}")
 
 
 # ----------------------------------------------------------------------------
@@ -1217,6 +1520,7 @@ def main() -> int:
     from repro_torch.models.model import build as build_model
     from repro_torch.quantize import quantize_tree
 
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -1234,6 +1538,7 @@ def main() -> int:
          f") in {build.build_dir()}")
 
     rows = check_kernels()
+    check_frontend_rows()
 
     cfg = get_config(ARCH)
     model = build_model(cfg)
@@ -1246,6 +1551,7 @@ def main() -> int:
          f"layers, vocab {cfg.vocab}; seeded init + Q8_0 "
          f"{time.monotonic() - t0:.1f} s")
     x = synth_waveform(30.0, seed=SEED)
+    check_stream_frontend(x, cfg.d_model)
 
     # warm-up (CUDA context, cuBLAS/cuFFT handles); not measured
     import repro_torch
@@ -1306,10 +1612,17 @@ def main() -> int:
     _log(f"[{phase}] tokens of the 4 requests equal the plain serve's, "
          f"but for near-ties")
 
+    # streaming: Q8_0 weights, the q8_0 cache, chunks of 16 frames
+    q8_path = mm_fa + ("q8_matmul", "q8_decode_attention")
+    add(run_stream(model, qparams, x, "e: transcribe stream q8_0", q8_path))
+    add(run_serve(model, qparams, "f: serve q8_0 2 streams + 2 audio 4x4",
+                  q8_path, "q8_0", streamed=(0, 1))[2])
+
     del params, qparams, draft, model
     torch.cuda.empty_cache()
     add(run_xlstm("d: serve xlstm-350m 4x4")[0])
 
+    _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]

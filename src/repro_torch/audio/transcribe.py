@@ -1,10 +1,10 @@
 """``repro_torch.transcribe``: samples in, tokens out, on the card.
 
-The port of the JAX package's ``audio/transcribe.py`` (one-shot path):
-log-mel frontend -> chunked encoder -> slot-pool decode, with
-platform-aware dispatch and the energy report. The models are randomly
-initialized reproductions, so the token ids are not text; what runs is
-the compute pipeline the paper measures.
+The port of the JAX package's ``audio/transcribe.py``: log-mel frontend
+-> chunked encoder -> slot-pool decode, one-shot or streamed chunk by
+chunk, with platform-aware dispatch and the energy report. The models
+are randomly initialized reproductions, so the token ids are not text;
+what runs is the compute pipeline the paper measures.
 """
 
 from __future__ import annotations
@@ -22,10 +22,12 @@ from repro_torch.configs import get_config
 from repro_torch.configs import reduced as reduced_cfg
 from repro_torch.models.model import build
 from repro_torch.platforms import get_platform, resolve_device
-from repro_torch.serving.engine import AudioRequest, ServeEngine
+from repro_torch.serving.engine import (AudioRequest, ServeEngine,
+                                        StreamingAudioRequest)
+from repro_torch.serving.scheduler import BatchScheduler
 
 DEFAULT_PROMPT = (1,)        # stand-in for whisper's <|sot|> sequence
-DEFAULT_CHUNK_FRAMES = 16    # encoder chunk (frame embeddings)
+DEFAULT_CHUNK_FRAMES = 16    # encoder chunk (frame embeddings) for streaming
 
 
 @dataclasses.dataclass
@@ -33,7 +35,7 @@ class TranscribeResult:
     """What one transcription produced and what it cost."""
 
     tokens: list
-    partials: list
+    partials: list                   # streaming: one hypothesis per chunk
     audio_s: float
     n_frames: int
     ticks: int
@@ -45,8 +47,9 @@ class TranscribeResult:
     decode_block: int = 1
     decode_steps: int = 0
     host_syncs: int = 0
-    decode_s: float = 0.0            # decode ticks after the prefill, host
-                                     # clock (every tick ends in a fetch)
+    decode_s: float = 0.0            # one-shot: decode ticks after the
+                                     # prefill, host clock (every tick ends
+                                     # in a fetch); 0 for a stream
     engine: Any = dataclasses.field(default=None, repr=False)
     # the logits row of each token, when the engine keeps them
     logits: list = dataclasses.field(default_factory=list, repr=False)
@@ -82,13 +85,12 @@ def transcribe(samples, sr: int = 16_000, *,
     ``cuda``). ``platform`` (a ``repro_torch.platforms`` name) derives
     the dispatch context and enables the energy report.
     ``decode_block`` fuses that many decode steps per engine tick (one
-    host sync per tick). Pass ``engine=`` to reuse an engine of the same
-    shapes; its platform and cache policy apply and its serve stats are
-    reset. ``stream=True`` is not ported yet."""
-    if stream:
-        raise NotImplementedError(
-            "streaming transcription is not ported yet (ROADMAP queue 1, "
-            "item 7: StreamingFrontend, open_stream/stream_feed)")
+    host sync per tick). ``stream=True`` serves through the streaming
+    path (one chunk of ``chunk_frames`` a scheduler tick, partial
+    hypotheses in ``result.partials``); the final tokens are those of
+    ``stream=False`` on the same audio. Pass ``engine=`` to reuse an
+    engine of the same shapes; its platform and cache policy apply and
+    its serve stats are reset."""
     if decode_block is not None and int(decode_block) < 1:
         raise ValueError(f"decode_block must be >= 1, got {decode_block}")
     dev = engine.device if engine is not None else resolve_device(device)
@@ -129,21 +131,33 @@ def transcribe(samples, sr: int = 16_000, *,
             engine.decode_block = int(decode_block)
     engine.reset_serve_stats()
     t0 = time.monotonic()
-    states = engine.encode_chunks(chunks)
-    st = engine.admit(AudioRequest(uid=0, tokens=list(prompt),
-                                   max_new=max_new, eos_id=eos_id,
-                                   enc_states=states[0]))
-    t_dec = time.monotonic()
-    while engine.n_active:
-        engine.step()
-    t_end = time.monotonic()
+    if stream:
+        sched = BatchScheduler(engine)
+        sched.submit(StreamingAudioRequest(uid=0, tokens=list(prompt),
+                                           max_new=max_new, eos_id=eos_id,
+                                           chunks=chunks))
+        sched.run_until_drained()
+        st = sched.results[0]
+        if st.error:
+            raise ValueError(st.error)
+        t_dec = t_end = time.monotonic()
+    else:
+        states = engine.encode_chunks(chunks)
+        st = engine.admit(AudioRequest(uid=0, tokens=list(prompt),
+                                       max_new=max_new, eos_id=eos_id,
+                                       enc_states=states[0]))
+        t_dec = time.monotonic()
+        while engine.n_active:
+            engine.step()
+        t_end = time.monotonic()
     wall = t_end - t0
     energy = None
     if engine.platform is not None:
         energy = engine.energy_report("fp16")
         energy["joules_per_audio_s"] = energy["pdp_j"] / max(audio_s, 1e-9)
     return TranscribeResult(
-        tokens=list(st.out), partials=[], audio_s=audio_s,
+        tokens=list(st.out), partials=[list(p) for p in st.partials],
+        audio_s=audio_s,
         n_frames=n_frames, ticks=engine._ticks, wall_s=wall,
         compute_ms_per_audio_s=wall / max(audio_s, 1e-9) * 1e3,
         platform=engine.platform.name if engine.platform else None,

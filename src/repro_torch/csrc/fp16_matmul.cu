@@ -30,9 +30,10 @@
 //    64x128 tiles of one where they number half the SMs (N = 384 at 1500
 //    rows: 72), else 64x64 (the 32-row prefill), all in one launch
 //    without a split of K.
-//  * GEMV (M <= 16, any operand pair): a lane reads 16 bytes of one w row
-//    (8 bf16 or 4 f32 columns), neighbouring lanes on neighbouring
-//    columns; the lanes of a warp sharing columns take neighbouring rows.
+//  * GEMV (M <= 16, any operand pair but f32 x f32): a lane reads 16
+//    bytes of one w row (8 bf16 or f16 columns), neighbouring lanes
+//    on neighbouring columns; the lanes of a warp sharing columns take
+//    neighbouring rows.
 //    x is staged once in shared memory as f32 and the sums are kept in
 //    f32. Where the column tiles alone leave the SMs idle, K is split
 //    across the CTAs of a thread block cluster (up to 8): each CTA adds
@@ -41,11 +42,13 @@
 //    memory); after the cluster's barrier each rank adds its slice in
 //    rank order. One launch, no workspace, no atomics: the sum's order
 //    is fixed.
-//  * Register-tiled FMA loop (M > 16 with f32 x, or rows that are not
-//    16-byte aligned): f32 FMAs on the CUDA cores, 64x64 output tiles,
-//    4x4 accumulators a thread, element loads masked at every edge. f32
-//    x keeps true f32 arithmetic (no TF32): the frontend GEMMs and the
-//    xLSTM head at prefill.
+//  * Register-tiled FMA loop (f32 x and w at any M, M > 16 with f32 x,
+//    or rows that are not 16-byte aligned): f32 FMAs on the CUDA cores,
+//    64x64 output tiles, 4x4 accumulators a thread, element loads masked
+//    at every edge. f32 x keeps true f32 arithmetic (no TF32): the
+//    frontend GEMMs and the xLSTM head at prefill. Each output is one
+//    fmaf chain over k in order, so a row's bits do not depend on M: the
+//    streaming frontend's few-row products equal the one-shot ones.
 
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -636,8 +639,9 @@ int launch_tile_out(int tile, int y_dt, const void* x, const void* w, void* y,
 // with a bf16 or f16 w. layout (the wrapper's plan): 0 = the FMA loop;
 // 1 = the wgmma tile, p0 = 0, 1, 2 for 128x128, 64x128, 64x64 (bf16 or
 // f16 x and w, M > 16, K and N multiples of 8 and at least 64, x, w and
-// y 16-byte aligned); 2 = the GEMV (M <= 16), p0 = column groups of 16
-// bytes a warp (1, 2, 4, ..., 32), p1 = CTAs a cluster splitting K (1-8).
+// y 16-byte aligned); 2 = the GEMV (M <= 16, w bf16 or f16), p0 = column
+// groups of 16 bytes a warp (1, 2, 4, ..., 32), p1 = CTAs a cluster
+// splitting K (1-8).
 extern "C" int fp16_matmul(const void* x, const void* w, void* y, int m,
                            int n, int k, int x_dtype, int w_dtype,
                            int y_dtype, int layout, int p0, int p1,
@@ -663,7 +667,6 @@ extern "C" int fp16_matmul(const void* x, const void* w, void* y, int m,
         p1 > 8)
       return bad;
     switch (x_dtype * 3 + w_dtype) {
-      case 0: rc = launch_gemv_any<float, float>(x, w, y, y_dtype, m, n, k, p0, p1, s); break;
       case 1: rc = launch_gemv_any<float, __nv_bfloat16>(x, w, y, y_dtype, m, n, k, p0, p1, s); break;
       case 2: rc = launch_gemv_any<float, __half>(x, w, y, y_dtype, m, n, k, p0, p1, s); break;
       case 4: rc = launch_gemv_any<__nv_bfloat16, __nv_bfloat16>(x, w, y, y_dtype, m, n, k, p0, p1, s); break;

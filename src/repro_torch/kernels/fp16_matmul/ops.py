@@ -61,9 +61,15 @@ def plan(m: int, n: int, k: int, x_dtype, w_dtype, sms: int,
     p1) as the C entry point takes them. ``aligned``: x, w and y start on
     16 bytes (their rows then do where K and N are multiples of 8).
 
-    * M <= GEMV_MAX_M: the GEMV for every operand pair, with p0 column
-      groups of 16 bytes a warp (GEMV_COLS columns a CTA: 16 groups of 8
-      bf16 or f16, 32 of 4 f32) and p1 CTAs a cluster splitting K: as
+    * f32 x and f32 w (only the frontend makes them): the FMA loop at
+      every M. Each output there is one ``fmaf`` chain over k in order,
+      so a row's bits do not depend on M, which the streaming frontend
+      needs: its pushes make these products over a few rows, the
+      one-shot frontend over thousands. The GEMV's cross-CTA sum would
+      give a row of a small call other bits.
+    * M <= GEMV_MAX_M: the GEMV for every other operand pair (w in bf16
+      or f16), with p0 column groups of 16 bytes a warp (GEMV_COLS
+      columns a CTA: 16 groups of 8) and p1 CTAs a cluster splitting K: as
       many, up to CLUSTER_MAX, as make the column tiles twice the
       ``sms`` SMs, and enough that each CTA's rows of x and partial
       sums fit GEMV_SMEM.
@@ -74,8 +80,10 @@ def plan(m: int, n: int, k: int, x_dtype, w_dtype, sms: int,
       one an SM, 64x128 where those number half the SMs, else 64x64.
     * Else (f32 x, or rows that are not 16-byte aligned): the FMA loop.
     """
+    if x_dtype == torch.float32 and w_dtype == torch.float32:
+        return FMA, 0, 0
     if m <= GEMV_MAX_M:
-        cgw = GEMV_COLS // (16 // (4 if w_dtype == torch.float32 else 2))
+        cgw = GEMV_COLS // 8
         tiles = build.cdiv(n, GEMV_COLS)
         ranks = min(CLUSTER_MAX, build.cdiv(2 * sms, tiles))
         mt = _pow2_at_least(m)

@@ -9,16 +9,18 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
         --requests 4 --slots 4 [--reduced] [--max-len 320] [--max-new 32] \\
-        [--decode-block 8] [--cache-dtype bf16] [--platform h100-sxm] \\
-        [--device cuda]
+        [--decode-block 8] [--cache-dtype bf16] [--spec-k 4] \\
+        [--platform h100-sxm] [--device cuda]
 
 ``--decode-block K`` fuses K decode steps per scheduler tick (one host
-fetch a tick; tokens identical for any K). ``--platform`` names a
+fetch a tick; tokens identical for any K). ``--spec-k K`` decodes
+self-speculatively: K - 1 draft tokens a round from Q4_0-quantized
+weights, verified in one forward (``--decode-block`` a multiple of K;
+the greedy tokens of plain decode). ``--platform`` names a
 registered hardware target (``repro_torch.platforms``): the dispatch
 context is derived from it and the run ends with its energy report.
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
-versions of the kernels on the CPU. Not ported yet: ``--spec-k`` and the
-transcribe CLI (ROADMAP queue 1, item 8).
+versions of the kernels on the CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ def main(argv=None):
     ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
                     help="KV-cache storage; recurrent lanes take bf16 only")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft spec_k-1 "
+                         "tokens with q4_0-quantized weights and verify "
+                         "all spec_k in one forward a round "
+                         "(decode-block must be a multiple; the greedy "
+                         "tokens of plain decode)")
     ap.add_argument("--enc-len", type=int, default=64,
                     help="encoder-state pool length (enc-dec models)")
     ap.add_argument("--decode-block", type=int, default=1,
@@ -79,6 +87,8 @@ def main(argv=None):
         print("serving Q8_0-quantized weights")
     if args.cache_dtype in ("q8_0", "q4_0"):
         print(f"serving a {args.cache_dtype.upper()}-quantized KV cache")
+    if args.spec_k:
+        print(f"self-speculative decoding: spec_k={args.spec_k}")
     if args.platform:
         from repro_torch.platforms import get_platform
         plat = get_platform(args.platform)   # fail fast on unknown names
@@ -88,7 +98,8 @@ def main(argv=None):
                          max_len=args.max_len, enc_len=args.enc_len,
                          cache_dtype=args.cache_dtype,
                          decode_block=args.decode_block,
-                         platform=args.platform, device=args.device)
+                         spec_k=args.spec_k, platform=args.platform,
+                         device=args.device)
     sched = BatchScheduler(engine)
 
     rng = np.random.default_rng(args.seed)

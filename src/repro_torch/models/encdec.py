@@ -4,7 +4,8 @@
 The model consumes frame embeddings (B, S_enc, d_model) from the log-mel
 frontend; a learnable square projection stands in for Whisper's conv
 stem. Encoder: sinusoidal positions + bidirectional attention + GELU MLP
-(``encode_chunked`` for the block-diagonal streaming variant). Decoder:
+(``encode_chunked`` for the block-diagonal streaming variant;
+``cross_attn_kv`` projects new states for a streamed slot). Decoder:
 learned positions, causal self-attention, cross-attention, GELU MLP and
 the tied embedding head. The reference's ``lax.scan`` over the stacked
 layer axis is a Python loop over it here.
@@ -19,9 +20,10 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (embed, layer_slice, layernorm,
-                                       logits_head, mlp, ninit, pad_vocab,
-                                       prepare_head, sinusoidal_positions,
-                                       stack_layers, take_rows)
+                                       logits_head, mlp, mm, ninit,
+                                       pad_vocab, prepare_head,
+                                       sinusoidal_positions, stack_layers,
+                                       take_rows)
 from repro_torch.quantize import QTENSORS, as_array
 
 MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
@@ -137,6 +139,25 @@ def encode_chunked(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     outs = [encode(params, cfg, frames[:, i:i + chunk])
             for i in range(0, s, chunk)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
+    """Each decoder layer's cross-attention K/V of new encoder states.
+
+    states: (B, S_new, d_model) -> (k, v), each (L, B, S_new, Hkv, Dh) in
+    the compute dtype: the products the prefill's ``attention`` makes for
+    ``x_kv`` (``mm`` of the states with ``wk`` and ``wv`` of ``params``,
+    the serving tree's bf16 or Q8_0/Q4_0 weights), so the engine can
+    extend a slot's cached encoder K/V as audio chunks arrive instead of
+    prefilling again. The port's attention has no biases or k-norm yet
+    (ROADMAP queue 1, item 14), and neither has this."""
+    layers = params["dec_layers"]["cross_attn"]
+    ks, vs = [], []
+    for i in range(_n_stacked(layers)):
+        lp = layer_slice(layers, i)
+        ks.append(mm(states, lp["wk"]))
+        vs.append(mm(states, lp["wv"]))
+    return torch.stack(ks), torch.stack(vs)
 
 
 def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -52,8 +52,22 @@ at once, and the acceptance of the leading draft hits, cut by the same
 EOS / max_new / max_len stops. The emitted stream is token-identical to
 plain greedy decode and the tick still makes one host fetch.
 
+Streaming audio (``StreamingAudioRequest``): ``open_stream`` takes a
+slot without a prefill; each ``stream_feed`` encodes one chunk of frame
+embeddings (block-diagonal: its states never change as more audio
+arrives); the first anchors the prompt with a prefill over those states,
+every later one projects the chunk through each decoder layer's cross
+K/V (``encdec.cross_attn_kv``), rounds it as the prefill does and
+writes it after the lane's cached positions **in place**
+(``_extend_cross_cache``), then grows the lane's encoder length with one
+asynchronous copy, so the next tick, replayed or not, attends the new
+audio. A lane whose mid-stream hypothesis is complete pauses, keeping
+its slot; ``stream_finalize`` prefills the prompt again over all the
+states, which makes the final transcript token-identical to one-shot
+serving of the same chunks.
+
 Not ported yet, and refused with ``NotImplementedError``: paged KV
-(ROADMAP queue 1, item 13) and streaming audio (item 7).
+(ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -71,6 +85,7 @@ from repro_torch.kernels.api import (DispatchContext, dispatch_counters,
                                      dispatch_trace, use_context)
 from repro_torch.kernels.q4_attention.ops import cache_traffic_ratio_q4
 from repro_torch.kernels.q8_attention.ops import cache_traffic_ratio
+from repro_torch.models import encdec
 from repro_torch.models.attention import quantize_kv_cache
 from repro_torch.models.model import Model, cache_bytes
 from repro_torch.platforms import Platform, get_platform, resolve_device
@@ -137,6 +152,27 @@ class AudioRequest(Request):
 
 
 @dataclasses.dataclass
+class StreamingAudioRequest(Request):
+    """An audio request whose encoder frames arrive incrementally:
+    ``chunks``, a list of (s_i, d_model) frame-embedding chunks, fixed
+    size but the tail. The scheduler feeds one chunk a tick through
+    ``ServeEngine.open_stream`` / ``stream_feed``; decode ticks in
+    between emit partial hypotheses (``RequestState.partials``), and
+    ``stream_finalize`` re-anchors the prompt against the whole audio,
+    so the final transcript is token-identical to one-shot serving."""
+
+    chunks: Optional[list] = None
+
+    def __post_init__(self):
+        if not self.chunks:
+            raise ValueError(f"StreamingAudioRequest {self.uid} requires a "
+                             f"non-empty list of frame chunks")
+        if self.enc_frames is not None or self.enc_states is not None:
+            raise ValueError(f"StreamingAudioRequest {self.uid}: frames "
+                             f"arrive via chunks, not enc_frames/enc_states")
+
+
+@dataclasses.dataclass
 class RequestState:
     req: Request
     slot: int
@@ -145,9 +181,11 @@ class RequestState:
     done: bool = False
     error: Optional[str] = None
     error_code: Optional[RejectCode] = None
+    # streams: one snapshot of ``out`` per fed chunk (the hypotheses
+    # emitted while audio was still arriving)
     partials: list = dataclasses.field(default_factory=list)
     # with keep_logits: the (vocab,) logits row each token of ``out``
-    # was chosen from, on the device
+    # was chosen from, on the device (an anchor restarts both)
     logits: list = dataclasses.field(default_factory=list)
 
 
@@ -161,6 +199,15 @@ class PendingTick:
     tok_blk: Any
     emit_blk: Any
     logits: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _StreamState:
+    """Engine-side state of one open audio stream (slot-keyed)."""
+
+    states: list                  # encoded chunk states, each (1, s_i, d)
+    n_frames: int = 0             # frames fed == valid encoder positions
+    anchored: bool = False        # the prompt prefill has run once
 
 
 def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -313,6 +360,7 @@ class ServeEngine:
                                       device=self.device)
         self.free = list(range(n_slots))
         self.active: dict[int, RequestState] = {}
+        self._streams: dict[int, _StreamState] = {}
         self.lanestate = LaneStatePool(n_slots)
         # device-resident decode state; parked lanes decode at pos 0
         # with active=False, so their emits are masked
@@ -365,6 +413,12 @@ class ServeEngine:
         self._lane_out[slot] = vals[5]
         self._lane_active[slot] = vals[6] != 0
 
+    def _set_enc_len(self, slot: int, n: int) -> None:
+        """Grow a streaming lane's encoder length in place, by the same
+        single asynchronous copy as ``_set_lane``."""
+        val = torch.tensor([n], dtype=torch.int64)
+        self._enc_lens[slot] = val.to(self.device, non_blocking=True)[0]
+
     def validate(self, req: Request) -> Optional[Rejection]:
         """A ``Rejection`` if this engine can never serve ``req``, else
         None."""
@@ -381,12 +435,31 @@ class ServeEngine:
                              + (f"+{headroom} speculative headroom"
                                 if headroom else "")
                              + f" vs {self.max_len})")
+        stream = isinstance(req, StreamingAudioRequest)
         if not self.enc_dec:
-            if req.enc_frames is not None or req.enc_states is not None:
+            if req.enc_frames is not None or req.enc_states is not None \
+                    or stream:
                 return Rejection(C.ENC_ON_DECODER_ONLY,
                                  f"request {req.uid}: encoder input on "
                                  f"decoder-only model "
                                  f"{self.model.cfg.name}")
+            return None
+        d_model = self.model.cfg.d_model
+        if stream:
+            total = 0
+            for i, c in enumerate(req.chunks):
+                shp = _shape(c)
+                if len(shp) != 2 or shp[1] != d_model or shp[0] < 1:
+                    return Rejection(C.BAD_ENC_SHAPE,
+                                     f"request {req.uid}: chunk {i} must be "
+                                     f"(s, {d_model}) with s >= 1, got "
+                                     f"{shp}")
+                total += shp[0]
+            if total > self.enc_len:
+                return Rejection(C.ENC_OVERFLOW,
+                                 f"request {req.uid}: {total} streamed "
+                                 f"encoder frames exceed the pool enc_len "
+                                 f"{self.enc_len}")
             return None
         if req.enc_frames is None and req.enc_states is None:
             return Rejection(C.MISSING_ENC_INPUT,
@@ -401,7 +474,6 @@ class ServeEngine:
             else req.enc_states
         what = "enc_frames" if req.enc_frames is not None else "enc_states"
         shp = _shape(enc)
-        d_model = self.model.cfg.d_model
         if len(shp) != 2 or shp[1] != d_model:
             return Rejection(C.BAD_ENC_SHAPE,
                              f"request {req.uid}: {what} must be (S_enc, "
@@ -421,6 +493,10 @@ class ServeEngine:
         """Prefill ``req`` into a free slot; None if the pool is full.
         Raises ``RejectionError`` for a request that can never be
         served."""
+        if isinstance(req, StreamingAudioRequest):
+            raise ValueError(f"request {req.uid}: streaming requests are "
+                             f"served via open_stream/stream_feed (or "
+                             f"BatchScheduler.submit)")
         if not self.free:
             return None
         err = self.validate(req)
@@ -428,35 +504,18 @@ class ServeEngine:
             raise RejectionError(err)
         n = len(req.tokens)
         slot = self.free.pop()
-        # recurrent lanes fold every input position into the state, so
-        # they prefill at the exact prompt length; KV lanes at a bucket
-        bucket = n if self.spec.prefill_exact \
-            else min(_bucket(n), self.max_len)
-        toks = torch.zeros((1, bucket), dtype=torch.int64)
-        toks[0, :n] = torch.as_tensor(req.tokens, dtype=torch.int64)
-        batch = {"tokens": toks.to(self.device, non_blocking=True)}
-        enc_s = 0     # token requests on a decoder-only model
+        enc, enc_s = {}, 0     # token requests on a decoder-only model
         if self.enc_dec and req.enc_states is not None:
             # precomputed states (chunked encode) skip the encoder
-            batch["enc_states"] = self._enc_tensor(req.enc_states) \
-                .to(torch.bfloat16)
+            enc["enc_states"] = self._enc_tensor(req.enc_states)
             enc_s = int(_shape(req.enc_states)[0])
         elif self.enc_dec:
             # encoded at the exact frame count: bidirectional attention
             # would mix bucket padding into every state
-            batch["enc_frames"] = self._enc_tensor(req.enc_frames) \
+            enc["enc_frames"] = self._enc_tensor(req.enc_frames) \
                 .to(torch.float32)
             enc_s = int(_shape(req.enc_frames)[0])
-        with use_context(self.dispatch_ctx):
-            one = self.model.init_cache(1, self.max_len, self.enc_len,
-                                        device=self.device)
-            logits, one = self.model.forward(self._served, batch,
-                                             mode="prefill", cache=one)
-            if self.cache_dtype in QUANT_TIERS:
-                one = quantize_kv_cache(one, self.cache_dtype)
-            _scatter_slot(self.cache, one, slot)
-            first = int(logits[0, n - 1].argmax())   # the admit-time sync
-            kept = [logits[0, n - 1]] if self.keep_logits else []
+        first, kept = self._prefill(slot, req.tokens, enc)
         self._generated += 1
         self.lanestate.reserve(slot, self.spec, n_tokens=n + req.max_new,
                                enc_frames=enc_s)
@@ -472,6 +531,137 @@ class ServeEngine:
         else:
             self.active[slot] = st
         return st
+
+    def _prefill(self, slot: int, tokens: list, enc: dict):
+        """Prefill ``tokens`` (with the encoder input ``enc``:
+        ``enc_frames`` or ``enc_states``) into lane ``slot`` of the pool,
+        in place. Returns the first token, fetched (the admission's one
+        sync), and with keep_logits its logits row in a list."""
+        n = len(tokens)
+        # recurrent lanes fold every input position into the state, so
+        # they prefill at the exact prompt length; KV lanes at a bucket
+        bucket = n if self.spec.prefill_exact \
+            else min(_bucket(n), self.max_len)
+        toks = torch.zeros((1, bucket), dtype=torch.int64)
+        toks[0, :n] = torch.as_tensor(tokens, dtype=torch.int64)
+        batch = {"tokens": toks.to(self.device, non_blocking=True)}
+        if "enc_states" in enc:
+            batch["enc_states"] = enc["enc_states"].to(torch.bfloat16)
+        elif "enc_frames" in enc:
+            batch["enc_frames"] = enc["enc_frames"]
+        with use_context(self.dispatch_ctx):
+            one = self.model.init_cache(1, self.max_len, self.enc_len,
+                                        device=self.device)
+            logits, one = self.model.forward(self._served, batch,
+                                             mode="prefill", cache=one)
+            if self.cache_dtype in QUANT_TIERS:
+                one = quantize_kv_cache(one, self.cache_dtype)
+            _scatter_slot(self.cache, one, slot)
+            first = int(logits[0, n - 1].argmax())
+        return first, [logits[0, n - 1]] if self.keep_logits else []
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def open_stream(self, req: StreamingAudioRequest
+                    ) -> Optional[RequestState]:
+        """Take a slot for a streaming audio request; None if the pool is
+        full. No prefill yet: the first ``stream_feed`` anchors the prompt
+        against the first chunk's states."""
+        if not isinstance(req, StreamingAudioRequest):
+            raise ValueError(f"request {req.uid}: open_stream takes a "
+                             f"StreamingAudioRequest")
+        err = self.validate(req)
+        if err is not None:
+            raise RejectionError(err)
+        if not self.free:
+            return None
+        slot = self.free.pop()
+        self.lanestate.reserve(slot, self.spec,
+                               n_tokens=len(req.tokens) + req.max_new)
+        self._streams[slot] = _StreamState(states=[])
+        return RequestState(req=req, slot=slot, pos=0, out=[])
+
+    @torch.no_grad()
+    def stream_feed(self, st: RequestState, frames) -> RequestState:
+        """Feed one chunk of frame embeddings ((s, d_model)) to an open
+        stream: encode it, extend the slot's cross K/V in place after the
+        cached positions (the first chunk anchors the prompt instead) and
+        grow the lane's encoder length, so the next decode tick attends
+        the new audio. Appends a partial-hypothesis snapshot to
+        ``st.partials``."""
+        slot = st.slot
+        ss = self._streams[slot]
+        fr = self._enc_tensor(frames).to(torch.float32)
+        s_new = int(fr.shape[1])
+        if ss.n_frames + s_new > self.enc_len:
+            raise RejectionError(Rejection(
+                RejectCode.ENC_OVERFLOW,
+                f"request {st.req.uid}: stream overflows the pool enc_len "
+                f"{self.enc_len} ({ss.n_frames}+{s_new})"))
+        with use_context(self.dispatch_ctx):
+            states = self.model.encode(self._served, fr)
+            if ss.anchored:
+                k, v = encdec.cross_attn_kv(self._served, self.model.cfg,
+                                            states)
+                _extend_cross_cache(self.cache["layers"]["cross"], k, v,
+                                    slot, ss.n_frames, self.cache_dtype)
+        ss.states.append(states)
+        ss.n_frames += s_new
+        self.lanestate.extend_cross(slot, s_new)
+        if ss.anchored:
+            self._set_enc_len(slot, ss.n_frames)
+        else:
+            self._anchor(st, ss, final=False)
+        st.partials.append(list(st.out))
+        return st
+
+    @torch.no_grad()
+    def stream_finalize(self, st: RequestState) -> RequestState:
+        """End of audio: anchor the prompt again against all the states
+        fed (one prefill; the encoder work is not redone), so the final
+        transcript is token-identical to one-shot serving of the same
+        chunks. The mid-stream hypothesis stays the last entry of
+        ``st.partials``."""
+        slot = st.slot
+        ss = self._streams.pop(slot)
+        if st.out:
+            st.partials.append(list(st.out))
+        self.active.pop(slot, None)
+        self._anchor(st, ss, final=True)
+        return st
+
+    def _anchor(self, st: RequestState, ss: _StreamState,
+                final: bool) -> None:
+        """The prompt prefill of a streaming lane over the states fed so
+        far (the one-shot path's states prefill; it writes the slot's
+        whole cross planes again, with the values the extension wrote up
+        to the products' row order). Restarts ``out`` and its logits."""
+        req, slot = st.req, st.slot
+        n = len(req.tokens)
+        states = ss.states[0] if len(ss.states) == 1 \
+            else torch.cat(ss.states, dim=1)
+        first, st.logits = self._prefill(slot, req.tokens,
+                                         {"enc_states": states})
+        self._generated += 1
+        ss.anchored = True
+        st.out = [first]
+        st.pos = n
+        finished = first == req.eos_id or req.max_new <= 1
+        self._set_lane(slot, token=first, pos=n, enc_len=ss.n_frames,
+                       eos=req.eos_id, max_new=req.max_new, n_out=1,
+                       active=not finished)
+        if final and finished:
+            st.done = True
+            self._free_slot(slot)
+        elif not finished:
+            self.active[slot] = st
+        # mid-stream and finished: the lane pauses (keeps its slot and
+        # resumes at the next anchor)
+
+    @property
+    def n_streams(self) -> int:
+        """Open audio streams."""
+        return len(self._streams)
 
     @torch.no_grad()
     def encode_chunks(self, chunks) -> torch.Tensor:
@@ -699,8 +889,13 @@ class ServeEngine:
                 st.pos += 1
                 if tok == st.req.eos_id or len(st.out) >= st.req.max_new \
                         or st.pos >= self.max_len - 1:
-                    st.done = True
                     self.active.pop(slot)
+                    if slot in self._streams:
+                        # a mid-stream hypothesis is complete: the lane
+                        # pauses, keeping its slot and growing cross K/V,
+                        # until stream_finalize anchors it again
+                        break
+                    st.done = True
                     self._free_slot(slot)
                     finished.append(st)
                     break
@@ -721,11 +916,12 @@ class ServeEngine:
 
     def abort(self, st: RequestState, code: RejectCode = None,
               message: Optional[str] = None) -> None:
-        """Evict an in-flight request and free its slot (no-op on a
-        finished one)."""
+        """Evict an in-flight request or open stream and free its slot
+        (no-op on a finished one)."""
         slot = st.slot
         if st.done or slot < 0:
             return
+        self._streams.pop(slot, None)
         self.active.pop(slot, None)
         if slot not in self.free:
             self._free_slot(slot)
@@ -883,6 +1079,22 @@ class ServeEngine:
                 tokens / latency_s if latency_s > 0 else 0.0,
             **({"speculative": spec} if spec else {}),
         }
+
+
+def _extend_cross_cache(cross: dict, k: torch.Tensor, v: torch.Tensor,
+                        slot: int, offset: int, tier: str) -> None:
+    """Write new cross K/V positions (k, v: (L, 1, s_new, Hkv, Dh)) into
+    lane ``slot`` of the pool's cross planes at ``offset``, in place (the
+    captured tick reads the planes by address). They are rounded as the
+    prefill rounds its cross K/V: cast to bf16, then for a q8_0 or q4_0
+    pool (``tier``) quantized along head_dim (``quantize_kv_cache``)."""
+    planes = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    if tier in QUANT_TIERS:
+        planes = quantize_kv_cache(planes, tier)
+    s = k.shape[2]
+    for key, val in planes.items():
+        cross[key][:, slot, offset:offset + s] = \
+            val[:, 0].to(cross[key].dtype)
 
 
 def _scatter_slot(pool: dict, one: dict, slot: int) -> None:

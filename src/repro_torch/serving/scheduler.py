@@ -1,12 +1,21 @@
 """Continuous-batching admission scheduler of the port (the JAX
-package's ``serving/scheduler.py``, one-shot requests).
+package's ``serving/scheduler.py``).
 
-FCFS over a ``ServeEngine``. One ``tick()``: admit waiting requests while
-slots are free (each admit is one prefill: at a bucketed length for KV
-lanes, at the exact prompt length for recurrent ones), run one engine tick
-(``decode_block`` decode steps, one host fetch), collect finished
-requests. Streaming audio requests are not ported yet (ROADMAP queue 1,
-item 7).
+FCFS over a ``ServeEngine``. One ``tick()``:
+
+0. feed one pending audio chunk to every open stream, finalizing the
+   streams whose audio has all arrived;
+1. admit waiting requests while slots are free (each admit is one
+   prefill: at a bucketed length for KV lanes, at the exact prompt length
+   for recurrent ones; a streaming request opens a stream and feeds its
+   first chunk);
+2. run one engine tick (``decode_block`` decode steps, one host fetch);
+3. collect finished requests.
+
+A stream gets one chunk a tick, the serving-time model of real-time
+arrival, so its lane decodes while its audio is still arriving (partial
+hypotheses in ``RequestState.partials``) and is anchored again at the
+end of its audio for the final transcript.
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ from collections import deque
 from typing import Optional
 
 from repro_torch.serving.engine import (RejectCode, Request, RequestState,
-                                        RejectionError, ServeEngine)
+                                        RejectionError, ServeEngine,
+                                        StreamingAudioRequest)
 
 
 @dataclasses.dataclass
@@ -65,6 +75,8 @@ class BatchScheduler:
         self.queue: deque[tuple[Request, int, float]] = deque()
         self.metrics = SchedMetrics()
         self.results: dict[int, RequestState] = {}
+        # open streams: slot -> (state, pending frame chunks)
+        self._streams: dict[int, tuple[RequestState, deque]] = {}
 
     def submit(self, req: Request) -> Optional[RequestState]:
         """Queue a request; one the engine can never serve completes at
@@ -79,33 +91,55 @@ class BatchScheduler:
         self.queue.append((req, self.metrics.ticks, time.monotonic()))
         return None
 
+    def _feed(self, st: RequestState, pending: deque) -> None:
+        """Feed a stream its next chunk; finalize it after its last."""
+        self.engine.stream_feed(st, pending.popleft())
+        if pending:
+            self._streams[st.slot] = (st, pending)
+            return
+        self._streams.pop(st.slot, None)
+        self.engine.stream_finalize(st)
+        if st.done:
+            self.metrics.completed += 1
+            self.results[st.req.uid] = st
+
     def tick(self) -> list[RequestState]:
         m = self.metrics
         gen0 = self.engine._generated
+        for st, pending in list(self._streams.values()):
+            self._feed(st, pending)
         admitted = 0
         while (self.queue and self.engine.free
                and admitted < self.max_admit_per_tick):
             req, t_submit, t_wall = self.queue.popleft()
             t_admit = time.monotonic()
+            stream = isinstance(req, StreamingAudioRequest)
             try:
-                st = self.engine.admit(req)
-            except RejectionError as e:
-                st = RequestState(req=req, slot=-1, pos=0, out=[],
-                                  done=True, error=str(e),
-                                  error_code=e.rejection.code)
+                st = self.engine.open_stream(req) if stream \
+                    else self.engine.admit(req)
+            except ValueError as e:
+                # a request submit()'s precheck missed: fail it, keep the
+                # serving loop alive
+                st = RequestState(
+                    req=req, slot=-1, pos=0, out=[], done=True,
+                    error=str(e), error_code=e.rejection.code
+                    if isinstance(e, RejectionError) else None)
                 self.results[req.uid] = st
                 m.rejected += 1
                 continue
             if st is None:
                 self.queue.appendleft((req, t_submit, t_wall))
                 break
+            if stream:
+                # the first token exists once the first chunk anchored
+                self._feed(st, deque(req.chunks))
             m.admitted += 1
             m.queue_wait_sum += m.ticks - t_submit
             m.ttft_sum += m.ticks - t_submit   # first token at admit
             m.queue_wait_s_sum += t_admit - t_wall
             m.ttft_s_sum += time.monotonic() - t_wall
             admitted += 1
-            if st.done:
+            if st.done and req.uid not in self.results:
                 m.completed += 1
                 self.results[req.uid] = st
         finished = self.engine.step()
@@ -118,7 +152,8 @@ class BatchScheduler:
         return finished
 
     def abort(self, uid) -> Optional[RequestState]:
-        """Cancel a queued or in-flight request by uid."""
+        """Cancel a queued or in-flight request or an open stream by
+        uid."""
         for i, (req, _t, _w) in enumerate(self.queue):
             if req.uid == uid:
                 del self.queue[i]
@@ -126,6 +161,12 @@ class BatchScheduler:
                     req=req, slot=-1, pos=0, out=[], done=True,
                     error=f"request {uid} cancelled while queued",
                     error_code=RejectCode.CANCELLED)
+                self.results[uid] = st
+                return st
+        for slot, (st, _pending) in list(self._streams.items()):
+            if st.req.uid == uid:
+                del self._streams[slot]
+                self.engine.abort(st)
                 self.results[uid] = st
                 return st
         for st in list(self.engine.active.values()):
@@ -137,22 +178,24 @@ class BatchScheduler:
 
     def run_until_drained(self, max_ticks: int = 10_000, *,
                           strict: bool = True) -> bool:
-        """Tick until every request completes, at most ``max_ticks``
-        ticks; a load that does not drain raises (or, with
+        """Tick until every request and stream completes, at most
+        ``max_ticks`` ticks; a load that does not drain raises (or, with
         ``strict=False``, returns False)."""
         budget = max_ticks
-        while (self.queue or self.engine.n_active) and budget > 0:
+        while (self.queue or self._streams or self.engine.n_active) \
+                and budget > 0:
             self.tick()
             budget -= 1
         if not self.drained:
             if strict:
                 raise SchedulerStuckError(
                     f"scheduler not drained after {max_ticks} ticks: "
-                    f"{len(self.queue)} queued, {self.engine.n_active} "
-                    f"active lanes")
+                    f"{len(self.queue)} queued, {len(self._streams)} open "
+                    f"streams, {self.engine.n_active} active lanes")
             return False
         return True
 
     @property
     def drained(self) -> bool:
-        return not self.queue and self.engine.n_active == 0
+        return (not self.queue and not self._streams
+                and self.engine.n_active == 0)

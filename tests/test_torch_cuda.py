@@ -21,8 +21,10 @@ reads short or past ``length`` fails.
 
 The serving engine's decode tick replayed from a CUDA graph is held to
 the eager tick (``cuda_graph=False``) at the reduced whisper-tiny.en
-(bf16, q8_0, q4_0, ``spec_k=4``) and xlstm-350m: tokens and logits bit
-for bit, one capture per tick size, one synchronising call a tick.
+(bf16, q8_0, q4_0, ``spec_k=4``, a stream whose cross K/V grows between
+replays) and xlstm-350m: tokens and logits bit for bit, one capture per
+tick size, one synchronising call a tick. The streaming frontend equals
+the one-shot frontend bit for bit on the card.
 """
 
 import gc
@@ -32,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.audio.features import audio_frames
+from repro_torch.audio.stream import StreamingFrontend, synth_waveform
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import api
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -51,7 +55,9 @@ from repro_torch.kernels.slstm_scan import plain as sl_plain
 from repro_torch.models.model import build
 from repro_torch.quantize import (Q4Tensor, Q8Tensor, quantize_q4_0,
                                   quantize_q8_0, quantize_tree)
-from repro_torch.serving.engine import AudioRequest, Request, ServeEngine
+from repro_torch.serving.engine import (AudioRequest, Request, ServeEngine,
+                                        StreamingAudioRequest)
+from repro_torch.serving.scheduler import BatchScheduler
 
 pytestmark = pytest.mark.cuda
 
@@ -771,3 +777,102 @@ def test_capture_with_a_dead_captured_engine_awaiting_collection(dev):
     finally:
         gc.set_threshold(*thresholds)
     assert eng.captures == 1 and eng.replays == 2
+
+
+# ----------------------------------------------------------------------------
+# Streaming: the frontend's rows, and a streamed engine's captured ticks
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(3000, 201, 80), (1500, 80, 384)])
+def test_frontend_product_rows_do_not_depend_on_m(dev, m, k, n):
+    """The frontend's f32 x f32 products give a row the same bits in a
+    call of 1-17 rows as in the full product (the FMA loop at every M)."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.random((m, k)).astype(np.float32)).to(dev)
+    w = _randn(rng, (k, n), dev)
+    full = mm_ops.fp16_matmul(x, w)
+    for rows in (1, 5, 10, 16, 17):
+        for at in (0, 7, m - rows):
+            part = mm_ops.fp16_matmul(x[at:at + rows].contiguous(), w)
+            assert torch.equal(part, full[at:at + rows]), (rows, at)
+
+
+@pytest.mark.parametrize("step", [1600, 173])
+def test_streaming_frontend_bit_exact(dev, step):
+    """Pushes of 100 ms packets and of 173 samples, then ``flush``,
+    equal the one-shot ``audio_frames`` on the card bit for bit."""
+    x = synth_waveform(3.0)
+    one = audio_frames(x, 384, device=dev)
+    sf = StreamingFrontend(384, device=dev)
+    outs = [sf.push(x[i:i + step]) for i in range(0, len(x), step)]
+    got = torch.cat(outs + [sf.flush()])
+    assert got.shape == one.shape == (150, 384)
+    assert torch.equal(got, one)
+
+
+def _watch_ticks(eng) -> list:
+    """Wrap ``eng.step``: for each tick with an active lane, where it made
+    a synchronising CUDA call."""
+    syncs, step = [], eng.step
+
+    def watched(k=None):
+        if not eng.n_active:
+            return step(k)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return step(k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.append([(w.filename, w.lineno) for w in seen
+                              if "synchroniz" in str(w.message)])
+
+    eng.step = watched
+    return syncs
+
+
+def _stream_serve(model, params, cuda_graph):
+    """A stream of 5 chunks beside a one-shot request through the
+    scheduler: the stream's cross K/V grows between replayed ticks in
+    which the other lane decodes."""
+    eng = ServeEngine(model, params, n_slots=2, max_len=64, enc_len=40,
+                      cache_dtype="q8_0", decode_block=4, keep_logits=True,
+                      cuda_graph=cuda_graph, device="cuda")
+    syncs = _watch_ticks(eng)
+    sched = BatchScheduler(eng)
+    rng = np.random.default_rng(2)
+    chunks = [rng.standard_normal((n, 128)).astype(np.float32) * 0.5
+              for n in (8, 8, 8, 8, 5)]
+    frames = rng.standard_normal((20, 128)).astype(np.float32) * 0.5
+    sched.submit(StreamingAudioRequest(uid=0, tokens=[1, 3], max_new=12,
+                                       eos_id=-1, chunks=chunks))
+    sched.submit(AudioRequest(uid=1, tokens=[1, 4], max_new=30, eos_id=-1,
+                              enc_frames=frames))
+    sched.run_until_drained(max_ticks=100)
+    torch.cuda.synchronize()
+    assert sched.drained and eng.n_streams == 0 and eng.lanestate.drained
+    return sched.results, eng, syncs
+
+
+def test_captured_stream_equals_the_eager_stream(dev):
+    """Streamed and one-shot lanes ticked from a CUDA graph while the
+    stream extends its cross planes and encoder length in place: the
+    eager run's tokens, partial hypotheses and logits rows bit for bit,
+    one capture, one synchronising call a tick."""
+    model = build(reduced(get_config("whisper-tiny-en")))
+    params = quantize_tree(model.init_values(
+        torch.Generator().manual_seed(0), device="cuda"))
+    _stream_serve(model, params, False)
+    (got, eng, syncs), (want, eager, eager_syncs) = (
+        _stream_serve(model, params, g) for g in (True, False))
+    for uid in (0, 1):
+        assert got[uid].out == want[uid].out, uid
+        assert got[uid].partials == want[uid].partials, uid
+        assert len(got[uid].logits) == len(got[uid].out)
+        for g, w in zip(got[uid].logits, want[uid].logits):
+            assert torch.equal(g, w), uid
+    assert len(got[0].partials) == 6 and len(got[0].out) == 12
+    assert eng.captures == 1 and eager.captures == 0
+    assert eng.replays == len(syncs) - 1 >= 4
+    assert all(len(n) == 1 for n in syncs + eager_syncs), syncs

@@ -498,9 +498,9 @@ TBF, TF16, TF32 = torch.bfloat16, torch.float16, torch.float32
     (15, 384, 1536, TBF, TBF, True, ("gemv", 16, 8)),
     (4, 384, 1536, TBF, TBF, True, ("gemv", 16, 8)),     # decode, 4 lanes
     (1, 384, 384, TBF, TBF, True, ("gemv", 16, 8)),      # decode, 1 lane
-    (1, 384, 384, TF32, TF32, True, ("gemv", 32, 8)),
+    (1, 384, 384, TF32, TF32, True, ("fma", 0, 0)),     # f32 x f32: rows
     (4, 51200, 1024, TF32, TBF, True, ("gemv", 16, 1)),  # the xLSTM head
-    (4, 51200, 1024, TF32, TF32, True, ("gemv", 32, 1)),
+    (4, 51200, 1024, TF32, TF32, True, ("fma", 0, 0)),  # independent of M
     (7, 50, 64, TBF, TBF, False, ("gemv", 16, 8)),       # any alignment
     (256, 51200, 1024, TF32, TBF, True, ("fma", 0, 0)),  # head at prefill
     (3000, 80, 201, TF32, TF32, True, ("fma", 0, 0)),    # the frontend
@@ -510,10 +510,11 @@ TBF, TF16, TF32 = torch.bfloat16, torch.float16, torch.float32
 ])
 def test_fp16_matmul_plan(m, n, k, xd, wd, aligned, want):
     """The layout the wrapper picks by M, dtype and alignment: the GEMV
-    at or under 16 rows for every operand pair (a cluster of up to 8
-    CTAs splitting K where the column tiles leave SMs idle), the wgmma
-    tile above it for 16-byte aligned bf16 or f16 operands, and the f32
-    FMA loop for f32 x or unaligned rows."""
+    at or under 16 rows for every operand pair but f32 x f32 (a cluster
+    of up to 8 CTAs splitting K where the column tiles leave SMs idle),
+    the wgmma tile above it for 16-byte aligned bf16 or f16 operands, and
+    the f32 FMA loop for f32 x above 16 rows, for f32 x f32 at every M
+    (the frontend's rows must not depend on M) and for unaligned rows."""
     names = {mm_ops.FMA: "fma", mm_ops.TILE: "tile", mm_ops.GEMV: "gemv"}
     layout, p0, p1 = mm_ops.plan(m, n, k, xd, wd, H100_SMS, aligned)
     assert (names[layout], p0, p1) == want

@@ -202,9 +202,10 @@ def test_engine_validates_and_refuses_unported_features(setup):
     assert eng.cache_report()["traffic_ratio_vs_bf16"] == 0.28125
     assert isinstance(eng.draft_params["dec_layers"]["mlp"]["up"],
                       Q4Tensor)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.transcribe(synth_waveform(0.2), stream=True,
-                               device="cpu")
+    # streaming transcription is ported: it returns the one-shot tokens
+    x = synth_waveform(0.2)
+    assert repro_torch.transcribe(x, stream=True, device="cpu").tokens \
+        == repro_torch.transcribe(x, device="cpu").tokens
     with pytest.raises(ValueError):
         ServeEngine(tm, tparams, device="meta")
     # the xLSTM family is ported: a reduced xlstm-350m engine constructs;
