@@ -56,6 +56,23 @@ f. a serve of 2 streams (30 s and 20 s, chunks of 16) beside 2 one-shot
    replays while a stream extends the pool under other active lanes;
    each stream's final tokens must equal a one-shot request of the same
    chunks' states, and every stream be closed and every slot free;
+g. f's serve on a page pool (``ServeEngine(paged=True)``, pages of 8
+   positions, ``enc_len=1504``): f's four requests (the one-shot ones
+   with a 12-id prompt) and two more with the 25 s audio and that
+   prompt, which wait for a free slot and share their audio's cross
+   pages and full prompt page. Besides f's checks (the streams against
+   one-shot requests of their states, the plain run) its tokens and
+   logits rows must equal bit for bit those of a slot-pool twin of the
+   same lengths (the decode kernels then split the same length into the
+   same chunks), the prefix store must have hit, both pools drain to 0
+   used pages with every table row on the scratch page and
+   ``pages.check()`` clean; it prints the ``cache_report`` paging block
+   at its most resident tick and the ``energy_report``;
+h. b's speculative transcription (q4_0 cache, ``spec_k=4``) on pages
+   (``max_len=40``, ``enc_len=1504``), held the same way to its
+   slot-pool twin. In g and h every ``paged_decode_attention`` call must
+   route ("accel", "cuda") and launch the q8 / q4 decode-attention
+   kernel on the gathered pages;
 d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
    weights): 4 token requests (prompts of 64, 128, 192 and 256 ids drawn
    from the seed, 32 new tokens each) on 4 slots through
@@ -86,8 +103,8 @@ gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
-Every phase of 3, 4, 5, e, f and d runs twice with the same engine
-settings:
+Every phase of 3, 4, 5, e, f, g, h and d runs twice with the same
+engine settings:
 captured (the default: the engine's first tick of a size runs eagerly,
 the second captures it in a CUDA graph, every later one replays it) and
 eager (``cuda_graph=False``). The captured run must have made one
@@ -242,6 +259,8 @@ def kernel_cases():
     from repro_torch.kernels.flash_attention import plain as fa_plain
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
     from repro_torch.kernels.fp16_matmul import plain as mm_plain
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import plain as pa_plain
     from repro_torch.kernels.q4_attention import ops as q4a_ops
     from repro_torch.kernels.q4_attention import plain as q4a_plain
     from repro_torch.kernels.q4_matmul import ops as q4_ops
@@ -459,11 +478,26 @@ def kernel_cases():
                    BF16_REL))
     cases["q4_matmul"] = q4
 
-    def decode_cases(tier, specs):
+    def paged(t, b, s_len):
+        """A one-layer stacked plane (1, B, S, H, .) laid out in a page
+        pool (B * S / 8 + 1 pages of 8, page 0 the scratch page, each
+        lane's pages shuffled over the pool) and the (B, S / 8) table."""
+        n = b * s_len // 8
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+            s_len)).to(dev) + 1
+        pool = torch.zeros((n + 1, 8) + t.shape[3:], dtype=t.dtype,
+                           device=dev)
+        pool[perm] = t[0].reshape((n, 8) + t.shape[3:])
+        return pool, perm.reshape(b, s_len // 8)
+
+    def decode_cases(tier, specs, pages=False):
         """Decode attention over one layer of a stacked cache of
         ``tier``; each spec: (label, lanes, queries, S, lengths (B,) or
         (B, Q)). Each case also runs with V only on the 3 positions
-        before each lane's first length and a large poison past it."""
+        before each lane's first length and a large poison past it. With
+        ``pages`` the cache lies in a page pool and the call is
+        ``paged_decode_attention``'s CUDA route (the gather, then this
+        kernel) against its plain version."""
         quant = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
         deq = dequantize_q8_0 if tier == "q8_0" else dequantize_q4_0
         kern, plain = ((qa_ops.q8_decode_attention_cache,
@@ -477,7 +511,7 @@ def kernel_cases():
         out = []
         for label, b, nq, s_len, lens in specs:
             # the stacked layers of a long cache: one is enough
-            L, h, d = (4 if s_len <= 4096 else 1), 6, 64
+            L, h, d = (4 if s_len <= 4096 and not pages else 1), 6, 64
             ln = torch.tensor(lens, device=dev)
             ln2 = ln if ln.dim() == 2 else ln[:, None].expand(b, nq)
             first = ln2[:, 0].tolist()
@@ -500,6 +534,24 @@ def kernel_cases():
                                          vtail)):
                 vt = quant(vsrc, axis=-1)
                 lib = None
+                if pages:
+                    c = "q" if tier == "q8_0" else "p"
+                    (kq, table), (ks, _), (vq, _), (vs, _) = (
+                        paged(x, b, s_len)
+                        for x in (kt.q, kt.scale, vt.q, vt.scale))
+                    kc, vc = {c: kq, "s": ks}, {c: vq, "s": vs}
+                    out.append((
+                        f"{label} S={s_len} Q={nq} lens={lens} H=6 D=64"
+                        f"{tag}",
+                        lambda q=q, kc=kc, vc=vc, tb=table, ln=ln:
+                            pa_ops.paged_decode_attention(q, kc, vc, tb,
+                                                          ln),
+                        lambda q=q, kc=kc, vc=vc, tb=table, ln=ln:
+                            pa_plain.paged_decode_attention(q, kc, vc, tb,
+                                                            ln),
+                        None, read + _nbytes(q, q, ln, table), ops, "bf16",
+                        BF16_REL))
+                    continue
                 if not tag:
                     # yardstick: SDPA over the pre-dequantized bf16 layer
                     kd = deq(kt, bf)[0].transpose(1, 2).contiguous()
@@ -547,6 +599,12 @@ def kernel_cases():
         ("cross decode, 1 lane", 1, 1, 1500, [1500]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
         ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)) + edges)
+    # phase g: the same kernel on the pages its lanes gather (1504
+    # positions of cross block, 64 of self)
+    cases["q8_decode_attention"] += decode_cases("q8_0", (
+        ("paged cross decode, 4 lanes", 4, 1, 1504, cross),
+        ("paged self verify, 4 lanes x 4 queries", 4, 4, 64, verify)),
+        pages=True)
     # phases a and b run one slot: S is 35 (a) or 38 (b, spec headroom)
     cases["q4_decode_attention"] = decode_cases("q4_0", (
         ("cross decode, 1 lane", 1, 1, 1500, [1500]),
@@ -557,6 +615,11 @@ def kernel_cases():
         ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
         ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)) + edges)
+    # phase h: one lane's gathered pages (1504 cross, 40 self positions)
+    cases["q4_decode_attention"] += decode_cases("q4_0", (
+        ("paged cross decode, 1 lane", 1, 1, 1504, [1500]),
+        ("paged self verify, 1 lane x 4 queries", 1, 4, 40,
+         [[30, 31, 32, 33]])), pages=True)
 
     # the sLSTM recurrence at xlstm-350m's width (4 heads of 256): the
     # prompts of phase d, its decode step from a lane's state (with R in
@@ -823,16 +886,19 @@ def zero_counts() -> None:
 
 def read_counts(phase: str, expect: tuple) -> tuple:
     """Launch counts and routing counters of this phase; every expected
-    kernel launched and every dispatched call of the seven ops went
-    ("accel", "cuda")."""
+    kernel launched (an expected op without a kernel of its own, such as
+    ``paged_decode_attention``, was dispatched) and every dispatched call
+    went ("accel", "cuda")."""
     from repro_torch.kernels.api import dispatch_counters
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     routing = dispatch_counters()
     _log(f"[{phase}] launches {counts}")
     _log(f"[{phase}] dispatch {dict(routing)}")
     for k in expect:
-        if counts[k] <= 0:
+        if k in counts and counts[k] <= 0:
             raise AssertionError(f"[{phase}] kernel {k} never launched")
+        if k not in counts and not any(key[0] == k for key in routing):
+            raise AssertionError(f"[{phase}] op {k} never dispatched")
     bad = {key: n for key, n in routing.items()
            if key[1:] != ("accel", "cuda")}
     if bad:
@@ -956,12 +1022,12 @@ def steady(phase: str, eng, ticks: list, again):
 
 
 def capture_check(phase: str, got: list, want: list,
-                  what=("captured", "eager")) -> None:
+                  what=("captured", "eager"), exact: bool = False) -> None:
     """The captured run against the eager one (``cuda_graph=False``) with
     the same engine settings (or the two runs ``what`` names): per
     request the same tokens, and the same logits rows bit for bit or
-    within ``CAPTURE_REL_TOL`` of the largest logit. ``got`` / ``want``:
-    (tokens, logits rows) per request."""
+    within ``CAPTURE_REL_TOL`` of the largest logit (bit for bit only,
+    ``exact``). ``got`` / ``want``: (tokens, logits rows) per request."""
     import torch
     err, top, unequal = 0.0, 0.0, 0
     for (gt, gl), (wt, wl) in zip(got, want):
@@ -976,9 +1042,10 @@ def capture_check(phase: str, got: list, want: list,
          f"bit-equal {sum(len(w[1]) for w in want) - unequal} of "
          f"{sum(len(w[1]) for w in want)}, max_abs_err={err:.4g} "
          f"rel={err / top:.4g} (tol {CAPTURE_REL_TOL})")
-    if err > CAPTURE_REL_TOL * top:
+    if err > CAPTURE_REL_TOL * top or (exact and unequal):
         raise AssertionError(f"[{phase}] {what[0]} logits off the {what[1]} "
-                             f"run's by {err / top:.4g} of the largest")
+                             f"run's by {err / top:.4g} of the largest "
+                             f"({unequal} rows not bit-equal)")
 
 
 def same_counts(phase: str, counts: dict, routing, want: tuple) -> None:
@@ -1076,13 +1143,15 @@ def spec_line(phase: str, eng) -> None:
 
 
 def run_transcribe(model, params, x, phase: str, expect: tuple,
-                   cache_dtype: str, spec_k: int = 0, draft=None):
+                   cache_dtype: str, spec_k: int = 0, draft=None,
+                   engine_kw=None):
     """One transcription through the engine ``transcribe`` would build
     (or, with ``spec_k``, a reused speculative engine), keeping its
     logits, its ticks replayed from a CUDA graph; the same eagerly
     (``cuda_graph=False``), which it must equal; the captured engine's
     transcription again (``steady``); then the same on the plain
-    versions. Returns (result, launch counts, steady decode tok/s)."""
+    versions. ``engine_kw`` overrides the engine's settings (phase h's
+    pages). Returns (result, launch counts, steady decode tok/s)."""
     import torch
 
     import repro_torch
@@ -1090,12 +1159,11 @@ def run_transcribe(model, params, x, phase: str, expect: tuple,
     from repro_torch.serving.engine import ServeEngine
 
     def engine(platform, cuda_graph=None):
-        eng = ServeEngine(model, params, n_slots=1,
-                          max_len=1 + MAX_NEW + 2 + max(spec_k - 1, 0),
-                          enc_len=1500, cache_dtype=cache_dtype,
-                          decode_block=8, platform=platform,
-                          keep_logits=True, spec_k=spec_k,
-                          draft_params=draft, cuda_graph=cuda_graph)
+        kw = dict(n_slots=1, max_len=1 + MAX_NEW + 2 + max(spec_k - 1, 0),
+                  enc_len=1500, cache_dtype=cache_dtype, decode_block=8,
+                  platform=platform, keep_logits=True, spec_k=spec_k,
+                  draft_params=draft, cuda_graph=cuda_graph)
+        eng = ServeEngine(model, params, **{**kw, **(engine_kw or {})})
         ticks = watch_ticks(eng)
 
         def go():
@@ -1258,27 +1326,45 @@ SERVE_SECONDS = (30.0, 20.0, 10.0, 25.0)
 
 
 def serve(model, params, frames, platform, cache_dtype: str,
-          spec_k: int = 0, draft=None, cuda_graph=None, streamed=()):
-    """4 audio requests on 4 slots through ``BatchScheduler``, 8 decode
-    steps a tick; those of the indices ``streamed`` stream their frames
-    in chunks of ``STREAM_CHUNK``, one a tick. Returns the engine, the
-    watched ticks and ``drain``, which serves the requests (uids from its
-    argument on) and returns their states; it has run once, for uids
-    0-3."""
+          spec_k: int = 0, draft=None, cuda_graph=None, streamed=(),
+          prompts=None, engine_kw=None):
+    """An audio request a frame tensor of ``frames`` on 4 slots through
+    ``BatchScheduler``, 8 decode steps a tick; those of the indices
+    ``streamed`` stream their frames in chunks of ``STREAM_CHUNK``, one a
+    tick. ``prompts``: each request's prompt (default ``[1]``);
+    ``engine_kw`` overrides the engine's settings. A paged engine keeps,
+    in ``paging_peak``, its ``cache_report`` paging block at the tick
+    start with the most resident bytes of the first run. Returns the
+    engine, the watched ticks and ``drain``, which serves the requests
+    (uids from its argument on) and returns their states; it has run
+    once, for uids from 0."""
     from repro_torch.audio.stream import chunk_list
     from repro_torch.serving.engine import (AudioRequest, ServeEngine,
                                             StreamingAudioRequest)
     from repro_torch.serving.scheduler import BatchScheduler
-    eng = ServeEngine(model, params, n_slots=4, max_len=64, enc_len=1500,
-                      cache_dtype=cache_dtype, decode_block=8,
-                      platform=platform, keep_logits=True, spec_k=spec_k,
-                      draft_params=draft, cuda_graph=cuda_graph)
+    kw = dict(n_slots=4, max_len=64, enc_len=1500, cache_dtype=cache_dtype,
+              decode_block=8, platform=platform, keep_logits=True,
+              spec_k=spec_k, draft_params=draft, cuda_graph=cuda_graph)
+    eng = ServeEngine(model, params, **{**kw, **(engine_kw or {})})
     ticks = watch_ticks(eng)
+    if eng.paged:
+        eng.paging_peak = {"resident_kv_bytes": -1}
+        tick = eng.step
+
+        def step(k=None):
+            rep = eng.cache_report()["paging"]
+            if rep["resident_kv_bytes"] > eng.paging_peak[
+                    "resident_kv_bytes"]:
+                eng.paging_peak = rep
+            return tick(k)
+        step.__wrapped__ = tick
+        eng.step = step
     sched = BatchScheduler(eng, max_admit_per_tick=4)
 
     def drain(uid0: int = 0) -> list:
         for i, fr in enumerate(frames):
-            kw = dict(uid=uid0 + i, tokens=[1], max_new=MAX_NEW, eos_id=-1)
+            kw = dict(uid=uid0 + i, tokens=prompts[i] if prompts else [1],
+                      max_new=MAX_NEW, eos_id=-1)
             sched.submit(StreamingAudioRequest(
                 chunks=chunk_list(fr, STREAM_CHUNK), **kw) if i in streamed
                 else AudioRequest(enc_frames=fr, **kw))
@@ -1287,6 +1373,8 @@ def serve(model, params, frames, platform, cache_dtype: str,
         return [sched.results[uid0 + i] for i in range(len(frames))]
 
     drain.first = drain()
+    if eng.paged:
+        eng.step = step.__wrapped__
     return eng, ticks, drain
 
 
@@ -1302,31 +1390,36 @@ def rerun(phase: str, eng, ticks, drain) -> float:
 
 
 def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
-              spec_k: int = 0, draft=None, streamed=()):
+              spec_k: int = 0, draft=None, streamed=(),
+              waves=(0, 1, 2, 3), prompts=None, engine_kw=None):
     """The serve phase on the kernels, its ticks replayed from a CUDA
     graph, checked; the same eagerly, which it must equal; the captured
     engine's requests again (``rerun``); with ``streamed`` requests, the
     streams' final tokens against one-shot requests of the same chunks'
-    states (``stream_gate``); then on the plain versions. Returns (the
-    request states, the frames, launch counts, tok/s, the steady decode
-    tok/s of an active lane)."""
+    states (``stream_gate``); then on the plain versions. A request's
+    audio is the wave of ``SERVE_SECONDS`` its entry of ``waves`` names
+    (one frame tensor a wave); ``prompts`` and ``engine_kw`` go to
+    ``serve``. Returns (the request states, the frames, launch counts,
+    tok/s, the steady decode tok/s of an active lane, the captured
+    engine)."""
     import torch
 
     from repro_torch.audio.features import audio_frames
     from repro_torch.audio.stream import synth_waveform
     from repro_torch.kernels.api import use_context
-    waves = [synth_waveform(s, seed=i + 1)
+    audio = [synth_waveform(s, seed=i + 1)
              for i, s in enumerate(SERVE_SECONDS)]
-    n = len(waves)
     runs = {}
     for captured in (True, False):
         zero_counts()
         t0 = time.monotonic()
-        frames = [audio_frames(w, model.cfg.d_model, device="cuda")
-                  for w in waves]
+        by_wave = [audio_frames(w, model.cfg.d_model, device="cuda")
+                   for w in audio]
+        frames = [by_wave[i] for i in waves]
         eng, ticks, drain = serve(model, params, frames, "h100-sxm",
                                   cache_dtype, spec_k, draft,
-                                  None if captured else False, streamed)
+                                  None if captured else False, streamed,
+                                  prompts, engine_kw)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = read_counts(phase, expect)
@@ -1354,11 +1447,12 @@ def run_serve(model, params, phase: str, expect: tuple, cache_dtype: str,
         stream_gate(phase, eng, frames, streamed, res)
     with use_context(plain_context()):
         ref = serve(model, params, frames, None, cache_dtype, spec_k,
-                    draft, streamed=streamed)[2].first
+                    draft, streamed=streamed, prompts=prompts,
+                    engine_kw=engine_kw)[2].first
     logits_check(phase, [(st.out, st.logits, w.out, w.logits)
                          for st, w in zip(res, ref)], model.cfg.vocab,
                  _logit_tol(cache_dtype))
-    return res, frames, counts, tps, lane_tps
+    return res, frames, counts, tps, lane_tps, eng
 
 
 def stream_gate(phase: str, eng, frames, streamed, res) -> None:
@@ -1386,6 +1480,131 @@ def stream_gate(phase: str, eng, frames, streamed, res) -> None:
     _log(f"[{phase}] streams: partials "
          f"{[len(res[i].partials) for i in streamed]}; open streams "
          f"{eng.n_streams}, free slots {len(eng.free)} of {eng.n_slots}")
+
+
+# ----------------------------------------------------------------------------
+# Phases g and h: the paged engine
+# ----------------------------------------------------------------------------
+
+PAGE_SIZE = 8
+# the slot pool's enc_len of phases 3-f (1500) rounded up to whole pages;
+# each phase's slot-pool twin takes it too, so the decode kernels split
+# the same gathered length into the same chunks (decode.chunk_plan)
+PAGED_ENC_LEN = 1504
+# phase g: the 30 s and 20 s streams, the 10 s and 25 s one-shot
+# requests, and two more with the 25 s audio (SERVE_SECONDS's indices)
+G_WAVES = (0, 1, 2, 3, 3, 3)
+# the one-shot requests' prompt: a full page of 8 ids, which lanes with
+# the same audio share, and 4 in a private page
+G_PROMPT = list(range(1, 13))
+
+
+def paging_gate(phase: str, eng, shared: bool) -> None:
+    """The paged engine after its runs: both pools drained to 0 used
+    pages, every table row back on the scratch page, ``check()`` clean,
+    and with ``shared`` prefix hits in both stores. Prints the
+    ``cache_report`` paging block at the most resident tick of its first
+    run (where ``serve`` kept it) and the ``energy_report``."""
+    rep = eng.paging_report()
+    hits = (rep["prefix"]["self"]["hits"], rep["prefix"]["cross"]["hits"])
+    eng.pages.check()
+    rows = [t.device() for t in (eng.pages.self_table,
+                                 eng.pages.cross_table)]
+    if rep["self"]["pages_in_use"] or rep["cross"]["pages_in_use"] \
+            or rep["resident_lanes"] or any(bool(t.any()) for t in rows) \
+            or (shared and not all(hits)):
+        raise AssertionError(f"[{phase}] pools not drained or no prefix "
+                             f"hit: {rep}")
+    peak = getattr(eng, "paging_peak", None)
+    if peak is not None:
+        _log(f"[{phase}] cache_report paging at the first run's most "
+             f"resident tick: "
+             + " ".join(f"{k}={peak[k]}" for k in (
+                 "resident_kv_bytes", "self_page_bytes", "cross_page_bytes",
+                 "resident_lanes"))
+             + f" self={peak['self']} cross={peak['cross']}; the two "
+               f"pools hold {eng.cache_report()['kv_bytes_total']} B (the "
+               f"slot pool's bytes and a scratch page each)")
+    _log(f"[{phase}] paging after the runs: prefix {rep['prefix']}, "
+         f"used pages {rep['self']['pages_in_use']} / "
+         f"{rep['cross']['pages_in_use']}, check() clean, headroom "
+         f"{eng.page_headroom()}")
+    er = eng.energy_report()
+    _log(f"[{phase}] energy_report[{er['platform']}]: " + " ".join(
+        f"{k}={er[k]}" for k in ("tokens", "decode_steps", "ticks",
+                                 "host_syncs", "cache_bytes_per_step",
+                                 "stream_bytes_total", "latency_s",
+                                 "joules_per_token")))
+
+
+def run_paged_serve(model, params, phase: str, expect: tuple,
+                    f_lane: float) -> dict:
+    """Phase g: the serve of phase f on pages (6 requests: f's two
+    streams and two one-shot requests, and two more one-shot requests
+    with the 25 s audio and the same 12-id prompt, which wait for a free
+    slot and are admitted while the graph replays), checked as
+    ``run_serve`` checks; then the same requests on a slot-pool twin of
+    the same lengths, whose tokens and logits rows the paged run must
+    equal bit for bit, and its steady decode beside the paged one's (and
+    ``f_lane``, phase f's). Returns the launch counts."""
+    prompts = [[1], [1]] + [G_PROMPT] * 4
+    kw = dict(enc_len=PAGED_ENC_LEN)
+    res, frames, counts, _, lane, eng = run_serve(
+        model, params, phase, expect, "q8_0", streamed=(0, 1),
+        waves=G_WAVES, prompts=prompts,
+        engine_kw=dict(kw, paged=True, page_size=PAGE_SIZE))
+    paging_gate(phase, eng, shared=True)
+    twin, ticks, drain = serve(model, params, frames, "h100-sxm", "q8_0",
+                               streamed=(0, 1), prompts=prompts,
+                               engine_kw=kw)
+    capture_check(phase, [(st.out, st.logits) for st in res],
+                  [(st.out, st.logits) for st in drain.first],
+                  ("paged", "slot-pool twin"), exact=True)
+    slot_lane = rerun(f"{phase}, its slot-pool twin", twin, ticks, drain)
+    _log(f"[{phase}] steady decode of a lane: paged {lane:.1f}, slot-pool "
+         f"twin {slot_lane:.1f} tok/s = {lane / slot_lane:.3f}x; phase f "
+         f"{f_lane:.1f}")
+    return counts
+
+
+def run_paged_spec(model, params, x, phase: str, expect: tuple, draft,
+                   b_tps: float) -> dict:
+    """Phase h: phase b's speculative transcription (q4_0 cache,
+    ``spec_k=4``, the Q4_0 draft) on pages, checked as ``run_transcribe``
+    checks; then on a slot-pool twin of the same lengths, whose tokens and
+    logits rows it must equal bit for bit, and whose steady decode goes
+    beside its own (and ``b_tps``, phase b's). Returns the launch
+    counts."""
+    import torch
+
+    import repro_torch
+    from repro_torch.serving.engine import ServeEngine
+    kw = dict(max_len=40, enc_len=PAGED_ENC_LEN)   # 38 positions, paged
+    r, counts, tps = run_transcribe(
+        model, params, x, phase, expect, "q4_0", spec_k=4, draft=draft,
+        engine_kw=dict(kw, paged=True, page_size=PAGE_SIZE))
+    paging_gate(phase, r.engine, shared=False)
+    eng = ServeEngine(model, params, n_slots=1, cache_dtype="q4_0",
+                      decode_block=8, platform="h100-sxm", keep_logits=True,
+                      spec_k=4, draft_params=draft, **kw)
+    ticks = watch_ticks(eng)
+
+    def go():
+        with sync_debug():
+            t = repro_torch.transcribe(x, model=model, params=params,
+                                       engine=eng, chunk_frames=1500,
+                                       max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        return t
+    twin = go()
+    capture_check(phase, [(r.tokens, r.logits)],
+                  [(twin.tokens, twin.logits)], ("paged", "slot-pool twin"),
+                  exact=True)
+    _, slot_tps, _ = steady(f"{phase}, its slot-pool twin", eng, ticks, go)
+    _log(f"[{phase}] steady decode: paged {tps:.1f}, slot-pool twin "
+         f"{slot_tps:.1f} tok/s = {tps / slot_tps:.3f}x; phase b "
+         f"{b_tps:.1f}")
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -1590,7 +1809,7 @@ def main() -> int:
     _log(f"[{phase}] against a, steady decode: {b_tps:.1f} / {a_tps:.1f} "
          f"tok/s = {b_tps / a_tps:.3f}x")
     phase = "c: serve q8_0 spec_k=4 4x4"
-    res, frames, counts, c_tps, c_lane = run_serve(
+    res, frames, counts, c_tps, c_lane, _ = run_serve(
         model, params, phase, mm_fa + ("q4_matmul", "q8_decode_attention"),
         "q8_0", spec_k=4, draft=draft)
     add(counts)
@@ -1615,8 +1834,18 @@ def main() -> int:
     # streaming: Q8_0 weights, the q8_0 cache, chunks of 16 frames
     q8_path = mm_fa + ("q8_matmul", "q8_decode_attention")
     add(run_stream(model, qparams, x, "e: transcribe stream q8_0", q8_path))
-    add(run_serve(model, qparams, "f: serve q8_0 2 streams + 2 audio 4x4",
-                  q8_path, "q8_0", streamed=(0, 1))[2])
+    f = run_serve(model, qparams, "f: serve q8_0 2 streams + 2 audio 4x4",
+                  q8_path, "q8_0", streamed=(0, 1))
+    add(f[2])
+
+    # paged KV: phase f's serve and phase b's speculation on pages
+    paged = ("paged_decode_attention",)
+    add(run_paged_serve(model, qparams,
+                        "g: paged serve q8_0 2 streams + 4 audio 4x4",
+                        q8_path + paged, f[4]))
+    add(run_paged_spec(model, params, x, "h: paged transcribe q4_0 spec_k=4",
+                       mm_fa + ("q4_matmul", "q4_decode_attention") + paged,
+                       draft, b_tps))
 
     del params, qparams, draft, model
     torch.cuda.empty_cache()

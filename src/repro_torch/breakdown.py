@@ -2,7 +2,8 @@
 the card.
 
     python -m repro_torch.breakdown [--cache-dtype bf16|q8_0|q4_0]
-                                    [--spec-k K] [--eager]
+                                    [--spec-k K] [--paged] [--lanes N]
+                                    [--eager]
     python -m repro_torch.breakdown --arch xlstm-350m [--eager]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
@@ -11,6 +12,11 @@ decode steps a tick. ``--cache-dtype q8_0`` serves Q8_0 weights with the
 q8_0 cache, ``bf16`` and ``q4_0`` bf16 weights with that cache;
 ``--spec-k K`` makes each tick 8 / K speculative rounds (K - 1 draft
 steps on Q4_0 weights, one verify forward), always on bf16 weights.
+``--paged`` serves it from a page pool (``ServeEngine(paged=True)``,
+pages of 8 positions; the lengths rounded up to whole pages: enc_len
+1504), whose tick gathers each lane's pages before every decode
+attention. ``--lanes N`` (up to 4) decodes N lanes at once, of 30, 20,
+10 and 25 s of audio (the lengths of ``chip_smoke.py``'s serve phases).
 ``--arch xlstm-350m`` runs instead the configuration of
 ``chip_smoke.py``'s phase d: xlstm-350m at full width with seeded random
 bf16 weights, 4 token requests of 64, 128, 192 and 256 ids admitted
@@ -92,36 +98,47 @@ def _decode(eng, profile_tick: bool):
     return time.monotonic() - t0, walls
 
 
+#: the audio of each lane (chip_smoke.py's SERVE_SECONDS)
+LANE_SECONDS = (30.0, 20.0, 10.0, 25.0)
+
+
 def run(cache_dtype: str, spec_k: int = 0, seed: int = 0,
-        cuda_graph: bool = True) -> dict:
+        cuda_graph: bool = True, paged: bool = False,
+        lanes: int = 1) -> dict:
     model = build(get_config("whisper-tiny-en"))
     params = model.init_values(torch.Generator().manual_seed(seed),
                                device="cuda")
     if cache_dtype == "q8_0" and not spec_k:
         params = quantize_tree(params)
-    x = synth_waveform(30.0, seed=seed)
+    audio = [synth_waveform(s, seed=seed + i)
+             for i, s in enumerate(LANE_SECONDS[:lanes])]
     draft = quantize_tree(params, tier="q4_0") if spec_k else None
 
+    max_len, enc_len = MAX_NEW + 3 + max(spec_k - 1, 0), 1500
+    if paged:
+        max_len, enc_len = -(-max_len // 8) * 8, -(-enc_len // 8) * 8
+
     def one(profile_tick: bool):
-        eng = ServeEngine(model, params, n_slots=1,
-                          max_len=MAX_NEW + 3 + max(spec_k - 1, 0),
-                          enc_len=1500, cache_dtype=cache_dtype,
+        eng = ServeEngine(model, params, n_slots=lanes, max_len=max_len,
+                          enc_len=enc_len, cache_dtype=cache_dtype,
                           decode_block=DECODE_BLOCK, platform="h100-sxm",
                           spec_k=spec_k, draft_params=draft,
-                          cuda_graph=cuda_graph)
+                          cuda_graph=cuda_graph, paged=paged, page_size=8)
         with torch.no_grad():
-            frames, t_fe = _timed(lambda: audio_frames(
-                x, model.cfg.d_model, device="cuda"))
-        states, t_enc = _timed(lambda: eng.encode_chunks([frames]))
-        st, t_pre = _timed(lambda: eng.admit(AudioRequest(
-            uid=0, tokens=[1], max_new=MAX_NEW, eos_id=-1,
-            enc_states=states[0])))
+            frames, t_fe = _timed(lambda: [audio_frames(
+                x, model.cfg.d_model, device="cuda") for x in audio])
+        states, t_enc = _timed(lambda: [eng.encode_chunks([f])
+                                        for f in frames])
+        sts, t_pre = _timed(lambda: [eng.admit(AudioRequest(
+            uid=i, tokens=[1], max_new=MAX_NEW, eos_id=-1,
+            enc_states=s[0])) for i, s in enumerate(states)])
         if profile_tick:
             return _decode(eng, True)
         t_dec, walls = _decode(eng, False)
         return {"frontend_s": t_fe, "encode_s": t_enc,
                 "prefill_s": t_pre, "decode_s": t_dec,
-                "decode_tok_per_s": (len(st.out) - 1) / t_dec,
+                "decode_tok_per_s":
+                    sum(len(st.out) - 1 for st in sts) / t_dec,
                 "tick_wall_s": walls, "captures": eng.captures,
                 "replays": eng.replays,
                 "ticks": eng._ticks, "host_syncs": eng._host_syncs,
@@ -132,7 +149,8 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0,
     one(False)                          # warm-up: handles, kernel loads
     stages = one(False)
     prof = one(True)
-    return {"cache_dtype": cache_dtype, "spec_k": spec_k,
+    return {"cache_dtype": cache_dtype, "spec_k": spec_k, "paged": paged,
+            "lanes": lanes,
             "decode_block": DECODE_BLOCK, "cuda_graph": cuda_graph,
             "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
@@ -246,6 +264,12 @@ def main() -> None:
     ap.add_argument("--spec-k", type=int, default=0,
                     help="self-speculative rounds of K positions (K - 1 "
                          "Q4_0 draft steps, one verify); 0 = plain decode")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from a page pool (ServeEngine(paged=True), "
+                         "pages of 8 positions)")
+    ap.add_argument("--lanes", type=int, default=1,
+                    choices=range(1, len(LANE_SECONDS) + 1),
+                    help="lanes decoded at once (Whisper)")
     ap.add_argument("--eager", action="store_true",
                     help="run every decode tick eagerly "
                          "(cuda_graph=False) instead of replaying its "
@@ -254,12 +278,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
     if args.arch == "xlstm-350m":
-        if args.cache_dtype != "bf16" or args.spec_k:
+        if args.cache_dtype != "bf16" or args.spec_k or args.paged \
+                or args.lanes != 1:
             raise SystemExit("xlstm-350m serves a bf16 state pool without "
-                             "speculative decoding")
+                             "speculative decoding or pages")
         r = run_xlstm(cuda_graph=not args.eager)
     else:
-        r = run(args.cache_dtype, args.spec_k, cuda_graph=not args.eager)
+        r = run(args.cache_dtype, args.spec_k, cuda_graph=not args.eager,
+                paged=args.paged, lanes=args.lanes)
     for k, v in r["stages"].items():
         print(f"{k}: {v}")
     t = r["decode_tick"]

@@ -288,11 +288,25 @@ def _decode_attn_backends(flat, cache):
     return run
 
 
+def _paged_spec(q, kc, vc, table, lens) -> KernelSpec:
+    if isinstance(kc, dict):
+        plane = kc["p"] if "p" in kc else kc["q"]
+        dtype = "q4_0" if "p" in kc else "q8_0"
+    else:
+        plane, dtype = kc, "bf16"
+    return KernelSpec("paged_decode_attention", m=q.shape[1],
+                      n=table.shape[1] * plane.shape[1], k=q.shape[-1],
+                      dtype=dtype, count=2 * q.shape[0] * q.shape[2],
+                      tag="attn_qk")
+
+
 def _register_builtin_ops() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import plain as fa_plain
     from repro_torch.kernels.fp16_matmul import ops as mm_ops
     from repro_torch.kernels.fp16_matmul import plain as mm_plain
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import plain as pa_plain
     from repro_torch.kernels.q4_attention import ops as q4a_ops
     from repro_torch.kernels.q4_attention import plain as q4a_plain
     from repro_torch.kernels.q4_matmul import ops as q4_ops
@@ -393,6 +407,19 @@ def _register_builtin_ops() -> None:
             "torch": _decode_attn_backends(
                 q4a_plain.q4_decode_attention,
                 q4a_plain.q4_decode_attention_cache)},
+    ))
+
+    # paged_decode_attention: decode over a paged pool (n_pages, P, Hkv, .)
+    # read through the (B, n_lp) page table, so n = n_lp * P plays the
+    # role the slot pool's max_len / enc_len played; count = 2 * B * H as
+    # in the slot-pool decode ops. No kernel of its own: the cuda backend
+    # gathers the pages and launches the tier's decode-attention kernel
+    register(KernelOp(
+        name="paged_decode_attention",
+        doc="Decode attention gathered over per-lane page tables.",
+        spec=_paged_spec,
+        backends={"cuda": pa_ops.paged_decode_attention,
+                  "torch": pa_plain.paged_decode_attention},
     ))
 
     register(KernelOp(

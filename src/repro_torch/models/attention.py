@@ -20,6 +20,13 @@ at pos + j and attends [0, pos + j]:
   where they lie, with (B,) lengths for Q = 1 and (B, Q) for Q > 1;
 * cross-attention reads the cached encoder K/V, every query of lane b
   attending positions [0, kv_lens[b]).
+
+With a ``page_table`` the planes are a paged pool (L, n_pages, P, Hkv,
+.) shared by the lanes (``repro_torch.paging``): self-attention writes
+token j of lane b at (layer, table[b, (pos + j) // P], (pos + j) % P),
+the logical page clipped to the row as the reference clips it, and both
+attentions read through ``dispatch("paged_decode_attention")``, a
+gather over the table followed by the slot pool's decode.
 """
 
 from __future__ import annotations
@@ -30,10 +37,9 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
+from repro_torch.kernels.paged_attention.plain import bf16_decode_attention
 from repro_torch.models.layers import mm, mm_out, ninit, prepared
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
-
-NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
@@ -78,20 +84,22 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
               cache: Optional[dict] = None, pos=None,
               x_kv: Optional[torch.Tensor] = None,
               use_rope: bool = False, layer_idx: Optional[int] = None,
-              kv_lens: Optional[torch.Tensor] = None):
+              kv_lens: Optional[torch.Tensor] = None,
+              page_table: Optional[torch.Tensor] = None):
     """Returns (y, new_cache). ``mode``: ``train`` (no cache),
     ``prefill`` (returns this layer's K/V, padded to ``cache``'s length
     when one is given) or ``decode`` (x is (B, Q, d); ``cache`` is the
     stacked pool, ``layer_idx`` its layer, ``pos`` the (B,) positions of
     each lane's first token).
     Cross-attention passes ``x_kv`` (the encoder states in prefill; any
-    tensor in decode, where the cached K/V are read)."""
+    tensor in decode, where the cached K/V are read). ``page_table``
+    (decode): ``cache`` is a paged pool (L, n_pages, P, Hkv, .) and the
+    (B, n_lp) table maps each lane's logical pages to its pool pages."""
     if use_rope:
         raise NotImplementedError(
             "rotary positions belong to the decoder-only families "
             "(ROADMAP queue 1, item 14)")
     b, s, _ = x.shape
-    h = cfg.n_heads
     causal = kind != "bidir" and x_kv is None
     window = _window_for(cfg, kind)
     softcap = cfg.attn_softcap
@@ -110,25 +118,43 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if tier != "bf16" and (softcap is not None or window is not None):
         raise NotImplementedError(f"{tier} KV-cache decode supports plain "
                                   f"softmax attention only")
+    if page_table is not None and (softcap is not None
+                                   or window is not None):
+        raise NotImplementedError("paged KV-cache decode supports plain "
+                                  "softmax attention only (no softcap / "
+                                  "sliding window)")
     pos_b = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     posq = pos_b[:, None] + torch.arange(s, device=x.device)[None, :]
-    lanes = torch.arange(b, device=x.device)[:, None]
 
     if x_kv is None:   # self-attention: write the new tokens, then read
         q, k_new, v_new = _project_qkv(p, x, cfg)
         # token j attends [0, pos + j]; Q == 1 keeps the (B,) form
         read_lens = pos_b + 1 if s == 1 else posq + 1
+        new = {"k": k_new, "v": v_new}
         if tier != "bf16":
             qz = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
             kt, vt = qz(k_new, axis=-1), qz(v_new, axis=-1)
             ck, cv = _CODE_KEYS[tier]
-            for key, val in ((ck, kt.q), ("ks", kt.scale),
-                             (cv, vt.q), ("vs", vt.scale)):
-                cache[key][layer_idx, lanes, posq] = val
+            new = {ck: kt.q, "ks": kt.scale, cv: vt.q, "vs": vt.scale}
+        if page_table is not None:
+            # token j of lane b goes to (layer, table[b, lp], (pos+j) % P),
+            # the logical page clipped to the row as the reference clips
+            # it: a frozen lane at the end of its extent, or the verify's
+            # last positions, write inside the lane's own row
+            psz = cache[_CODE_KEYS[tier][0]].shape[2]
+            lp = (posq // psz).clamp(max=page_table.shape[1] - 1)
+            at = (layer_idx, page_table.gather(1, lp), posq % psz)
+        else:
+            at = (layer_idx, torch.arange(b, device=x.device)[:, None], posq)
+        for key, val in new.items():
+            cache[key][at] = val.to(cache[key].dtype)
+        if page_table is not None:
+            out = _paged_cache_attention(q, cache, layer_idx, page_table,
+                                         read_lens)
+            return mm_out(out.to(x.dtype), p["wo"]), cache
+        if tier != "bf16":
             return _quant_decode(p, x, q, cache, tier, read_lens,
                                  layer_idx), cache
-        cache["k"][layer_idx, lanes, posq] = k_new.to(cache["k"].dtype)
-        cache["v"][layer_idx, lanes, posq] = v_new.to(cache["v"].dtype)
         kv_len = cache["k"].shape[2]
         kpos = torch.arange(kv_len, device=x.device)
         mask = kpos[None, None, :] <= posq[:, :, None]             # (B,Q,K)
@@ -136,6 +162,15 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             mask &= (posq[:, :, None] - kpos[None, None, :]) < window
     else:              # cross-attention: read the cached encoder K/V
         q = mm(x, p["wq"])
+        if page_table is not None:
+            # read-only paged cross block; lane b attends its gathered
+            # logical positions [0, kv_lens[b])
+            kv_len = page_table.shape[1] * cache[_CODE_KEYS[tier][0]].shape[2]
+            lens = (torch.full((b,), kv_len, device=x.device)
+                    if kv_lens is None else kv_lens)
+            out = _paged_cache_attention(q, cache, layer_idx, page_table,
+                                         lens)
+            return mm_out(out.to(x.dtype), p["wo"]), cache
         kv_len = cache[_CODE_KEYS[tier][0]].shape[2]
         lens = (torch.full((b,), kv_len, device=x.device)
                 if kv_lens is None else kv_lens)
@@ -146,21 +181,9 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 < lens[:, None])[:, None, :]
 
     # bf16 cache: einsum decode in torch ops (the reference has no Pallas
-    # kernel here): bf16 operands, f32 accumulation
-    k_layer = cache["k"][layer_idx].repeat_interleave(
-        h // cfg.n_kv_heads, dim=2)
-    v_layer = cache["v"][layer_idx].repeat_interleave(
-        h // cfg.n_kv_heads, dim=2)
-    bf = torch.bfloat16
-    scale = cfg.head_dim ** -0.5
-    s_ = torch.einsum("bqhd,bkhd->bhqk", q.to(bf).float(),
-                      k_layer.to(bf).float()) * scale
-    if softcap is not None:
-        s_ = softcap * torch.tanh(s_ / softcap)
-    s_ = torch.where(mask[:, None], s_, torch.full_like(s_, NEG_INF))
-    w = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w.to(bf).float(),
-                       v_layer.to(bf).float())
+    # kernel here), the chain the paged op runs after its gather
+    out = bf16_decode_attention(q, cache["k"][layer_idx],
+                                cache["v"][layer_idx], mask, softcap)
     return mm_out(out.to(x.dtype), p["wo"]), cache
 
 
@@ -179,6 +202,23 @@ def _quant_decode(p: dict, x: torch.Tensor, q: torch.Tensor, cache: dict,
     out = dispatch(op, q, cache[ck], cache["ks"], cache[cv], cache["vs"],
                    lens, layer=layer_idx)
     return mm_out(out.to(x.dtype), p["wo"])
+
+
+def _paged_cache_attention(q: torch.Tensor, planes: dict, layer_idx: int,
+                           table: torch.Tensor, lens) -> torch.Tensor:
+    """Attention of q (B, Q, H, D) over one layer of a paged pool (planes
+    (L, n_pages, P, Hkv, .)) through ``dispatch("paged_decode_attention")``:
+    lane b attends its gathered logical positions [0, lens[b]) (lens (B,)
+    or (B, Q))."""
+    tier = cache_tier(planes)
+    if tier == "bf16":
+        kc, vc = planes["k"][layer_idx], planes["v"][layer_idx]
+    else:
+        ck, cv = _CODE_KEYS[tier]
+        c = "q" if tier == "q8_0" else "p"
+        kc = {c: planes[ck][layer_idx], "s": planes["ks"][layer_idx]}
+        vc = {c: planes[cv][layer_idx], "s": planes["vs"][layer_idx]}
+    return dispatch("paged_decode_attention", q, kc, vc, table, lens)
 
 
 def _write_prefill_cache(cache: Optional[dict], k: torch.Tensor,
@@ -221,6 +261,14 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                 "vs": torch.zeros(sshape, dtype=torch.float16, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_kv_cache(cfg: ArchConfig, n_pages: int, page_size: int,
+                        dtype=torch.bfloat16, device=None) -> dict:
+    """Page-pool KV planes (n_pages, P, Hkv, .): ``init_kv_cache``'s
+    plane dict with (batch, max_len) replaced by the pool's (n_pages,
+    page_size). Page 0 is the reserved scratch page."""
+    return init_kv_cache(cfg, n_pages, page_size, dtype, device)
 
 
 def is_q8_cache(cache) -> bool:

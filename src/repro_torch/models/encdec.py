@@ -162,14 +162,18 @@ def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
 
 def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None, *,
-                  mode: str = "train", cache=None, pos=None, enc_lens=None):
+                  mode: str = "train", cache=None, pos=None, enc_lens=None,
+                  pages=None):
     """Decoder pass. train/prefill: tokens (B, S) with ``enc_out`` given;
     prefill returns the per-layer self and cross K/V stacked as
     ``{"layers": {"self": {k, v}, "cross": {k, v}}}`` (padded to
     ``cache``'s lengths). decode: tokens (B, Q) at per-lane positions
     ``pos`` (B,) + j, against the stacked pool ``cache``, updated in
     place at every one of the Q positions (Q > 1 is the speculative
-    verify); ``enc_lens`` (B,) masks each lane's cross-attention."""
+    verify); ``enc_lens`` (B,) masks each lane's cross-attention.
+    ``pages`` (decode): ``{"self": (B, n_lp), "cross": (B, n_lp_c)}``
+    page tables, when ``cache`` is a paged pool (``repro_torch.paging``)
+    that each attention writes and reads through its lane's row."""
     b, s = tokens.shape
     x = embed(params["embed"], tokens)
     if mode == "decode":
@@ -189,13 +193,15 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         if mode == "decode":
             a, _ = attn_mod.attention(
                 lp["self_attn"], h, cfg, kind="global", mode=mode,
-                cache=cache["layers"]["self"], pos=posv, layer_idx=i)
+                cache=cache["layers"]["self"], pos=posv, layer_idx=i,
+                page_table=None if pages is None else pages["self"])
             x = x + a
             h = layernorm(lp["ln_x"], x)
             c, _ = attn_mod.attention(
                 lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
                 cache=cache["layers"]["cross"], pos=posv, x_kv=h,
-                layer_idx=i, kv_lens=enc_lens)
+                layer_idx=i, kv_lens=enc_lens,
+                page_table=None if pages is None else pages["cross"])
         else:
             lc = None if cache is None else layer_slice(cache["layers"], i)
             a, self_c = attn_mod.attention(
@@ -230,3 +236,18 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, max_len: int,
         return {k: v.unsqueeze(0).repeat(cfg.n_layers, *([1] * v.dim()))
                 for k, v in one.items()}
     return {"layers": {"self": stacked(max_len), "cross": stacked(enc_len)}}
+
+
+def init_paged_encdec_cache(cfg: ArchConfig, n_pages: int,
+                            n_cross_pages: int, page_size: int,
+                            dtype=torch.bfloat16, device=None) -> dict:
+    """The paged pool of ``init_encdec_cache``: the per-lane (batch, seq)
+    axes become shared (n_pages, P) self and (n_cross_pages, P) cross
+    pools, read through per-lane page tables (``repro_torch.paging``),
+    stacked (L, n_pages, P, Hkv, .)."""
+    def stacked(n):
+        one = attn_mod.init_paged_kv_cache(cfg, n, page_size, dtype, device)
+        return {k: v.unsqueeze(0).repeat(cfg.n_layers, *([1] * v.dim()))
+                for k, v in one.items()}
+    return {"layers": {"self": stacked(n_pages),
+                       "cross": stacked(n_cross_pages)}}

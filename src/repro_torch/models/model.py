@@ -97,12 +97,14 @@ class Model:
         return tf_mod.init_decoder(generator, self.cfg, device)
 
     def forward(self, values, batch: dict, *, mode: str = "train",
-                cache=None, pos=None):
+                cache=None, pos=None, pages=None):
         """Returns (logits, new_cache). ``batch``: ``tokens``; for the
         enc-dec model also ``enc_frames`` or ``enc_states``
         (train/prefill; states skip the encoder) or ``enc_lens`` (decode:
         per-lane valid encoder lengths). A decoder-only decode writes the
-        new recurrent state into ``cache`` in place and returns it."""
+        new recurrent state into ``cache`` in place and returns it.
+        ``pages`` (enc-dec decode): the per-lane page tables when
+        ``cache`` is a paged pool (``init_paged_cache``)."""
         cfg = self.cfg
         if not cfg.enc_dec:
             return tf_mod.decoder_forward(values, cfg, batch["tokens"],
@@ -110,7 +112,7 @@ class Model:
         if mode == "decode":
             return encdec_mod.decode_tokens(
                 values, cfg, batch["tokens"], mode="decode", cache=cache,
-                pos=pos, enc_lens=batch.get("enc_lens"))
+                pos=pos, enc_lens=batch.get("enc_lens"), pages=pages)
         enc_out = batch.get("enc_states")
         if enc_out is None:
             enc_out = encdec_mod.encode(values, cfg, batch["enc_frames"])
@@ -145,6 +147,20 @@ class Model:
                                              dtype, device)
         return encdec_mod.init_encdec_cache(self.cfg, batch, max_len,
                                             enc_len, dtype, device)
+
+    def init_paged_cache(self, n_pages: int, n_cross_pages: int,
+                         page_size: int, dtype=torch.bfloat16,
+                         device: Optional[Any] = None):
+        """Paged-pool cache (enc-dec only): shared (n_pages, P) self and
+        (n_cross_pages, P) cross planes read through per-lane page tables
+        (``repro_torch.paging``). The same ``dtype`` contract as
+        ``init_cache``."""
+        if not self.cfg.enc_dec:
+            raise ValueError(
+                f"{self.cfg.name}: paged KV cache requires an enc-dec "
+                f"model (the serving engine's paged mode)")
+        return encdec_mod.init_paged_encdec_cache(
+            self.cfg, n_pages, n_cross_pages, page_size, dtype, device)
 
     def state_spec(self) -> LaneStateSpec:
         """The per-lane serving state of this model."""

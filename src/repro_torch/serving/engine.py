@@ -66,8 +66,23 @@ its slot; ``stream_finalize`` prefills the prompt again over all the
 states, which makes the final transcript token-identical to one-shot
 serving of the same chunks.
 
-Not ported yet, and refused with ``NotImplementedError``: paged KV
-(ROADMAP queue 1, item 13).
+With ``paged=True`` (enc-dec only) the slot pool becomes a shared page
+pool (``repro_torch.paging``): ``n_pages`` self and ``n_cross_pages``
+cross pages of ``page_size`` positions, page 0 the scratch page. A lane
+holds ``ceil((n + max_new) / P)`` self pages (``spec_k - 1`` more when
+speculating) and ``ceil(enc_s / P)`` cross pages, not ``max_len`` /
+``enc_len`` padding, and requests with the same audio, or the same audio
+and full prompt pages, share pages by content (SHA-1 of the encoder
+input). Admission prefills one lane densely and scatters its page rows
+to the lane's pages, the scratch page taking the bucket padding; a pool
+without the pages returns None, as a full slot pool does. The two page
+tables' device tensors are made once and written in place by every
+mapping change, so the captured tick reads them by address, as it reads
+the pool. A stream's cross pages grow chunk by chunk (``extend_cross``)
+before the chunk is written; running out of pages mid-stream raises
+``RejectionError(POOL_EXHAUSTED)``. Decode is token- and bit-equal to
+the slot pool when ``n_lp * P`` equals the slot pool's ``max_len`` /
+``enc_len`` (the decode kernels' chunk plan depends on it).
 """
 
 from __future__ import annotations
@@ -88,6 +103,7 @@ from repro_torch.kernels.q8_attention.ops import cache_traffic_ratio
 from repro_torch.models import encdec
 from repro_torch.models.attention import quantize_kv_cache
 from repro_torch.models.model import Model, cache_bytes
+from repro_torch.paging import PageAllocError, PagedKV, content_digest
 from repro_torch.platforms import Platform, get_platform, resolve_device
 from repro_torch.quantize import QTENSORS, quantize_tree, stored_bytes
 from repro_torch.serving.lanestate import LaneStatePool
@@ -111,6 +127,7 @@ class RejectCode(enum.Enum):
     ENC_OVERFLOW = "enc_overflow"                # frames exceed pool enc_len
     ENC_ON_DECODER_ONLY = "enc_on_decoder_only"  # frames for a decoder-only
     CANCELLED = "cancelled"                      # aborted in flight
+    POOL_EXHAUSTED = "pool_exhausted"            # paged KV pool out of pages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +268,9 @@ class ServeEngine:
                  platform: Optional[Any] = None,
                  dispatch_ctx: Optional[DispatchContext] = None,
                  device=None, keep_logits: bool = False,
-                 paged: bool = False, spec_k: int = 0,
+                 paged: bool = False, page_size: int = 8,
+                 n_pages: Optional[int] = None,
+                 n_cross_pages: Optional[int] = None, spec_k: int = 0,
                  draft_dtype: str = "q4_0", draft_params: Any = None,
                  cuda_graph: Optional[bool] = None):
         """``device``: where the pool lives and decode runs (default
@@ -271,10 +290,11 @@ class ServeEngine:
         (vocab,) logits row each of its tokens was chosen from, on the
         device. ``cuda_graph``: replay each tick from a CUDA graph (the
         default on a CUDA device) or run it eagerly (``False``; the only
-        form on the CPU, where ``True`` raises)."""
-        if paged:
-            raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP queue 1, item 13)")
+        form on the CPU, where ``True`` raises). ``paged=True`` (enc-dec
+        only): a shared page pool of ``n_pages`` self and
+        ``n_cross_pages`` cross pages of ``page_size`` positions (the
+        defaults hold the slot pool's bytes plus the scratch page); see
+        the module docstring."""
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"cache_dtype {cache_dtype!r}: expected one "
                              f"of {CACHE_DTYPES}")
@@ -335,6 +355,18 @@ class ServeEngine:
                     "weights from float params only)")
             else:
                 self.draft_params = quantize_tree(params, tier=draft_dtype)
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.pages: Optional[PagedKV] = None
+        self.page_tables: Optional[dict] = None
+        if self.paged:
+            if not self.enc_dec:
+                raise ValueError(f"paged=True requires an enc-dec model; "
+                                 f"{cfg.name} is decoder-only")
+            if max_len % self.page_size or enc_len % self.page_size:
+                raise ValueError(
+                    f"max_len ({max_len}) and enc_len ({enc_len}) must be "
+                    f"multiples of page_size ({self.page_size})")
         self.platform: Optional[Platform] = \
             get_platform(platform) if platform is not None else None
         if dispatch_ctx is None and self.platform is not None:
@@ -356,8 +388,26 @@ class ServeEngine:
         self.decode_block = int(decode_block)
         self.keep_logits = keep_logits
         cdt = cache_dtype if cache_dtype in QUANT_TIERS else torch.bfloat16
-        self.cache = model.init_cache(n_slots, max_len, enc_len, dtype=cdt,
-                                      device=self.device)
+        if self.paged:
+            # the defaults hold the slot pool's bytes, plus the scratch page
+            if n_pages is None:
+                n_pages = n_slots * (max_len // self.page_size) + 1
+            if n_cross_pages is None:
+                n_cross_pages = n_slots * (enc_len // self.page_size) + 1
+            self.pages = PagedKV(n_slots=n_slots, max_len=max_len,
+                                 enc_len=enc_len, page_size=self.page_size,
+                                 n_pages=n_pages,
+                                 n_cross_pages=n_cross_pages,
+                                 device=self.device)
+            self.cache = model.init_paged_cache(n_pages, n_cross_pages,
+                                                self.page_size, dtype=cdt,
+                                                device=self.device)
+            # the tables' device tensors, which the tick reads by address
+            self.page_tables = {"self": self.pages.self_table.device(),
+                                "cross": self.pages.cross_table.device()}
+        else:
+            self.cache = model.init_cache(n_slots, max_len, enc_len,
+                                          dtype=cdt, device=self.device)
         self.free = list(range(n_slots))
         self.active: dict[int, RequestState] = {}
         self._streams: dict[int, _StreamState] = {}
@@ -427,7 +477,7 @@ class ServeEngine:
         # speculative lanes write draft/verify KV up to spec_k - 1
         # positions past the last emitted token before the stops bind:
         # that whole extent stays inside the pool
-        headroom = self.spec_k - 1 if self.spec_k else 0
+        headroom = self._headroom()
         if n + req.max_new + headroom >= self.max_len:
             return Rejection(C.TOO_LONG,
                              f"request {req.uid} too long for engine "
@@ -460,7 +510,7 @@ class ServeEngine:
                                  f"request {req.uid}: {total} streamed "
                                  f"encoder frames exceed the pool enc_len "
                                  f"{self.enc_len}")
-            return None
+            return self._fits(req, n, req.max_new + headroom, total)
         if req.enc_frames is None and req.enc_states is None:
             return Rejection(C.MISSING_ENC_INPUT,
                              f"request {req.uid}: enc-dec model "
@@ -483,7 +533,21 @@ class ServeEngine:
                              f"request {req.uid}: {shp[0]} encoder "
                              f"positions exceed the pool enc_len "
                              f"{self.enc_len}")
+        return self._fits(req, n, req.max_new + headroom, shp[0])
+
+    def _fits(self, req: Request, n: int, max_new: int,
+              enc_s: int) -> Optional[Rejection]:
+        """POOL_EXHAUSTED for a paged engine whose whole pool could never
+        hold the request's pages."""
+        if self.paged and not self.pages.fits(n, max_new, enc_s):
+            return Rejection(RejectCode.POOL_EXHAUSTED,
+                             f"request {req.uid}: page demand exceeds the "
+                             f"whole pool (can never be admitted)")
         return None
+
+    def _headroom(self) -> int:
+        """Positions a speculative lane writes past its last token."""
+        return self.spec_k - 1 if self.spec_k else 0
 
     def _enc_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)[None]
@@ -504,6 +568,22 @@ class ServeEngine:
             raise RejectionError(err)
         n = len(req.tokens)
         slot = self.free.pop()
+        if self.paged:
+            from_states = req.enc_states is not None
+            digest = _enc_digest(req.enc_states if from_states
+                                 else req.enc_frames,
+                                 "states" if from_states else "frames")
+            try:
+                self.pages.admit_lane(
+                    slot, req.tokens, digest,
+                    max_new=req.max_new + self._headroom(),
+                    enc_s=int(_shape(req.enc_states if from_states
+                                     else req.enc_frames)[0]))
+            except PageAllocError:
+                # transient: pages come back as lanes finish, and the
+                # scheduler queues the request again, as for a full pool
+                self.free.append(slot)
+                return None
         enc, enc_s = {}, 0     # token requests on a decoder-only model
         if self.enc_dec and req.enc_states is not None:
             # precomputed states (chunked encode) skip the encoder
@@ -535,8 +615,9 @@ class ServeEngine:
     def _prefill(self, slot: int, tokens: list, enc: dict):
         """Prefill ``tokens`` (with the encoder input ``enc``:
         ``enc_frames`` or ``enc_states``) into lane ``slot`` of the pool,
-        in place. Returns the first token, fetched (the admission's one
-        sync), and with keep_logits its logits row in a list."""
+        or into its pages, in place. Returns the first token, fetched (the
+        admission's one sync), and with keep_logits its logits row in a
+        list."""
         n = len(tokens)
         # recurrent lanes fold every input position into the state, so
         # they prefill at the exact prompt length; KV lanes at a bucket
@@ -556,7 +637,13 @@ class ServeEngine:
                                              mode="prefill", cache=one)
             if self.cache_dtype in QUANT_TIERS:
                 one = quantize_kv_cache(one, self.cache_dtype)
-            _scatter_slot(self.cache, one, slot)
+            if self.paged:
+                _scatter_pages(self.cache, one,
+                               self.page_tables["self"][slot],
+                               self.page_tables["cross"][slot],
+                               self.page_size)
+            else:
+                _scatter_slot(self.cache, one, slot)
             first = int(logits[0, n - 1].argmax())
         return first, [logits[0, n - 1]] if self.keep_logits else []
 
@@ -576,6 +663,10 @@ class ServeEngine:
         if not self.free:
             return None
         slot = self.free.pop()
+        if self.paged:
+            # an empty lane: cross pages come a chunk at a time, self
+            # pages at the first anchor
+            self.pages.admit_stream_lane(slot)
         self.lanestate.reserve(slot, self.spec,
                                n_tokens=len(req.tokens) + req.max_new)
         self._streams[slot] = _StreamState(states=[])
@@ -598,13 +689,33 @@ class ServeEngine:
                 RejectCode.ENC_OVERFLOW,
                 f"request {st.req.uid}: stream overflows the pool enc_len "
                 f"{self.enc_len} ({ss.n_frames}+{s_new})"))
+        if self.paged:
+            # the lane's cross pages cover the chunk before anything
+            # writes it (the anchor's prefill or the extension)
+            try:
+                phys_off = self.pages.extend_cross(slot, ss.n_frames,
+                                                   s_new)
+            except PageAllocError as e:
+                raise RejectionError(Rejection(
+                    RejectCode.POOL_EXHAUSTED,
+                    f"request {st.req.uid}: cross-KV page pool exhausted "
+                    f"mid-stream ({e})")) from e
         with use_context(self.dispatch_ctx):
             states = self.model.encode(self._served, fr)
             if ss.anchored:
                 k, v = encdec.cross_attn_kv(self._served, self.model.cfg,
                                             states)
-                _extend_cross_cache(self.cache["layers"]["cross"], k, v,
-                                    slot, ss.n_frames, self.cache_dtype)
+                cross = self.cache["layers"]["cross"]
+                if self.paged:
+                    at = torch.tensor(phys_off).to(self.device,
+                                                   non_blocking=True)
+                    _extend_cross_cache(cross, k, v, (at[0], at[1]),
+                                        self.cache_dtype)
+                else:
+                    _extend_cross_cache(
+                        cross, k, v,
+                        (slot, slice(ss.n_frames, ss.n_frames + s_new)),
+                        self.cache_dtype)
         ss.states.append(states)
         ss.n_frames += s_new
         self.lanestate.extend_cross(slot, s_new)
@@ -638,6 +749,17 @@ class ServeEngine:
         to the products' row order). Restarts ``out`` and its logits."""
         req, slot = st.req, st.slot
         n = len(req.tokens)
+        if self.paged and not self.pages.lanes[slot].self_pages:
+            # the first anchor: the lane's whole self extent (prompt and
+            # decode budget), so no tick allocates
+            try:
+                self.pages.alloc_self(slot, n,
+                                      req.max_new + self._headroom())
+            except PageAllocError as e:
+                raise RejectionError(Rejection(
+                    RejectCode.POOL_EXHAUSTED,
+                    f"request {req.uid}: self-KV page pool exhausted at "
+                    f"anchor ({e})")) from e
         states = ss.states[0] if len(ss.states) == 1 \
             else torch.cat(ss.states, dim=1)
         first, st.logits = self._prefill(slot, req.tokens,
@@ -783,7 +905,8 @@ class ServeEngine:
         place, so the cache it returns is the pool itself."""
         batch["tokens"] = tokens
         logits, _ = self.model.forward(self._served, batch, mode="decode",
-                                       cache=self.cache, pos=pos)
+                                       cache=self.cache, pos=pos,
+                                       pages=self.page_tables)
         nxt = logits[:, -1].argmax(dim=-1)
         emit = active
         tokens = torch.where(active[:, None], nxt[:, None], tokens)
@@ -811,14 +934,15 @@ class ServeEngine:
             batch["tokens"] = dtok
             logits, _ = self.model.forward(self._draft_served, batch,
                                            mode="decode", cache=self.cache,
-                                           pos=dpos)
+                                           pos=dpos, pages=self.page_tables)
             dtok = logits[:, -1].argmax(dim=-1)[:, None]
             dpos = dpos + 1
             drafts.append(dtok)
         drafts = torch.cat(drafts, dim=1)                      # (B, gamma)
         batch["tokens"] = torch.cat([tokens, drafts], dim=1)
         logits, _ = self.model.forward(self._served, batch, mode="decode",
-                                       cache=self.cache, pos=pos)
+                                       cache=self.cache, pos=pos,
+                                       pages=self.page_tables)
         o = logits.argmax(dim=-1)                              # (B, spec_k)
         nb = tokens.shape[0]
         ones = torch.ones((nb, 1), dtype=torch.bool, device=o.device)
@@ -899,6 +1023,10 @@ class ServeEngine:
                     self._free_slot(slot)
                     finished.append(st)
                     break
+            if self.paged:
+                # the lane's valid extent (the fragmentation report; a
+                # lane freed above is gone)
+                self.pages.note_len(slot, st.pos)
         return finished
 
     def step_end(self, pending: Optional[PendingTick]
@@ -930,7 +1058,11 @@ class ServeEngine:
         st.error = message or f"request {st.req.uid} {st.error_code.value}"
 
     def _free_slot(self, slot: int) -> None:
-        """Return a lane to the pool and zero its decode inputs."""
+        """Return a lane to the pool and zero its decode inputs. A paged
+        lane drops its page references and its table rows point at the
+        scratch page again before the next tick."""
+        if self.paged:
+            self.pages.free_lane(slot)
         if self.lanestate.holds(slot):
             self.lanestate.release(slot)
         self.free.append(slot)
@@ -952,7 +1084,7 @@ class ServeEngine:
         dt = self.cache_dtype if self.cache_dtype in QUANT_TIERS else "bf16"
         per_tok = 2 * cfg.n_layers * stored_bytes(
             (cfg.n_kv_heads, cfg.head_dim), dt)
-        return {
+        out = {
             "cache_dtype": self.cache_dtype,
             "family": self.spec.family,
             "state_kinds": list(self.spec.state_kinds),
@@ -966,6 +1098,39 @@ class ServeEngine:
                 else cache_traffic_ratio_q4()
                 if self.cache_dtype == "q4_0" else 1.0,
         }
+        if self.paged:
+            # a paged tick reads only mapped pages through the tables, so
+            # the decode stream (and the energy model on it) prices the
+            # resident pages, not n_slots x max_len of padding
+            rep = self.pages.report()
+            layers = self.cache["layers"]
+            spb = cache_bytes(layers["self"])[0] \
+                // self.pages.self_pool.n_pages
+            cpb = cache_bytes(layers["cross"])[0] \
+                // self.pages.cross_pool.n_pages
+            resident = (rep["self"]["pages_in_use"] * spb
+                        + rep["cross"]["pages_in_use"] * cpb)
+            out["paging"] = {**rep, "self_page_bytes": spb,
+                             "cross_page_bytes": cpb,
+                             "resident_kv_bytes": resident}
+            out["bytes_per_step"] = resident + 2 * state_bytes
+        return out
+
+    def paging_report(self) -> dict:
+        """Page-pool occupancy, fragmentation and prefix sharing (paged
+        engines only)."""
+        if not self.paged:
+            raise ValueError("paging_report() requires paged=True")
+        return self.pages.report()
+
+    def page_headroom(self) -> float:
+        """Free-page fraction of the tighter pool (1.0 for the slot
+        pool): a gateway's load-shed signal."""
+        if not self.paged:
+            return 1.0
+        sp, cp = self.pages.self_pool, self.pages.cross_pool
+        return min(sp.free_pages / max(sp.n_pages - 1, 1),
+                   cp.free_pages / max(cp.n_pages - 1, 1))
 
     def lane_report(self) -> dict:
         return self.lanestate.report()
@@ -1082,19 +1247,45 @@ class ServeEngine:
 
 
 def _extend_cross_cache(cross: dict, k: torch.Tensor, v: torch.Tensor,
-                        slot: int, offset: int, tier: str) -> None:
+                        at: tuple, tier: str) -> None:
     """Write new cross K/V positions (k, v: (L, 1, s_new, Hkv, Dh)) into
-    lane ``slot`` of the pool's cross planes at ``offset``, in place (the
-    captured tick reads the planes by address). They are rounded as the
-    prefill rounds its cross K/V: cast to bf16, then for a q8_0 or q4_0
-    pool (``tier``) quantized along head_dim (``quantize_kv_cache``)."""
+    the pool's cross planes at ``at``, in place (the captured tick reads
+    the planes by address): a slot pool's (slot, slice of positions), or
+    a page pool's (physical pages, offsets), s_new each. They are rounded
+    as the prefill rounds its cross K/V: cast to bf16, then for a q8_0 or
+    q4_0 pool (``tier``) quantized along head_dim
+    (``quantize_kv_cache``)."""
     planes = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
     if tier in QUANT_TIERS:
         planes = quantize_kv_cache(planes, tier)
-    s = k.shape[2]
     for key, val in planes.items():
-        cross[key][:, slot, offset:offset + s] = \
-            val[:, 0].to(cross[key].dtype)
+        cross[key][(slice(None),) + at] = val[:, 0].to(cross[key].dtype)
+
+
+def _enc_digest(x, kind: str) -> str:
+    """Content key of a request's encoder input for paged prefix sharing:
+    SHA-1 of its bytes with its kind (``"frames"`` / ``"states"``) mixed
+    in, so the two encodings never collide. Decoder self-K/V flows
+    through cross-attention, so shared prompt pages are valid only
+    between lanes with the same audio: the digest keys self pages too."""
+    x = torch.as_tensor(x).detach().contiguous().cpu()
+    return content_digest(kind.encode(), x.view(torch.uint8).numpy().tobytes())
+
+
+def _scatter_pages(pool: dict, one: dict, pv_self: torch.Tensor,
+                   pv_cross: torch.Tensor, page_size: int) -> None:
+    """Write a batch-1 dense cache tree into a lane's pages, in place.
+    Each dense leaf (L, 1, S, .) is cut into page rows (L, S // P, P, .)
+    and written at the lane's table row ``pv`` (its whole logical extent:
+    mapped pages, then the scratch page, which takes the bucket padding).
+    Shared pages are written again with the same bits (the prefill is
+    deterministic), so the write never changes another lane's pages."""
+    for kind, pv in (("self", pv_self), ("cross", pv_cross)):
+        for key, plane in pool["layers"][kind].items():
+            dense = one["layers"][kind][key][:, 0]
+            rows = dense.reshape(dense.shape[0], -1, page_size,
+                                 *dense.shape[2:])
+            plane[:, pv] = rows.to(plane.dtype)
 
 
 def _scatter_slot(pool: dict, one: dict, slot: int) -> None:

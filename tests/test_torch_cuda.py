@@ -24,7 +24,11 @@ the eager tick (``cuda_graph=False``) at the reduced whisper-tiny.en
 (bf16, q8_0, q4_0, ``spec_k=4``, a stream whose cross K/V grows between
 replays) and xlstm-350m: tokens and logits bit for bit, one capture per
 tick size, one synchronising call a tick. The streaming frontend equals
-the one-shot frontend bit for bit on the card.
+the one-shot frontend bit for bit on the card. The paged engine's
+captured tick, whose page-table rows are rewritten between replays
+(admissions, a stream's cross pages, freed lanes), equals its eager tick
+and its slot-pool twin bit for bit, and the paged decode op's CUDA route
+(the gather, then the tier's decode-attention kernel) its plain version.
 """
 
 import gc
@@ -39,6 +43,8 @@ from repro_torch.audio.stream import StreamingFrontend, synth_waveform
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import api
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import plain as pa_plain
 from repro_torch.kernels.flash_attention import plain as fa_plain
 from repro_torch.kernels.fp16_matmul import ops as mm_ops
 from repro_torch.kernels.fp16_matmul import plain as mm_plain
@@ -876,3 +882,109 @@ def test_captured_stream_equals_the_eager_stream(dev):
     assert eng.captures == 1 and eager.captures == 0
     assert eng.replays == len(syncs) - 1 >= 4
     assert all(len(n) == 1 for n in syncs + eager_syncs), syncs
+
+
+# ----------------------------------------------------------------------------
+# Paged KV: the op's CUDA route, and the paged engine's captured ticks
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tier", ["bf16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("nq", [1, 4])
+def test_paged_decode_attention_on_the_card(dev, tier, nq):
+    """The CUDA route (page gather, then the tier's decode-attention
+    kernel) against the plain version on the same pool, at whisper's 6
+    heads of 64 over 2 KV heads, 188 logical pages of 8 (1504 positions,
+    the cross block of phase g), shared and scratch pages in the rows;
+    a quantized tier launches its kernel once a call."""
+    rng = np.random.default_rng(5)
+    b, h, hkv, d, n_lp, n_pages = 4, 6, 2, 64, 188, 600
+    pool = [_randn(rng, (n_pages, 8, hkv, d), dev, torch.bfloat16)
+            for _ in range(2)]
+    if tier != "bf16":
+        qz = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
+        key = "q" if tier == "q8_0" else "p"
+        pool = [{key: t.q, "s": t.scale}
+                for t in (qz(x, axis=-1) for x in pool)]
+    table = torch.from_numpy(rng.integers(1, n_pages, (b, n_lp))).to(dev)
+    table[1, :40] = table[0, :40]          # a shared prefix
+    table[3, 100:] = 0                      # the scratch page past a lane
+    q = _randn(rng, (b, nq, h, d), dev, torch.bfloat16)
+    lens = torch.tensor([1504, 700, 1, 800], device=dev)
+    if nq > 1:
+        lens = lens[:, None] - torch.arange(nq - 1, -1, -1, device=dev)
+        lens = lens.clamp(min=1)
+    launcher = {"q8_0": qa_ops.q8_decode_attention,
+                "q4_0": q4a_ops.q4_decode_attention}.get(tier)
+    before = launcher.launches if launcher else 0
+    got = pa_ops.paged_decode_attention(q, *pool, table, lens)
+    want = pa_plain.paged_decode_attention(q, *pool, table, lens)
+    torch.cuda.synchronize()
+    assert got.shape == (b, nq, h, d)
+    assert_bf16_close(got, want)
+    if launcher:
+        assert launcher.launches == before + 1
+
+
+def _paged_serve(model, params, paged, cuda_graph):
+    """A stream of 5 chunks of 8 frames, and three one-shot requests, two
+    with the same audio and full prompt page, on 3 slots through the
+    scheduler, one admission a tick: the page tables' rows change between
+    replayed ticks (each admission, the stream's cross pages, each freed
+    lane)."""
+    eng = ServeEngine(model, params, n_slots=3, max_len=64, enc_len=40,
+                      cache_dtype="q8_0", decode_block=4, keep_logits=True,
+                      cuda_graph=cuda_graph, device="cuda", paged=paged,
+                      page_size=8)
+    syncs = _watch_ticks(eng)
+    sched = BatchScheduler(eng, max_admit_per_tick=1)
+    rng = np.random.default_rng(3)
+    chunks = [rng.standard_normal((8, 128)).astype(np.float32) * 0.5
+              for _ in range(5)]
+    frames = rng.standard_normal((20, 128)).astype(np.float32) * 0.5
+    other = rng.standard_normal((13, 128)).astype(np.float32) * 0.5
+    prompt = list(range(1, 10))
+    sched.submit(AudioRequest(uid=0, tokens=prompt, max_new=20, eos_id=-1,
+                              enc_frames=frames))
+    sched.submit(StreamingAudioRequest(uid=1, tokens=[1, 3], max_new=12,
+                                       eos_id=-1, chunks=chunks))
+    sched.submit(AudioRequest(uid=2, tokens=prompt, max_new=24, eos_id=-1,
+                              enc_frames=frames))
+    sched.submit(AudioRequest(uid=3, tokens=[1, 4], max_new=30, eos_id=-1,
+                              enc_frames=other))
+    sched.run_until_drained(max_ticks=100)
+    torch.cuda.synchronize()
+    assert sched.drained and eng.lanestate.drained
+    return sched.results, eng, syncs
+
+
+def test_captured_paged_tick_equals_the_eager_tick(dev):
+    """The paged engine ticked from a CUDA graph while admissions, a
+    stream and freed lanes rewrite its page tables in place between
+    replays: the eager run's tokens, partial hypotheses and logits rows
+    bit for bit, and the slot pool's of the same lengths; one capture,
+    one synchronising call a tick, the tables never rebound, prefix
+    pages shared, both pools drained."""
+    model = build(reduced(get_config("whisper-tiny-en")))
+    params = quantize_tree(model.init_values(
+        torch.Generator().manual_seed(0), device="cuda"))
+    _paged_serve(model, params, True, False)
+    runs = {(p, g): _paged_serve(model, params, p, g)
+            for p, g in ((True, True), (True, False), (False, True))}
+    got, eng, syncs = runs[True, True]
+    tables = eng.page_tables
+    for key in ((True, False), (False, True)):
+        want = runs[key][0]
+        for uid in range(4):
+            assert got[uid].out == want[uid].out, (key, uid)
+            assert got[uid].partials == want[uid].partials, (key, uid)
+            assert len(got[uid].logits) == len(got[uid].out)
+            for g, w in zip(got[uid].logits, want[uid].logits):
+                assert torch.equal(g, w), (key, uid)
+    assert eng.captures == 1 and eng.replays == len(syncs) - 1 >= 4
+    assert all(len(n) == 1 for n in syncs + runs[True, False][2]), syncs
+    assert eng.pages.self_table.device() is tables["self"]
+    assert eng.pages.cross_table.device() is tables["cross"]
+    assert eng.paging_report()["prefix"]["self"]["hits"] >= 1
+    assert eng.pages.self_pool.used_pages == 0
+    assert eng.pages.cross_pool.used_pages == 0
+    eng.pages.check()

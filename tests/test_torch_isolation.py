@@ -28,6 +28,8 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert "repro_torch.serving.engine" in mods and len(mods) > 20
+    assert {"repro_torch.paging.manager", "repro_torch.paging.table",
+            "repro_torch.kernels.paged_attention.ops"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -193,8 +193,14 @@ def test_engine_validates_and_refuses_unported_features(setup):
             RejectCode.BAD_ENC_SHAPE)]
     for req, code in bad:
         assert eng.validate(req).code == code
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tm, tparams, device="cpu", paged=True)
+    # paged KV is ported: a paged engine constructs, with the reference's
+    # refusals (a decoder-only model; lengths off the page size)
+    eng = ServeEngine(tm, tparams, device="cpu", paged=True, max_len=64,
+                      enc_len=16, page_size=8)
+    assert eng.pages.self_table.device().shape == (8, 8)
+    assert eng.page_headroom() == 1.0
+    with pytest.raises(ValueError, match="page_size"):
+        ServeEngine(tm, tparams, device="cpu", paged=True, max_len=60)
     # the q4_0 tier and speculative decoding are ported: they construct
     eng = ServeEngine(tm, tparams, device="cpu", cache_dtype="q4_0",
                       decode_block=4, spec_k=4)
@@ -216,6 +222,9 @@ def test_engine_validates_and_refuses_unported_features(setup):
                       n_slots=2, max_len=32, device="cpu")
     assert eng.spec.recurrent == ("mstate", "sstate")
     assert eng.cache_report()["state_bytes_total"] > 0
+    with pytest.raises(ValueError, match="enc-dec"):
+        ServeEngine(xm, eng.params, n_slots=2, max_len=32, device="cpu",
+                    paged=True)
     for name in ("qwen3-moe-30b-a3b", "gemma2-2b", "zamba2-7b"):
         with pytest.raises(KeyError, match="unknown arch"):
             t_get_config(name)
