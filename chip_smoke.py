@@ -73,13 +73,32 @@ h. b's speculative transcription (q4_0 cache, ``spec_k=4``) on pages
    slot-pool twin. In g and h every ``paged_decode_attention`` call must
    route ("accel", "cuda") and launch the q8 / q4 decode-attention
    kernel on the gathered pages;
+i. qwen3-4b at full width and depth (36 layers, d_model 2560, 32/8
+   heads of 128, d_ff 9728, vocab 151936, rope 1e6, qk-norm, untied
+   head; seeded random bf16 weights drawn on the card): 4 token requests
+   (prompts of 64, 128, 192 and 256 ids drawn from the seed, 32 new
+   tokens each) on 4 slots through ``BatchScheduler``, 8 decode steps a
+   tick, ``max_len`` 512: i1 with bf16 weights and a bf16 cache
+   (``flash_attention`` at head_dim 128, ``fp16_matmul``), i2 with Q8_0
+   weights (``Model.quantize``) and the q8_0 cache (``q8_matmul``,
+   ``q8_decode_attention`` at GQA 4);
+j. qwen3-moe-30b-a3b at full width (d_model 2048, 32/4 heads of 128, 128
+   experts, top 8, expert d_ff 768, capacity factor 1.25), its first 8
+   of 48 layers (the whole model is 61 GB of bf16 weights), bf16 weights
+   and the q8_0 cache, the same requests; its ``routing_report`` must
+   reconcile: top-8 x 8 layers x (the prefills' buckets + every slot of
+   every decode step);
+k. gemma2-2b at full width and depth (26 layers, d_model 2304, 8/4 heads
+   of 256, d_ff 9216 with gelu, vocab 256000 tied, softcaps 50/30,
+   local/global layers with window 4096), bf16 weights and cache, the
+   same requests (``flash_attention`` at head_dim 256 with softcap);
 d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
-   weights): 4 token requests (prompts of 64, 128, 192 and 256 ids drawn
-   from the seed, 32 new tokens each) on 4 slots through
-   ``BatchScheduler``, 8 decode steps a tick. The sLSTM recurrence runs
-   on ``slstm_scan`` at prefill and decode, the untied f32 head on
-   ``fp16_matmul``. It prints wall seconds, decode tok/s, ticks, host
-   syncs and the ``energy_report`` on ``h100-sxm``.
+   weights), the same requests, ``max_len`` 320. The sLSTM recurrence
+   runs on ``slstm_scan`` at prefill and decode, the untied f32 head on
+   ``fp16_matmul``.
+   Phases i, j, k and d print wall seconds, decode tok/s, ticks, host
+   syncs, the ``cache_report`` and the ``energy_report`` on
+   ``h100-sxm``.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -92,7 +111,13 @@ lane of length 0 beside full ones, and over 65,536 positions; the dense
 GEMM at every decoder shape (1 and 4 lanes, the 16-row verify), on rows
 that are not 16-byte aligned, and at the xLSTM head with f32 x and the
 bf16 weight as stored; the dense and Q8_0 GEMMs and flash attention at
-a streamed encoder chunk of 16 rows and its tail of 12.
+a streamed encoder chunk of 16 rows and its tail of 12. For phases i, j
+and k: flash attention at head_dim 128 (qwen3-4b's and qwen3-moe's
+prefill buckets, GQA 4 and 8, ragged, the KV split) and 256 (gemma2-2b's
+prefill with softcap 50 on a local and a global layer, a window of 128
+that binds, ragged, the KV split); ``q8_decode_attention`` at head_dim
+128 with GQA 4 and 8 over 512 positions; the dense and Q8_0 GEMMs at
+qwen3-4b's decode (4 lanes) and prefill (256 rows) shapes and its head.
 
 The f32 cases of phase 2 (the frontend GEMMs, the xLSTM head at a
 decode step and at prefill of every prompt position, the sLSTM
@@ -103,8 +128,8 @@ gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
-Every phase of 3, 4, 5, e, f, g, h and d runs twice with the same
-engine settings:
+Every phase of 3, 4, 5, e, f, g, h, i, j, k and d runs twice with the
+same engine settings:
 captured (the default: the engine's first tick of a size runs eagerly,
 the second captures it in a CUDA graph, every later one replays it) and
 eager (``cuda_graph=False``). The captured run must have made one
@@ -125,7 +150,9 @@ of each phase keeps the logits
 row each token was chosen from; the same phase is then run again on the
 plain versions (forced, on the card) and the two runs' rows must agree
 within ``LOGIT_REL_TOL`` of the largest logit (``LOGIT_REL_TOL_Q4`` with a
-q4_0 cache, ``LOGIT_REL_TOL_XLSTM`` in phase d), request by request, up to
+q4_0 cache, ``LOGIT_REL_TOL_DECODER`` in phases i and k,
+``LOGIT_REL_TOL_MOE`` in j, ``LOGIT_REL_TOL_XLSTM`` in d), request by
+request, up to
 the first token where the runs differ, which must be a near-tie
 (``TIE_MARGIN``). Token lists held against each other (b against a, c
 against the plain serve) follow the same near-tie rule. Any failure
@@ -137,6 +164,7 @@ kernels.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -163,6 +191,16 @@ LOGIT_REL_TOL_Q4 = 0.05
 # summation order only (slstm_scan is bit-equal to its plain version; the
 # rest of the model runs the same torch ops in both runs), ~13x headroom
 LOGIT_REL_TOL_XLSTM = 1e-5
+# phases i and k: the decoder-only models' kernel-vs-plain logits over the
+# largest logit: 0.0184-0.0218 measured on an NVIDIA H100 80GB HBM3 at
+# 700 W (26-36 layers carry a bf16 rounding that tips early further than
+# Whisper's 4), ~2.3x headroom
+LOGIT_REL_TOL_DECODER = 0.05
+# phase j: the same for qwen3-moe-30b-a3b, 0.116 measured (same card):
+# its top-8 router and the binding capacity of its prefill (20 tokens an
+# expert at S=256) are discontinuous, so a last-bit difference in a
+# hidden state can send a token to another expert, or out of one
+LOGIT_REL_TOL_MOE = 0.25
 TIE_MARGIN = 0.25    # a token flip is allowed only below this logit gap
 # a phase's captured logits rows against its eager run's, over the largest
 # logit, where they are not bit-equal
@@ -177,6 +215,17 @@ SLSTM_TIES = 5
 ARCH = "whisper-tiny-en"
 MAX_NEW = 32
 SEED = 0
+#: the qwen3-4b products of phases i1 (fp16_matmul) and i2 (q8_matmul):
+#: a decode step of 4 lanes and the prefill of the longest prompt
+QWEN3_GEMMS = tuple(
+    (f"qwen3-4b {what}", m, k, n, None)
+    for what, m, k, n in (
+        ("decode wo, 4 lanes", 4, 4096, 2560),
+        ("decode MLP up / gate, 4 lanes", 4, 2560, 9728),
+        ("decode MLP down, 4 lanes", 4, 9728, 2560),
+        ("prefill wo, S=256", 256, 4096, 2560),
+        ("prefill MLP up / gate, S=256", 256, 2560, 9728),
+        ("prefill MLP down, S=256", 256, 9728, 2560)))
 
 
 def _log(*a):
@@ -304,7 +353,9 @@ def kernel_cases():
             ("encoder tail chunk MLP down", 12, 1536, 384, bf),
             ("encoder tail chunk wo", 12, 384, 384, bf),
             ("frontend mel (f32)", 3000, 201, 80, torch.float32),
-            ("frontend projection (f32)", 1500, 80, 384, torch.float32)):
+            ("frontend projection (f32)", 1500, 80, 384, torch.float32),
+            *QWEN3_GEMMS):
+        dt = dt or bf
         x, w = randn((m, k), dt), randn((k, n), dt, k ** -0.5)
         out = bf if dt == bf else torch.float32
         y = torch.empty((m, n), dtype=out, device=dev)
@@ -343,6 +394,18 @@ def kernel_cases():
                lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb),
                lambda x=x, w=wb.float(): torch.matmul(x, w),
                _nbytes(x, wb, y), 2.0 * 4 * n * k, "f32", F32_REL))
+    # the qwen3-4b head (phase i1): bf16 activations @ the bf16 lm_head
+    # over the padded vocab, to f32, at a decode step of 4 lanes
+    k, n = 2560, 153600
+    x, wb = randn((4, k)), randn((k, n), bf, k ** -0.5)
+    y = torch.empty((4, n), dtype=torch.float32, device=dev)
+    mm.append((f"qwen3-4b head, decode, 4 lanes (bf16 x, bf16 w, f32 out) "
+               f"(4,{k})@({k},{n})",
+               lambda x=x, wb=wb: mm_ops.fp16_matmul(x, wb,
+                                                     out_dtype=torch.float32),
+               lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb, torch.float32),
+               lambda x=x, w=wb: torch.matmul(x, w).float(),
+               _nbytes(x, wb, y), 2.0 * 4 * n * k, "bf16", BF16_REL))
     cases["fp16_matmul"] = mm
 
     # the main path's shapes (bf16 x and out); the verify's rows at the
@@ -371,7 +434,9 @@ def kernel_cases():
             ("encoder MLP down (f16 x)", 1500, 1536, 384, f16),
             ("decode MLP down, 4 lanes (f16 x)", 4, 1536, 384, f16),
             ("encoder MLP down (f32 x)", 1500, 1536, 384, f32),
-            ("decode MLP down, 4 lanes (f32 x)", 4, 1536, 384, f32)):
+            ("decode MLP down, 4 lanes (f32 x)", 4, 1536, 384, f32),
+            *QWEN3_GEMMS):
+        dt = dt or bf
         x = randn((m, k), dt)
         w = quantize_q8_0(randn((k, n), f32, k ** -0.5), axis=0)
         wd = dequantize_q8_0(w, dt, axis=0)
@@ -425,11 +490,38 @@ def kernel_cases():
             ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 32,
              True, 16, None),
             ("split KV, softcap", 1, 16, 1500, 4, 1, 64, False, None,
-             5.0)):
+             5.0),
+            # D = 128: qwen3-4b's prefill at its buckets (GQA 4) and a
+            # ragged S, qwen3-moe's (GQA 8), the KV split
+            ("qwen3-4b prefill, causal", 1, 256, 256, 32, 8, 128, True,
+             None, None),
+            ("qwen3-4b prefill, causal, ragged", 1, 200, 200, 32, 8, 128,
+             True, None, None),
+            ("qwen3-4b prefill, causal", 1, 64, 64, 32, 8, 128, True, None,
+             None),
+            ("qwen3-moe prefill, causal", 1, 256, 256, 32, 4, 128, True,
+             None, None),
+            ("split KV, GQA", 1, 33, 1500, 32, 8, 128, False, None, None),
+            ("split KV, ragged", 2, 40, 65, 4, 2, 128, False, None, None),
+            # D = 256: gemma2-2b's prefill with its softcap of 50, on a
+            # local layer (window 4096, as served) and a global one, and
+            # with a window of 128 that binds; ragged; the KV split
+            ("gemma2-2b prefill, local layer", 1, 256, 256, 8, 4, 256, True,
+             4096, 50.0),
+            ("gemma2-2b prefill, global layer", 1, 256, 256, 8, 4, 256,
+             True, None, 50.0),
+            ("gemma2-2b prefill, binding window", 1, 256, 256, 8, 4, 256,
+             True, 128, 50.0),
+            ("gemma2-2b prefill, binding window, ragged", 1, 200, 200, 8, 4,
+             256, True, 128, 50.0),
+            ("split KV, GQA", 1, 33, 1500, 8, 4, 256, False, None, None),
+            ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 256,
+             True, 16, None)):
         q, k, v = randn((b, sq, h, d)), randn((b, skv, hkv, d)), \
             randn((b, skv, hkv, d))
         kw = dict(causal=causal, window=window, softcap=softcap)
-        plain_only = hkv != h or window or softcap
+        # the yardstick takes GQA's K/V repeated to H heads beforehand
+        plain_only = window or softcap
         # causal: the last keys a row sees are those before min(Sq, Skv);
         # the keys after them keep V and must weigh 0
         vtail = v.clone()
@@ -437,7 +529,8 @@ def kernel_cases():
         for tag, vv in (("", v), (", V on the last 3 keys seen", vtail)):
             lib = None
             if not (tag or plain_only):
-                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
+                              .transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 lib = (lambda qt=qt, kt=kt, vt=vt, c=causal:
                        F.scaled_dot_product_attention(qt, kt, vt,
@@ -493,7 +586,8 @@ def kernel_cases():
     def decode_cases(tier, specs, pages=False):
         """Decode attention over one layer of a stacked cache of
         ``tier``; each spec: (label, lanes, queries, S, lengths (B,) or
-        (B, Q)). Each case also runs with V only on the 3 positions
+        (B, Q)) and optionally (H, Hkv, D), else Whisper's (6, 6, 64).
+        Each case also runs with V only on the 3 positions
         before each lane's first length and a large poison past it. With
         ``pages`` the cache lies in a page pool and the call is
         ``paged_decode_attention``'s CUDA route (the gather, then this
@@ -505,18 +599,20 @@ def kernel_cases():
                        if tier == "q8_0" else
                        (q4a_ops.q4_decode_attention_cache,
                         q4a_plain.q4_decode_attention_cache))
-        # bytes of one cached position of one head: K and V codes, scales
         code_b = 1.0 if tier == "q8_0" else 0.5
-        row_b = 2 * 64 * code_b + 2 * 2 * 64 // 32
         out = []
-        for label, b, nq, s_len, lens in specs:
+        for label, b, nq, s_len, lens, *heads in specs:
+            h, hkv, d = heads[0] if heads else (6, 6, 64)
+            # bytes of one cached position of one KV head: K and V codes,
+            # scales
+            row_b = 2 * d * code_b + 2 * 2 * d // 32
             # the stacked layers of a long cache: one is enough
-            L, h, d = (4 if s_len <= 4096 and not pages else 1), 6, 64
+            L = 4 if s_len <= 4096 and not pages else 1
             ln = torch.tensor(lens, device=dev)
             ln2 = ln if ln.dim() == 2 else ln[:, None].expand(b, nq)
             first = ln2[:, 0].tolist()
-            kf = randn((L, b, s_len, h, d), torch.float32)
-            vf = randn((L, b, s_len, h, d), torch.float32)
+            kf = randn((L, b, s_len, hkv, d), torch.float32)
+            vf = randn((L, b, s_len, hkv, d), torch.float32)
             vtail = torch.zeros_like(vf)
             for i, n0 in enumerate(first):
                 lo = max(n0 - 3, 0)
@@ -528,7 +624,7 @@ def kernel_cases():
                     < ln2[:, :, None])[:, None]          # (B, 1, Q, S)
             qh = q.transpose(1, 2).contiguous()
             # each lane's cache rows are read once for all its queries
-            read = float(ln2.max(dim=1).values.sum()) * h * row_b
+            read = float(ln2.max(dim=1).values.sum()) * hkv * row_b
             ops = 4.0 * float(ln2.sum()) * h * d
             for tag, vsrc in (("", vf), (", V on the last 3 before length",
                                          vtail)):
@@ -541,8 +637,8 @@ def kernel_cases():
                         for x in (kt.q, kt.scale, vt.q, vt.scale))
                     kc, vc = {c: kq, "s": ks}, {c: vq, "s": vs}
                     out.append((
-                        f"{label} S={s_len} Q={nq} lens={lens} H=6 D=64"
-                        f"{tag}",
+                        f"{label} S={s_len} Q={nq} lens={lens} H={h} "
+                        f"Hkv={hkv} D={d}{tag}",
                         lambda q=q, kc=kc, vc=vc, tb=table, ln=ln:
                             pa_ops.paged_decode_attention(q, kc, vc, tb,
                                                           ln),
@@ -553,14 +649,16 @@ def kernel_cases():
                         BF16_REL))
                     continue
                 if not tag:
-                    # yardstick: SDPA over the pre-dequantized bf16 layer
-                    kd = deq(kt, bf)[0].transpose(1, 2).contiguous()
-                    vd = deq(vt, bf)[0].transpose(1, 2).contiguous()
+                    # yardstick: SDPA over the pre-dequantized bf16 layer,
+                    # its KV heads repeated to H beforehand
+                    kd, vd = (deq(t, bf)[0].repeat_interleave(h // hkv, dim=2)
+                              .transpose(1, 2).contiguous()
+                              for t in (kt, vt))
                     lib = (lambda qh=qh, kd=kd, vd=vd, mask=mask:
                            F.scaled_dot_product_attention(qh, kd, vd,
                                                           attn_mask=mask))
-                out.append((f"{label} S={s_len} Q={nq} lens={lens} H=6 "
-                            f"D=64{tag}",
+                out.append((f"{label} S={s_len} Q={nq} lens={lens} H={h} "
+                            f"Hkv={hkv} D={d}{tag}",
                             lambda q=q, kt=kt, vt=vt, ln=ln:
                                 kern(q, kt.q, kt.scale, vt.q, vt.scale, ln,
                                      0),
@@ -598,7 +696,15 @@ def kernel_cases():
         ("self decode, 4 lanes", 4, 1, 64, [33, 20, 9, 27]),
         ("cross decode, 1 lane", 1, 1, 1500, [1500]),
         ("self verify, 4 lanes x 4 queries", 4, 4, 64, verify),
-        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross)) + edges)
+        ("cross verify, 4 lanes x 4 queries", 4, 4, 1500, cross),
+        # phases i2 and j: the decoder-only self decode at max_len 512,
+        # 4 lanes of GQA 4 (qwen3-4b) and 8 (qwen3-moe-30b-a3b), D = 128
+        ("qwen3-4b self decode, 4 lanes", 4, 1, 512, [97, 161, 225, 289],
+         (32, 8, 128)),
+        ("qwen3-moe self decode, 4 lanes", 4, 1, 512, [97, 161, 225, 289],
+         (32, 4, 128)),
+        ("qwen3-4b self decode, 4 lanes, lengths 1 and 512", 4, 1, 512,
+         [1, 512, 0, 300], (32, 8, 128))) + edges)
     # phase g: the same kernel on the pages its lanes gather (1504
     # positions of cross block, 64 of self)
     cases["q8_decode_attention"] += decode_cases("q8_0", (
@@ -1608,19 +1714,20 @@ def run_paged_spec(model, params, x, phase: str, expect: tuple, draft,
 
 
 # ----------------------------------------------------------------------------
-# Phase d: xlstm-350m served at full width
+# Phases i, j, k and d: decoder-only models served at full width
 # ----------------------------------------------------------------------------
 
-def xlstm_serve(model, params, prompts, platform, cuda_graph=None):
+def token_serve(model, params, prompts, platform, max_len: int,
+                cache_dtype: str = "bf16", cuda_graph=None):
     """The prompts as token requests on 4 slots through
     ``BatchScheduler``, 8 decode steps a tick, keeping the logits rows.
     Returns (engine, seconds spent in admission, the watched ticks,
     ``drain``: as ``serve``'s, run once for uids 0-3)."""
-    from repro_torch.breakdown import XLSTM_MAX_LEN
     from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch.serving.scheduler import BatchScheduler
-    eng = ServeEngine(model, params, n_slots=4, max_len=XLSTM_MAX_LEN,
-                      decode_block=8, platform=platform, keep_logits=True,
+    eng = ServeEngine(model, params, n_slots=4, max_len=max_len,
+                      cache_dtype=cache_dtype, decode_block=8,
+                      platform=platform, keep_logits=True,
                       cuda_graph=cuda_graph)
     admit_s = [0.0]
     admit = eng.admit
@@ -1648,37 +1755,57 @@ def xlstm_serve(model, params, prompts, platform, cuda_graph=None):
     return eng, admit_s[0], ticks, drain
 
 
-def run_xlstm(phase: str) -> tuple:
-    """Phase d on the kernels, its ticks replayed from a CUDA graph,
-    checked; the same eagerly, which it must equal; the captured engine's
-    requests again (``rerun``); then on the plain versions. Returns (the
-    launch counts, the steady decode tok/s of an active lane)."""
+def routing_gate(phase: str, eng, prompts) -> None:
+    """An MoE engine's ``routing_report`` after its first run: every
+    executed top-k assignment counted once, the prefills' whole buckets
+    and every slot of every decode step (parked lanes included), per MoE
+    layer, as the reference's ``test_moe_routing_counters_reconcile``
+    counts them."""
+    from repro_torch.serving.engine import _bucket
+    rep = eng.routing_report()
+    prefill = sum(min(_bucket(len(p)), eng.max_len) for p in prompts)
+    decode = eng.n_slots * eng._decode_steps
+    want = (prefill + decode) * rep["moe_layers"] * rep["top_k"]
+    per_lane = rep["per_lane"]
+    _log(f"[{phase}] routing_report: n_experts={rep['n_experts']} "
+         f"top_k={rep['top_k']} moe_layers={rep['moe_layers']} "
+         f"executed_assignments={rep['executed_assignments']} (want "
+         f"({prefill} prefill + {decode} decode positions) x "
+         f"{rep['moe_layers']} x {rep['top_k']} = {want}) per-lane "
+         f"{[sum(r) for r in per_lane]} experts hit "
+         f"{sum(1 for n in rep['per_expert'] if n)} of {rep['n_experts']}")
+    if rep["executed_assignments"] != want \
+            or sum(map(sum, per_lane)) != want \
+            or min(min(r) for r in per_lane) < 0:
+        raise AssertionError(f"[{phase}] routing counters do not reconcile")
+
+
+def run_tokens(phase: str, model, params, prompts, max_len: int,
+               expect: tuple, cache_dtype: str = "bf16",
+               tol: float = LOGIT_REL_TOL) -> tuple:
+    """A token-request phase (d, i, j, k) on the kernels, its ticks
+    replayed from a CUDA graph, checked; the same eagerly, which it must
+    equal; the captured engine's requests again (``rerun``); then on the
+    plain versions, whose logits rows it must agree with within ``tol``.
+    Returns (the launch counts, the steady decode tok/s of an active
+    lane)."""
     import torch
 
-    from repro_torch.breakdown import XLSTM_MAX_LEN, xlstm_setup
     from repro_torch.kernels.api import use_context
 
-    t0 = time.monotonic()
-    model, params, prompts = xlstm_setup(SEED)
     cfg = model.cfg
-    n_par = sum(t.numel() for t in _tensors(params))
-    _log(f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} blocks "
-         f"((mLSTM, sLSTM) x {cfg.n_layers // 2}), {cfg.n_heads} heads, "
-         f"vocab {cfg.vocab}; {n_par} bf16 parameters, seeded init "
-         f"{time.monotonic() - t0:.1f} s; "
-         f"{model.lane_state_bytes(XLSTM_MAX_LEN)['state']} B of "
-         f"recurrent state a lane")
-    xlstm_serve(model, params, [prompts[0][:8]], None)   # warm-up
-
+    token_serve(model, params, [prompts[0][:8]], None, max_len,
+                cache_dtype)                                # warm-up
     runs = {}
     for captured in (True, False):
         zero_counts()
         t0 = time.monotonic()
-        eng, admit_s, ticks, drain = xlstm_serve(
-            model, params, prompts, "h100-sxm", None if captured else False)
+        eng, admit_s, ticks, drain = token_serve(
+            model, params, prompts, "h100-sxm", max_len, cache_dtype,
+            None if captured else False)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = read_counts(phase, ("slstm_scan", "fp16_matmul"))
+        counts = read_counts(phase, expect)
         res = drain.first
         for st in res:
             if st.error:
@@ -1693,6 +1820,8 @@ def run_xlstm(phase: str) -> tuple:
              f"tokens={n_tok} decode_tok_per_s="
              f"{(n_tok - len(prompts)) / decode_s:.1f} "
              f"decode_ticks={eng._ticks} host_syncs={eng._host_syncs}")
+        if eng.spec.moe_experts:
+            routing_gate(phase, eng, prompts)
         runs[captured] = (eng, res, counts, ticks, drain)
     eng, res, (counts, routing), ticks, drain = runs[True]
     _, eager_res, eager_counts, *_ = runs[False]
@@ -1700,9 +1829,11 @@ def run_xlstm(phase: str) -> tuple:
     capture_check(phase, [(st.out, st.logits) for st in res],
                   [(st.out, st.logits) for st in eager_res])
     cr = eng.cache_report()
-    _log(f"[{phase}] cache: state_bytes_total={cr['state_bytes_total']} "
-         f"state_bytes_per_step={cr['state_bytes_per_step']} "
-         f"kv_bytes_total={cr['kv_bytes_total']}")
+    _log(f"[{phase}] cache_report: " + " ".join(
+        f"{k}={cr[k]}" for k in ("cache_dtype", "state_kinds",
+                                 "kv_bytes_total", "state_bytes_total",
+                                 "state_bytes_per_step", "bytes_per_step",
+                                 "traffic_ratio_vs_bf16")))
     er = eng.energy_report()
     _log(f"[{phase}] energy_report[{er['platform']}]: " + " ".join(
         f"{k}={er[k]}" for k in ("tokens", "decode_steps", "ticks",
@@ -1712,12 +1843,62 @@ def run_xlstm(phase: str) -> tuple:
                                  "bound", "power_w", "joules_per_token",
                                  "accel_flops_share")))
     lane_tps = rerun(phase, eng, ticks, drain)
+    del eng, runs, drain      # the engines' pools and graphs (cyclic)
+    gc.collect()
     with use_context(plain_context()):
-        ref = xlstm_serve(model, params, prompts, None)[3].first
+        ref = token_serve(model, params, prompts, None, max_len,
+                          cache_dtype)[3].first
     logits_check(phase, [(st.out, st.logits, w.out, w.logits)
-                         for st, w in zip(res, ref)], cfg.vocab,
-                 LOGIT_REL_TOL_XLSTM)
+                         for st, w in zip(res, ref)], cfg.vocab, tol)
     return counts, lane_tps
+
+
+def run_xlstm(phase: str) -> tuple:
+    """Phase d: xlstm-350m at full width (``run_tokens``)."""
+    from repro_torch.breakdown import XLSTM_MAX_LEN, xlstm_setup
+
+    t0 = time.monotonic()
+    model, params, prompts = xlstm_setup(SEED)
+    cfg = model.cfg
+    n_par = sum(t.numel() for t in _tensors(params))
+    _log(f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} blocks "
+         f"((mLSTM, sLSTM) x {cfg.n_layers // 2}), {cfg.n_heads} heads, "
+         f"vocab {cfg.vocab}; {n_par} bf16 parameters, seeded init "
+         f"{time.monotonic() - t0:.1f} s; "
+         f"{model.lane_state_bytes(XLSTM_MAX_LEN)['state']} B of "
+         f"recurrent state a lane")
+    return run_tokens(phase, model, params, prompts, XLSTM_MAX_LEN,
+                      ("slstm_scan", "fp16_matmul"),
+                      tol=LOGIT_REL_TOL_XLSTM)
+
+
+def decoder_model(arch: str):
+    """The model of phase i, j or k (``breakdown.decoder_setup``),
+    described."""
+    from repro_torch.breakdown import DECODER_MAX_LEN, decoder_setup
+
+    t0 = time.monotonic()
+    model, params, prompts = decoder_setup(arch, SEED)
+    cfg = model.cfg
+    n_par = sum(t.numel() for t in _tensors(params))
+    _log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+         f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
+         f"{cfg.d_ff}" + (f" ({cfg.n_experts} experts, top {cfg.top_k})"
+                         if cfg.is_moe else "")
+         + f", vocab {cfg.vocab}; {n_par} bf16 parameters, seeded init on "
+           f"the card {time.monotonic() - t0:.1f} s; "
+           f"{model.lane_state_bytes(DECODER_MAX_LEN)['total']} B of "
+           f"bf16 lane state at max_len {DECODER_MAX_LEN}")
+    return model, params, prompts
+
+
+def run_decoder(phase: str, model, params, prompts, expect: tuple,
+                cache_dtype: str) -> tuple:
+    """Phase i, j or k (``run_tokens`` at ``DECODER_MAX_LEN``)."""
+    from repro_torch.breakdown import DECODER_MAX_LEN
+    tol = LOGIT_REL_TOL_MOE if model.cfg.is_moe else LOGIT_REL_TOL_DECODER
+    return run_tokens(phase, model, params, prompts, DECODER_MAX_LEN,
+                      expect, cache_dtype, tol)
 
 
 def _tensors(tree):
@@ -1848,7 +2029,37 @@ def main() -> int:
                        draft, b_tps))
 
     del params, qparams, draft, model
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # the decoder-only families at full width (qwen3-moe-30b-a3b at 8 of
+    # its 48 layers), token requests
+    fa_path = ("fp16_matmul", "flash_attention")
+    model, params, prompts = decoder_model("qwen3-4b")
+    add(run_decoder("i1: serve qwen3-4b bf16 4x4", model, params, prompts,
+                    fa_path, "bf16")[0])
+    qparams = model.quantize(params)
+    del params
+    add(run_decoder("i2: serve qwen3-4b q8_0 4x4", model, qparams, prompts,
+                    ("flash_attention", "q8_matmul", "q8_decode_attention"),
+                    "q8_0")[0])
+    del qparams, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, prompts = decoder_model("qwen3-moe-30b-a3b")
+    add(run_decoder("j: serve qwen3-moe-30b-a3b (8 layers) q8_0 cache 4x4",
+                    model, params, prompts,
+                    fa_path + ("q8_decode_attention",), "q8_0")[0])
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, prompts = decoder_model("gemma2-2b")
+    add(run_decoder("k: serve gemma2-2b bf16 4x4", model, params, prompts,
+                    fa_path, "bf16")[0])
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
     add(run_xlstm("d: serve xlstm-350m 4x4")[0])
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")

@@ -1,10 +1,12 @@
-"""Where the time of one transcription, or of one xLSTM serve, goes on
-the card.
+"""Where the time of one transcription, or of one token serve of a
+decoder-only model, goes on the card.
 
     python -m repro_torch.breakdown [--cache-dtype bf16|q8_0|q4_0]
                                     [--spec-k K] [--paged] [--lanes N]
                                     [--eager]
     python -m repro_torch.breakdown --arch xlstm-350m [--eager]
+    python -m repro_torch.breakdown --arch qwen3-4b|qwen3-moe-30b-a3b|gemma2-2b
+                                    [--cache-dtype bf16|q8_0] [--eager]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
@@ -20,8 +22,14 @@ attention. ``--lanes N`` (up to 4) decodes N lanes at once, of 30, 20,
 ``--arch xlstm-350m`` runs instead the configuration of
 ``chip_smoke.py``'s phase d: xlstm-350m at full width with seeded random
 bf16 weights, 4 token requests of 64, 128, 192 and 256 ids admitted
-into 4 slots, 32 new tokens each at 8 decode steps a tick. It reports,
-after one warm-up run:
+into 4 slots, 32 new tokens each at 8 decode steps a tick.
+``--arch qwen3-4b``, ``qwen3-moe-30b-a3b`` or ``gemma2-2b`` serves the
+same requests from the configuration of ``chip_smoke.py``'s phase i, j
+or k: the model at full width (qwen3-moe-30b-a3b cut to its first 8 of
+48 layers, ``DECODER_LAYERS``) with seeded random bf16 weights drawn on
+the card, ``max_len`` 512; ``--cache-dtype q8_0`` serves Q8_0 weights
+(``Model.quantize``) with the q8_0 cache. It reports, after one warm-up
+run:
 
 * host-clock seconds of each stage (frontend, encode, prefill, decode;
   for xLSTM prefill of the 4 prompts, decode), each ended by a device
@@ -42,6 +50,7 @@ Needs a CUDA device; prints one JSON object as its last line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import time
@@ -61,6 +70,13 @@ DECODE_BLOCK = 8
 #: lane's length (the longest prompt, its new tokens and 32 to spare)
 XLSTM_PROMPTS = (64, 128, 192, 256)
 XLSTM_MAX_LEN = max(XLSTM_PROMPTS) + MAX_NEW + 32
+#: phases i, j and k of chip_smoke.py: the decoder-only models served
+#: from the same prompts, and the layers each keeps (None: all; the MoE
+#: model's 48 layers are 61 GB of bf16 weights, too many to hold beside
+#: its serving copies and the plain run on an 80 GB card)
+DECODER_LAYERS = {"qwen3-4b": None, "qwen3-moe-30b-a3b": 8,
+                  "gemma2-2b": None}
+DECODER_MAX_LEN = 512
 
 
 def _timed(fn):
@@ -155,29 +171,58 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0,
             "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
 
+def _prompts(vocab: int, seed: int) -> list:
+    """The ``XLSTM_PROMPTS`` prompts' ids, drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, vocab, size=n).tolist() for n in XLSTM_PROMPTS]
+
+
 def xlstm_setup(seed: int = 0):
     """The configuration of ``chip_smoke.py``'s phase d: xlstm-350m at
     full width with seeded random weights cast to bf16 on the card, and
     the ``XLSTM_PROMPTS`` prompts' ids drawn from ``seed``. Returns
     (model, params, prompts)."""
-    import numpy as np
     cfg = get_config("xlstm-350m")
     model = build(cfg)
     params = _bf16(model.init_values(torch.Generator().manual_seed(seed),
                                      device="cuda"))
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(3, cfg.vocab, size=n).tolist()
-               for n in XLSTM_PROMPTS]
-    return model, params, prompts
+    return model, params, _prompts(cfg.vocab, seed)
 
 
-def run_xlstm(seed: int = 0, cuda_graph: bool = True) -> dict:
-    """The breakdown of ``chip_smoke.py``'s phase d."""
-    model, params, prompts = xlstm_setup(seed)
+def decoder_setup(arch: str, seed: int = 0):
+    """The configuration of ``chip_smoke.py``'s phase i, j or k: ``arch``
+    at full width, cut to ``DECODER_LAYERS[arch]`` layers where that is
+    set, with seeded random weights drawn leaf by leaf by a CUDA
+    generator and stored in bf16 (the f32 peak is one leaf), and the
+    ``XLSTM_PROMPTS`` prompts' ids drawn from ``seed``. Returns (model,
+    params, prompts)."""
+    cfg = get_config(arch)
+    if DECODER_LAYERS[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=DECODER_LAYERS[arch])
+    model = build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_values(gen, device="cuda", dtype=torch.bfloat16)
+    return model, params, _prompts(cfg.vocab, seed)
+
+
+def run_tokens(arch: str, cache_dtype: str = "bf16", seed: int = 0,
+               cuda_graph: bool = True) -> dict:
+    """The breakdown of ``chip_smoke.py``'s phase d (xlstm-350m) or i, j,
+    k (the decoder-only attention models; ``cache_dtype="q8_0"``: Q8_0
+    weights and the q8_0 cache)."""
+    if arch == "xlstm-350m":
+        model, params, prompts = xlstm_setup(seed)
+        max_len = XLSTM_MAX_LEN
+    else:
+        model, params, prompts = decoder_setup(arch, seed)
+        max_len = DECODER_MAX_LEN
+        if cache_dtype == "q8_0":
+            params = model.quantize(params)
 
     def one(profile_tick: bool):
         eng = ServeEngine(model, params, n_slots=len(prompts),
-                          max_len=XLSTM_MAX_LEN,
+                          max_len=max_len, cache_dtype=cache_dtype,
                           decode_block=DECODE_BLOCK, platform="h100-sxm",
                           cuda_graph=cuda_graph)
 
@@ -198,12 +243,14 @@ def run_xlstm(seed: int = 0, cuda_graph: bool = True) -> dict:
                 "replays": eng.replays,
                 "ticks": eng._ticks, "host_syncs": eng._host_syncs,
                 "state_bytes_total": cr["state_bytes_total"],
-                "state_bytes_per_step": cr["state_bytes_per_step"]}
+                "state_bytes_per_step": cr["state_bytes_per_step"],
+                "kv_bytes_total": cr["kv_bytes_total"]}
 
     one(False)                          # warm-up: handles, kernel loads
     stages = one(False)
     prof = one(True)
-    return {"arch": model.cfg.name, "lanes": len(prompts),
+    return {"arch": model.cfg.name, "n_layers": model.cfg.n_layers,
+            "cache_dtype": cache_dtype, "lanes": len(prompts),
             "decode_block": DECODE_BLOCK, "cuda_graph": cuda_graph,
             "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
@@ -255,7 +302,8 @@ def _tick_report(prof, stages: dict) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=["whisper-tiny-en", "xlstm-350m"],
+    ap.add_argument("--arch", choices=["whisper-tiny-en", "xlstm-350m",
+                                       *DECODER_LAYERS],
                     default="whisper-tiny-en")
     ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
@@ -277,12 +325,14 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
-    if args.arch == "xlstm-350m":
-        if args.cache_dtype != "bf16" or args.spec_k or args.paged \
-                or args.lanes != 1:
-            raise SystemExit("xlstm-350m serves a bf16 state pool without "
-                             "speculative decoding or pages")
-        r = run_xlstm(cuda_graph=not args.eager)
+    if args.arch != "whisper-tiny-en":
+        if args.spec_k or args.paged or args.lanes != 1 or (
+                args.cache_dtype != "bf16" and args.arch == "xlstm-350m"):
+            raise SystemExit(f"{args.arch} serves 4 token requests without "
+                             f"speculative decoding or pages (and "
+                             f"xlstm-350m a bf16 state pool)")
+        r = run_tokens(args.arch, args.cache_dtype,
+                       cuda_graph=not args.eager)
     else:
         r = run(args.cache_dtype, args.spec_k, cuda_graph=not args.eager,
                 paged=args.paged, lanes=args.lanes)

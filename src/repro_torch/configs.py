@@ -1,8 +1,10 @@
 """Architecture configs for the port: ``ArchConfig``, ``reduced()`` and
-the models the port serves: the paper's Whisper model and xlstm-350m.
+the models the port knows: the paper's Whisper model, xlstm-350m, the
+dense and MoE decoder-only families, and zamba2-7b (data only: its
+model is not ported yet).
 
 A copy of the JAX package's ``repro.configs`` (the port imports nothing
-from it), cut to the models the port serves so far.
+from it), cut to the models the port knows.
 ``reduced()`` produces the CPU-test shrink of a config with the same
 rule as the reference, so both packages build identically shaped
 parameters from one config name.
@@ -73,6 +75,10 @@ class ArchConfig:
         return self.d_head or self.d_model // self.n_heads
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def scan_unit(self) -> int:
         """Layers per scanned segment (heterogeneous stacks scan groups)."""
         if self.family == "hybrid" and self.attn_every:
@@ -99,7 +105,76 @@ XLSTM_350M = ArchConfig(
     source="arXiv:2405.04517 (unverified tier)",
 )
 
-_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN, "xlstm_350m": XLSTM_350M}
+QWEN3_4B = ArchConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=9728, vocab=151936,
+    qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B (hf tier)",
+)
+
+GEMMA2_2B = ArchConfig(
+    name="gemma2-2b", family="dense",
+    n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4, d_head=256,
+    d_ff=9216, vocab=256000,
+    local_global=True, local_window=4096,
+    attn_softcap=50.0, final_softcap=30.0,
+    act="gelu", tie_embeddings=True,
+    source="arXiv:2408.00118 (hf tier)",
+)
+
+MIXTRAL_8X7B = ArchConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=14336, vocab=32000, n_experts=8, top_k=2,
+    sliding_window=4096, rope_theta=1e6,
+    source="arXiv:2401.04088 (hf tier)",
+)
+
+QWEN3_MOE_30B_A3B = ArchConfig(
+    name="qwen3-moe-30b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4, d_head=128,
+    d_ff=768, vocab=151936, n_experts=128, top_k=8,
+    qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-30B-A3B (hf tier)",
+)
+
+DEEPSEEK_7B = ArchConfig(
+    name="deepseek-7b", family="dense",
+    n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32, d_ff=11008,
+    vocab=102400,
+    source="arXiv:2401.02954 (hf tier)",
+)
+
+CODEQWEN15_7B = ArchConfig(
+    name="codeqwen1.5-7b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=32, d_ff=13440,
+    vocab=92416, attn_bias=True, rope_theta=1e6,
+    source="hf:Qwen/CodeQwen1.5-7B (hf tier)",
+)
+
+LLAVA_NEXT_34B = ArchConfig(
+    name="llava-next-34b", family="vlm", vlm=True, n_img_tokens=2880,
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, d_head=128,
+    d_ff=20480, vocab=64000, rope_theta=5e6,
+    source="hf:llava-hf/llava-v1.6-mistral-7b-hf (unverified tier)",
+)
+
+# data only: the mamba blocks and the hybrid pattern are not ported yet
+ZAMBA2_7B = ArchConfig(
+    name="zamba2-7b", family="hybrid",
+    n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, d_ff=14336,
+    vocab=32000, ssm_state=64, ssm_conv=4, ssm_head_dim=64, ssm_expand=2,
+    attn_every=6,
+    source="arXiv:2411.15242 (unverified tier)",
+)
+
+_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN, "xlstm_350m": XLSTM_350M,
+             "qwen3_4b": QWEN3_4B, "gemma2_2b": GEMMA2_2B,
+             "mixtral_8x7b": MIXTRAL_8X7B,
+             "qwen3_moe_30b_a3b": QWEN3_MOE_30B_A3B,
+             "deepseek_7b": DEEPSEEK_7B, "codeqwen15_7b": CODEQWEN15_7B,
+             "llava_next_34b": LLAVA_NEXT_34B, "zamba2_7b": ZAMBA2_7B}
 
 
 def list_archs() -> list[str]:

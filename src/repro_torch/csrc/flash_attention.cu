@@ -23,10 +23,21 @@
 // exponentials, shuffles) sets the pace, and shared-memory reads of K
 // and V follow it. Design:
 //  * S = Q K^T and O += P V run as mma.sync m16n8k16 with bf16 operands
-//    and f32 accumulators. A CTA of 4 warps owns 128 queries, 32 a warp
-//    as two 16-row tiles, so each K or V fragment read by ldmatrix feeds
-//    two MMAs, and the two tiles' softmax chains run side by side; a
-//    warp's Q fragments stay in registers for the whole KV loop. The
+//    and f32 accumulators. At D <= 64 a CTA of 4 warps owns 128 queries,
+//    32 a warp as two 16-row tiles, so each K or V fragment read by
+//    ldmatrix feeds two MMAs, and the two tiles' softmax chains run side
+//    by side; a warp's Q fragments stay in registers for the whole KV
+//    loop. Wider heads change the layout (Layout<D> below), because a
+//    warp's O accumulator grows with D: 32 rows x 128 dims would be 128
+//    f32 registers a thread before the scores and the Q fragments. At
+//    D = 128 a warp owns one 16-row tile (64 queries a CTA: O is 64
+//    registers, Q 32) and two CTAs still share an SM (85 KB of shared
+//    memory each). At D = 256 a warp owns one tile too, a K/V tile holds
+//    32 keys (so a stage is 16 KB of K and of V: 99 KB in all, above the
+//    48 KB default, hence the opt-in at launch) and the Q fragments are
+//    read from shared memory at each k16 step instead of being held (O
+//    alone is 128 registers); one CTA an SM by its bound, two by what it
+//    takes. The
 //    online softmax runs on the accumulator fragments in log2 units
 //    (scores times scale * log2(e), 2^x on the SFU): each score is owned
 //    by one thread, so its exponential is computed once; a row's max
@@ -43,7 +54,8 @@
 //    for K, .trans for V) free of bank conflicts. 55 KB of dynamic
 //    shared memory at D = 64, two CTAs an SM (registers).
 //  * The KV range is split across CTAs (grid.z) as far as the SMs hold
-//    the CTAs at once (flash_attention/ops.py, kv_splits: two an SM);
+//    the CTAs at once (flash_attention/ops.py, kv_splits: two an SM at
+//    D <= 128, one at 256);
 //    each split writes its partial (m, l, acc) to a workspace and a
 //    second kernel combines the splits in split order (deterministic,
 //    no atomics). The cross prefill, 6 CTAs of 32 queries, runs as 24
@@ -51,15 +63,20 @@
 //    6 heads = 72 CTAs, runs as 3 splits of 8 tiles: 216 CTAs, all
 //    resident, against 72 (one CTA holds an SM's latency alone) or 288
 //    (a second round); measured, PERF.md, PR 14.
-//  * Causal without a window skips the KV tiles above the CTA's last
-//    row: exact, because every row keeps key 0, so a skipped tile would
-//    only have added exactly 0. A split whose tiles are all skipped (or
+//  * Causal attention skips the KV tiles above the CTA's last row:
+//    exact, because they lie after every row's own key (the diagonal,
+//    kept under a window too, a window being at least 1 wide), which
+//    makes the row's m finite before them, so they would only add
+//    exactly 0. A row at or past Skv (Sq > Skv) lies in a CTA whose range
+//    the skip leaves whole. A split whose tiles are all skipped (or
 //    lie past Skv) writes m = -1e30, l = 0, acc = 0, which the combine
 //    weighs exactly 0 (or, in a row whose every key is masked, adds
 //    nothing to l or acc); m never starts at -inf, so no exp(-inf + inf).
 //
-// Instantiated for what the port runs: bf16, head_dim 64 (whisper-tiny.en)
-// and 32 (its reduced configuration).
+// Instantiated for what the port runs: bf16 at head_dim 64
+// (whisper-tiny.en), 32 (the reduced configurations), 128 (qwen3-4b,
+// qwen3-moe-30b-a3b and the other decoder-only models) and 256
+// (gemma2-2b). Any other D is refused.
 
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -69,13 +86,22 @@
 namespace {
 
 constexpr int NW = 4;              // warps a CTA
-constexpr int MT = 2;              // m16 tiles of queries a warp
 constexpr int NT = NW * 32;
-constexpr int BQ = NW * MT * 16;   // 128 queries a CTA
-constexpr int BKV = 64;            // keys a tile
 constexpr int STAGES = 2;          // K/V tiles in shared memory
-constexpr int MINB = 2;            // CTAs resident on an SM (registers)
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
+
+// The layout of each head_dim (flash_attention/ops.py, LAYOUT, mirrors
+// BQ, BKV and MINB): m16 query tiles a warp, keys a K/V tile, CTAs an SM
+// by the launch bound, and whether a warp holds its Q fragments in
+// registers for the whole KV loop.
+template <int D>
+struct Layout {
+  static constexpr int MT = D <= 64 ? 2 : 1;
+  static constexpr int BKV = D <= 128 ? 64 : 32;
+  static constexpr int MINB = D <= 128 ? 2 : 1;
+  static constexpr bool QREG = D <= 128;
+  static constexpr int BQ = NW * MT * 16;   // queries a CTA
+};
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x (the SFU's approximation: ~2 ulp; -inf and -1e30 give +0)
@@ -100,8 +126,12 @@ struct Args {
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT, MINB)
+__global__ void __launch_bounds__(NT, Layout<D>::MINB)
 flash_attention_kernel(Args a) {
+  constexpr int MT = Layout<D>::MT;
+  constexpr int BKV = Layout<D>::BKV;
+  constexpr int BQ = Layout<D>::BQ;
+  constexpr bool QREG = Layout<D>::QREG;
   constexpr int LD = D + 8;       // shared row stride, elements
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int KS = D / 16;      // k16 steps of Q K^T
@@ -127,9 +157,9 @@ flash_attention_kernel(Args a) {
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.z;
 
-  // Causal without a window: the tiles above the CTA's last row add 0.
+  // Causal: the tiles above the CTA's last row add 0.
   int kv_end = a.Skv;
-  if (a.causal && a.window <= 0) kv_end = min(a.Skv, q0 + BQ);
+  if (a.causal) kv_end = min(a.Skv, q0 + BQ);
   const int n_tiles = (kv_end + BKV - 1) / BKV;
   const int t_begin = split * a.tiles_per_split;
   const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
@@ -183,7 +213,13 @@ flash_attention_kernel(Args a) {
     m[mt][0] = m[mt][1] = NEG_INF;
     l[mt][0] = l[mt][1] = 0.f;
   }
-  uint32_t qf[MT][KS][4];
+  // the warp's Q fragments: all KS k16 steps held (QREG), or one step
+  // read from shared memory when it is used
+  uint32_t qf[MT][QREG ? KS : 1][4];
+  auto load_q = [&](int mt, int kk, uint32_t(&frag)[4]) {
+    ldmatrix_x4(frag, &Qs[(rw + mt * 16 + (lane & 15)) * LD + kk * 16 +
+                          (lane >> 4) * 8]);
+  };
 
   for (int t = t_begin; t < t_end; ++t) {
     const int buf = (t - t_begin) % STAGES;
@@ -193,13 +229,11 @@ flash_attention_kernel(Args a) {
       load_kv(t + STAGES - 1, (t - t_begin + STAGES - 1) % STAGES);
     cp_async_commit();
     if (!warp_active) continue;
-    if (t == t_begin) {
+    if (QREG && t == t_begin) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldmatrix_x4(qf[mt][kk], &Qs[(rw + mt * 16 + (lane & 15)) * LD +
-                                      kk * 16 + (lane >> 4) * 8]);
+        for (int kk = 0; kk < (QREG ? KS : 1); ++kk) load_q(mt, kk, qf[mt][kk]);
     }
     const uint16_t* const Kt = k_tile(buf);
     const uint16_t* const Vt = v_tile(buf);
@@ -214,6 +248,10 @@ flash_attention_kernel(Args a) {
         s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      if (!QREG) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) load_q(mt, kk, qf[mt][0]);
+      }
 #pragma unroll
       for (int jp = 0; jp < NKT / 2; ++jp) {
         uint32_t kb[4];
@@ -221,8 +259,9 @@ flash_attention_kernel(Args a) {
                             kk * 16 + (((lane >> 3) & 1) << 3)]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma16816<T>(s[mt][2 * jp], qf[mt][kk], kb[0], kb[1]);
-          mma16816<T>(s[mt][2 * jp + 1], qf[mt][kk], kb[2], kb[3]);
+          const uint32_t(&qk)[4] = qf[mt][QREG ? kk : 0];
+          mma16816<T>(s[mt][2 * jp], qk, kb[0], kb[1]);
+          mma16816<T>(s[mt][2 * jp + 1], qk, kb[2], kb[3]);
         }
       }
     }
@@ -400,11 +439,12 @@ flash_combine_kernel(const float* __restrict__ part_o,
 
 template <int D>
 constexpr int smem_bytes() {
-  return (BQ + 2 * STAGES * BKV) * (D + 8) * 2;
+  return (Layout<D>::BQ + 2 * STAGES * Layout<D>::BKV) * (D + 8) * 2;
 }
 
 template <int D>
 void launch(Args a, int B, cudaStream_t stream) {
+  constexpr int BQ = Layout<D>::BQ;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<D>());
@@ -425,9 +465,10 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), all contiguous bf16 with
-// 16-byte aligned bases; D is 32 or 64. window <= 0: none; softcap <= 0:
-// none. splits >= 1 KV splits; with splits > 1, part_o holds splits *
-// B*H*Sq * D floats and part_ml splits * B*H*Sq * 2.
+// 16-byte aligned bases; D is 32, 64, 128 or 256. window <= 0: none;
+// softcap <= 0: none. splits >= 1 KV splits of whole Layout<D>::BKV-key
+// tiles; with splits > 1, part_o holds splits * B*H*Sq * D floats and
+// part_ml splits * B*H*Sq * 2.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part_o, void* part_ml, int B,
                                int Sq, int Skv, int H, int Hkv, int D,
@@ -437,7 +478,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const int n_tiles = (Skv + BKV - 1) / BKV;
+  int bkv = 0;
+  switch (D) {
+    case 32: bkv = Layout<32>::BKV; break;
+    case 64: bkv = Layout<64>::BKV; break;
+    case 128: bkv = Layout<128>::BKV; break;
+    case 256: bkv = Layout<256>::BKV; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = (Skv + bkv - 1) / bkv;
   const double scale = 1.0 / sqrt(static_cast<double>(D));
   Args a{static_cast<const T*>(q), static_cast<const T*>(k),
          static_cast<const T*>(v), static_cast<T*>(o),
@@ -449,6 +498,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: launch<32>(a, B, s); break;
     case 64: launch<64>(a, B, s); break;
+    case 128: launch<128>(a, B, s); break;
+    case 256: launch<256>(a, B, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

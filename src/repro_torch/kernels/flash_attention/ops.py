@@ -2,10 +2,11 @@
 
 ``flash_attention(q, k, v)`` over the model's (B, S, H, D) layout with
 GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill).
-The kernel takes bf16 with head_dim 64 (whisper-tiny.en) or 32 (its
-reduced configuration); calls outside that raise on every device. On
-CUDA tensors it launches the kernel, which reads KV heads by index and
-masks a ragged S itself; on CPU tensors it runs the plain version.
+The kernel takes bf16 with head_dim 64 (whisper-tiny.en), 32 (the
+reduced configurations), 128 (the decoder-only models) or 256
+(gemma2-2b); calls outside that raise on every device. On CUDA tensors
+it launches the kernel, which reads KV heads by index and masks a ragged
+S itself; on CPU tensors it runs the plain version.
 
 Where the kernel's query tiles leave the card empty (the cross-attention
 prefill: 32 queries against 1500 frames; the encoder's 72 tiles), the
@@ -24,23 +25,26 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import plain
 
-HEAD_DIMS = (32, 64)
-BQ = 128   # queries a block of the kernel (csrc/flash_attention.cu)
-BKV = 64   # keys a KV tile
-RESIDENT = 2   # blocks an SM holds at head_dim 64 (registers)
+#: head_dim -> (queries a block, keys a KV tile, blocks an SM holds):
+#: the kernel's Layout<D> (csrc/flash_attention.cu)
+LAYOUT = {32: (128, 64, 2), 64: (128, 64, 2), 128: (64, 64, 2),
+          256: (64, 32, 1)}
+HEAD_DIMS = tuple(LAYOUT)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def kv_splits(b: int, sq: int, skv: int, h: int, sms: int) -> int:
+def kv_splits(b: int, sq: int, skv: int, h: int, sms: int,
+              d: int) -> int:
     """How many blocks share one query tile's KV range: as many splits
     of whole KV tiles as the ``sms`` SMs hold blocks beside the query
-    tiles (B*H*ceil(Sq/BQ)), at ``RESIDENT`` blocks an SM; 1 where the
-    query tiles alone fill that."""
-    ctas = build.cdiv(sq, BQ) * b * h
-    tiles = build.cdiv(skv, BKV)
-    want = RESIDENT * sms // ctas
+    tiles (B*H*ceil(Sq/BQ)), at the head_dim's resident blocks an SM
+    (``LAYOUT``); 1 where the query tiles alone fill that."""
+    bq, bkv, resident = LAYOUT[d]
+    ctas = build.cdiv(sq, bq) * b * h
+    tiles = build.cdiv(skv, bkv)
+    want = resident * sms // ctas
     if want <= 1 or tiles <= 1:
         return 1
     per = build.cdiv(tiles, want)   # tiles a split
@@ -96,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    splits = kv_splits(b, sq, skv, h, build.sm_count(q.device))
+    splits = kv_splits(b, sq, skv, h, build.sm_count(q.device), d)
     part_o = part_ml = None
     if splits > 1:   # each split's acc (D floats a row), then its (m, l)
         rows = splits * b * h * sq

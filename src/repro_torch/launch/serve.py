@@ -2,14 +2,18 @@
 synthetic requests, on the card (the JAX package's ``launch/serve.py``).
 
 Enc-dec archs (whisper-*) get synthetic encoder frames per request;
-decoder-only archs (xlstm-350m) serve token requests through the same
-scheduler. Weights are seeded random (``--seed``).
+decoder-only archs (qwen3-4b, qwen3-moe-30b-a3b, gemma2-2b, mixtral-8x7b,
+deepseek-7b, codeqwen1.5-7b, xlstm-350m) serve token requests through
+the same scheduler. Weights are seeded random (``--seed``): the dense
+and MoE families' are drawn on ``--device`` and stored in bf16, the
+dtype every product takes them in; the others' are drawn in f32 on the
+CPU.
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
-        --requests 4 --slots 4 [--reduced] [--max-len 320] [--max-new 32] \\
-        [--decode-block 8] [--cache-dtype bf16] [--spec-k 4] \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+        --requests 4 --slots 4 [--reduced] [--max-len 512] [--max-new 32] \\
+        [--decode-block 8] [--q8] [--cache-dtype q8_0] [--spec-k 4] \\
         [--platform h100-sxm] [--device cuda]
 
 ``--decode-block K`` fuses K decode steps per scheduler tick (one host
@@ -38,7 +42,7 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--q8", action="store_true",
-                    help="serve Q8_0-quantized weights (enc-dec only)")
+                    help="serve Q8_0-quantized weights (not xLSTM)")
     ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
                     help="KV-cache storage; recurrent lanes take bf16 only")
@@ -67,7 +71,6 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import build
-    from repro_torch.quantize import quantize_tree
     from repro_torch.serving.engine import (AudioRequest, Request,
                                             ServeEngine)
     from repro_torch.serving.scheduler import BatchScheduler
@@ -80,10 +83,15 @@ def main(argv=None):
                          f"weights per call and take no Q8_0 weights; "
                          f"serve it without --q8")
     model = build(cfg)
-    params = model.init_values(torch.Generator().manual_seed(args.seed),
-                               device=args.device)
+    if cfg.enc_dec or cfg.xlstm:
+        params = model.init_values(torch.Generator().manual_seed(args.seed),
+                                   device=args.device)
+    else:
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        params = model.init_values(gen, device=args.device,
+                                   dtype=torch.bfloat16)
     if args.q8:
-        params = quantize_tree(params)
+        params = model.quantize(params)
         print("serving Q8_0-quantized weights")
     if args.cache_dtype in ("q8_0", "q4_0"):
         print(f"serving a {args.cache_dtype.upper()}-quantized KV cache")

@@ -1,25 +1,33 @@
-"""Attention block of the port, for the Whisper paths (the JAX package's
-``models/attention.py``).
+"""Attention block of the port (the JAX package's ``models/attention.py``):
+the Whisper paths and the decoder-only families' GQA, QKV biases,
+qk-norm, rotary positions, sliding and local windows and logit softcap.
 
-Train/prefill project Q/K/V and run ``dispatch("flash_attention")``: the
-encoder's bidirectional self-attention, the decoder's causal prefill and
-the cross-attention prefill (Sq != Skv), all on the one kernel. Decode
-takes the serving engine's stacked cache, ``{"k", "v"}`` (bf16),
-``{"kq", "ks", "vq", "vs"}`` (q8_0) or ``{"kp", "ks", "vp", "vs"}``
-(q4_0, nibble-packed along head_dim) planes of shape (L, B, S, Hkv, .),
-and a per-lane position vector. x carries Q tokens a lane: Q = 1 in
-plain decode, ``spec_k`` in the speculative verify, where token j sits
-at pos + j and attends [0, pos + j]:
+Train/prefill project Q/K/V (the fused ``wqkv`` product of self-attention,
+then biases and qk-norm, then rope where the block asks for it) and run
+``dispatch("flash_attention")``: the encoder's bidirectional
+self-attention, the causal prefill and the cross-attention prefill
+(Sq != Skv), all on the one kernel. Decode takes the serving engine's
+stacked cache, ``{"k", "v"}`` (bf16), ``{"kq", "ks", "vq", "vs"}`` (q8_0)
+or ``{"kp", "ks", "vp", "vs"}`` (q4_0, nibble-packed along head_dim)
+planes of shape (L, B, S, Hkv, .), and a per-lane position vector. x
+carries Q tokens a lane: Q = 1 in plain decode, ``spec_k`` in the
+speculative verify, where token j sits at pos + j and attends [0, pos +
+j]; rope rotates q and k at those positions, read from the device
+tensor, so a captured tick takes them from the lane state:
 
 * self-attention writes the Q new tokens of every lane at (layer, b,
   pos[b] + j) **in place** (``index_put_``; the reference's functional
   update returns a new buffer under donation), then reads the layer —
-  bf16 through einsum decode in torch ops with a (B, Q, K) mask, q8_0
-  and q4_0 through ``dispatch("q8_decode_attention")`` /
+  bf16 through einsum decode in torch ops with a (B, Q, K) mask (causal,
+  and the window where the layer has one; softcap where the model has
+  one), q8_0 and q4_0 through ``dispatch("q8_decode_attention")`` /
   ``dispatch("q4_decode_attention")``, which read the stacked planes
   where they lie, with (B,) lengths for Q = 1 and (B, Q) for Q > 1;
 * cross-attention reads the cached encoder K/V, every query of lane b
   attending positions [0, kv_lens[b]).
+
+The quantized tiers and the paged pool take plain softmax attention
+only, as the reference's do: a softcap or a window raises there.
 
 With a ``page_table`` the planes are a paged pool (L, n_pages, P, Hkv,
 .) shared by the lanes (``repro_torch.paging``): self-attention writes
@@ -38,22 +46,31 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
 from repro_torch.kernels.paged_attention.plain import bf16_decode_attention
-from repro_torch.models.layers import mm, mm_out, ninit, prepared
+from repro_torch.models.layers import (mm, mm_out, ninit, prepared,
+                                       rmsnorm, rope)
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
 
-def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def init_attention(gen: torch.Generator, cfg: ArchConfig, device,
+                   dtype=torch.float32) -> dict:
+    """Projections in ``dtype``; the biases (zeros) and the qk-norm
+    weights (ones) in f32, as the reference keeps them."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.attn_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            "attention biases and qk-norm belong to the decoder-only "
-            "families (ROADMAP queue 1, item 14)")
-    return {
-        "wq": ninit(gen, (d, h, dh), d, device),
-        "wk": ninit(gen, (d, hk, dh), d, device),
-        "wv": ninit(gen, (d, hk, dh), d, device),
-        "wo": ninit(gen, (h, dh, d), h * dh, device),
+    p = {
+        "wq": ninit(gen, (d, h, dh), d, device, dtype),
+        "wk": ninit(gen, (d, hk, dh), d, device, dtype),
+        "wv": ninit(gen, (d, hk, dh), d, device, dtype),
+        "wo": ninit(gen, (h, dh, d), h * dh, device, dtype),
     }
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((h, dh), **f32)
+        p["bk"] = torch.zeros((hk, dh), **f32)
+        p["bv"] = torch.zeros((hk, dh), **f32)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), **f32)
+        p["k_norm"] = torch.ones((dh,), **f32)
+    return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -65,10 +82,24 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
         h, hk = cfg.n_heads, cfg.n_kv_heads
         wqkv = prepared(p, "wqkv", lambda: torch.cat([wq, wk, wv], dim=1))
         y = mm(x, wqkv)
-        return (y[..., :h, :].contiguous(), y[..., h:h + hk, :].contiguous(),
-                y[..., h + hk:, :].contiguous())
-    x_kv = x if x_kv is None else x_kv
-    return mm(x, wq), mm(x_kv, wk), mm(x_kv, wv)
+        q, k, v = y[..., :h, :], y[..., h:h + hk, :], y[..., h + hk:, :]
+    else:
+        x_kv = x if x_kv is None else x_kv
+        q, k, v = mm(x, wq), mm(x_kv, wk), mm(x_kv, wv)
+    return bias_norm(p, q, cfg, "q"), bias_norm(p, k, cfg, "k"), \
+        bias_norm(p, v, cfg, "v")
+
+
+def bias_norm(p: dict, t: torch.Tensor, cfg: ArchConfig,
+              which: str) -> torch.Tensor:
+    """The projection ``which`` ("q", "k", "v") with its bias added in
+    its own dtype and, for q and k, the qk-norm, as the reference's
+    ``_project_qkv`` does after the product."""
+    if f"b{which}" in p:
+        t = t + p[f"b{which}"].to(t.dtype)
+    if f"{which}_norm" in p:
+        t = rmsnorm(p[f"{which}_norm"], t, cfg.norm_eps)
+    return t.contiguous()
 
 
 def _window_for(cfg: ArchConfig, kind: str) -> Optional[int]:
@@ -94,11 +125,9 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     Cross-attention passes ``x_kv`` (the encoder states in prefill; any
     tensor in decode, where the cached K/V are read). ``page_table``
     (decode): ``cache`` is a paged pool (L, n_pages, P, Hkv, .) and the
-    (B, n_lp) table maps each lane's logical pages to its pool pages."""
-    if use_rope:
-        raise NotImplementedError(
-            "rotary positions belong to the decoder-only families "
-            "(ROADMAP queue 1, item 14)")
+    (B, n_lp) table maps each lane's logical pages to its pool pages.
+    ``use_rope``: rotate self-attention's q and k at their positions
+    (0 .. S - 1 in train/prefill, pos + j in decode)."""
     b, s, _ = x.shape
     causal = kind != "bidir" and x_kv is None
     window = _window_for(cfg, kind)
@@ -106,6 +135,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     if mode in ("train", "prefill"):
         q, k, v = _project_qkv(p, x, cfg, x_kv)
+        if use_rope and x_kv is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
         out = dispatch("flash_attention", q, k, v, causal=causal,
                        window=window, softcap=softcap)
         new_cache = _write_prefill_cache(cache, k, v) \
@@ -128,6 +161,9 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     if x_kv is None:   # self-attention: write the new tokens, then read
         q, k_new, v_new = _project_qkv(p, x, cfg)
+        if use_rope:
+            q = rope(q, posq, cfg.rope_theta)
+            k_new = rope(k_new, posq, cfg.rope_theta)
         # token j attends [0, pos + j]; Q == 1 keeps the (B,) form
         read_lens = pos_b + 1 if s == 1 else posq + 1
         new = {"k": k_new, "v": v_new}
@@ -161,7 +197,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if window is not None:
             mask &= (posq[:, :, None] - kpos[None, None, :]) < window
     else:              # cross-attention: read the cached encoder K/V
-        q = mm(x, p["wq"])
+        q = bias_norm(p, mm(x, p["wq"]), cfg, "q")
         if page_table is not None:
             # read-only paged cross block; lane b attends its gathered
             # logical positions [0, kv_lens[b])

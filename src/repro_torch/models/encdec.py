@@ -19,9 +19,9 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (embed, layer_slice, layernorm,
-                                       logits_head, mlp, mm, ninit,
-                                       pad_vocab, prepare_head,
+from repro_torch.models.layers import (bf16_proj, embed, layer_slice,
+                                       layernorm, logits_head, mlp, mm,
+                                       ninit, pad_vocab, prepare_head,
                                        sinusoidal_positions, stack_layers,
                                        take_rows)
 from repro_torch.quantize import QTENSORS, as_array
@@ -78,20 +78,6 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     }
 
 
-#: the projection weights of an attention or MLP dict, which ``mm`` and
-#: ``mm_out`` multiply in bf16
-_PROJ = ("wq", "wk", "wv", "wo", "up", "gate", "down")
-
-
-def _bf16_proj(tree: dict) -> dict:
-    """``tree`` with every float projection weight in bf16, the dtype it
-    is multiplied in; quantized weights and norms as they are."""
-    return {k: _bf16_proj(v) if isinstance(v, dict)
-            else v.to(torch.bfloat16)
-            if k in _PROJ and isinstance(v, torch.Tensor) else v
-            for k, v in tree.items()}
-
-
 def prepare_serving(params: dict) -> dict:
     """The serving tree of ``params``: what a decode step would derive
     from the decoder's weights at every call, made once. The decoder's
@@ -99,7 +85,7 @@ def prepare_serving(params: dict) -> dict:
     self-attention's Q, K and V weights concatenated (``wqkv``, the
     product ``attention`` makes one), and the tied head's f32 operand
     (``head_f32``). The encoder's weights are as given."""
-    layers = _bf16_proj(params["dec_layers"])
+    layers = bf16_proj(params["dec_layers"])
     sa = layers["self_attn"]
     if all(isinstance(sa[k], torch.Tensor) for k in ("wq", "wk", "wv")):
         sa["wqkv"] = torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=-2)
@@ -149,14 +135,14 @@ def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
     ``x_kv`` (``mm`` of the states with ``wk`` and ``wv`` of ``params``,
     the serving tree's bf16 or Q8_0/Q4_0 weights), so the engine can
     extend a slot's cached encoder K/V as audio chunks arrive instead of
-    prefilling again. The port's attention has no biases or k-norm yet
-    (ROADMAP queue 1, item 14), and neither has this."""
+    prefilling again, with the biases and k-norm ``attention`` adds after
+    the products where a config has them."""
     layers = params["dec_layers"]["cross_attn"]
     ks, vs = [], []
     for i in range(_n_stacked(layers)):
         lp = layer_slice(layers, i)
-        ks.append(mm(states, lp["wk"]))
-        vs.append(mm(states, lp["wv"]))
+        ks.append(attn_mod.bias_norm(lp, mm(states, lp["wk"]), cfg, "k"))
+        vs.append(attn_mod.bias_norm(lp, mm(states, lp["wv"]), cfg, "v"))
     return torch.stack(ks), torch.stack(vs)
 
 

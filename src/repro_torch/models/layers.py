@@ -1,5 +1,5 @@
 """Shared model primitives of the port (the JAX package's
-``models/layers.py``, the Whisper and xLSTM paths).
+``models/layers.py``, the Whisper, xLSTM and decoder-only paths).
 
 Parameters are nested dicts of tensors; a stacked layer tree keeps its
 leading layer axis and ``layer_slice`` takes one layer out of it. The
@@ -10,7 +10,7 @@ projections (QKV) stay ``torch.matmul``, as the reference leaves them to
 XLA. A Q4_0 vocab table is widened to bf16 for the embedding and the
 tied head, as the reference does outside any kernel; the tied head then
 multiplies in f32 with f32 accumulation, the reference's bf16 x bf16 ->
-f32 product. An untied head (xLSTM's ``lm_head``) is ``mm`` in f32: it
+f32 product. An untied head (``lm_head``) is ``mm`` in f32: it
 runs on ``fp16_matmul`` with f32 activations and the bf16 weight as it
 is stored, widened in the kernel, the reference's f32 x f32 product
 without an f32 copy of the weight.
@@ -45,12 +45,28 @@ def prepared(p: dict, key: str, make) -> torch.Tensor:
     return make() if t is None else t
 
 
-def ninit(gen: torch.Generator, shape, fan_in: int,
-          device) -> torch.Tensor:
-    """Scaled-normal init, N(0, 1) / sqrt(fan_in), float32."""
+#: the projection weights of an attention, MLP or MoE dict, which ``mm``,
+#: ``mm_out`` and the experts' products multiply in bf16
+_PROJ = ("wq", "wk", "wv", "wo", "up", "gate", "down")
+
+
+def bf16_proj(tree: dict) -> dict:
+    """``tree`` with every float projection weight in bf16, the dtype it
+    is multiplied in; quantized weights and norms as they are."""
+    return {k: bf16_proj(v) if isinstance(v, dict)
+            else v.to(torch.bfloat16)
+            if k in _PROJ and isinstance(v, torch.Tensor) else v
+            for k, v in tree.items()}
+
+
+def ninit(gen: torch.Generator, shape, fan_in: int, device,
+          dtype=torch.float32) -> torch.Tensor:
+    """Scaled-normal init, N(0, 1) / sqrt(fan_in), drawn in float32 on
+    the generator's device and stored in ``dtype`` on ``device`` (a
+    CUDA generator and bf16 keep the f32 peak at one leaf)."""
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * fan_in ** -0.5).to(device)
+    return (x * fan_in ** -0.5).to(device=device, dtype=dtype)
 
 
 def layer_slice(tree, i: int):
@@ -194,6 +210,23 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
             + p["bias"].to(torch.float32)).to(dt)
 
 
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary positions (the reference's ``layers.rope``): x (B, S, H, D),
+    positions (B, S). The angles are f32, and a bf16 x meets the f32
+    cos / sin as jax promotes it: rotated in f32, then cast back."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq      # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
 def sinusoidal_positions(s: int, d: int, device=None) -> torch.Tensor:
     """Whisper-encoder style sinusoids (S, D), float32."""
     half = d // 2
@@ -212,10 +245,10 @@ def pad_vocab(v: int, mult: int = VOCAB_MULT) -> int:
     return -(-v // mult) * mult
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int,
-                   device) -> dict:
+def init_embedding(gen: torch.Generator, vocab: int, d: int, device,
+                   dtype=torch.float32) -> dict:
     """The (padded-vocab, d) token table, scaled normal."""
-    return {"table": ninit(gen, (pad_vocab(vocab), d), d, device)}
+    return {"table": ninit(gen, (pad_vocab(vocab), d), d, device, dtype)}
 
 
 def embed(p: dict, tokens: torch.Tensor,
@@ -306,6 +339,15 @@ def _act(name: str):
            "gelu": (gelu_bf16, lambda t: F.gelu(t, approximate="tanh"))}
     per_op, fused = fns[name]
     return lambda t: per_op(t) if t.dtype == _BF16 else fused(t)
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, device,
+             dtype=torch.float32) -> dict:
+    """The gated MLP's ``up`` (d, ff), ``down`` (ff, d) and ``gate`` (d,
+    ff) (the reference's ``init_mlp``, gated)."""
+    return {"up": ninit(gen, (d, ff), d, device, dtype),
+            "down": ninit(gen, (ff, d), ff, device, dtype),
+            "gate": ninit(gen, (d, ff), d, device, dtype)}
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Model API of the port (the JAX package's ``models/model.py``, for the
 encoder-decoder Whisper model and the decoder-only families ported so
-far) and the per-lane serving state spec."""
+far: dense and MoE attention, xLSTM) and the per-lane serving state
+spec."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.platforms import resolve_device
+from repro_torch.quantize import quantize_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,29 +88,50 @@ def _nbytes(t: torch.Tensor) -> int:
 class Model:
     cfg: ArchConfig
 
-    def init_values(self, generator: torch.Generator,
-                    device=None) -> dict:
+    def init_values(self, generator: torch.Generator, device=None,
+                    dtype=torch.float32) -> dict:
         """Fresh parameters drawn from ``generator`` (the reference's
         shapes and distributions), placed on ``device`` (default
-        ``cuda``)."""
+        ``cuda``). ``dtype`` (decoder-only models): the storage type of
+        the projection, expert, embedding and head weights, each drawn in
+        f32 and cast at once, so a CUDA generator and bf16 keep the f32
+        peak at one leaf."""
         device = resolve_device(device)
         if self.cfg.enc_dec:
             return encdec_mod.init_encdec(generator, self.cfg, device)
-        return tf_mod.init_decoder(generator, self.cfg, device)
+        return tf_mod.init_decoder(generator, self.cfg, device, dtype)
+
+    def quantize(self, values, tier: str = "q8_0"):
+        """``values`` with its weights quantized to ``tier`` (``q8_0``, or
+        ``q4_0`` for the speculative draft), as ``quantize_tree`` does;
+        a decoder-only tree only where ``transformer.quantizable``
+        says."""
+        if self.cfg.enc_dec:
+            return quantize_tree(values, tier=tier)
+        return quantize_tree(values, predicate=tf_mod.quantizable,
+                             tier=tier)
 
     def forward(self, values, batch: dict, *, mode: str = "train",
                 cache=None, pos=None, pages=None):
         """Returns (logits, new_cache). ``batch``: ``tokens``; for the
         enc-dec model also ``enc_frames`` or ``enc_states``
         (train/prefill; states skip the encoder) or ``enc_lens`` (decode:
-        per-lane valid encoder lengths). A decoder-only decode writes the
-        new recurrent state into ``cache`` in place and returns it.
-        ``pages`` (enc-dec decode): the per-lane page tables when
-        ``cache`` is a paged pool (``init_paged_cache``)."""
+        per-lane valid encoder lengths); for a decoder-only model
+        optionally ``img_embed`` (train/prefill: the VLM's patch
+        embeddings, put before the tokens) and ``n_valid`` (prefill: the
+        live prompt length of a padded bucket, which MoE capacity
+        routing must not fill with padding). A decoder-only decode writes
+        the new K/V rows, routing counts and recurrent state into
+        ``cache`` in place and returns it. ``pages`` (enc-dec decode):
+        the per-lane page tables when ``cache`` is a paged pool
+        (``init_paged_cache``)."""
         cfg = self.cfg
         if not cfg.enc_dec:
+            prefix = batch.get("img_embed") if mode != "decode" else None
             return tf_mod.decoder_forward(values, cfg, batch["tokens"],
-                                          mode=mode, cache=cache, pos=pos)
+                                          mode=mode, cache=cache, pos=pos,
+                                          prefix_embed=prefix,
+                                          n_valid=batch.get("n_valid"))
         if mode == "decode":
             return encdec_mod.decode_tokens(
                 values, cfg, batch["tokens"], mode="decode", cache=cache,
@@ -139,9 +162,9 @@ class Model:
     def init_cache(self, batch: int, max_len: int, enc_len: int = 1500,
                    dtype=torch.bfloat16, device: Optional[Any] = None):
         """Stacked cache planes: self/cross KV (enc-dec) or per-segment
-        recurrent state (decoder-only, ``enc_len`` unused). ``dtype`` a
-        tensor dtype, ``"q8_0"`` or ``"q4_0"`` (KV planes only; recurrent
-        state stays bf16)."""
+        K/V, routing counters and recurrent state (decoder-only,
+        ``enc_len`` unused). ``dtype`` a tensor dtype, ``"q8_0"`` or
+        ``"q4_0"`` (KV planes only; recurrent state stays bf16)."""
         if not self.cfg.enc_dec:
             return tf_mod.init_decoder_cache(self.cfg, batch, max_len,
                                              dtype, device)
@@ -170,20 +193,31 @@ class Model:
                 family=cfg.family, self_kv=True, cross_kv=True,
                 quant_tiers=("q8_0", "q4_0") if cfg.head_dim % 32 == 0
                 else ())
-        # decoder-only: the ported blocks (mLSTM, sLSTM) carry recurrent
-        # state only, with no KV plane to quantize
-        recurrent = tuple(_RECURRENT_KIND[bt]
-                          for bt, _ in tf_mod.segment_pattern(cfg))
-        return LaneStateSpec(family=cfg.family, self_kv=False,
-                             cross_kv=False, recurrent=recurrent,
-                             prefill_exact=True, quant_tiers=())
+        # decoder-only: attention blocks carry causal K/V (and MoE its
+        # routing counters); mLSTM / sLSTM blocks recurrent state, with no
+        # KV plane to quantize. The quantized tiers need plain softmax
+        # decode attention, as the reference's do
+        blocks = [bt for bt, _ in tf_mod.segment_pattern(cfg)]
+        recurrent = tuple(dict.fromkeys(_RECURRENT_KIND[bt] for bt in blocks
+                                        if bt in _RECURRENT_KIND))
+        self_kv = "attn" in blocks
+        quant = (self_kv and cfg.head_dim % 32 == 0
+                 and cfg.attn_softcap is None and cfg.sliding_window is None
+                 and not cfg.local_global)
+        return LaneStateSpec(
+            family=cfg.family, self_kv=self_kv, cross_kv=False,
+            recurrent=recurrent,
+            moe_experts=cfg.n_experts if cfg.is_moe else 0,
+            moe_top_k=cfg.top_k if cfg.is_moe else 0,
+            prefill_exact=bool(recurrent),
+            quant_tiers=("q8_0", "q4_0") if quant else ())
 
     def lane_state_bytes(self, max_len: int, enc_len: int = 1500,
                          dtype=torch.bfloat16) -> dict:
         """Per-lane state footprint by kind, in bytes: ``{"kv": ...,
         "state": ..., "total": ...}``. ``kv`` grows with ``max_len`` (and
         ``enc_len`` for cross K/V); ``state`` is the constant-size
-        recurrent footprint. Counted on the ``meta`` device: nothing is
+        recurrent and routing-counter footprint. Counted on the ``meta`` device: nothing is
         allocated."""
         cache = self.init_cache(1, max_len, enc_len, dtype, device="meta")
         kv, st = cache_bytes(cache)

@@ -1,16 +1,27 @@
 """Decoder-only stack of the port (the JAX package's
-``models/transformer.py``), for the families ported so far: xLSTM.
+``models/transformer.py``), for the families ported so far: the dense and
+MoE attention families and xLSTM.
 
 The layer stack is ``n_segments`` repetitions of a per-arch segment
-pattern ((mLSTM, sLSTM) pairs for xLSTM); each parameter and cache leaf
-carries a leading ``(n_segments, ...)`` axis, as the reference's
-``lax.scan`` stacks them, and a Python loop over the segments takes the
-scan's place. Prefill returns a fresh stacked cache; decode writes each
-block's new state into the pool it was given, **in place** (the
-reference rewrites the state in full every step too), and returns that
-pool. The other decoder-only families (attention, MoE, mamba blocks) are
-not ported yet: ``segment_pattern`` raises ``NotImplementedError`` for
-them (ROADMAP queue 1, item 14).
+pattern (one attention block for dense and MoE models, (local, global)
+attention pairs for gemma2, (mLSTM, sLSTM) pairs for xLSTM); each
+parameter and cache leaf carries a leading ``(n_segments, ...)`` axis, as
+the reference's ``lax.scan`` stacks them, and a Python loop over the
+segments takes the scan's place.
+
+An attention block is rmsnorm, attention with rotary positions, and a
+gated MLP or a MoE FFN, each with its residual. Its cache subtree holds
+``kv`` (the K/V planes) and, for MoE, ``routing``: per-lane counters of
+the executed top-k assignments, (lanes, n_experts) int32. Prefill
+returns a fresh stacked cache (the prompt's K/V padded to the cache's
+length, the prompt's routing counts). Decode writes in place into the
+pool it was given: each attention layer its new K/V rows, each MoE layer
+its counters, each recurrent block its whole new state (the reference
+rewrites that in full every step too); it returns that pool.
+
+The mamba blocks and the zamba2 hybrid (its shared attention block and
+its tail of mamba blocks) are not ported yet: ``segment_pattern`` raises
+``NotImplementedError`` for them (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -20,22 +31,45 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
-                                       layer_slice, logits_head, ninit,
-                                       pad_vocab, prepare_head, rmsnorm,
-                                       stack_layers)
+from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
+                                       init_mlp, init_rmsnorm, layer_slice,
+                                       logits_head, mlp, ninit, pad_vocab,
+                                       prepare_head, rmsnorm, stack_layers)
 
-_NOT_PORTED = "ROADMAP queue 1, item 14"
+_NOT_PORTED = "ROADMAP queue 1, item 14 (mamba and the zamba2 hybrid)"
 
 
 def segment_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """[(block_type, attn_kind)] per segment: (mLSTM, sLSTM) for xLSTM.
-    Every other family is refused here."""
-    if not cfg.xlstm:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported yet ({_NOT_PORTED})")
-    return [("mlstm", "-"), ("slstm", "-")]
+    """[(block_type, attn_kind)] per segment: (mLSTM, sLSTM) for xLSTM,
+    (local, global) attention for gemma2, one global attention block for
+    the other dense and MoE models. The hybrid family is refused."""
+    if cfg.xlstm:
+        return [("mlstm", "-"), ("slstm", "-")]
+    if cfg.family == "hybrid" and cfg.attn_every:
+        raise NotImplementedError(f"{cfg.name}: the mamba blocks and the "
+                                  f"hybrid pattern are not ported yet "
+                                  f"({_NOT_PORTED})")
+    if cfg.local_global:
+        return [("attn", "local"), ("attn", "global")]
+    return [("attn", "global")]
+
+
+#: the decoder leaves that ``mm`` / ``mm_out``, the embedding and the head
+#: take quantized, blocked along axis -2, their contraction axis
+_QUANT_LEAVES = frozenset({"wo", "up", "gate", "down", "table", "lm_head"})
+
+
+def quantizable(path: tuple, leaf) -> bool:
+    """``quantize_tree``'s predicate for a decoder tree: the output and
+    MLP projections, the embedding table and the head. The Q/K/V
+    projections stay float (their axis -2 is the heads, along which
+    ``quantize_tree`` would block them at 32 heads; at fewer it leaves
+    them float as well), and so do the norms, biases, the MoE router and
+    its experts, which the forward casts as float tensors."""
+    return path[-1] in _QUANT_LEAVES and "moe" not in path
 
 
 def n_segments(cfg: ArchConfig) -> int:
@@ -48,23 +82,71 @@ def n_segments(cfg: ArchConfig) -> int:
 # Block init / apply
 # ----------------------------------------------------------------------------
 
-#: block type -> (state kind, init, apply, state init)
+#: recurrent block type -> (state kind, init, apply, state init)
 _BLOCKS = {"mlstm": ("mstate", xlstm_mod.init_mlstm, xlstm_mod.mlstm_block,
                      xlstm_mod.init_mlstm_cache),
            "slstm": ("sstate", xlstm_mod.init_slstm, xlstm_mod.slstm_block,
                      xlstm_mod.init_slstm_cache)}
 
 
-def _init_block(gen, cfg: ArchConfig, btype: str, device) -> dict:
+def _init_block(gen, cfg: ArchConfig, btype: str, device, dtype) -> dict:
+    if btype == "attn":
+        p = {"ln1": init_rmsnorm(cfg.d_model, device),
+             "attn": attn_mod.init_attention(gen, cfg, device, dtype)}
+        if cfg.d_ff:
+            p["ln2"] = init_rmsnorm(cfg.d_model, device)
+            if cfg.is_moe:
+                p["moe"] = moe_mod.init_moe(gen, cfg, device, dtype)
+            else:
+                p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, device,
+                                    dtype)
+        return p
     return {"ln1": init_rmsnorm(cfg.d_model, device),
             btype: _BLOCKS[btype][1](gen, cfg, device)}
 
 
-def _apply_block(bp: dict, x, cfg: ArchConfig, btype: str, *, mode: str,
+def _attn_block(bp: dict, x, cfg: ArchConfig, kind: str, *, mode: str,
+                cache: Optional[dict], pos, layer_idx, n_valid):
+    """One attention block with its residuals. ``cache``: this block's
+    subtree, ``{"kv": ..., "routing": ...}``; in decode the stacked pool
+    (``layer_idx`` its layer), which the block writes in place. Returns
+    (x, the prefill's new subtree, else None)."""
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    a, new_kv = attn_mod.attention(
+        bp["attn"], h, cfg, kind=kind, mode=mode,
+        cache=None if cache is None else cache["kv"], pos=pos,
+        use_rope=True, layer_idx=layer_idx)
+    x = x + a
+    routing = None
+    if "ln2" in bp:
+        h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        if cfg.is_moe:
+            rsub = None if cache is None else cache.get("routing")
+            if rsub is None:
+                x = x + moe_mod.moe_ffn(bp["moe"], h, cfg, valid_len=n_valid)
+            else:
+                counts = rsub if layer_idx is None else rsub[layer_idx]
+                y, routing = moe_mod.moe_ffn(bp["moe"], h, cfg,
+                                             route_counts=counts,
+                                             valid_len=n_valid)
+                x = x + y
+                if layer_idx is not None:
+                    counts.copy_(routing)
+        else:
+            x = x + mlp(bp["mlp"], h, cfg.act)
+    if mode != "prefill":
+        return x, None
+    new = {"kv": new_kv}
+    if routing is not None:
+        new["routing"] = routing
+    return x, new
+
+
+def _state_block(bp: dict, x, cfg: ArchConfig, btype: str, *, mode: str,
                  cache: Optional[dict]):
-    """One block with its residual. ``cache``: this block's subtree of
-    one segment (``{"mstate": ...}`` / ``{"sstate": ...}``) or None.
-    Returns (x, new subtree or None)."""
+    """One recurrent block with its residual. ``cache``: this block's
+    subtree of one segment (``{"mstate": ...}`` / ``{"sstate": ...}``) or
+    None. Returns (x, new subtree or None)."""
     kind, _, fn, _ = _BLOCKS[btype]
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     sub = None if cache is None else cache.get(kind)
@@ -72,8 +154,15 @@ def _apply_block(bp: dict, x, cfg: ArchConfig, btype: str, *, mode: str,
     return x + y, (None if new is None else {kind: new})
 
 
-def _block_cache(cfg: ArchConfig, btype: str, batch: int, dtype,
-                 device) -> dict:
+def _block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
+                 dtype, device) -> dict:
+    if btype == "attn":
+        c = {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
+                                          device)}
+        if cfg.is_moe and cfg.d_ff:
+            c["routing"] = torch.zeros((batch, cfg.n_experts),
+                                       dtype=torch.int32, device=device)
+        return c
     # "q8_0"/"q4_0" quantize KV planes only; recurrent states stay bf16
     if isinstance(dtype, str):
         dtype = torch.bfloat16
@@ -85,38 +174,53 @@ def _block_cache(cfg: ArchConfig, btype: str, batch: int, dtype,
 # Whole-model init / apply
 # ----------------------------------------------------------------------------
 
-def init_decoder(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def init_decoder(gen: torch.Generator, cfg: ArchConfig, device,
+                 dtype=torch.float32) -> dict:
     """Parameters with the reference's tree, shapes and distributions
     (``models/transformer.py:191-226``): ``embed``, ``segments`` stacked
     on a leading (n_segments, ...) axis, ``final_norm`` and, for an
-    untied head, ``lm_head`` (d, padded vocab)."""
+    untied head, ``lm_head`` (d, padded vocab). ``dtype``: the storage
+    type of the attention, MLP, MoE, embedding and head weights (each
+    drawn in f32 and cast at once); norms, biases and the recurrent
+    blocks stay f32."""
     pattern = segment_pattern(cfg)
-    segs = [{f"block{j}": _init_block(gen, cfg, bt, device)
+    segs = [{f"block{j}": _init_block(gen, cfg, bt, device, dtype)
              for j, (bt, _) in enumerate(pattern)}
             for _ in range(n_segments(cfg))]
     params = {
-        "embed": init_embedding(gen, cfg.vocab, cfg.d_model, device),
+        "embed": init_embedding(gen, cfg.vocab, cfg.d_model, device, dtype),
         "segments": stack_layers(segs),
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = ninit(gen, (cfg.d_model, pad_vocab(cfg.vocab)),
-                                  cfg.d_model, device)
+                                  cfg.d_model, device, dtype)
     return params
 
 
-_PREPARE = {"mlstm": xlstm_mod.prepare_mlstm,
-            "slstm": xlstm_mod.prepare_slstm}
+def _prepare_block(bp: dict, btype: str) -> dict:
+    if btype == "mlstm":
+        return {**bp, "mlstm": xlstm_mod.prepare_mlstm(bp["mlstm"])}
+    if btype == "slstm":
+        return {**bp, "slstm": xlstm_mod.prepare_slstm(bp["slstm"])}
+    bp = bf16_proj(bp)
+    sa = bp["attn"]
+    if all(isinstance(sa[k], torch.Tensor) for k in ("wq", "wk", "wv")):
+        sa["wqkv"] = torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=-2)
+    if "moe" in bp:
+        bp["moe"] = moe_mod.prepare_moe(bp["moe"])
+    return bp
 
 
 def prepare_serving(params: dict, cfg: ArchConfig) -> dict:
     """The serving tree of ``params``: each block's weights with what its
-    forward derives from them made once (``xlstm.prepare_mlstm`` /
-    ``prepare_slstm``), and a tied head's f32 operand."""
+    forward derives from them made once (attention and MLP projections
+    in bf16 with the fused ``wqkv``, the MoE router in f32 and its experts
+    in bf16; ``xlstm.prepare_mlstm`` / ``prepare_slstm``), and a tied
+    head's f32 operand."""
     segs = dict(params["segments"])
     for j, (bt, _) in enumerate(segment_pattern(cfg)):
-        blk = segs[f"block{j}"]
-        segs[f"block{j}"] = {**blk, bt: _PREPARE[bt](blk[bt])}
+        segs[f"block{j}"] = _prepare_block(segs[f"block{j}"], bt)
     out = {**params, "segments": segs}
     if "lm_head" not in params:
         out["embed"] = prepare_head(params["embed"])
@@ -133,26 +237,50 @@ def _write_state(pool, new, i: int) -> None:
 
 
 def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-                    mode: str = "train", cache=None, pos=None):
-    """tokens: (B, S) (S = 1 for decode). Returns (logits (B, S, padded
-    vocab) f32, cache): None for train, a fresh stacked cache for
-    prefill (``cache`` names its dtype), and for decode the pool
-    ``cache`` itself, with every block's new state written into it."""
+                    mode: str = "train", cache=None, pos=None,
+                    prefix_embed: Optional[torch.Tensor] = None,
+                    n_valid=None):
+    """tokens: (B, S) (S = 1 for decode, or the verify's Q). Returns
+    (logits (B, S, padded vocab) f32, cache): None for train, a fresh
+    stacked cache for prefill (``cache`` names its length and dtype),
+    and for decode the pool ``cache`` itself, written in place.
+    ``prefix_embed`` (B, P, d): embeddings put before the tokens (the VLM
+    patch stub; the logits cover them too). ``n_valid`` (serving
+    prefill): the live prompt length of a padded bucket, whose padding
+    the MoE capacity cut must not count."""
     pattern = segment_pattern(cfg)
     x = embed(params["embed"], tokens)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+        if n_valid is not None:
+            n_valid = n_valid + prefix_embed.shape[1]
     seg_cache = None if cache is None else cache["segments"]
     new_segs = []
     for i in range(n_segments(cfg)):
         sp = layer_slice(params["segments"], i)
-        sc = None if seg_cache is None else layer_slice(seg_cache, i)
+        sc = None
+        if seg_cache is not None and mode != "decode":
+            sc = layer_slice(seg_cache, i)
         new = {}
-        for j, (bt, _) in enumerate(pattern):
+        for j, (bt, kind) in enumerate(pattern):
             name = f"block{j}"
-            x, nc = _apply_block(sp[name], x, cfg, bt, mode=mode,
-                                 cache=None if sc is None else sc[name])
+            if bt == "attn":
+                # decode: the stacked pool, written in place at layer i
+                bc = seg_cache[name] if mode == "decode" \
+                    else None if sc is None else sc[name]
+                x, nc = _attn_block(sp[name], x, cfg, kind, mode=mode,
+                                    cache=bc, pos=pos,
+                                    layer_idx=i if mode == "decode"
+                                    else None, n_valid=n_valid)
+            else:
+                bc = None if seg_cache is None else (
+                    layer_slice(seg_cache[name], i) if mode == "decode"
+                    else sc[name])
+                x, nc = _state_block(sp[name], x, cfg, bt, mode=mode,
+                                     cache=bc)
+                if mode == "decode":
+                    _write_state(seg_cache[name], nc, i)
             new[name] = nc
-        if mode == "decode":
-            _write_state(seg_cache, new, i)
         new_segs.append(new)
     new_cache = None
     if mode == "decode":
@@ -168,11 +296,14 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> dict:
-    """The stacked per-segment state cache, ``{"segments": {blockJ:
-    {kind: {leaf: (n_segments, batch, ...)}}}}``. Recurrent state is O(1)
-    in ``max_len``."""
+    """The stacked per-segment cache, ``{"segments": {blockJ: {kind:
+    (n_segments, batch, ...)}}}``: an attention block's ``kv`` planes
+    (``attention.init_kv_cache``: a dtype or a q8_0 / q4_0 tier, O(max_len)
+    a lane) and, for MoE, its ``routing`` counters; a recurrent block's
+    state, O(1) in ``max_len`` and in bf16 under a quantized tier."""
     pattern = segment_pattern(cfg)
-    segs = [{f"block{j}": _block_cache(cfg, bt, batch, dtype, device)
+    segs = [{f"block{j}": _block_cache(cfg, bt, batch, max_len, dtype,
+                                       device)
              for j, (bt, _) in enumerate(pattern)}
             for _ in range(n_segments(cfg))]
     return {"segments": stack_layers(segs)}

@@ -1,14 +1,19 @@
 """Slot-pool serving engine of the port (the JAX package's
 ``serving/engine.py``): the enc-dec Whisper model with bf16, q8_0 and
-q4_0 caches and self-speculative decoding, and decoder-only recurrent
-lanes (xLSTM) with a bf16 state pool.
+q4_0 caches and self-speculative decoding; decoder-only KV lanes (the
+dense and MoE attention families) with the same tiers where the model's
+spec allows them; and decoder-only recurrent lanes (xLSTM) with a bf16
+state pool.
 
 The engine owns a fixed pool of ``n_slots`` cache slots on the device:
-stacked self/cross KV planes, or stacked per-segment recurrent state,
-as the model's ``LaneStateSpec`` declares. Admission prefills one
-request, at a bucketed token length (powers of two from 32) for KV
-lanes or at the exact prompt length for recurrent lanes
-(``prefill_exact``: padding would be folded into the state), quantizes
+stacked self/cross KV planes, stacked per-segment K/V planes with MoE
+routing counters, or stacked per-segment recurrent state, as the
+model's ``LaneStateSpec`` declares. Admission prefills one request, at a
+bucketed token length (powers of two from 32) for KV lanes, with the
+live length as ``n_valid`` so that bucket padding never takes an expert's
+capacity from a live token, or at the exact prompt length for recurrent
+lanes (``prefill_exact``: padding would be folded into the state),
+quantizes
 the prefill cache for a q8_0 or q4_0 pool, writes it into a free slot
 **in place** and fetches one scalar, the first token. A decode step
 writes each lane's new K/V row, or its whole new recurrent state, into
@@ -22,7 +27,9 @@ per-lane positions; EOS, max_new and max_len freeze finished lanes on
 the device, so a ``k``-step tick is token-identical to ``k`` single
 steps. The tick makes **one** host fetch, the ``(k, n_slots)`` token
 block with its emit mask (``_host_syncs`` counts them); host Python then
-replays the emit mask to append tokens and free slots.
+replays the emit mask to append tokens and free slots. An MoE step adds
+each lane's executed top-k assignments to its routing counters in place;
+``routing_report`` fetches them, a diagnostic outside the tick.
 
 On a CUDA device the tick is one CUDA graph, the counterpart of the
 reference's donated ``jax.jit``: the first tick of ``k`` steps runs
@@ -105,7 +112,7 @@ from repro_torch.models.attention import quantize_kv_cache
 from repro_torch.models.model import Model, cache_bytes
 from repro_torch.paging import PageAllocError, PagedKV, content_digest
 from repro_torch.platforms import Platform, get_platform, resolve_device
-from repro_torch.quantize import QTENSORS, quantize_tree, stored_bytes
+from repro_torch.quantize import QTENSORS, stored_bytes
 from repro_torch.serving.lanestate import LaneStatePool
 
 EOS_DEFAULT = 2
@@ -341,6 +348,17 @@ class ServeEngine:
                     f"cursors; {cfg.name} lanes carry "
                     f"{'/'.join(self.spec.recurrent) or 'no'} recurrent "
                     f"state, which cannot be rolled back")
+            if self.spec.moe_experts:
+                raise ValueError(
+                    f"speculative decoding does not thread the per-lane "
+                    f"routing counters through draft/verify; {cfg.name} "
+                    f"is MoE")
+            if cfg.attn_softcap is not None or cfg.sliding_window \
+                    is not None or cfg.local_global:
+                raise ValueError(
+                    f"speculative decoding supports plain softmax decode "
+                    f"attention only; {cfg.name} uses softcap/windowed "
+                    f"attention")
             if int(decode_block) % self.spec_k:
                 raise ValueError(
                     f"decode_block ({decode_block}) must be a multiple "
@@ -354,7 +372,7 @@ class ServeEngine:
                     "draft_params= explicitly (the engine builds draft "
                     "weights from float params only)")
             else:
-                self.draft_params = quantize_tree(params, tier=draft_dtype)
+                self.draft_params = model.quantize(params, draft_dtype)
         self.paged = bool(paged)
         self.page_size = int(page_size)
         self.pages: Optional[PagedKV] = None
@@ -626,6 +644,9 @@ class ServeEngine:
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n] = torch.as_tensor(tokens, dtype=torch.int64)
         batch = {"tokens": toks.to(self.device, non_blocking=True)}
+        if not self.enc_dec:
+            # bucket padding must not win MoE expert capacity
+            batch["n_valid"] = n
         if "enc_states" in enc:
             batch["enc_states"] = enc["enc_states"].to(torch.bfloat16)
         elif "enc_frames" in enc:
@@ -1134,6 +1155,28 @@ class ServeEngine:
 
     def lane_report(self) -> dict:
         return self.lanestate.report()
+
+    def routing_report(self) -> dict:
+        """MoE engines: the per-lane expert-routing counters of the
+        cache's ``routing`` planes, fetched (one diagnostic sync, never on
+        the tick's path). They count executed top-k assignments: a
+        prefill's whole bucket, and every slot of every decode step,
+        parked lanes included; the device's work, not a bill."""
+        if not self.spec.moe_experts:
+            raise ValueError(f"routing_report() needs an MoE model; "
+                             f"{self.model.cfg.name} declares no routing "
+                             f"state")
+        planes = [blk["routing"] for blk in self.cache["segments"].values()
+                  if "routing" in blk]
+        stacked = torch.cat(planes).to(torch.int64).cpu()  # (layers, B, E)
+        per_lane = stacked.sum(dim=0)
+        totals = per_lane.sum(dim=0)
+        return {"n_experts": self.spec.moe_experts,
+                "top_k": self.spec.moe_top_k,
+                "moe_layers": int(stacked.shape[0]),
+                "per_lane": per_lane.tolist(),
+                "per_expert": totals.tolist(),
+                "executed_assignments": int(totals.sum())}
 
     def dispatch_report(self) -> dict:
         """Kernel-routing counters keyed (op, decision, backend),

@@ -11,7 +11,8 @@ Shapes are the main path's (whisper-tiny.en: d_model 384, 6 heads of 64,
 d_ff 1536, 1500 encoder frames, the 32-token prefill bucket, decode at a
 few lanes, the speculative verify's 4 queries a lane; xlstm-350m: the
 sLSTM recurrence over 4 heads of 256 and the f32 head (4,1024) @
-(1024,51200)) plus small ragged ones. Both sides accumulate in f32 in a
+(1024,51200); the decoder-only models' attention at head_dim 128 with
+GQA 4 and 8 and at 256 with softcap and window) plus small ragged ones. Both sides accumulate in f32 in a
 different order, so f32 results agree to ~1e-5 relative; results stored
 in bf16 agree to one bf16 rounding of each side, at most 2^-7 of the
 largest output (``assert_bf16_close``). The attention cases also run
@@ -22,8 +23,9 @@ reads short or past ``length`` fails.
 The serving engine's decode tick replayed from a CUDA graph is held to
 the eager tick (``cuda_graph=False``) at the reduced whisper-tiny.en
 (bf16, q8_0, q4_0, ``spec_k=4``, a stream whose cross K/V grows between
-replays) and xlstm-350m: tokens and logits bit for bit, one capture per
-tick size, one synchronising call a tick. The streaming frontend equals
+replays), xlstm-350m, qwen3-4b (bf16 and Q8_0 weights with the q8_0
+cache), qwen3-moe-30b-a3b and gemma2-2b: tokens and logits bit for bit,
+one capture per tick size, one synchronising call a tick. The streaming frontend equals
 the one-shot frontend bit for bit on the card. The paged engine's
 captured tick, whose page-table rows are rewritten between replays
 (admissions, a stream's cross pages, freed lanes), equals its eager tick
@@ -172,6 +174,17 @@ def test_q8_matmul_kernel(dev, dtype, m, k, n):
     (1, 33, 1500, 6, 6, 64, True, 100, None),
     (1, 200, 65, 2, 1, 32, True, 16, None),
     (1, 16, 1500, 4, 1, 64, False, None, 5.0),
+    # head_dim 128 (the decoder-only models: qwen3-4b's GQA 4, qwen3-moe's
+    # GQA 8) and 256 (gemma2-2b: softcap 50, a window that binds), with a
+    # ragged S, the KV split and rows whose every key is masked
+    (1, 256, 256, 32, 8, 128, True, None, None),
+    (1, 200, 200, 32, 4, 128, True, None, None),
+    (2, 70, 70, 4, 2, 128, True, 16, 50.0),
+    (1, 33, 1500, 8, 4, 128, False, None, None),
+    (1, 256, 256, 8, 4, 256, True, 128, 50.0),
+    (1, 200, 200, 8, 4, 256, True, None, 50.0),
+    (1, 33, 1500, 8, 4, 256, False, None, None),
+    (1, 200, 65, 2, 1, 256, True, 16, None),
 ])
 def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
                                 softcap, tail):
@@ -260,7 +273,10 @@ def test_q8_decode_attention_kernel_reads_exactly_to_length(dev, bh, s, d):
 
 @pytest.mark.parametrize("L,b,s,h,hkv,d,layer", [(4, 4, 1500, 6, 6, 64, 2),
                                                  (4, 1, 35, 6, 6, 64, 3),
-                                                 (2, 3, 40, 4, 2, 32, 1)])
+                                                 (2, 3, 40, 4, 2, 32, 1),
+                                                 # GQA 4 and 8 at D = 128
+                                                 (2, 4, 512, 32, 8, 128, 1),
+                                                 (2, 4, 512, 32, 4, 128, 0)])
 def test_q8_decode_attention_cache_kernel(dev, L, b, s, h, hkv, d, layer):
     rng = np.random.default_rng(L * b * s)
     q = _randn(rng, (b, 1, h, d), dev, torch.bfloat16)
@@ -285,9 +301,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                  torch.zeros((2, 8), dtype=torch.float16, device=dev))
     with pytest.raises(ValueError):
         q8_ops.q8_matmul(torch.zeros((4, 32), device=dev), w)
-    q = torch.zeros((2, 1, 4, 48), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa_ops.flash_attention(q, q, q)
+    for d in (48, 96, 512):   # head_dims the kernel is not built for
+        q = torch.zeros((2, 1, 4, d), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa_ops.flash_attention(q, q, q)
     q = torch.zeros((2, 1, 4, 64), device=dev)
     with pytest.raises(TypeError):
         fa_ops.flash_attention(q, q, q)
@@ -715,6 +732,19 @@ def _xlstm_case():
     return model, params, reqs, dict(max_len=64)
 
 
+def _decoder_case(arch, cache):
+    model = build(reduced(get_config(arch)))
+    params = model.init_values(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda", dtype=torch.bfloat16)
+    if cache == "q8_0":
+        params = model.quantize(params)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, tokens=rng.integers(3, 500, size=n).tolist(),
+                    max_new=m, eos_id=-1)
+            for i, (n, m) in enumerate(((9, 40), (17, 23)))]
+    return model, params, reqs, dict(max_len=64, cache_dtype=cache)
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -722,7 +752,8 @@ def _cast_tree(tree, dtype):
 
 
 @pytest.mark.parametrize("case", ["bf16", "q8_0", "q4_0", "spec_k=4",
-                                  "xlstm"])
+                                  "xlstm", "qwen3-4b", "qwen3-4b|q8_0",
+                                  "qwen3-moe-30b-a3b", "gemma2-2b"])
 def test_captured_tick_equals_the_eager_tick(dev, case):
     """Ticks of 4 and 8 steps in turn, captured and eager: the same
     tokens and the same logits rows bit for bit, one capture per tick
@@ -732,6 +763,10 @@ def test_captured_tick_equals_the_eager_tick(dev, case):
     library handles' first use) outside the runs compared."""
     if case == "xlstm":
         model, params, reqs, kw = _xlstm_case()
+    elif case.partition("|")[0] in ("qwen3-4b", "qwen3-moe-30b-a3b",
+                                     "gemma2-2b"):
+        arch, _, cache = case.partition("|")
+        model, params, reqs, kw = _decoder_case(arch, cache or "bf16")
     else:
         cache = "q4_0" if case == "q4_0" else \
             "q8_0" if case in ("q8_0", "spec_k=4") else "bf16"

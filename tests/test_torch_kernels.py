@@ -136,29 +136,37 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-@pytest.mark.parametrize("b,sq,skv,h,want", [
-    (1, 1500, 1500, 6, 3),     # encoder: 12 x 6 = 72 query tiles x 3
-    (1, 32, 32, 6, 1),         # decoder prefill: one KV tile
-    (1, 32, 1500, 6, 24),      # cross prefill: 6 tiles x 24 splits
-    (4, 32, 1500, 6, 8),       # cross prefill of 4 admissions at once
-    (1, 1, 1500, 6, 24),
-    (1, 32, 1501, 6, 24),      # ragged: the last tile holds 29 keys
-    (2, 40, 65, 6, 2),         # 2 KV tiles, the second holds 1 key
-    (1, 200, 65, 2, 2),
+@pytest.mark.parametrize("b,sq,skv,h,want,d", [
+    (1, 1500, 1500, 6, 3, 64),     # encoder: 12 x 6 = 72 query tiles x 3
+    (1, 32, 32, 6, 1, 64),         # decoder prefill: one KV tile
+    (1, 32, 1500, 6, 24, 64),      # cross prefill: 6 tiles x 24 splits
+    (4, 32, 1500, 6, 8, 64),       # cross prefill of 4 admissions at once
+    (1, 1, 1500, 6, 24, 64),
+    (1, 32, 1501, 6, 24, 64),      # ragged: the last tile holds 29 keys
+    (2, 40, 65, 6, 2, 64),         # 2 KV tiles, the second holds 1 key
+    (1, 200, 65, 2, 2, 64),
+    # head_dim 128 (64-query blocks) and 256 (64 queries, 32-key tiles,
+    # one block an SM): qwen3-4b's and gemma2-2b's prefill at S=256, and
+    # few queries against 1500 keys
+    (1, 256, 256, 32, 2, 128),
+    (2, 40, 65, 4, 2, 128),
+    (1, 256, 256, 8, 4, 256),
+    (1, 33, 1500, 8, 16, 256),
 ])
-def test_flash_attention_kv_splits(b, sq, skv, h, want):
-    """The wrapper's KV split: whole 64-key tiles a split, as many
-    splits as keep every block resident (RESIDENT blocks an SM), none of
+def test_flash_attention_kv_splits(b, sq, skv, h, want, d):
+    """The wrapper's KV split: whole KV tiles a split (the head_dim's
+    ``LAYOUT``), as many splits as keep every block resident, none of
     them empty; none where the query tiles alone fill that."""
-    splits = fa_ops.kv_splits(b, sq, skv, h, H100_SMS)
+    bq, bkv, resident = fa_ops.LAYOUT[d]
+    splits = fa_ops.kv_splits(b, sq, skv, h, H100_SMS, d)
     assert splits == want
-    ctas = _cdiv(sq, fa_ops.BQ) * b * h
-    tiles = _cdiv(skv, fa_ops.BKV)
+    ctas = _cdiv(sq, bq) * b * h
+    tiles = _cdiv(skv, bkv)
     assert 1 <= splits <= max(1, tiles)
     per = _cdiv(tiles, splits)          # what the C entry point derives
     assert (splits - 1) * per < tiles   # the last split holds a tile
     if splits > 1:
-        assert ctas * splits <= fa_ops.RESIDENT * H100_SMS
+        assert ctas * splits <= resident * H100_SMS
 
 
 @pytest.mark.parametrize("m,k,n,want", [

@@ -215,7 +215,8 @@ def test_engine_validates_and_refuses_unported_features(setup):
     with pytest.raises(ValueError):
         ServeEngine(tm, tparams, device="meta")
     # the xLSTM family is ported: a reduced xlstm-350m engine constructs;
-    # the other decoder-only families are not in the port's registry
+    # so do the dense and MoE families; zamba2-7b's config is known, its
+    # model refused
     xm = build(t_reduced(t_get_config("xlstm-350m")))
     eng = ServeEngine(xm, xm.init_values(torch.Generator().manual_seed(0),
                                          device="cpu"),
@@ -225,9 +226,17 @@ def test_engine_validates_and_refuses_unported_features(setup):
     with pytest.raises(ValueError, match="enc-dec"):
         ServeEngine(xm, eng.params, n_slots=2, max_len=32, device="cpu",
                     paged=True)
-    for name in ("qwen3-moe-30b-a3b", "gemma2-2b", "zamba2-7b"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            t_get_config(name)
+    for name in ("qwen3-moe-30b-a3b", "gemma2-2b"):
+        m = build(t_reduced(t_get_config(name)))
+        eng = ServeEngine(m, m.init_values(torch.Generator().manual_seed(0),
+                                           device="cpu"),
+                          n_slots=2, max_len=32, device="cpu")
+        assert eng.spec.self_kv and eng.cache_report()["kv_bytes_total"] > 0
+    with pytest.raises(NotImplementedError,
+                       match="item 14 \\(mamba and the zamba2 hybrid\\)"):
+        build(t_reduced(t_get_config("zamba2-7b"))).state_spec()
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_get_config("whisper-large")
 
 
 # ------------------------------------------------ speculative decoding
