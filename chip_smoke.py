@@ -92,12 +92,22 @@ k. gemma2-2b at full width and depth (26 layers, d_model 2304, 8/4 heads
    of 256, d_ff 9216 with gelu, vocab 256000 tied, softcaps 50/30,
    local/global layers with window 4096), bf16 weights and cache, the
    same requests (``flash_attention`` at head_dim 256 with softcap);
+l. zamba2-7b at full width and depth (81 layers: 13 segments of 5 mamba
+   blocks and the shared attention block, a tail of 3 mamba blocks;
+   d_model 3584, 32 heads of 112, d_ff 14336, ssm_state 64, 112 SSM
+   heads of 64, conv 4, vocab 32000 untied; seeded random bf16 weights
+   drawn on the card, a bf16 cache): 4 token requests with prompts of
+   64, 128, 192 and 300 ids (the last over two SSD chunks of 256), 32
+   new tokens each on 4 slots, 8 decode steps a tick, ``max_len`` 512
+   (``flash_attention`` at head_dim 112 in the shared block's prefill,
+   ``fp16_matmul`` for its products and the head; the mamba blocks are
+   torch ops, as the reference's are inline jnp);
 d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
    weights), the same requests, ``max_len`` 320. The sLSTM recurrence
    runs on ``slstm_scan`` at prefill and decode, the untied f32 head on
    ``fp16_matmul``.
-   Phases i, j, k and d print wall seconds, decode tok/s, ticks, host
-   syncs, the ``cache_report`` and the ``energy_report`` on
+   Phases i, j, k, l and d print wall seconds, decode tok/s, ticks,
+   host syncs, the ``cache_report`` and the ``energy_report`` on
    ``h100-sxm``.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
@@ -115,9 +125,12 @@ a streamed encoder chunk of 16 rows and its tail of 12. For phases i, j
 and k: flash attention at head_dim 128 (qwen3-4b's and qwen3-moe's
 prefill buckets, GQA 4 and 8, ragged, the KV split) and 256 (gemma2-2b's
 prefill with softcap 50 on a local and a global layer, a window of 128
-that binds, ragged, the KV split); ``q8_decode_attention`` at head_dim
+that binds, ragged, the KV split); for phase l flash attention at head_dim
+112 (zamba2-7b's prefill at its prompt lengths, the ragged S = 300, the
+KV split, masked rows); ``q8_decode_attention`` at head_dim
 128 with GQA 4 and 8 over 512 positions; the dense and Q8_0 GEMMs at
-qwen3-4b's decode (4 lanes) and prefill (256 rows) shapes and its head.
+qwen3-4b's decode (4 lanes) and prefill (256 rows) shapes and its head;
+the dense GEMM at zamba2-7b's shared block (4 lanes, 300 rows) and head.
 
 The f32 cases of phase 2 (the frontend GEMMs, the xLSTM head at a
 decode step and at prefill of every prompt position, the sLSTM
@@ -128,7 +141,7 @@ gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
-Every phase of 3, 4, 5, e, f, g, h, i, j, k and d runs twice with the
+Every phase of 3, 4, 5, e, f, g, h, i, j, k, l and d runs twice with the
 same engine settings:
 captured (the default: the engine's first tick of a size runs eagerly,
 the second captures it in a CUDA graph, every later one replays it) and
@@ -144,19 +157,28 @@ token block's fetch) and one host fetch a tick, no more.
 Before each run every kernel's launch count is set to 0 and the
 dispatch log cleared; after it the script requires that each kernel of
 that path launched and that every call of the seven ops was routed
-``("accel", "cuda")``, and the captured run's counts (its replays add
+``("accel", "cuda")`` (in phase l, zamba2-7b's MLP down, K = 14336, is
+over the h100-sxm budget of the paper's ACCEL/HOST law, so the law
+decides it ``"host"``; it must still run on the kernel, ``("host",
+"cuda")``), and the captured run's counts (its replays add
 what the capture pass recorded) must equal the eager run's. The engine
 of each phase keeps the logits
 row each token was chosen from; the same phase is then run again on the
 plain versions (forced, on the card) and the two runs' rows must agree
 within ``LOGIT_REL_TOL`` of the largest logit (``LOGIT_REL_TOL_Q4`` with a
 q4_0 cache, ``LOGIT_REL_TOL_DECODER`` in phases i and k,
-``LOGIT_REL_TOL_MOE`` in j, ``LOGIT_REL_TOL_XLSTM`` in d), request by
+``LOGIT_REL_TOL_MOE`` in j, ``LOGIT_REL_TOL_HYBRID`` in l,
+``LOGIT_REL_TOL_XLSTM`` in d), request by
 request, up to
 the first token where the runs differ, which must be a near-tie
 (``TIE_MARGIN``). Token lists held against each other (b against a, c
 against the plain serve) follow the same near-tie rule. Any failure
-raises and exits non-zero. The last line is the JSON result; the line
+raises and exits non-zero. Before its result lines the script requires
+that no process it started is still running (the kernel build and
+``nvidia-smi`` wait for their own, and the build kills an unfinished
+``nvcc`` with its compiler stages when it raises); on any exit, SIGTERM
+included, it kills whatever is left below it, and after the last line it
+leaves at once. The last line is the JSON result; the line
 before it the card's name and power limit, the one before that the
 kernels.
 """
@@ -167,6 +189,7 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -201,6 +224,12 @@ LOGIT_REL_TOL_DECODER = 0.05
 # expert at S=256) are discontinuous, so a last-bit difference in a
 # hidden state can send a token to another expert, or out of one
 LOGIT_REL_TOL_MOE = 0.25
+# phase l: the same for zamba2-7b, 0.0712 measured on an NVIDIA H100 80GB
+# HBM3 at 700 W, ~2.1x headroom. The two runs differ only in the shared
+# block (flash attention, fp16_matmul) and the head, but the 68 mamba
+# blocks carry a difference on through 81 layers, each adding its own
+# tipped bf16 roundings (~4e-3 of the stream a block, on the CPU)
+LOGIT_REL_TOL_HYBRID = 0.15
 TIE_MARGIN = 0.25    # a token flip is allowed only below this logit gap
 # a phase's captured logits rows against its eager run's, over the largest
 # logit, where they are not bit-equal
@@ -226,6 +255,17 @@ QWEN3_GEMMS = tuple(
         ("prefill wo, S=256", 256, 4096, 2560),
         ("prefill MLP up / gate, S=256", 256, 2560, 9728),
         ("prefill MLP down, S=256", 256, 9728, 2560)))
+#: the zamba2-7b shared block's products of phase l (fp16_matmul): a
+#: decode step of 4 lanes and the prefill of the longest prompt
+ZAMBA2_GEMMS = tuple(
+    (f"zamba2-7b {what}", m, k, n, None)
+    for what, m, k, n in (
+        ("decode wo, 4 lanes", 4, 3584, 3584),
+        ("decode MLP up / gate, 4 lanes", 4, 3584, 14336),
+        ("decode MLP down, 4 lanes", 4, 14336, 3584),
+        ("prefill wo, S=300", 300, 3584, 3584),
+        ("prefill MLP up / gate, S=300", 300, 3584, 14336),
+        ("prefill MLP down, S=300", 300, 14336, 3584)))
 
 
 def _log(*a):
@@ -354,7 +394,7 @@ def kernel_cases():
             ("encoder tail chunk wo", 12, 384, 384, bf),
             ("frontend mel (f32)", 3000, 201, 80, torch.float32),
             ("frontend projection (f32)", 1500, 80, 384, torch.float32),
-            *QWEN3_GEMMS):
+            *QWEN3_GEMMS, *ZAMBA2_GEMMS):
         dt = dt or bf
         x, w = randn((m, k), dt), randn((k, n), dt, k ** -0.5)
         out = bf if dt == bf else torch.float32
@@ -406,6 +446,17 @@ def kernel_cases():
                lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb, torch.float32),
                lambda x=x, w=wb: torch.matmul(x, w).float(),
                _nbytes(x, wb, y), 2.0 * 4 * n * k, "bf16", BF16_REL))
+    # the zamba2-7b head (phase l): the untied head multiplies f32
+    # activations by the bf16 lm_head as stored, over the padded vocab
+    k, n = 3584, 32768
+    x, wb = randn((4, k), torch.float32), randn((k, n), bf, k ** -0.5)
+    y = torch.empty((4, n), dtype=torch.float32, device=dev)
+    mm.append((f"zamba2-7b head, decode, 4 lanes (f32 x, bf16 w) (4,{k})@"
+               f"({k},{n})",
+               lambda x=x, wb=wb: mm_ops.fp16_matmul(x, wb),
+               lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb),
+               lambda x=x, w=wb.float(): torch.matmul(x, w),
+               _nbytes(x, wb, y), 2.0 * 4 * n * k, "f32", F32_REL))
     cases["fp16_matmul"] = mm
 
     # the main path's shapes (bf16 x and out); the verify's rows at the
@@ -516,6 +567,18 @@ def kernel_cases():
              256, True, 128, 50.0),
             ("split KV, GQA", 1, 33, 1500, 8, 4, 256, False, None, None),
             ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 256,
+             True, 16, None),
+            # D = 112: zamba2-7b's shared block (32 heads, MHA) at its
+            # prompts' lengths, the ragged 300, the KV split, masked rows
+            ("zamba2-7b prefill, causal", 1, 64, 64, 32, 32, 112, True,
+             None, None),
+            ("zamba2-7b prefill, causal", 1, 192, 192, 32, 32, 112, True,
+             None, None),
+            ("zamba2-7b prefill, causal, ragged", 1, 300, 300, 32, 32, 112,
+             True, None, None),
+            ("split KV", 1, 33, 1500, 32, 32, 112, False, None, None),
+            ("split KV, ragged", 2, 40, 65, 4, 4, 112, False, None, None),
+            ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 112,
              True, 16, None)):
         q, k, v = randn((b, sq, h, d)), randn((b, skv, hkv, d)), \
             randn((b, skv, hkv, d))
@@ -990,12 +1053,16 @@ def zero_counts() -> None:
     reset_dispatch_log()
 
 
-def read_counts(phase: str, expect: tuple) -> tuple:
+def read_counts(phase: str, expect: tuple, host_ok: tuple = ()) -> tuple:
     """Launch counts and routing counters of this phase; every expected
     kernel launched (an expected op without a kernel of its own, such as
     ``paged_decode_attention``, was dispatched) and every dispatched call
-    went ("accel", "cuda")."""
-    from repro_torch.kernels.api import dispatch_counters
+    went ("accel", "cuda"). An op of ``host_ok`` may also go ("host",
+    "cuda"): the paper's ACCEL/HOST law put the call's footprint over the
+    platform's budget (phase l's MLP down, K = 14336), and it ran on the
+    kernel all the same; each such call in the trace is checked to be
+    over the budget."""
+    from repro_torch.kernels.api import dispatch_counters, dispatch_trace
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     routing = dispatch_counters()
     _log(f"[{phase}] launches {counts}")
@@ -1006,9 +1073,20 @@ def read_counts(phase: str, expect: tuple) -> tuple:
         if k not in counts and not any(key[0] == k for key in routing):
             raise AssertionError(f"[{phase}] op {k} never dispatched")
     bad = {key: n for key, n in routing.items()
-           if key[1:] != ("accel", "cuda")}
+           if key[1:] != ("accel", "cuda")
+           and not (key[0] in host_ok and key[1:] == ("host", "cuda"))}
     if bad:
         raise AssertionError(f"[{phase}] calls not routed accel/cuda: {bad}")
+    host = [r for r in dispatch_trace() if r.decision == "host"]
+    if host:
+        if any(r.footprint <= r.budget or r.backend != "cuda" for r in host):
+            raise AssertionError(f"[{phase}] a HOST call within the budget "
+                                 f"or off the kernel")
+        _log(f"[{phase}] the law's HOST calls, run on the kernel: "
+             f"{sum(n for k, n in routing.items() if k[1] == 'host')} "
+             f"(K in {sorted({r.spec.k for r in host})}: footprint "
+             f"{max(r.footprint for r in host)} B > budget "
+             f"{host[0].budget} B)")
     if not routing:
         raise AssertionError(f"[{phase}] no dispatched call at all")
     return counts, routing
@@ -1782,7 +1860,7 @@ def routing_gate(phase: str, eng, prompts) -> None:
 
 def run_tokens(phase: str, model, params, prompts, max_len: int,
                expect: tuple, cache_dtype: str = "bf16",
-               tol: float = LOGIT_REL_TOL) -> tuple:
+               tol: float = LOGIT_REL_TOL, host_ok: tuple = ()) -> tuple:
     """A token-request phase (d, i, j, k) on the kernels, its ticks
     replayed from a CUDA graph, checked; the same eagerly, which it must
     equal; the captured engine's requests again (``rerun``); then on the
@@ -1805,7 +1883,7 @@ def run_tokens(phase: str, model, params, prompts, max_len: int,
             None if captured else False)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = read_counts(phase, expect)
+        counts = read_counts(phase, expect, host_ok)
         res = drain.first
         for st in res:
             if st.error:
@@ -1873,7 +1951,7 @@ def run_xlstm(phase: str) -> tuple:
 
 
 def decoder_model(arch: str):
-    """The model of phase i, j or k (``breakdown.decoder_setup``),
+    """The model of phase i, j, k or l (``breakdown.decoder_setup``),
     described."""
     from repro_torch.breakdown import DECODER_MAX_LEN, decoder_setup
 
@@ -1885,6 +1963,9 @@ def decoder_model(arch: str):
          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
          f"{cfg.d_ff}" + (f" ({cfg.n_experts} experts, top {cfg.top_k})"
                          if cfg.is_moe else "")
+         + (f", mamba: ssm_state {cfg.ssm_state}, SSM heads of "
+            f"{cfg.ssm_head_dim}, conv {cfg.ssm_conv}, shared attention "
+            f"every {cfg.attn_every}" if cfg.family == "hybrid" else "")
          + f", vocab {cfg.vocab}; {n_par} bf16 parameters, seeded init on "
            f"the card {time.monotonic() - t0:.1f} s; "
            f"{model.lane_state_bytes(DECODER_MAX_LEN)['total']} B of "
@@ -1894,11 +1975,49 @@ def decoder_model(arch: str):
 
 def run_decoder(phase: str, model, params, prompts, expect: tuple,
                 cache_dtype: str) -> tuple:
-    """Phase i, j or k (``run_tokens`` at ``DECODER_MAX_LEN``)."""
+    """Phase i, j, k or l (``run_tokens`` at ``DECODER_MAX_LEN``)."""
     from repro_torch.breakdown import DECODER_MAX_LEN
-    tol = LOGIT_REL_TOL_MOE if model.cfg.is_moe else LOGIT_REL_TOL_DECODER
+    hybrid = model.cfg.family == "hybrid"
+    tol = LOGIT_REL_TOL_MOE if model.cfg.is_moe else \
+        LOGIT_REL_TOL_HYBRID if hybrid else LOGIT_REL_TOL_DECODER
+    # zamba2-7b's MLP down (K = 14336) is over the h100-sxm budget of the
+    # ACCEL/HOST law (227 KB: K <= 11621 for a GEMM's footprint)
     return run_tokens(phase, model, params, prompts, DECODER_MAX_LEN,
-                      expect, cache_dtype, tol)
+                      expect, cache_dtype, tol,
+                      ("fp16_matmul",) if hybrid else ())
+
+
+def stop_children() -> list:
+    """Kill every process below this one that is still running, parents
+    first, and return their command lines. There should be none: the
+    kernel build and ``nvidia-smi`` wait for their own, and the build
+    kills an unfinished ``nvcc`` with its compiler stages when it
+    raises."""
+    try:
+        from repro_torch.kernels.build import descendants
+    except ImportError:       # the script alone, without the repository:
+        return []             # it started nothing
+    tree = descendants(os.getpid())
+    cmds = []
+    for pid in tree:
+        try:
+            with open(f"/proc/{pid}/cmdline") as f:
+                cmds.append(f.read().replace("\0", " ").strip())
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    for pid in tree:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+    return cmds
+
+
+def _terminated(signum, frame):
+    """SIGTERM ends the run through ``SystemExit``, so that the build's
+    and ``__main__``'s clean-up runs."""
+    raise SystemExit(128 + signum)
 
 
 def _tensors(tree):
@@ -2059,10 +2178,21 @@ def main() -> int:
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
+    model, params, prompts = decoder_model("zamba2-7b")
+    add(run_decoder("l: serve zamba2-7b bf16 4x4", model, params, prompts,
+                    fa_path, "bf16")[0])
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     add(run_xlstm("d: serve xlstm-350m 4x4")[0])
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
+    left = stop_children()
+    if left:
+        raise AssertionError(f"processes started by this run were still "
+                             f"running at its end (killed): {left}")
+    _log("processes started by this run and still running: none")
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
@@ -2082,4 +2212,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    signal.signal(signal.SIGTERM, _terminated)
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # leave at once: the card's state (captured graphs, the allocator's
+    # cached blocks, the context) goes with the process, where the
+    # interpreter's shutdown would free it object by object after the
+    # result line
+    os._exit(rc)

@@ -7,6 +7,7 @@ decoder-only model, goes on the card.
     python -m repro_torch.breakdown --arch xlstm-350m [--eager]
     python -m repro_torch.breakdown --arch qwen3-4b|qwen3-moe-30b-a3b|gemma2-2b
                                     [--cache-dtype bf16|q8_0] [--eager]
+    python -m repro_torch.breakdown --arch zamba2-7b [--eager]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
@@ -28,8 +29,11 @@ same requests from the configuration of ``chip_smoke.py``'s phase i, j
 or k: the model at full width (qwen3-moe-30b-a3b cut to its first 8 of
 48 layers, ``DECODER_LAYERS``) with seeded random bf16 weights drawn on
 the card, ``max_len`` 512; ``--cache-dtype q8_0`` serves Q8_0 weights
-(``Model.quantize``) with the q8_0 cache. It reports, after one warm-up
-run:
+(``Model.quantize``) with the q8_0 cache. ``--arch zamba2-7b`` runs phase
+l's configuration: the hybrid at full width and depth (81 layers) with
+seeded random bf16 weights drawn on the card, a bf16 cache, and prompts
+of 64, 128, 192 and 300 ids (``HYBRID_PROMPTS``; the last spans two SSD
+chunks of 256). It reports, after one warm-up run:
 
 * host-clock seconds of each stage (frontend, encode, prefill, decode;
   for xLSTM prefill of the 4 prompts, decode), each ended by a device
@@ -75,8 +79,11 @@ XLSTM_MAX_LEN = max(XLSTM_PROMPTS) + MAX_NEW + 32
 #: model's 48 layers are 61 GB of bf16 weights, too many to hold beside
 #: its serving copies and the plain run on an 80 GB card)
 DECODER_LAYERS = {"qwen3-4b": None, "qwen3-moe-30b-a3b": 8,
-                  "gemma2-2b": None}
+                  "gemma2-2b": None, "zamba2-7b": None}
 DECODER_MAX_LEN = 512
+#: phase l of chip_smoke.py: the hybrid's prompts, the last one over two
+#: SSD chunks of 256
+HYBRID_PROMPTS = (64, 128, 192, 300)
 
 
 def _timed(fn):
@@ -171,11 +178,11 @@ def run(cache_dtype: str, spec_k: int = 0, seed: int = 0,
             "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
 
-def _prompts(vocab: int, seed: int) -> list:
-    """The ``XLSTM_PROMPTS`` prompts' ids, drawn from ``seed``."""
+def _prompts(vocab: int, seed: int, lengths=XLSTM_PROMPTS) -> list:
+    """Prompts of ``lengths`` ids, drawn from ``seed``."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    return [rng.integers(3, vocab, size=n).tolist() for n in XLSTM_PROMPTS]
+    return [rng.integers(3, vocab, size=n).tolist() for n in lengths]
 
 
 def xlstm_setup(seed: int = 0):
@@ -191,26 +198,28 @@ def xlstm_setup(seed: int = 0):
 
 
 def decoder_setup(arch: str, seed: int = 0):
-    """The configuration of ``chip_smoke.py``'s phase i, j or k: ``arch``
-    at full width, cut to ``DECODER_LAYERS[arch]`` layers where that is
-    set, with seeded random weights drawn leaf by leaf by a CUDA
-    generator and stored in bf16 (the f32 peak is one leaf), and the
-    ``XLSTM_PROMPTS`` prompts' ids drawn from ``seed``. Returns (model,
-    params, prompts)."""
+    """The configuration of ``chip_smoke.py``'s phase i, j, k or l:
+    ``arch`` at full width, cut to ``DECODER_LAYERS[arch]`` layers where
+    that is set, with seeded random weights drawn leaf by leaf by a CUDA
+    generator and stored in bf16 (the f32 peak is one leaf; the hybrid's
+    SSM leaves stay f32), and the ``XLSTM_PROMPTS`` prompts' ids
+    (``HYBRID_PROMPTS`` for the hybrid) drawn from ``seed``. Returns
+    (model, params, prompts)."""
     cfg = get_config(arch)
     if DECODER_LAYERS[arch] is not None:
         cfg = dataclasses.replace(cfg, n_layers=DECODER_LAYERS[arch])
     model = build(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_values(gen, device="cuda", dtype=torch.bfloat16)
-    return model, params, _prompts(cfg.vocab, seed)
+    lengths = HYBRID_PROMPTS if cfg.family == "hybrid" else XLSTM_PROMPTS
+    return model, params, _prompts(cfg.vocab, seed, lengths)
 
 
 def run_tokens(arch: str, cache_dtype: str = "bf16", seed: int = 0,
                cuda_graph: bool = True) -> dict:
-    """The breakdown of ``chip_smoke.py``'s phase d (xlstm-350m) or i, j,
+    """The breakdown of ``chip_smoke.py``'s phase d (xlstm-350m), i, j,
     k (the decoder-only attention models; ``cache_dtype="q8_0"``: Q8_0
-    weights and the q8_0 cache)."""
+    weights and the q8_0 cache) or l (zamba2-7b)."""
     if arch == "xlstm-350m":
         model, params, prompts = xlstm_setup(seed)
         max_len = XLSTM_MAX_LEN
@@ -270,6 +279,23 @@ PORT_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::"
 #: and the CUDA memcpy / memset nodes)
 COPY = re.compile(r"copy|Memcpy|Memset|cast", re.IGNORECASE)
 
+#: the library's matrix products (cuBLAS / CUTLASS kernels), which the
+#: torch.matmul calls outside the port's kernels launch (the mamba and
+#: mLSTM projections, batched einsums)
+LIBRARY_MM = re.compile(r"gemm|gemv|cutlass|xmma|cublas|nvjet|splitK",
+                        re.IGNORECASE)
+
+
+def _group(name: str) -> str:
+    """The share of the tick a kernel counts in: the port's own kernels,
+    the library's matrix products, or the other torch kernels
+    (elementwise chains, reductions, copies)."""
+    if PORT_KERNEL.match(name):
+        return "port_kernels"
+    if LIBRARY_MM.search(name):
+        return "library_matmuls"
+    return "other_torch_kernels"
+
 
 def _tick_report(prof, stages: dict) -> dict:
     """Device time of the profiled tick against the wall time of the
@@ -286,6 +312,11 @@ def _tick_report(prof, stages: dict) -> dict:
         s[0] += 1
         s[1] += e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    groups: dict[str, list] = {}
+    for n, (c, us) in ranked:
+        g = groups.setdefault(_group(n), [0, 0.0])
+        g[0] += c
+        g[1] += us
 
     def rows(items):
         return [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
@@ -294,6 +325,9 @@ def _tick_report(prof, stages: dict) -> dict:
     return {"unprofiled_wall_s": t_tick, "device_s": dev_us * 1e-6,
             "busy_share": dev_us * 1e-6 / t_tick,
             "kernel_launches": len(kernels),
+            "groups": {g: {"count": c, "device_ms": us * 1e-3,
+                           "share": us / dev_us if dev_us else 0.0}
+                       for g, (c, us) in groups.items()},
             "top": rows(ranked[:10]),
             "copies": rows([kv for kv in ranked if COPY.search(kv[0])]),
             "port_kernels": rows([kv for kv in ranked
@@ -327,10 +361,11 @@ def main() -> None:
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
     if args.arch != "whisper-tiny-en":
         if args.spec_k or args.paged or args.lanes != 1 or (
-                args.cache_dtype != "bf16" and args.arch == "xlstm-350m"):
+                args.cache_dtype != "bf16"
+                and args.arch in ("xlstm-350m", "zamba2-7b")):
             raise SystemExit(f"{args.arch} serves 4 token requests without "
                              f"speculative decoding or pages (and "
-                             f"xlstm-350m a bf16 state pool)")
+                             f"xlstm-350m and zamba2-7b a bf16 pool)")
         r = run_tokens(args.arch, args.cache_dtype,
                        cuda_graph=not args.eager)
     else:
@@ -342,6 +377,9 @@ def main() -> None:
     print(f"decode tick: unprofiled_wall_s={t['unprofiled_wall_s']} "
           f"device_s={t['device_s']} "
           f"busy_share={t['busy_share']} launches={t['kernel_launches']}")
+    for g, row in t["groups"].items():
+        print(f"  {g}: {row['device_ms']:.4f} ms x{row['count']} "
+              f"({row['share']:.3f} of the device time)")
     for row in t["top"]:
         print(f"  {row['device_ms']:.4f} ms  x{row['count']}  {row['name']}")
     print("the port's kernels:")

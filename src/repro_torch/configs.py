@@ -1,10 +1,10 @@
 """Architecture configs for the port: ``ArchConfig``, ``reduced()`` and
-the models the port knows: the paper's Whisper model, xlstm-350m, the
-dense and MoE decoder-only families, and zamba2-7b (data only: its
-model is not ported yet).
+the models of the JAX package's registry: the paper's Whisper models
+(whisper-tiny.en, whisper-base), xlstm-350m, the dense and MoE
+decoder-only families, and the zamba2-7b hybrid.
 
 A copy of the JAX package's ``repro.configs`` (the port imports nothing
-from it), cut to the models the port knows.
+from it).
 ``reduced()`` produces the CPU-test shrink of a config with the same
 rule as the reference, so both packages build identically shaped
 parameters from one config name.
@@ -96,6 +96,14 @@ WHISPER_TINY_EN = ArchConfig(
     source="whisper.cpp / arXiv:2212.04356",
 )
 
+WHISPER_BASE = ArchConfig(
+    name="whisper-base", family="audio",
+    n_layers=6, enc_layers=6, enc_dec=True,
+    d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab=51865,
+    act="gelu", tie_embeddings=True,
+    source="arXiv:2212.04356 (unverified tier)",
+)
+
 # d_ff=0: the blocks carry their own 2x up/down projections (proj_factor);
 # 24 blocks = 12 (mLSTM, sLSTM) pairs
 XLSTM_350M = ArchConfig(
@@ -160,7 +168,8 @@ LLAVA_NEXT_34B = ArchConfig(
     source="hf:llava-hf/llava-v1.6-mistral-7b-hf (unverified tier)",
 )
 
-# data only: the mamba blocks and the hybrid pattern are not ported yet
+# 13 segments of (5 mamba + the shared attention block) and a tail of 3
+# mamba blocks: 81 layers
 ZAMBA2_7B = ArchConfig(
     name="zamba2-7b", family="hybrid",
     n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, d_ff=14336,
@@ -169,7 +178,8 @@ ZAMBA2_7B = ArchConfig(
     source="arXiv:2411.15242 (unverified tier)",
 )
 
-_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN, "xlstm_350m": XLSTM_350M,
+_REGISTRY = {"whisper_tiny_en": WHISPER_TINY_EN,
+             "whisper_base": WHISPER_BASE, "xlstm_350m": XLSTM_350M,
              "qwen3_4b": QWEN3_4B, "gemma2_2b": GEMMA2_2B,
              "mixtral_8x7b": MIXTRAL_8X7B,
              "qwen3_moe_30b_a3b": QWEN3_MOE_30B_A3B,

@@ -74,9 +74,16 @@
 //    nothing to l or acc); m never starts at -inf, so no exp(-inf + inf).
 //
 // Instantiated for what the port runs: bf16 at head_dim 64
-// (whisper-tiny.en), 32 (the reduced configurations), 128 (qwen3-4b,
+// (whisper-tiny.en, whisper-base), 32 (the reduced configurations), 112
+// (zamba2-7b's shared attention block: 3584 / 32 heads), 128 (qwen3-4b,
 // qwen3-moe-30b-a3b and the other decoder-only models) and 256
-// (gemma2-2b). Any other D is refused.
+// (gemma2-2b). Any other D is refused. D = 112 takes Layout<128>'s tiles
+// and needs no padding: its 7 k16 steps of Q K^T are taken one at a
+// time, its 14 n8 tiles of P V two at a time (one ldmatrix.x4 a pair),
+// a row is 14 chunks of 16 bytes, so a 64-row tile is 7 rounds of the
+// CTA's 128 copies, and the row stride of 120 elements (240 bytes) keeps
+// ldmatrix's 8 rows on distinct banks. 75 KB of shared memory a CTA:
+// two an SM.
 
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -96,11 +103,16 @@ constexpr float NEG_INF = -1e30f;  // the reference's mask value
 // registers for the whole KV loop.
 template <int D>
 struct Layout {
+  // whole k16 steps, pairs of n8 tiles, and a tile's 16-byte copies in
+  // whole rounds of the CTA's threads
+  static_assert(D % 16 == 0, "head_dim: whole k16 steps and n8 pairs");
   static constexpr int MT = D <= 64 ? 2 : 1;
   static constexpr int BKV = D <= 128 ? 64 : 32;
   static constexpr int MINB = D <= 128 ? 2 : 1;
   static constexpr bool QREG = D <= 128;
   static constexpr int BQ = NW * MT * 16;   // queries a CTA
+  static_assert(BKV * (D / 8) % NT == 0 && BQ * (D / 8) % NT == 0,
+                "a tile's copies in whole rounds");
 };
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -465,7 +477,7 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), all contiguous bf16 with
-// 16-byte aligned bases; D is 32, 64, 128 or 256. window <= 0: none;
+// 16-byte aligned bases; D is 32, 64, 112, 128 or 256. window <= 0: none;
 // softcap <= 0: none. splits >= 1 KV splits of whole Layout<D>::BKV-key
 // tiles; with splits > 1, part_o holds splits * B*H*Sq * D floats and
 // part_ml splits * B*H*Sq * 2.
@@ -482,6 +494,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: bkv = Layout<32>::BKV; break;
     case 64: bkv = Layout<64>::BKV; break;
+    case 112: bkv = Layout<112>::BKV; break;
     case 128: bkv = Layout<128>::BKV; break;
     case 256: bkv = Layout<256>::BKV; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -498,6 +511,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: launch<32>(a, B, s); break;
     case 64: launch<64>(a, B, s); break;
+    case 112: launch<112>(a, B, s); break;
     case 128: launch<128>(a, B, s); break;
     case 256: launch<256>(a, B, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -19,6 +19,7 @@ import hashlib
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -79,38 +80,99 @@ def _nvcc() -> str:
                        "kernels of repro_torch are built on first use")
 
 
+def _children(pid: int) -> list[int]:
+    """Processes whose parent is ``pid`` (Linux ``/proc``)."""
+    kids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the field after the parenthesised command name: state, ppid
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == pid:
+            kids.append(int(entry))
+    return kids
+
+
+def descendants(pid: int) -> list[int]:
+    """Every live process below ``pid``, parents before their children."""
+    out, todo = [], [pid]
+    while todo:
+        kids = _children(todo.pop())
+        out += kids
+        todo += kids
+    return out
+
+
+def stop_tree(proc: subprocess.Popen) -> None:
+    """Kill ``proc`` and every process below it, and reap ``proc``. nvcc
+    runs its compiler stages as children (cicc, ptxas, gcc), which
+    killing nvcc alone would leave running. The tree is stopped first,
+    level by level, so that no process forks a child that escapes."""
+    stopped = [proc.pid]
+    for pid in stopped:            # grows as each level is found
+        try:
+            os.kill(pid, signal.SIGSTOP)
+        except ProcessLookupError:
+            continue
+        stopped += [k for k in _children(pid) if k not in stopped]
+    for pid in stopped:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
 def build_all() -> dict[str, float]:
     """Build every kernel library that is not built yet, one ``nvcc``
     process per source, all started together. Returns the seconds each
-    library took to build in this process (0.0 where it was reused)."""
+    library took to build in this process (0.0 where it was reused).
+    Every ``nvcc`` has ended when it returns or raises: one still
+    running when an error (or a signal turned into an exception) stops
+    the build is killed with its compiler stages."""
     with _lock:
         out_dir = _build_root() / _digest()
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = None
         procs = {}
         t0 = time.monotonic()
-        for name, src in SOURCES.items():
-            lib = out_dir / f"lib{name}.so"
-            if name in _build_s:
-                continue
-            if lib.exists():
-                _build_s[name] = 0.0
-                continue
-            nvcc = nvcc or _nvcc()
-            tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-            log = open(out_dir / f"{name}.log", "w")
-            procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-                stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
-        failed = []
-        for name, (proc, tmp, lib, log) in procs.items():
-            rc = proc.wait()
-            log.close()
-            if rc != 0:
-                failed.append(name)
-                continue
-            os.replace(tmp, lib)
-            _build_s[name] = time.monotonic() - t0
+        try:
+            for name, src in SOURCES.items():
+                lib = out_dir / f"lib{name}.so"
+                if name in _build_s:
+                    continue
+                if lib.exists():
+                    _build_s[name] = 0.0
+                    continue
+                nvcc = nvcc or _nvcc()
+                tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+                log = open(out_dir / f"{name}.log", "w")
+                try:
+                    proc = subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                        stdout=log, stderr=subprocess.STDOUT)
+                except BaseException:
+                    log.close()
+                    raise
+                procs[name] = (proc, tmp, lib, log)
+            failed = []
+            for name, (proc, tmp, lib, log) in procs.items():
+                rc = proc.wait()
+                if rc != 0:
+                    failed.append(name)
+                    continue
+                os.replace(tmp, lib)
+                _build_s[name] = time.monotonic() - t0
+        finally:
+            for proc, tmp, _, log in procs.values():
+                if proc.poll() is None:
+                    stop_tree(proc)
+                log.close()
+                tmp.unlink(missing_ok=True)
         if failed:
             logs = "\n".join(
                 f"--- {n}:\n" + (out_dir / f"{n}.log").read_text()[-4000:]

@@ -2,9 +2,10 @@
 
 ``flash_attention(q, k, v)`` over the model's (B, S, H, D) layout with
 GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill).
-The kernel takes bf16 with head_dim 64 (whisper-tiny.en), 32 (the
-reduced configurations), 128 (the decoder-only models) or 256
-(gemma2-2b); calls outside that raise on every device. On CUDA tensors
+The kernel takes bf16 with head_dim 64 (whisper-tiny.en, whisper-base),
+32 (the reduced configurations), 112 (zamba2-7b's shared attention), 128
+(the other decoder-only models) or 256 (gemma2-2b); calls outside that
+raise on every device. On CUDA tensors
 it launches the kernel, which reads KV heads by index and masks a ragged
 S itself; on CPU tensors it runs the plain version.
 
@@ -27,8 +28,8 @@ from repro_torch.kernels.flash_attention import plain
 
 #: head_dim -> (queries a block, keys a KV tile, blocks an SM holds):
 #: the kernel's Layout<D> (csrc/flash_attention.cu)
-LAYOUT = {32: (128, 64, 2), 64: (128, 64, 2), 128: (64, 64, 2),
-          256: (64, 32, 1)}
+LAYOUT = {32: (128, 64, 2), 64: (128, 64, 2), 112: (64, 64, 2),
+          128: (64, 64, 2), 256: (64, 32, 1)}
 HEAD_DIMS = tuple(LAYOUT)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8

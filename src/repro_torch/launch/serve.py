@@ -1,13 +1,16 @@
 """Serving launcher of the port: the continuous-batching engine over
 synthetic requests, on the card (the JAX package's ``launch/serve.py``).
 
-Enc-dec archs (whisper-*) get synthetic encoder frames per request;
-decoder-only archs (qwen3-4b, qwen3-moe-30b-a3b, gemma2-2b, mixtral-8x7b,
-deepseek-7b, codeqwen1.5-7b, xlstm-350m) serve token requests through
-the same scheduler. Weights are seeded random (``--seed``): the dense
-and MoE families' are drawn on ``--device`` and stored in bf16, the
-dtype every product takes them in; the others' are drawn in f32 on the
-CPU.
+Enc-dec archs (whisper-tiny-en, whisper-base) get synthetic encoder
+frames per request; decoder-only archs (qwen3-4b, qwen3-moe-30b-a3b,
+gemma2-2b, mixtral-8x7b, deepseek-7b, codeqwen1.5-7b, xlstm-350m and
+the zamba2-7b hybrid) serve token requests through the same scheduler.
+Weights are seeded random (``--seed``): the dense, MoE and hybrid
+families' are drawn on ``--device`` and stored in bf16, the dtype every
+product takes them in (the hybrid's SSM leaves stay f32); the others'
+are drawn in f32 on the CPU. zamba2-7b takes float weights and a bf16
+cache at full width (head_dim 112 has no quantized tier), and no
+``--q8`` or ``--spec-k``.
 
 Usage::
 
@@ -42,7 +45,8 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--q8", action="store_true",
-                    help="serve Q8_0-quantized weights (not xLSTM)")
+                    help="serve Q8_0-quantized weights (not xLSTM or the "
+                         "hybrid)")
     ap.add_argument("--cache-dtype", choices=["bf16", "q8_0", "q4_0"],
                     default="bf16",
                     help="KV-cache storage; recurrent lanes take bf16 only")
@@ -78,8 +82,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.q8 and cfg.xlstm:
-        raise SystemExit(f"--q8: {cfg.name}'s xLSTM blocks cast their "
+    if args.q8 and (cfg.xlstm or cfg.family == "hybrid"):
+        raise SystemExit(f"--q8: {cfg.name}'s recurrent blocks cast their "
                          f"weights per call and take no Q8_0 weights; "
                          f"serve it without --q8")
     model = build(cfg)

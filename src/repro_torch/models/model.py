@@ -1,7 +1,7 @@
 """Model API of the port (the JAX package's ``models/model.py``, for the
-encoder-decoder Whisper model and the decoder-only families ported so
-far: dense and MoE attention, xLSTM) and the per-lane serving state
-spec."""
+encoder-decoder Whisper models and the decoder-only families: dense and
+MoE attention, xLSTM and the zamba2 hybrid) and the per-lane serving
+state spec."""
 
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ class LaneStateSpec:
         return tuple(out)
 
 
-_RECURRENT_KIND = {"mlstm": "mstate", "slstm": "sstate"}
+_RECURRENT_KIND = {"mlstm": "mstate", "slstm": "sstate", "mamba": "ssm"}
 
 #: the key sets of a KV-plane dict in a cache tree (bf16, q8_0, q4_0)
 _KV_PLANE_KEYS = ({"k", "v"}, {"kq", "ks", "vq", "vs"},
@@ -105,7 +105,14 @@ class Model:
         """``values`` with its weights quantized to ``tier`` (``q8_0``, or
         ``q4_0`` for the speculative draft), as ``quantize_tree`` does;
         a decoder-only tree only where ``transformer.quantizable``
-        says."""
+        says. A tree with mamba blocks is refused: the reference's
+        ``mamba_block`` casts its weights with ``.astype``, which a
+        quantized weight does not have, so it serves them float only."""
+        if any(bt == "mamba" for bt in self._blocks()):
+            raise ValueError(
+                f"{self.cfg.name}: mamba blocks take float weights only "
+                f"(the reference's mamba_block cannot take Q8_0 or Q4_0 "
+                f"weights); serve it unquantized")
         if self.cfg.enc_dec:
             return quantize_tree(values, tier=tier)
         return quantize_tree(values, predicate=tf_mod.quantizable,
@@ -193,14 +200,15 @@ class Model:
                 family=cfg.family, self_kv=True, cross_kv=True,
                 quant_tiers=("q8_0", "q4_0") if cfg.head_dim % 32 == 0
                 else ())
-        # decoder-only: attention blocks carry causal K/V (and MoE its
-        # routing counters); mLSTM / sLSTM blocks recurrent state, with no
-        # KV plane to quantize. The quantized tiers need plain softmax
-        # decode attention, as the reference's do
-        blocks = [bt for bt, _ in tf_mod.segment_pattern(cfg)]
+        # decoder-only: attention blocks (the hybrid's shared one too)
+        # carry causal K/V (and MoE its routing counters); mamba, mLSTM
+        # and sLSTM blocks recurrent state, with no KV plane to quantize.
+        # The quantized tiers need plain softmax decode attention, as the
+        # reference's do
+        blocks = self._blocks()
         recurrent = tuple(dict.fromkeys(_RECURRENT_KIND[bt] for bt in blocks
                                         if bt in _RECURRENT_KIND))
-        self_kv = "attn" in blocks
+        self_kv = any(bt in ("attn", "shared_attn") for bt in blocks)
         quant = (self_kv and cfg.head_dim % 32 == 0
                  and cfg.attn_softcap is None and cfg.sliding_window is None
                  and not cfg.local_global)
@@ -211,6 +219,14 @@ class Model:
             moe_top_k=cfg.top_k if cfg.is_moe else 0,
             prefill_exact=bool(recurrent),
             quant_tiers=("q8_0", "q4_0") if quant else ())
+
+    def _blocks(self) -> list:
+        """The block types of a decoder-only model's segment and tail
+        patterns (none for the enc-dec model)."""
+        if self.cfg.enc_dec:
+            return []
+        return [bt for bt, _ in tf_mod.segment_pattern(self.cfg)
+                + tf_mod.tail_pattern(self.cfg)]
 
     def lane_state_bytes(self, max_len: int, enc_len: int = 1500,
                          dtype=torch.bfloat16) -> dict:

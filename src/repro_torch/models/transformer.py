@@ -1,13 +1,21 @@
 """Decoder-only stack of the port (the JAX package's
-``models/transformer.py``), for the families ported so far: the dense and
-MoE attention families and xLSTM.
+``models/transformer.py``): the dense and MoE attention families, xLSTM
+and the zamba2 hybrid.
 
 The layer stack is ``n_segments`` repetitions of a per-arch segment
 pattern (one attention block for dense and MoE models, (local, global)
-attention pairs for gemma2, (mLSTM, sLSTM) pairs for xLSTM); each
-parameter and cache leaf carries a leading ``(n_segments, ...)`` axis, as
-the reference's ``lax.scan`` stacks them, and a Python loop over the
-segments takes the scan's place.
+attention pairs for gemma2, (mLSTM, sLSTM) pairs for xLSTM, five mamba
+blocks and a shared attention block for zamba2); each parameter and
+cache leaf carries a leading ``(n_segments, ...)`` axis, as the
+reference's ``lax.scan`` stacks them, and a Python loop over the
+segments takes the scan's place. The hybrid's layers that do not fill a
+whole segment (zamba2: 81 % 6 = 3 mamba blocks) form the ``tail``,
+stacked the same way and run after the segments.
+
+zamba2's attention block is shared: its parameters live once in
+``params["shared"]`` (a segment's ``shared_attn`` subtree is empty, as in
+the reference), and each of its occurrences keeps its own K/V planes in
+the stacked pool.
 
 An attention block is rmsnorm, attention with rotary positions, and a
 gated MLP or a MoE FFN, each with its residual. Its cache subtree holds
@@ -18,10 +26,6 @@ length, the prompt's routing counts). Decode writes in place into the
 pool it was given: each attention layer its new K/V rows, each MoE layer
 its counters, each recurrent block its whole new state (the reference
 rewrites that in full every step too); it returns that pool.
-
-The mamba blocks and the zamba2 hybrid (its shared attention block and
-its tail of mamba blocks) are not ported yet: ``segment_pattern`` raises
-``NotImplementedError`` for them (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -33,25 +37,23 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
                                        init_mlp, init_rmsnorm, layer_slice,
                                        logits_head, mlp, ninit, pad_vocab,
                                        prepare_head, rmsnorm, stack_layers)
 
-_NOT_PORTED = "ROADMAP queue 1, item 14 (mamba and the zamba2 hybrid)"
-
-
 def segment_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
     """[(block_type, attn_kind)] per segment: (mLSTM, sLSTM) for xLSTM,
-    (local, global) attention for gemma2, one global attention block for
-    the other dense and MoE models. The hybrid family is refused."""
+    ``attn_every - 1`` mamba blocks and the shared attention block for
+    the hybrid, (local, global) attention for gemma2, one global
+    attention block for the other dense and MoE models."""
     if cfg.xlstm:
         return [("mlstm", "-"), ("slstm", "-")]
     if cfg.family == "hybrid" and cfg.attn_every:
-        raise NotImplementedError(f"{cfg.name}: the mamba blocks and the "
-                                  f"hybrid pattern are not ported yet "
-                                  f"({_NOT_PORTED})")
+        return [("mamba", "-")] * (cfg.attn_every - 1) \
+            + [("shared_attn", "global")]
     if cfg.local_global:
         return [("attn", "local"), ("attn", "global")]
     return [("attn", "global")]
@@ -72,8 +74,19 @@ def quantizable(path: tuple, leaf) -> bool:
     return path[-1] in _QUANT_LEAVES and "moe" not in path
 
 
+def tail_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """The layers that do not fill a whole segment (zamba2: 81 % 6 = 3
+    mamba blocks)."""
+    if cfg.family == "hybrid" and cfg.attn_every \
+            and cfg.n_layers % cfg.attn_every:
+        return [("mamba", "-")] * (cfg.n_layers % cfg.attn_every)
+    return []
+
+
 def n_segments(cfg: ArchConfig) -> int:
     unit = len(segment_pattern(cfg))
+    if cfg.family == "hybrid" and cfg.attn_every:
+        return cfg.n_layers // cfg.attn_every
     assert cfg.n_layers % unit == 0, (cfg.name, cfg.n_layers, unit)
     return cfg.n_layers // unit
 
@@ -86,10 +99,23 @@ def n_segments(cfg: ArchConfig) -> int:
 _BLOCKS = {"mlstm": ("mstate", xlstm_mod.init_mlstm, xlstm_mod.mlstm_block,
                      xlstm_mod.init_mlstm_cache),
            "slstm": ("sstate", xlstm_mod.init_slstm, xlstm_mod.slstm_block,
-                     xlstm_mod.init_slstm_cache)}
+                     xlstm_mod.init_slstm_cache),
+           "mamba": ("ssm", ssm_mod.init_mamba, ssm_mod.mamba_block,
+                     ssm_mod.init_mamba_cache)}
+
+#: the block types whose subtree holds attention K/V planes
+_KV_BLOCKS = ("attn", "shared_attn")
 
 
 def _init_block(gen, cfg: ArchConfig, btype: str, device, dtype) -> dict:
+    """One block's parameters; ``shared_attn`` has none (they live in
+    ``params["shared"]``). The mamba projections take ``dtype`` as the
+    attention's do; the xLSTM blocks stay f32."""
+    if btype == "shared_attn":
+        return {}
+    if btype == "mamba":
+        return {"ln1": init_rmsnorm(cfg.d_model, device),
+                "mamba": ssm_mod.init_mamba(gen, cfg, device, dtype)}
     if btype == "attn":
         p = {"ln1": init_rmsnorm(cfg.d_model, device),
              "attn": attn_mod.init_attention(gen, cfg, device, dtype)}
@@ -145,8 +171,8 @@ def _attn_block(bp: dict, x, cfg: ArchConfig, kind: str, *, mode: str,
 def _state_block(bp: dict, x, cfg: ArchConfig, btype: str, *, mode: str,
                  cache: Optional[dict]):
     """One recurrent block with its residual. ``cache``: this block's
-    subtree of one segment (``{"mstate": ...}`` / ``{"sstate": ...}``) or
-    None. Returns (x, new subtree or None)."""
+    subtree of one segment (``{"mstate": ...}``, ``{"sstate": ...}``,
+    ``{"ssm": ...}``) or None. Returns (x, new subtree or None)."""
     kind, _, fn, _ = _BLOCKS[btype]
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     sub = None if cache is None else cache.get(kind)
@@ -156,7 +182,7 @@ def _state_block(bp: dict, x, cfg: ArchConfig, btype: str, *, mode: str,
 
 def _block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
                  dtype, device) -> dict:
-    if btype == "attn":
+    if btype in _KV_BLOCKS:
         c = {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
                                           device)}
         if cfg.is_moe and cfg.d_ff:
@@ -178,11 +204,13 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device,
                  dtype=torch.float32) -> dict:
     """Parameters with the reference's tree, shapes and distributions
     (``models/transformer.py:191-226``): ``embed``, ``segments`` stacked
-    on a leading (n_segments, ...) axis, ``final_norm`` and, for an
-    untied head, ``lm_head`` (d, padded vocab). ``dtype``: the storage
-    type of the attention, MLP, MoE, embedding and head weights (each
-    drawn in f32 and cast at once); norms, biases and the recurrent
-    blocks stay f32."""
+    on a leading (n_segments, ...) axis, ``final_norm``, for the hybrid
+    ``tail`` (stacked the same way) and ``shared`` (the one attention
+    block) and, for an untied head, ``lm_head`` (d, padded vocab).
+    ``dtype``: the storage type of the attention, MLP, MoE, mamba
+    projection, embedding and head weights (each drawn in f32 and cast
+    at once); norms, biases, the mamba's ``wdt``, decay and conv leaves
+    and the xLSTM blocks stay f32."""
     pattern = segment_pattern(cfg)
     segs = [{f"block{j}": _init_block(gen, cfg, bt, device, dtype)
              for j, (bt, _) in enumerate(pattern)}
@@ -192,6 +220,14 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device,
         "segments": stack_layers(segs),
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
+    del segs   # the unstacked draws: one copy of the weights at a time
+    tail = tail_pattern(cfg)
+    if tail:
+        params["tail"] = stack_layers(
+            [{"block0": _init_block(gen, cfg, bt, device, dtype)}
+             for bt, _ in tail])
+    if any(bt == "shared_attn" for bt, _ in pattern):
+        params["shared"] = _init_block(gen, cfg, "attn", device, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = ninit(gen, (cfg.d_model, pad_vocab(cfg.vocab)),
                                   cfg.d_model, device, dtype)
@@ -199,6 +235,10 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device,
 
 
 def _prepare_block(bp: dict, btype: str) -> dict:
+    if btype == "shared_attn":
+        return bp
+    if btype == "mamba":
+        return {**bp, "mamba": ssm_mod.prepare_mamba(bp["mamba"])}
     if btype == "mlstm":
         return {**bp, "mlstm": xlstm_mod.prepare_mlstm(bp["mlstm"])}
     if btype == "slstm":
@@ -216,12 +256,18 @@ def prepare_serving(params: dict, cfg: ArchConfig) -> dict:
     """The serving tree of ``params``: each block's weights with what its
     forward derives from them made once (attention and MLP projections
     in bf16 with the fused ``wqkv``, the MoE router in f32 and its experts
-    in bf16; ``xlstm.prepare_mlstm`` / ``prepare_slstm``), and a tied
-    head's f32 operand."""
+    in bf16; ``ssm.prepare_mamba``, ``xlstm.prepare_mlstm`` /
+    ``prepare_slstm``), the hybrid's shared block prepared once, and a
+    tied head's f32 operand."""
     segs = dict(params["segments"])
     for j, (bt, _) in enumerate(segment_pattern(cfg)):
         segs[f"block{j}"] = _prepare_block(segs[f"block{j}"], bt)
     out = {**params, "segments": segs}
+    if "tail" in params:
+        out["tail"] = {"block0": _prepare_block(params["tail"]["block0"],
+                                                "mamba")}
+    if "shared" in params:
+        out["shared"] = _prepare_block(params["shared"], "attn")
     if "lm_head" not in params:
         out["embed"] = prepare_head(params["embed"])
     return out
@@ -236,6 +282,44 @@ def _write_state(pool, new, i: int) -> None:
             pool[key][i].copy_(sub)
 
 
+def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
+               pattern: list, n: int, *, mode: str, pos,
+               shared: Optional[dict], n_valid):
+    """Run the ``n`` stacked layers of ``stack`` (the segments, or the
+    hybrid's tail) over x, with their ``cache`` subtree (the
+    prefill's fresh one, or the decode's pool, which each block writes in
+    place). Returns (x, the prefill's new stacked subtree, else None)."""
+    new_layers = []
+    for i in range(n):
+        sp = layer_slice(stack, i)
+        sc = None
+        if cache is not None and mode != "decode":
+            sc = layer_slice(cache, i)
+        new = {}
+        for j, (bt, kind) in enumerate(pattern):
+            name = f"block{j}"
+            if bt in _KV_BLOCKS:
+                # decode: the stacked pool, written in place at layer i
+                bc = cache[name] if mode == "decode" \
+                    else None if sc is None else sc[name]
+                x, nc = _attn_block(shared if bt == "shared_attn"
+                                    else sp[name], x, cfg, kind, mode=mode,
+                                    cache=bc, pos=pos,
+                                    layer_idx=i if mode == "decode"
+                                    else None, n_valid=n_valid)
+            else:
+                bc = None if cache is None else (
+                    layer_slice(cache[name], i) if mode == "decode"
+                    else sc[name])
+                x, nc = _state_block(sp[name], x, cfg, bt, mode=mode,
+                                     cache=bc)
+                if mode == "decode":
+                    _write_state(cache[name], nc, i)
+            new[name] = nc
+        new_layers.append(new)
+    return x, stack_layers(new_layers) if mode == "prefill" else None
+
+
 def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                     mode: str = "train", cache=None, pos=None,
                     prefix_embed: Optional[torch.Tensor] = None,
@@ -248,45 +332,29 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     patch stub; the logits cover them too). ``n_valid`` (serving
     prefill): the live prompt length of a padded bucket, whose padding
     the MoE capacity cut must not count."""
-    pattern = segment_pattern(cfg)
     x = embed(params["embed"], tokens)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         if n_valid is not None:
             n_valid = n_valid + prefix_embed.shape[1]
-    seg_cache = None if cache is None else cache["segments"]
-    new_segs = []
-    for i in range(n_segments(cfg)):
-        sp = layer_slice(params["segments"], i)
-        sc = None
-        if seg_cache is not None and mode != "decode":
-            sc = layer_slice(seg_cache, i)
-        new = {}
-        for j, (bt, kind) in enumerate(pattern):
-            name = f"block{j}"
-            if bt == "attn":
-                # decode: the stacked pool, written in place at layer i
-                bc = seg_cache[name] if mode == "decode" \
-                    else None if sc is None else sc[name]
-                x, nc = _attn_block(sp[name], x, cfg, kind, mode=mode,
-                                    cache=bc, pos=pos,
-                                    layer_idx=i if mode == "decode"
-                                    else None, n_valid=n_valid)
-            else:
-                bc = None if seg_cache is None else (
-                    layer_slice(seg_cache[name], i) if mode == "decode"
-                    else sc[name])
-                x, nc = _state_block(sp[name], x, cfg, bt, mode=mode,
-                                     cache=bc)
-                if mode == "decode":
-                    _write_state(seg_cache[name], nc, i)
-            new[name] = nc
-        new_segs.append(new)
+    kw = dict(mode=mode, pos=pos, n_valid=n_valid)
+    x, segs = _run_stack(params["segments"],
+                         None if cache is None else cache["segments"], x,
+                         cfg, segment_pattern(cfg), n_segments(cfg),
+                         shared=params.get("shared"), **kw)
     new_cache = None
     if mode == "decode":
         new_cache = cache
     elif mode == "prefill":
-        new_cache = {"segments": stack_layers(new_segs)}
+        new_cache = {"segments": segs}
+    tail = tail_pattern(cfg)
+    if tail:
+        x, new_tail = _run_stack(params["tail"],
+                                 None if cache is None else cache["tail"],
+                                 x, cfg, tail[:1], len(tail), shared=None,
+                                 **kw)
+        if mode == "prefill":
+            new_cache["tail"] = new_tail
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_head(params["embed"], x, cfg.vocab,
                          softcap=cfg.final_softcap,
@@ -297,13 +365,19 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> dict:
     """The stacked per-segment cache, ``{"segments": {blockJ: {kind:
-    (n_segments, batch, ...)}}}``: an attention block's ``kv`` planes
-    (``attention.init_kv_cache``: a dtype or a q8_0 / q4_0 tier, O(max_len)
-    a lane) and, for MoE, its ``routing`` counters; a recurrent block's
-    state, O(1) in ``max_len`` and in bf16 under a quantized tier."""
-    pattern = segment_pattern(cfg)
-    segs = [{f"block{j}": _block_cache(cfg, bt, batch, max_len, dtype,
-                                       device)
-             for j, (bt, _) in enumerate(pattern)}
-            for _ in range(n_segments(cfg))]
-    return {"segments": stack_layers(segs)}
+    (n_segments, batch, ...)}}}`` and for the hybrid ``"tail"``, stacked
+    the same way: an attention block's ``kv`` planes (each occurrence of
+    the shared block its own; ``attention.init_kv_cache``: a dtype or a
+    q8_0 / q4_0 tier, O(max_len) a lane) and, for MoE, its ``routing``
+    counters; a recurrent block's state, O(1) in ``max_len`` and in bf16
+    under a quantized tier."""
+    def stacked(pattern, n):
+        return stack_layers([{f"block{j}": _block_cache(
+            cfg, bt, batch, max_len, dtype, device)
+            for j, (bt, _) in enumerate(pattern)} for _ in range(n)])
+
+    cache = {"segments": stacked(segment_pattern(cfg), n_segments(cfg))}
+    tail = tail_pattern(cfg)
+    if tail:
+        cache["tail"] = stacked(tail[:1], len(tail))
+    return cache

@@ -342,7 +342,9 @@ class ServeEngine:
             if draft_dtype not in QUANT_TIERS:
                 raise ValueError(f"draft_dtype {draft_dtype!r}: expected "
                                  f"one of {QUANT_TIERS}")
-            if not self.spec.self_kv:
+            if not self.spec.self_kv or self.spec.recurrent:
+                # a rejected draft would leave a recurrent state advanced
+                # (the hybrid has self-KV beside its ssm state)
                 raise ValueError(
                     f"speculative decoding rewinds self-KV write "
                     f"cursors; {cfg.name} lanes carry "

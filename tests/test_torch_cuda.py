@@ -12,7 +12,8 @@ d_ff 1536, 1500 encoder frames, the 32-token prefill bucket, decode at a
 few lanes, the speculative verify's 4 queries a lane; xlstm-350m: the
 sLSTM recurrence over 4 heads of 256 and the f32 head (4,1024) @
 (1024,51200); the decoder-only models' attention at head_dim 128 with
-GQA 4 and 8 and at 256 with softcap and window) plus small ragged ones. Both sides accumulate in f32 in a
+GQA 4 and 8, at 112 (zamba2-7b) and at 256 with softcap and window)
+plus small ragged ones. Both sides accumulate in f32 in a
 different order, so f32 results agree to ~1e-5 relative; results stored
 in bf16 agree to one bf16 rounding of each side, at most 2^-7 of the
 largest output (``assert_bf16_close``). The attention cases also run
@@ -24,7 +25,9 @@ The serving engine's decode tick replayed from a CUDA graph is held to
 the eager tick (``cuda_graph=False``) at the reduced whisper-tiny.en
 (bf16, q8_0, q4_0, ``spec_k=4``, a stream whose cross K/V grows between
 replays), xlstm-350m, qwen3-4b (bf16 and Q8_0 weights with the q8_0
-cache), qwen3-moe-30b-a3b and gemma2-2b: tokens and logits bit for bit,
+cache), qwen3-moe-30b-a3b, gemma2-2b and the zamba2-7b hybrid (15
+layers: mamba states, the shared block's K/V and the tail): tokens and
+logits bit for bit,
 one capture per tick size, one synchronising call a tick. The streaming frontend equals
 the one-shot frontend bit for bit on the card. The paged engine's
 captured tick, whose page-table rows are rewritten between replays
@@ -185,6 +188,12 @@ def test_q8_matmul_kernel(dev, dtype, m, k, n):
     (1, 200, 200, 8, 4, 256, True, None, 50.0),
     (1, 33, 1500, 8, 4, 256, False, None, None),
     (1, 200, 65, 2, 1, 256, True, 16, None),
+    # head_dim 112 (zamba2-7b's shared block, 32 heads MHA): its prefill
+    # buckets, the ragged S = 300, the KV split and masked rows
+    (1, 64, 64, 32, 32, 112, True, None, None),
+    (1, 300, 300, 32, 32, 112, True, None, None),
+    (1, 33, 1500, 8, 8, 112, False, None, None),
+    (1, 200, 65, 2, 1, 112, True, 16, None),
 ])
 def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
                                 softcap, tail):
@@ -745,6 +754,21 @@ def _decoder_case(arch, cache):
     return model, params, reqs, dict(max_len=64, cache_dtype=cache)
 
 
+def _hybrid_case():
+    """The reduced zamba2-7b at 15 layers (2 segments and a tail of 3
+    mamba blocks), bf16 weights drawn on the card."""
+    import dataclasses
+    model = build(dataclasses.replace(reduced(get_config("zamba2-7b")),
+                                      n_layers=15))
+    params = model.init_values(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, tokens=rng.integers(3, 500, size=n).tolist(),
+                    max_new=m, eos_id=-1)
+            for i, (n, m) in enumerate(((9, 40), (17, 23)))]
+    return model, params, reqs, dict(max_len=64)
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -753,7 +777,8 @@ def _cast_tree(tree, dtype):
 
 @pytest.mark.parametrize("case", ["bf16", "q8_0", "q4_0", "spec_k=4",
                                   "xlstm", "qwen3-4b", "qwen3-4b|q8_0",
-                                  "qwen3-moe-30b-a3b", "gemma2-2b"])
+                                  "qwen3-moe-30b-a3b", "gemma2-2b",
+                                  "zamba2-7b"])
 def test_captured_tick_equals_the_eager_tick(dev, case):
     """Ticks of 4 and 8 steps in turn, captured and eager: the same
     tokens and the same logits rows bit for bit, one capture per tick
@@ -763,6 +788,8 @@ def test_captured_tick_equals_the_eager_tick(dev, case):
     library handles' first use) outside the runs compared."""
     if case == "xlstm":
         model, params, reqs, kw = _xlstm_case()
+    elif case == "zamba2-7b":
+        model, params, reqs, kw = _hybrid_case()
     elif case.partition("|")[0] in ("qwen3-4b", "qwen3-moe-30b-a3b",
                                      "gemma2-2b"):
         arch, _, cache = case.partition("|")

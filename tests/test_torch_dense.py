@@ -279,16 +279,24 @@ def test_state_spec_and_lane_bytes_match_reference(arch):
 
 
 def test_zamba2_is_refused_naming_the_rest_of_item_14():
-    """zamba2-7b's config is data; its mamba blocks and hybrid pattern are
-    not ported, and every entry point says so."""
+    """zamba2-7b, the rest of ROADMAP item 14, is no longer refused: at
+    full width its lane state spec equals the reference's, with no
+    quantized cache tier (head_dim 3584 / 32 = 112 is not a multiple of
+    32), and its pattern is the reference's (13 segments of 5 mamba
+    blocks and the shared attention block, a tail of 3)."""
     cfg = t_get_config("zamba2-7b")
     assert cfg.attn_every == 6 and cfg.ssm_state == 64
-    m = build(t_reduced(cfg))
-    for call in (m.state_spec, lambda: m.init_cache(1, 8, device="meta"),
-                 lambda: tf_mod.segment_pattern(cfg)):
-        with pytest.raises(NotImplementedError,
-                           match="item 14 \\(mamba and the zamba2 hybrid\\)"):
-            call()
+    assert cfg.head_dim == 112
+    js, ts = j_build(get_config("zamba2-7b")).state_spec(), \
+        build(cfg).state_spec()
+    for f in ("family", "self_kv", "cross_kv", "recurrent", "moe_experts",
+              "moe_top_k", "prefill_exact", "quant_tiers"):
+        assert getattr(ts, f) == getattr(js, f), f
+    assert ts.quant_tiers == () and ts.recurrent == ("ssm",)
+    assert tf_mod.segment_pattern(cfg) == [("mamba", "-")] * 5 \
+        + [("shared_attn", "global")]
+    assert tf_mod.n_segments(cfg) == 13
+    assert tf_mod.tail_pattern(cfg) == [("mamba", "-")] * 3
 
 
 def test_quantize_takes_the_reference_leaves_and_keeps_qkv_float():

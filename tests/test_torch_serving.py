@@ -215,8 +215,7 @@ def test_engine_validates_and_refuses_unported_features(setup):
     with pytest.raises(ValueError):
         ServeEngine(tm, tparams, device="meta")
     # the xLSTM family is ported: a reduced xlstm-350m engine constructs;
-    # so do the dense and MoE families; zamba2-7b's config is known, its
-    # model refused
+    # so do the dense and MoE families and the zamba2 hybrid
     xm = build(t_reduced(t_get_config("xlstm-350m")))
     eng = ServeEngine(xm, xm.init_values(torch.Generator().manual_seed(0),
                                          device="cpu"),
@@ -232,9 +231,12 @@ def test_engine_validates_and_refuses_unported_features(setup):
                                            device="cpu"),
                           n_slots=2, max_len=32, device="cpu")
         assert eng.spec.self_kv and eng.cache_report()["kv_bytes_total"] > 0
-    with pytest.raises(NotImplementedError,
-                       match="item 14 \\(mamba and the zamba2 hybrid\\)"):
-        build(t_reduced(t_get_config("zamba2-7b"))).state_spec()
+    zm = build(t_reduced(t_get_config("zamba2-7b")))
+    eng = ServeEngine(zm, zm.init_values(torch.Generator().manual_seed(0),
+                                         device="cpu"),
+                      n_slots=2, max_len=32, device="cpu")
+    assert eng.spec.recurrent == ("ssm",) and eng.spec.self_kv
+    assert eng.cache_report()["kv_bytes_total"] > 0
     with pytest.raises(KeyError, match="unknown arch"):
         t_get_config("whisper-large")
 
