@@ -1,10 +1,10 @@
 """Kernel dispatch: the paper's ACCEL/HOST control law as a router.
 
 ``dispatch(op, *args, **kwargs)`` builds the op's ``KernelSpec``,
-compares its analytic footprint (``registry.kernel_footprint``) with the
-context's budget — footprint <= budget is ACCEL, else HOST — binds the
-decision to the first eligible backend of that side, runs it, and
-records the routing in a trace and in counters keyed
+compares its analytic footprint (``core.footprint.kernel_footprint``)
+with the context's budget — footprint <= budget is ACCEL, else HOST —
+binds the decision to the first eligible backend of that side, runs it,
+and records the routing in a trace and in counters keyed
 ``(op, decision, backend)``.
 
 For CPU tensors both sides bind to ``"torch"``, the plain version, as
@@ -38,9 +38,9 @@ from typing import Callable, Iterator, Mapping, Optional
 
 import torch
 
-from repro_torch.kernels.registry import (BACKENDS, KernelOp, KernelSpec,
-                                          get_op, kernel_footprint,
-                                          register)
+from repro_torch.core.footprint import kernel_footprint
+from repro_torch.core.workload import KernelSpec
+from repro_torch.kernels.registry import BACKENDS, KernelOp, get_op, register
 
 __all__ = [
     "DispatchContext", "DispatchRecord", "dispatch", "dispatch_counters",

@@ -17,13 +17,11 @@ import ctypes
 
 import torch
 
+from repro_torch.core.burst import DEFAULT_BURST, split_burst
 from repro_torch.kernels import build
 from repro_torch.kernels.fp16_matmul import plain
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-
-#: the reference's burst length of the C2 split (paper Sec III-B)
-DEFAULT_BURST = 16
 
 #: the kernel's layouts (the C entry point's ``layout`` argument)
 FMA, TILE, GEMV = 0, 1, 2
@@ -163,8 +161,8 @@ fp16_matmul.launches = 0
 
 def offload_info(m: int, n: int, k: int, burst: int = DEFAULT_BURST) -> dict:
     """The analytic C2 split of a GEMM's K into a burst-aligned main
-    segment and a residual tail (``offload_fraction`` = k_main / k)."""
-    k_main = (k // burst) * burst
-    return dict(m=m, n=n, k=k, burst=burst, k_main=k_main,
-                k_residual=k - k_main,
-                offload_fraction=k_main / k if k else 0.0)
+    segment and a residual tail (``core.burst.split_burst``)."""
+    s = split_burst(k, burst)
+    return dict(m=m, n=n, k=k, burst=burst, k_main=s.k_main,
+                k_residual=s.k_residual,
+                offload_fraction=s.offload_fraction)

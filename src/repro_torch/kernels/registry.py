@@ -7,10 +7,9 @@ decision. The port's backends are ``"cuda"`` (the hand-written Hopper
 kernel, the ACCEL side) and ``"torch"`` (the plain PyTorch version, the
 HOST side).
 
-``KernelSpec`` and ``kernel_footprint`` are the port's copies of the JAX
-package's ``core/workload.py:35`` and ``core/footprint.py:44-64``: the
-paper's LMM model (C3), which counts the bytes one call keeps resident
-under the dense-packing policy.
+``KernelSpec`` lives in ``core/workload.py`` and the footprint model
+the decision compares with the budget, ``kernel_footprint``, in
+``core/footprint.py``.
 """
 
 from __future__ import annotations
@@ -18,46 +17,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Mapping, Tuple
 
-from repro_torch.quantize import stored_bytes
+from repro_torch.core.workload import KernelSpec
 
 BACKENDS = ("cuda", "torch")
-
-N_TILE = 4  # the paper's column-wise multithreading depth (Sec III-B)
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelSpec:
-    """One mul_mat call site: A is (n, k) [weights or cached tensor],
-    B is (m, k) [activations]; invoked ``count`` times per call."""
-
-    name: str
-    m: int
-    n: int
-    k: int
-    dtype: str        # storage dtype of A: 'f16' | 'q8_0' | 'q4_0' | 'f32'
-    count: int = 1
-    tag: str = "proj"  # proj | attn_qk | attn_av | mlp | logits | frontend
-
-    @property
-    def flops(self) -> int:
-        return 2 * self.m * self.n * self.k * self.count
-
-
-def kernel_footprint(spec: KernelSpec, policy: str = "optimized",
-                     n_tile: int = N_TILE) -> int:
-    """Resident bytes of one kernel call under a packing policy.
-
-    Optimized: ``n_tile`` A-rows + one B-row + the accumulators; weight
-    operands are counted converted to f32, cache operands (attention) in
-    their f16 storage dtype. Baseline: the whole row-padded A plane."""
-    if policy == "optimized":
-        elem = 2.0 if spec.tag in ("attn_qk", "attn_av") else 4.0
-        return int(elem * (n_tile * spec.k + spec.k) + 4 * n_tile)
-    if policy == "baseline":
-        a_bytes = stored_bytes((spec.n, spec.k), spec.dtype, "baseline")
-        b_bytes = stored_bytes((spec.k,), "f16", "baseline")
-        return a_bytes + b_bytes
-    raise ValueError(f"unknown policy {policy!r}")
 
 
 @dataclasses.dataclass(frozen=True)

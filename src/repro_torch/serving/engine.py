@@ -94,6 +94,7 @@ the slot pool when ``n_lp * P`` equals the slot pool's ``max_len`` /
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import gc
@@ -125,16 +126,27 @@ _ENGINE_SEQ = itertools.count()   # unique dispatch-trace tags per engine
 
 
 class RejectCode(enum.Enum):
-    """Machine-readable reasons a request can never be served."""
+    """Machine-readable rejection and shed reasons: the first group from
+    ``ServeEngine.validate`` (the request can never be served by this
+    engine), the second from the gateway's admission and lifecycle paths
+    (``repro_torch.gateway``)."""
 
+    # --- engine validation
     TOO_LONG = "too_long"                        # prompt+max_new vs max_len
     MISSING_ENC_INPUT = "missing_enc_input"      # enc-dec model, no frames
     AMBIGUOUS_ENC_INPUT = "ambiguous_enc_input"  # frames AND states given
     BAD_ENC_SHAPE = "bad_enc_shape"              # misshapen frames/states
     ENC_OVERFLOW = "enc_overflow"                # frames exceed pool enc_len
     ENC_ON_DECODER_ONLY = "enc_on_decoder_only"  # frames for a decoder-only
-    CANCELLED = "cancelled"                      # aborted in flight
     POOL_EXHAUSTED = "pool_exhausted"            # paged KV pool out of pages
+    #   (validate: the request's page demand exceeds the whole pool;
+    #    gateway: load-shed because free pages ran low)
+    # --- gateway admission / lifecycle
+    QUEUE_FULL = "queue_full"                    # bounded-queue backpressure
+    DEADLINE_UNMEETABLE = "deadline_unmeetable"  # shed at submit (estimate)
+    DEADLINE_MISSED = "deadline_missed"          # shed at admit, pre-prefill
+    CANCELLED = "cancelled"                      # aborted in flight
+    TIMEOUT = "timeout"                          # client-side timeout_s hit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,13 +228,15 @@ class RequestState:
 @dataclasses.dataclass
 class PendingTick:
     """A dispatched, not yet fetched decode tick: the device tensors of
-    the ``(k, n_slots)`` token block and emit mask, and with keep_logits
-    the ``k`` (n_slots, vocab) logits rows the block was chosen from."""
+    the ``(k, n_slots)`` token block and emit mask, with keep_logits
+    the ``k`` (n_slots, vocab) logits rows the block was chosen from,
+    and on a CUDA device the stream the tick was issued on."""
 
     k: int
     tok_blk: Any
     emit_blk: Any
     logits: list = dataclasses.field(default_factory=list)
+    stream: Any = None
 
 
 @dataclasses.dataclass
@@ -844,9 +858,11 @@ class ServeEngine:
             else:
                 tok_blk, emit_blk, logits = self._tick(k)
                 self._warm.add(k)
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         return PendingTick(k=k, tok_blk=tok_blk, emit_blk=emit_blk,
                            logits=[] if logits is None
-                           else list(logits.unbind(0)))
+                           else list(logits.unbind(0)), stream=stream)
 
     def _tick(self, k: int):
         """The body of a tick, eager or under capture: ``k`` steps (or
@@ -985,9 +1001,15 @@ class ServeEngine:
 
     def step_fetch(self, pending: PendingTick):
         """The one host sync of a tick: the ``(k, n_slots)`` token block
-        and emit mask, fetched together."""
-        both = torch.stack([pending.tok_blk,
-                            pending.emit_blk.to(torch.int64)]).cpu().numpy()
+        and emit mask, fetched together. It may run on another thread
+        than ``step_begin`` (the gateway fetches in an executor): a
+        thread's current CUDA stream and device are its own, so the
+        fetch runs on the tick's stream, after the tick."""
+        with torch.cuda.stream(pending.stream) if pending.stream \
+                is not None else contextlib.nullcontext():
+            both = torch.stack([pending.tok_blk,
+                                pending.emit_blk.to(torch.int64)]
+                               ).cpu().numpy()
         tok_blk, emit_blk = both[0], both[1].astype(bool)
         self._host_syncs += 1
         self._ticks += 1

@@ -34,6 +34,8 @@ captured tick, whose page-table rows are rewritten between replays
 (admissions, a stream's cross pages, freed lanes), equals its eager tick
 and its slot-pool twin bit for bit, and the paged decode op's CUDA route
 (the gather, then the tier's decode-attention kernel) its plain version.
+A tick fetched on an executor thread, as the gateway fetches it, is the
+tick issued on another stream of the main thread.
 """
 
 import gc
@@ -845,6 +847,34 @@ def test_capture_with_a_dead_captured_engine_awaiting_collection(dev):
     finally:
         gc.set_threshold(*thresholds)
     assert eng.captures == 1 and eng.replays == 2
+
+
+def test_step_fetch_from_an_executor_thread_returns_the_finished_tick(dev):
+    """The gateway fetches a tick in an executor thread, whose current
+    stream is not the one the tick was issued on. Each tick here is
+    issued on a side stream behind a ~20 ms busy wait; the fetch from a
+    worker thread must still return that tick's tokens, equal to an
+    engine that ticks on the main thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    model, params, reqs, kw = _whisper_case("bf16", 0)
+    want, *_ = _serve_ticks(model, params, reqs, (4,), True, **kw)
+    eng = ServeEngine(model, params, n_slots=len(reqs), keep_logits=True,
+                      device="cuda", **kw)
+    sts = [eng.admit(r) for r in reqs]
+    side = torch.cuda.Stream()
+    with ThreadPoolExecutor(1) as pool:
+        while eng.n_active:
+            # after what the main stream wrote (admission, freed lanes)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(40_000_000)
+                pending = eng.step_begin(4)
+            tok_blk, emit_blk = pool.submit(eng.step_fetch, pending).result()
+            eng.step_replay(pending, tok_blk, emit_blk)
+    assert eng.captures == 1 and eng.replays >= 2
+    assert [st.out for st in sts] == [w[0] for w in want]
+    for st, (_, wl) in zip(sts, want):
+        assert all(torch.equal(g, w) for g, w in zip(st.logits, wl))
 
 
 # ----------------------------------------------------------------------------

@@ -29,7 +29,16 @@ def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert "repro_torch.serving.engine" in mods and len(mods) > 20
     assert {"repro_torch.paging.manager", "repro_torch.paging.table",
-            "repro_torch.kernels.paged_attention.ops"} <= set(mods)
+            "repro_torch.kernels.paged_attention.ops",
+            "repro_torch.core", "repro_torch.core.workload",
+            "repro_torch.core.burst", "repro_torch.core.footprint",
+            "repro_torch.core.offload", "repro_torch.core.energy",
+            "repro_torch.platforms", "repro_torch.platforms.base",
+            "repro_torch.platforms.paper", "repro_torch.platforms.registry",
+            "repro_torch.platforms.builtin", "repro_torch.gateway",
+            "repro_torch.gateway.slo", "repro_torch.gateway.metrics",
+            "repro_torch.gateway.gateway", "repro_torch.gateway.loadgen",
+            "repro_torch.launch.gateway"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
