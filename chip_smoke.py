@@ -90,6 +90,17 @@ m. the SLO gateway (``repro_torch.gateway``) over a captured engine on
    ``accel_flops_share`` beside ``coverage_cdf``'s 32 KB value, and the
    paper's Fig 4/5 table from ``platform_pdp_table`` with its two
    headline ratios;
+n. the port's hot-path static checks (``repro_torch.staticcheck``) on
+   the card: ``run_all`` over the reference harness's reduced engines
+   (whisper-tiny.en at q8_0, q4_0, bf16, ``spec_k=2`` and paged; qwen3-4b,
+   qwen3-moe-30b-a3b, zamba2-7b, xlstm-350m), then the program checks and
+   SC-RECOMP over whisper-tiny.en at full width (Q8_0 weights with the
+   q8_0 cache, and bf16; slot and paged; 4 slots, ``enc_len`` 1504,
+   pages of 8). Every report must pass with no CPU-only waiver, every
+   program's in-place, sync-free and dtype-plane verdicts hold, no traced
+   program makes a synchronising CUDA call (``set_sync_debug_mode
+   ("error")``) and every kernel call routes ("accel", "cuda"); it
+   prints each report and one JSON line of findings and waivers a check;
 i. qwen3-4b at full width and depth (36 layers, d_model 2560, 32/8
    heads of 128, d_ff 9728, vocab 151936, rope 1e6, qk-norm, untied
    head; seeded random bf16 weights drawn on the card): 4 token requests
@@ -160,8 +171,8 @@ bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 
 Every phase of 3, 4, 5, e, f, g, h, i, j, k, l and d (not m, whose
-tick is captured before its load) runs twice with the
-same engine settings:
+tick is captured before its load, nor n, which checks one capture per
+tick size itself) runs twice with the same engine settings:
 captured (the default: the engine's first tick of a size runs eagerly,
 the second captures it in a CUDA graph, every later one replays it) and
 eager (``cuda_graph=False``). The captured run must have made one
@@ -1905,6 +1916,65 @@ def gateway_load(phase: str, eng, spec: dict, **kw):
     return results, summary
 
 
+def _static_gate(phase: str, label: str, rep) -> dict:
+    """One phase-n report: ``report.ok`` with no CPU-only waiver applied,
+    every program's donation / sync-free / dtype-plane verdict true,
+    every SC-SYNC finding clean without a waiver (no synchronising CUDA
+    call in any traced program). Prints the human summary; returns the
+    findings and waivers per check."""
+    _log(f"[{phase}] {label}:\n{rep.human()}")
+    cpu_only = [f.subject for f in rep.findings
+                if f.data.get("waiver_device")]
+    bad = {name: v for name, v in rep.function_verdicts().items()
+           if not all(v.values())}
+    syncs = [f.subject for f in rep.findings
+             if f.check == "SC-SYNC" and not f.ok]
+    if not rep.ok or cpu_only or bad or syncs:
+        raise AssertionError(f"[{phase}] {label}: failed "
+                             f"{rep.failed_checks()}, CPU-only waivers "
+                             f"{cpu_only}, verdicts {bad}, syncs {syncs}")
+    return {check: {"findings": len(fs), "waived": sum(f.waived for f in fs)}
+            for check, fs in sorted(rep.by_check().items())}
+
+
+def run_staticcheck(phase: str, expect: tuple) -> dict:
+    """Phase n: the port's static checks (``repro_torch.staticcheck``)
+    on the card. ``run_all`` over the reference harness's engines (the
+    reduced whisper-tiny.en at q8_0, q4_0, bf16, ``spec_k=2`` and paged;
+    qwen3-4b, qwen3-moe-30b-a3b, zamba2-7b, xlstm-350m at bf16 and the
+    MoE at q8_0), then the program checks and SC-RECOMP over
+    whisper-tiny.en at full width (Q8_0 weights with the q8_0 cache, and
+    bf16; slot and paged; 4 slots, ``enc_len`` 1504, pages of 8). Every
+    traced program runs under ``set_sync_debug_mode("error")``; each
+    report must pass ``_static_gate``, and every kernel call route
+    ("accel", "cuda"). Prints the summaries and one JSON line of the
+    findings and waivers per check; returns the launch counts."""
+    import torch
+
+    from repro_torch.staticcheck import StaticcheckConfig, run_all
+    from repro_torch.staticcheck.harness import build_full_engines
+    from repro_torch.staticcheck.report import Report
+    from repro_torch.staticcheck.run import apply_waivers, check_engines
+
+    config = StaticcheckConfig.load()
+    zero_counts()
+    t0 = time.monotonic()
+    reduced = run_all(config=config, device="cuda")
+    torch.cuda.synchronize()
+    t_reduced = time.monotonic() - t0
+    slot, paged = build_full_engines("cuda")
+    full = Report(apply_waivers(check_engines(slot, paged), config, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts, _ = read_counts(phase, expect)
+    summary = {"reduced": _static_gate(phase, "reduced harness", reduced),
+               "full_width": _static_gate(phase, "whisper-tiny.en at full "
+                                          "width", full),
+               "wall_s": round(wall, 3), "reduced_s": round(t_reduced, 3)}
+    _log(json.dumps({"staticcheck": summary}))
+    return counts
+
+
 def run_gateway(model, qparams, phase: str, expect: tuple) -> dict:
     """Phase m: ``repro_torch.gateway`` over a captured engine
     (whisper-tiny.en, Q8_0 weights, q8_0 cache, 4 slots, 8 steps a tick,
@@ -2417,6 +2487,12 @@ def main() -> int:
     # the SLO gateway over the captured tick, on the paper's platform
     add(run_gateway(model, qparams, "m: gateway q8_0 16 requests 4x4",
                     ("flash_attention", "q8_matmul", "q8_decode_attention")))
+
+    # the hot-path static checks on the card
+    add(run_staticcheck("n: staticcheck", (
+        "fp16_matmul", "flash_attention", "q8_matmul", "q8_decode_attention",
+        "q4_matmul", "q4_decode_attention", "slstm_scan",
+        "paged_decode_attention")))
 
     del params, qparams, draft, model
     gc.collect()

@@ -150,6 +150,15 @@ def _cosine_projection(n_mels: int, d_model: int) -> np.ndarray:
     return p
 
 
+@functools.lru_cache(maxsize=8)
+def _projection_on(n_mels: int, d_model: int,
+                   device: torch.device) -> torch.Tensor:
+    """``_cosine_projection`` on ``device``, copied there once: a copy a
+    call would wait on the device at every frontend call."""
+    return torch.from_numpy(_cosine_projection(n_mels, d_model).copy()) \
+        .to(device)
+
+
 def mel_to_frames(logmel: torch.Tensor, d_model: int,
                   cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
     """Log-mel (T, n_mels) -> frame embeddings (ceil(T / stride),
@@ -165,8 +174,8 @@ def mel_to_frames(logmel: torch.Tensor, d_model: int,
     if tp * s > t:
         x = torch.nn.functional.pad(x, (0, 0, 0, tp * s - t))
     pooled = x.reshape(tp, s, cfg.n_mels).mean(dim=1)
-    proj = torch.from_numpy(_cosine_projection(cfg.n_mels, d_model).copy())
-    y = dispatch("fp16_matmul", pooled, proj.to(x.device),
+    y = dispatch("fp16_matmul", pooled,
+                 _projection_on(cfg.n_mels, d_model, x.device),
                  out_dtype=torch.float32, tag="frontend")
     return torch.nn.functional.gelu(y, approximate="none")
 

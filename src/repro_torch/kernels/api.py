@@ -27,6 +27,11 @@ moves on a replay. ``recording()`` takes what one capture pass
 dispatched and launched out of the log into a ``TickRecord``, and
 ``replay_record`` adds it back once per replay: the counts then read the
 same per tick as an uncaptured tick's.
+
+A hot-path trace (``repro_torch.staticcheck``) sees each kernel call as
+one node: ``kernel_hook`` installs a hook that ``kernel_call`` runs every
+call of a kernel through, a dispatched op with a kernel of its own and
+the paged decode op's call of its tier's kernel alike.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ __all__ = [
     "DispatchContext", "DispatchRecord", "dispatch", "dispatch_counters",
     "dispatch_trace", "reset_dispatch_log", "use_context",
     "current_context", "decide", "launch_counts", "TickRecord",
-    "recording", "replay_record",
+    "recording", "replay_record", "kernel_hook", "kernel_call",
 ]
 
 #: budget of a context not derived from a platform (the reference's
@@ -192,6 +197,30 @@ def replay_record(rec: TickRecord) -> None:
         _LAUNCHERS[name].launches += n
 
 
+#: the installed ``kernel_hook`` (None: kernels are called directly)
+_kernel_hook: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def kernel_hook(hook: Callable):
+    """Run every kernel call of the enclosed block as ``hook(op_name, fn,
+    args, kwargs)``, which must return ``fn(*args, **kwargs)``."""
+    global _kernel_hook
+    prev, _kernel_hook = _kernel_hook, hook
+    try:
+        yield
+    finally:
+        _kernel_hook = prev
+
+
+def kernel_call(op_name: str, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``: one call of kernel ``op_name``'s wrapper
+    (its plain version on CPU tensors), through the installed hook."""
+    if _kernel_hook is None:
+        return fn(*args, **kwargs)
+    return _kernel_hook(op_name, fn, args, kwargs)
+
+
 def _first_allowed(op: KernelOp, order, on_cuda: bool) -> str:
     for b in order:
         if b in op.backends and (b != "cuda" or on_cuda):
@@ -245,7 +274,10 @@ def dispatch(op_name: str, *args, ctx: Optional[DispatchContext] = None,
     if tag is not None:
         spec = dataclasses.replace(spec, tag=tag)
     decision, backend, footprint = _decide(op, spec, ctx, args[0].is_cuda)
-    out = op.backends[backend](*args, **kwargs)
+    if op_name in _LAUNCHERS:
+        out = kernel_call(op_name, op.backends[backend], *args, **kwargs)
+    else:
+        out = op.backends[backend](*args, **kwargs)
     _trace.append(DispatchRecord(op_name, decision, backend, footprint,
                                  ctx.vmem_budget, spec,
                                  platform=ctx.platform or "",

@@ -43,7 +43,46 @@ def bf16_decode_attention(q: torch.Tensor, k: torch.Tensor,
     """Decode attention of q (B, Q, H, D) over float K/V rows
     (B, S, Hkv, D), query (b, j) attending where ``mask`` (B, Q|1, S)
     holds: bf16 operands, f32 accumulation, a -1e30 mask, as the
-    reference's inline einsum. Returns f32 (B, Q, H, D)."""
+    reference's inline einsum. Returns f32 (B, Q, H, D). CUDA tensors
+    take ``attend_bf16_planes``, which makes no f32 copy of a K/V plane;
+    the CPU has no kernel for its bf16 x bf16 -> f32 product
+    (``aten::bmm.dtype``), so CPU tensors take ``attend_widened``. Their
+    products differ only in f32 summation order (a bf16 x bf16 product
+    is exact in f32), and through it, where a probability lies at a
+    bf16 rounding boundary, in that probability's rounding."""
+    if q.is_cuda:
+        return attend_bf16_planes(q, k, v, mask, softcap)
+    return attend_widened(q, k, v, mask, softcap)
+
+
+def attend_bf16_planes(q, k, v, mask, softcap=None) -> torch.Tensor:
+    """``bf16_decode_attention`` on bf16 planes, as the reference streams
+    them: the query heads of each KV head grouped into the rows of one
+    product (GQA by index, no repeat of K/V), each product taking bf16
+    operands into an f32 result (``torch.bmm(..., out_dtype=f32)``)."""
+    b, nq, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    bf, f32 = torch.bfloat16, torch.float32
+    # query head hk * g + i reads KV head hk (repeat_interleave's order)
+    qg = q.to(bf).reshape(b, nq, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        .reshape(b * hkv, g * nq, d)
+    kt = k.to(bf).permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    vg = v.to(bf).permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    sc = (torch.bmm(qg, kt, out_dtype=f32) * d ** -0.5) \
+        .view(b, hkv, g, nq, s)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    w = torch.softmax(sc, dim=-1).to(bf).view(b * hkv, g * nq, s)
+    out = torch.bmm(w, vg, out_dtype=f32)
+    return out.view(b, hkv, g, nq, d).permute(0, 3, 1, 2, 4) \
+        .reshape(b, nq, h, d)
+
+
+def attend_widened(q, k, v, mask, softcap=None) -> torch.Tensor:
+    """``bf16_decode_attention`` with K/V repeated to every query head
+    and the bf16-rounded operands widened to f32 before the products."""
     h, d = q.shape[2], q.shape[3]
     k = k.repeat_interleave(h // k.shape[2], dim=2)
     v = v.repeat_interleave(h // v.shape[2], dim=2)
@@ -76,11 +115,13 @@ def paged(q, kc, vc, table, lens, q8_fn, q4_fn) -> torch.Tensor:
         mask = torch.arange(k.shape[1], device=q.device)[None, None, :] \
             < lens[:, :, None]
         return bf16_decode_attention(q, k, v, mask).to(q.dtype)
+    from repro_torch.kernels.api import kernel_call
     ck = code_key(kc)
-    fn = q4_fn if ck == "p" else q8_fn
     planes = [gather_pages(p, table)[None]
               for p in (kc[ck], kc["s"], vc[ck], vc["s"])]
-    return fn(q, *planes, lens, 0)
+    if ck == "p":
+        return kernel_call("q4_decode_attention", q4_fn, q, *planes, lens, 0)
+    return kernel_call("q8_decode_attention", q8_fn, q, *planes, lens, 0)
 
 
 def paged_decode_attention(q, kc, vc, table, lens) -> torch.Tensor:

@@ -53,3 +53,8 @@ def get_op(name: str) -> KernelOp:
     except KeyError:
         raise KeyError(f"unknown kernel op {name!r}; registered: "
                        f"{sorted(_REGISTRY)}") from None
+
+
+def list_ops() -> list[str]:
+    """Names of the registered ops, sorted."""
+    return sorted(_REGISTRY)

@@ -23,7 +23,6 @@ which.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import _act, ninit
@@ -55,8 +54,11 @@ def _count_routes(top_i: torch.Tensor, b: int, e: int,
     """``counts`` (b, e) plus the executed top-k assignments ``top_i``
     ((b, s, k) or (b * s, k)) of each lane. Every executed row counts,
     bucket padding and parked lanes included: a record of device work,
-    not of what a request was billed."""
-    hits = F.one_hot(top_i.reshape(b, -1), e).sum(dim=1)
+    not of what a request was billed. The one-hot is a comparison with
+    the expert ids: ``one_hot`` reads the ids' maximum to the host on
+    the CPU, a host sync inside the tick."""
+    experts = torch.arange(e, device=top_i.device)
+    hits = (top_i.reshape(b, -1, 1) == experts).sum(dim=1)
     return counts + hits.to(counts.dtype)
 
 

@@ -652,6 +652,13 @@ class ServeEngine:
         or into its pages, in place. Returns the first token, fetched (the
         admission's one sync), and with keep_logits its logits row in a
         list."""
+        first, row = self._prefill_device(
+            slot, self._prefill_batch(tokens, enc), len(tokens))
+        return int(first), [row] if self.keep_logits else []
+
+    def _prefill_batch(self, tokens: list, enc: dict) -> dict:
+        """The prefill's inputs on the device: the prompt at its bucket
+        (one asynchronous copy) and the encoder input ``enc``."""
         n = len(tokens)
         # recurrent lanes fold every input position into the state, so
         # they prefill at the exact prompt length; KV lanes at a bucket
@@ -667,6 +674,13 @@ class ServeEngine:
             batch["enc_states"] = enc["enc_states"].to(torch.bfloat16)
         elif "enc_frames" in enc:
             batch["enc_frames"] = enc["enc_frames"]
+        return batch
+
+    def _prefill_device(self, slot: int, batch: dict, n: int):
+        """The device part of a prefill of ``n`` prompt tokens
+        (``_prefill_batch``): the forward, the pool write and the first
+        token's argmax, with no host sync. Returns (the first token, a
+        0-d device tensor; its logits row)."""
         with use_context(self.dispatch_ctx):
             one = self.model.init_cache(1, self.max_len, self.enc_len,
                                         device=self.device)
@@ -681,8 +695,8 @@ class ServeEngine:
                                self.page_size)
             else:
                 _scatter_slot(self.cache, one, slot)
-            first = int(logits[0, n - 1].argmax())
-        return first, [logits[0, n - 1]] if self.keep_logits else []
+            row = logits[0, n - 1]
+            return row.argmax(), row
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -35,7 +35,12 @@ captured tick, whose page-table rows are rewritten between replays
 and its slot-pool twin bit for bit, and the paged decode op's CUDA route
 (the gather, then the tier's decode-attention kernel) its plain version.
 A tick fetched on an executor thread, as the gateway fetches it, is the
-tick issued on another stream of the main thread.
+tick issued on another stream of the main thread. The bf16 decode
+attention's card formulation (bf16 planes into f32 results) equals the
+widened one within 1e-5 of the largest output, and the paged bf16 tick
+the slot pool's bit for bit. The static checks (``repro_torch.
+staticcheck``) pass on the card: no synchronising call inside a traced
+program, buffers in place, one capture per tick size.
 """
 
 import gc
@@ -1017,14 +1022,14 @@ def test_paged_decode_attention_on_the_card(dev, tier, nq):
         assert launcher.launches == before + 1
 
 
-def _paged_serve(model, params, paged, cuda_graph):
+def _paged_serve(model, params, paged, cuda_graph, cache="q8_0"):
     """A stream of 5 chunks of 8 frames, and three one-shot requests, two
     with the same audio and full prompt page, on 3 slots through the
     scheduler, one admission a tick: the page tables' rows change between
     replayed ticks (each admission, the stream's cross pages, each freed
     lane)."""
     eng = ServeEngine(model, params, n_slots=3, max_len=64, enc_len=40,
-                      cache_dtype="q8_0", decode_block=4, keep_logits=True,
+                      cache_dtype=cache, decode_block=4, keep_logits=True,
                       cuda_graph=cuda_graph, device="cuda", paged=paged,
                       page_size=8)
     syncs = _watch_ticks(eng)
@@ -1080,3 +1085,95 @@ def test_captured_paged_tick_equals_the_eager_tick(dev):
     assert eng.pages.self_pool.used_pages == 0
     assert eng.pages.cross_pool.used_pages == 0
     eng.pages.check()
+
+
+def test_captured_paged_bf16_tick_equals_the_slot_pool(dev):
+    """The bf16 pool, whose decode attention multiplies the bf16 planes
+    into f32 results (``attend_bf16_planes``): the paged engine's
+    captured ticks equal its eager ticks and the slot pool's bit for
+    bit."""
+    model = build(reduced(get_config("whisper-tiny-en")))
+    params = model.init_values(torch.Generator().manual_seed(0),
+                               device="cuda")
+    runs = {(p, g): _paged_serve(model, params, p, g, "bf16")
+            for p, g in ((True, True), (True, False), (False, True))}
+    got = runs[True, True][0]
+    for key in ((True, False), (False, True)):
+        want = runs[key][0]
+        for uid in range(4):
+            assert got[uid].out == want[uid].out, (key, uid)
+            for g, w in zip(got[uid].logits, want[uid].logits):
+                assert torch.equal(g, w), (key, uid)
+
+
+# ----------------------------------------------------------------------------
+# The bf16 decode attention on the card, and the static checks
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,nq,h,hkv,d,s,softcap", [
+    (4, 1, 6, 6, 64, 1504, None),      # whisper-tiny.en cross, 4 lanes
+    (4, 4, 6, 6, 64, 64, None),        # the speculative verify
+    (4, 1, 32, 32, 112, 300, None),    # zamba2-7b's shared block
+    (4, 1, 32, 8, 128, 512, None),     # qwen3-4b, GQA 4
+    (4, 1, 8, 4, 256, 512, 50.0),      # gemma2-2b with softcap
+    (2, 1, 8, 4, 256, 37, 30.0)])
+def test_bf16_decode_attention_streams_the_bf16_planes(dev, b, nq, h, hkv, d,
+                                                       s, softcap):
+    """The card's formulation (bf16 operands into f32 results, query
+    heads grouped per KV head) against the widened one, masked per lane:
+    each product within 1e-5 of its largest value (only the f32
+    summation order differs), the attention within one bf16 rounding of
+    the largest output (both round the probabilities to bf16, and a
+    summation-order difference can move one across a rounding boundary:
+    3.4e-5 of the largest output measured at qwen3-4b's shape). It makes
+    no f32 tensor of a K/V plane's size."""
+    from repro_torch.staticcheck.trace import trace_call
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (b, nq, h, d), dev)
+    k = _randn(rng, (b, s, hkv, d), dev, torch.bfloat16)
+    v = _randn(rng, (b, s, hkv, d), dev, torch.bfloat16)
+    lens = torch.from_numpy(rng.integers(1, s + 1, (b,))).to(dev)
+    mask = torch.arange(s, device=dev)[None, None, :] < lens[:, None, None]
+    got, nodes = trace_call(pa_plain.bf16_decode_attention, q, k, v,
+                            mask.expand(b, nq, s), softcap)
+    want = pa_plain.attend_widened(q, k, v, mask.expand(b, nq, s), softcap)
+    g = h // hkv
+    qg = q.to(torch.bfloat16).reshape(b, nq, hkv, g, d) \
+        .permute(0, 2, 3, 1, 4).reshape(b * hkv, g * nq, d)
+    kt = k.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    vg = v.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    w = torch.softmax(_randn(rng, (b * hkv, g * nq, s), dev), -1) \
+        .to(torch.bfloat16)
+    for x, y in ((qg, kt), (w, vg)):
+        prod = torch.bmm(x, y, out_dtype=torch.float32)
+        wide = torch.bmm(x.float(), y.float())
+        err = float((prod - wide).abs().max())
+        assert err <= 1e-5 * float(wide.abs().max()), err
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, nq, h, d)
+    assert_bf16_close(got, want)
+    plane = b * s * hkv * d
+    assert not [n.op for n in nodes for t in n.outputs
+                if t.dtype == "float32" and t.numel >= plane]
+
+
+def test_staticcheck_on_the_card(dev):
+    """SC-SYNC, SC-DON and SC-RECOMP on a reduced whisper q8_0 engine and
+    a paged one: every traced program free of a synchronising CUDA call,
+    its buffers updated in place, one capture per tick size and no
+    recapture after an admission."""
+    from repro_torch.staticcheck.config import StaticcheckConfig
+    from repro_torch.staticcheck.harness import build_engine
+    from repro_torch.staticcheck.report import Report
+    from repro_torch.staticcheck.run import apply_waivers, check_engines
+    only = {"SC-SYNC", "SC-DON", "SC-RECOMP"}
+    findings = check_engines([build_engine("q8_0", device="cuda")],
+                             [build_engine("q8_0", device="cuda",
+                                           paged=True)], only=only)
+    rep = Report(apply_waivers(findings, StaticcheckConfig.load(), "cuda"))
+    assert rep.ok and all(f.ok for f in rep.findings), rep.human()
+    assert {f.check for f in rep.findings} == only
+    recomp = [f for f in rep.findings if f.check == "SC-RECOMP"]
+    assert len(recomp) == 4
+    assert all(f.data["after_admission"] == [1, 2, 1]
+               for f in recomp if "decode_block" in f.subject)

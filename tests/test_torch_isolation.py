@@ -38,7 +38,17 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.platforms.builtin", "repro_torch.gateway",
             "repro_torch.gateway.slo", "repro_torch.gateway.metrics",
             "repro_torch.gateway.gateway", "repro_torch.gateway.loadgen",
-            "repro_torch.launch.gateway"} <= set(mods)
+            "repro_torch.launch.gateway", "repro_torch.staticcheck",
+            "repro_torch.staticcheck.__main__",
+            "repro_torch.staticcheck.config",
+            "repro_torch.staticcheck.donation",
+            "repro_torch.staticcheck.dtypeplanes",
+            "repro_torch.staticcheck.footprint",
+            "repro_torch.staticcheck.harness",
+            "repro_torch.staticcheck.recompile",
+            "repro_torch.staticcheck.report", "repro_torch.staticcheck.run",
+            "repro_torch.staticcheck.syncpoints",
+            "repro_torch.staticcheck.trace"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
