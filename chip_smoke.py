@@ -137,7 +137,33 @@ d. xlstm-350m at full width (24 blocks, d_model 1024, seeded random bf16
    Phases i, j, k, l and d print wall seconds, decode tok/s, ticks,
    host syncs, the ``cache_report`` and the captured run's
    ``energy_report`` on ``h100-sxm``, whose ``accel_flops_share`` must
-   be above 0.
+   be above 0;
+o. training on the card (``repro_torch.train``), last. The kernels
+   define no backward, so the train forward runs under
+   ``grad_safe_context`` and launches none:
+   o1. whisper-tiny.en at full width and depth (4+4 layers, d_model 384,
+   vocab 51865 tied, ``remat``) through the train launcher
+   (``repro_torch.launch.train.main``, the default device): f32 weights
+   drawn from a CUDA generator, AdamW (lr 1e-3, 5 warmup steps, 20 in
+   all), batch 8 of 448 encoder frames and 448 tokens from the synthetic
+   pipeline, ``TrainLoop`` with its signal handlers into a temporary
+   directory, a checkpoint every 10 steps: 20 steps straight, then a run
+   that a SIGINT at step 10 preempts, then a fresh run that resumes from
+   its checkpoint to 20. The resumed losses must equal the straight
+   run's within ``RESUME_RTOL``, every loss be finite, the mean of the
+   last 5 below the first 5's, and the script's SIGTERM handler back in
+   place after the loops;
+   o2. qwen3-4b at full width, its first 4 of 36 layers (the untied f32
+   head over 151,936 ids), batch 4 x 256, 8 steps of ``make_train_step``
+   and no checkpoint; steps 2-8 each under the sync debug mode, with no
+   synchronising call. In both no kernel's launch count moves and every
+   dispatch is ``(op, accel|host, "torch")`` from the grad-safe route;
+   each prints its step times (the first apart, the median of the rest,
+   tokens a second), ``torch.cuda.max_memory_allocated`` and, for o1, the
+   checkpoint's size and the seconds of a save of the final state and of
+   a restore. Then a
+   ``fp16_matmul`` dispatched on CUDA tensors must route ("accel",
+   "cuda") and launch its kernel again.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -2324,6 +2350,237 @@ def run_decoder(phase: str, model, params, prompts, expect: tuple,
                       ("fp16_matmul",) if hybrid else ())
 
 
+# ----------------------------------------------------------------------------
+# Phase o: training on the card
+# ----------------------------------------------------------------------------
+
+# the models, batches and AdamW settings are train.setup.TRAIN_SETUP's
+O1_SAVE_EVERY = 10
+RESUME_RTOL = 1e-6
+
+
+def train_gate(phase: str) -> dict:
+    """Since ``zero_counts``: no kernel launched, and every dispatched
+    call was routed ``(op, accel|host, "torch")`` on the grad-safe
+    route. Returns the routing counters."""
+    from repro_torch.kernels.api import dispatch_counters, dispatch_trace
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    routing = dispatch_counters()
+    _log(f"[{phase}] launches {counts}")
+    _log(f"[{phase}] dispatch {dict(routing)}")
+    if any(counts.values()):
+        raise AssertionError(f"[{phase}] a kernel launched in training")
+    bad = {k: n for k, n in routing.items()
+           if k[1] not in ("accel", "host") or k[2] != "torch"}
+    if bad or not routing:
+        raise AssertionError(f"[{phase}] calls off the grad-safe route: "
+                             f"{bad or 'none dispatched'}")
+    if any(r.tag != "grad_safe" for r in dispatch_trace()):
+        raise AssertionError(f"[{phase}] a dispatch outside grad_safe")
+    return routing
+
+
+def step_times(phase: str, first: float, times: list, tokens: int,
+               first_is: str = "first") -> None:
+    """Log the step times: the first apart, the median of the rest,
+    tokens a second at that median."""
+    import statistics
+    med = statistics.median(times)
+    _log(f"[{phase}] {len(times) + 1} steps: {first_is} {first:.4f} s, "
+         f"median of the rest {med * 1e3:.2f} ms a step ({tokens} tokens "
+         f"a step, {tokens / med:.1f} tok/s), the rest "
+         f"{[round(t * 1e3, 2) for t in times]} ms")
+
+
+def run_train_o1(phase: str) -> None:
+    """Phase o1: whisper-tiny.en at full width and depth trained by the
+    launcher (``repro_torch.launch.train.main``) 20 steps straight, then
+    20 steps preempted by a SIGINT at step 10, then resumed from that
+    checkpoint to 20; the resumed losses must equal the straight run's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.store import (CheckpointManager,
+                                              restore_checkpoint)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.setup import TRAIN_SETUP, preset
+
+    t_phase = time.monotonic()
+    p = TRAIN_SETUP[ARCH]
+    steps = p["steps"]
+    argv = ["--arch", ARCH, "--batch", str(p["batch"]), "--seq",
+            str(p["seq"]), "--lr", str(p["lr"]), "--warmup",
+            str(p["warmup"]), "--steps", str(steps), "--save-every",
+            str(O1_SAVE_EVERY), "--seed", str(SEED)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_o1_")
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.monotonic()]
+        _log(f"[{phase}] python -m repro_torch.launch.train "
+             f"{' '.join(argv)} --ckpt DIR")
+        straight = train_cli.main(
+            argv + ["--ckpt", os.path.join(tmp, "a")],
+            on_step=lambda step, loss: marks.append(time.monotonic()))
+        peak = torch.cuda.max_memory_allocated()
+
+        def preempt(step, loss):
+            if step == steps // 2:
+                signal.raise_signal(signal.SIGINT)
+        first = train_cli.main(argv + ["--ckpt", os.path.join(tmp, "b")],
+                               on_step=preempt)
+        resumed = train_cli.main(argv + ["--ckpt", os.path.join(tmp, "b")])
+        train_gate(phase)
+        if signal.getsignal(signal.SIGTERM) is not _terminated:
+            raise AssertionError(f"[{phase}] the loop left its SIGTERM "
+                                 f"handler installed")
+        losses = straight.losses
+        _log(f"[{phase}] losses {[round(x, 5) for x in losses]}")
+        if not all(np.isfinite(losses)) or len(losses) != steps:
+            raise AssertionError(f"[{phase}] losses {losses}")
+        if not first.preempted or first.final_step != steps // 2:
+            raise AssertionError(f"[{phase}] the SIGINT did not stop the "
+                                 f"run at {steps // 2}: {first}")
+        again = first.losses + resumed.losses
+        if resumed.final_step != steps or len(again) != steps:
+            raise AssertionError(f"[{phase}] resumed run: {len(again)} "
+                                 f"losses to step {resumed.final_step}")
+        rel = max(abs(a / b - 1) for a, b in zip(again, losses))
+        _log(f"[{phase}] preempted at {steps // 2} + resumed against "
+             f"{steps} straight: losses max rel diff {rel:.3g}")
+        if rel > RESUME_RTOL:
+            raise AssertionError(f"[{phase}] resumed losses off the "
+                                 f"straight run's by {rel:.3g}")
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        _log(f"[{phase}] mean loss of the first 5 steps {head:.5f}, of the "
+             f"last 5 {tail:.5f}")
+        if not tail < head:
+            raise AssertionError(f"[{phase}] the loss did not fall")
+        times = [b - a for a, b in zip(marks[1:], marks[2:])]
+        step_times(phase, marks[1] - marks[0], times,
+                   p["batch"] * (p["seq"] // 2),
+                   first_is="set-up and first step")
+
+        # the two runs' last checkpoints, and a save of the final state
+        _, like, _, _ = preset(ARCH, SEED)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, _ = restore_checkpoint(os.path.join(tmp, "a"), like)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        resumed_state, _ = restore_checkpoint(os.path.join(tmp, "b"), like)
+        pdiff = max(float((a - b).abs().max()) for a, b in zip(
+            _tensors(state["params"]), _tensors(resumed_state["params"])))
+        _log(f"[{phase}] final params, resumed against straight: max abs "
+             f"diff {pdiff:.3g}")
+        mgr = CheckpointManager(os.path.join(tmp, "sync"))
+        t0 = time.monotonic()
+        mgr.save(steps, state)
+        copy_s = time.monotonic() - t0
+        mgr.wait()
+        write_s = time.monotonic() - t0
+        path = os.path.join(tmp, "sync", os.listdir(mgr.root)[0])
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        _log(f"[{phase}] peak memory {peak} B "
+             f"(torch.cuda.max_memory_allocated, the straight run); "
+             f"checkpoint {nbytes} B: the save's copy to the host "
+             f"{copy_s:.4f} s (what a step waits for), the save to its end "
+             f"{write_s:.4f} s, a restore onto the card {restore_s:.4f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
+def run_train_o2(phase: str) -> None:
+    """Phase o2: qwen3-4b at full width, its first 4 of 36 layers (the
+    untied f32 head over 151,936 ids), 8 steps of ``make_train_step``
+    with no checkpoint; each step after the first is watched with the
+    sync debug mode, and must make no synchronising call."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.train.setup import preset
+    from repro_torch.train.step import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t_phase = time.monotonic()
+    model, state, ds, opt_cfg = preset("qwen3-4b", SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_par = sum(t.numel() for t in _tensors(state["params"]))
+    _log(f"[{phase}] {cfg.name} at {cfg.n_layers} of 36 layers: d_model "
+         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} untied, "
+         f"remat {cfg.remat}; {n_par} f32 parameters (state "
+         f"{sum(t.numel() * t.element_size() for t in _tensors(state))} B)"
+         f", seeded init on the card {time.monotonic() - t0:.2f} s; batch "
+         f"{ds.global_batch} x {ds.seq_len}; {opt_cfg}")
+    step = make_train_step(model, opt_cfg)
+    zero_counts()
+    times, losses, syncs = [], [], []
+    for i in range(opt_cfg.total_steps):
+        # on the card before the watched step: a copy from pageable host
+        # memory synchronises
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in ds.global_batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            if i:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, metrics = step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        losses.append(float(metrics["loss"]))
+        times.append(time.monotonic() - t0)
+        if i:
+            syncs.append(sum("synchroniz" in str(w.message) for w in seen))
+    peak = torch.cuda.max_memory_allocated()
+    train_gate(phase)
+    _log(f"[{phase}] losses {[round(x, 5) for x in losses]}, grad_norm "
+         f"{float(metrics['grad_norm']):.5f}, lr {float(metrics['lr']):.3g};"
+         f" synchronising calls inside steps 2-{len(times)}: {syncs}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{phase}] losses {losses}")
+    if any(syncs):
+        raise AssertionError(f"[{phase}] a train step synchronised: {syncs}")
+    step_times(phase, times[0], times[1:], ds.global_batch * ds.seq_len)
+    _log(f"[{phase}] peak memory {peak} B (torch.cuda.max_memory_allocated)"
+         f"; phase wall {time.monotonic() - t_phase:.2f} s")
+
+
+def kernels_after_training(phase: str) -> None:
+    """A dispatched ``fp16_matmul`` on CUDA tensors right after training
+    routes ("accel", "cuda") and launches the kernel: the grad-safe
+    context was the train step's alone."""
+    import torch
+
+    from repro_torch.kernels.api import dispatch, dispatch_counters
+    zero_counts()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(4, 384, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(384, 1536, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    dispatch("fp16_matmul", x, w, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    routing = dict(dispatch_counters())
+    n = launch_counters()["fp16_matmul"].launches
+    _log(f"[{phase}] after training: dispatch {routing}, fp16_matmul "
+         f"launches {n}")
+    if routing != {("fp16_matmul", "accel", "cuda"): 1} or n < 1:
+        raise AssertionError(f"[{phase}] fp16_matmul after training did "
+                             f"not launch its kernel")
+    zero_counts()
+
+
 def stop_children() -> list:
     """Kill every process below this one that is still running, parents
     first, and return their command lines. There should be none: the
@@ -2533,6 +2790,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     add(run_xlstm("d: serve xlstm-350m 4x4")[0])
+
+    # training on the card: the grad-safe torch bindings, no kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_o1("o1: train whisper-tiny.en 20 steps, resume at 10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_o2("o2: train qwen3-4b (4 layers) 8 steps")
+    kernels_after_training("o")
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
     left = stop_children()

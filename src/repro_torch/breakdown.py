@@ -8,6 +8,7 @@ decoder-only model, goes on the card.
     python -m repro_torch.breakdown --arch qwen3-4b|qwen3-moe-30b-a3b|gemma2-2b
                                     [--cache-dtype bf16|q8_0] [--eager]
     python -m repro_torch.breakdown --arch zamba2-7b [--eager]
+    python -m repro_torch.breakdown --train [--arch qwen3-4b]
 
 Runs whisper-tiny.en at full width with seeded random weights on 30 s
 of synthetic audio (1500 encoder frames, one chunk), 32 new tokens at 8
@@ -33,7 +34,11 @@ the card, ``max_len`` 512; ``--cache-dtype q8_0`` serves Q8_0 weights
 l's configuration: the hybrid at full width and depth (81 layers) with
 seeded random bf16 weights drawn on the card, a bf16 cache, and prompts
 of 64, 128, 192 and 300 ids (``HYBRID_PROMPTS``; the last spans two SSD
-chunks of 256). It reports, after one warm-up run:
+chunks of 256). ``--train`` profiles instead a train step of
+``chip_smoke.py``'s phase o (``train.setup.TRAIN_SETUP``: whisper-tiny.en
+at full width, batch 8 of 448 frames and 448 tokens; ``--arch qwen3-4b``: its
+first 4 layers, batch 4 x 256), after 5 unprofiled steps, the last 3 of
+which set the step's wall time. It reports, after one warm-up run:
 
 * host-clock seconds of each stage (frontend, encode, prefill, decode;
   for xLSTM prefill of the 4 prompts, decode), each ended by a device
@@ -264,6 +269,38 @@ def run_tokens(arch: str, cache_dtype: str = "bf16", seed: int = 0,
             "stages": stages, "decode_tick": _tick_report(prof, stages)}
 
 
+def run_train(arch: str, seed: int = 0) -> dict:
+    """The breakdown of phase o's train step: ``STEADY_TICK + 3`` steps
+    without the profiler (their walls, each ended by a synchronize; the
+    first ones warm up), then one step under it."""
+    from repro_torch.train.setup import preset
+    from repro_torch.train.step import make_train_step
+    model, state, ds, opt_cfg = preset(arch, seed)
+    step = make_train_step(model, opt_cfg)
+
+    def one(state, i):
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in ds.global_batch_at(i).items()}
+        return _timed(lambda: step(state, batch))
+
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEADY_TICK + 3):
+        (state, metrics), t = one(state, i)
+        walls.append(t)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        one(state, len(walls))
+    stages = {"tick_wall_s": walls,
+              "tokens_per_step": ds.global_batch * (
+                  ds.seq_len // 2 if model.cfg.enc_dec else ds.seq_len),
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "loss": float(metrics["loss"])}
+    return {"arch": model.cfg.name, "n_layers": model.cfg.n_layers,
+            "stages": stages, "train_step": _tick_report(prof, stages)}
+
+
 def _bf16(tree):
     if isinstance(tree, dict):
         return {k: _bf16(v) for k, v in tree.items()}
@@ -356,10 +393,18 @@ def main() -> None:
                     help="run every decode tick eagerly "
                          "(cuda_graph=False) instead of replaying its "
                          "CUDA graph")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step of phase o instead "
+                         "(whisper-tiny-en or qwen3-4b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.breakdown needs a CUDA device")
-    if args.arch != "whisper-tiny-en":
+    if args.train:
+        from repro_torch.train.setup import TRAIN_SETUP
+        if args.arch not in TRAIN_SETUP:
+            raise SystemExit(f"--train takes --arch {' or '.join(TRAIN_SETUP)}")
+        r = run_train(args.arch)
+    elif args.arch != "whisper-tiny-en":
         if args.spec_k or args.paged or args.lanes != 1 or (
                 args.cache_dtype != "bf16"
                 and args.arch in ("xlstm-350m", "zamba2-7b")):
@@ -373,8 +418,9 @@ def main() -> None:
                 paged=args.paged, lanes=args.lanes)
     for k, v in r["stages"].items():
         print(f"{k}: {v}")
-    t = r["decode_tick"]
-    print(f"decode tick: unprofiled_wall_s={t['unprofiled_wall_s']} "
+    what = "train step" if args.train else "decode tick"
+    t = r[what.replace(" ", "_")]
+    print(f"{what}: unprofiled_wall_s={t['unprofiled_wall_s']} "
           f"device_s={t['device_s']} "
           f"busy_share={t['busy_share']} launches={t['kernel_launches']}")
     for g, row in t["groups"].items():

@@ -17,6 +17,14 @@ Forcing ``"torch"`` on CUDA tensors raises unless the context sets
 ``allow_plain_on_cuda`` (a comparison against the plain version). There
 is no fallback: a kernel that cannot take a call raises.
 
+The kernels define no backward, so a differentiated forward (training)
+runs under ``grad_safe_context()``: every op keeps the law's decision
+but binds its differentiable torch implementation (``KernelOp.grad``,
+else the plain version), on CPU and CUDA tensors alike, recorded
+``(op, decision, "torch")`` with the tag ``"grad_safe"``. It is the
+reference's ``grad_safe_context``, which binds XLA where the kernels
+would have run.
+
 A ``DispatchContext`` carries the budget, the packing policy, backend
 overrides and the platform / tag stamped into each record; derive one
 from a registered platform with ``DispatchContext.for_platform``.
@@ -52,6 +60,7 @@ __all__ = [
     "dispatch_trace", "reset_dispatch_log", "use_context",
     "current_context", "decide", "launch_counts", "TickRecord",
     "recording", "replay_record", "kernel_hook", "kernel_call",
+    "grad_safe_context",
 ]
 
 #: budget of a context not derived from a platform (the reference's
@@ -68,7 +77,8 @@ class DispatchContext:
     (``{"q8_matmul": "torch"}``). ``allow_plain_on_cuda`` lets a forced
     ``"torch"`` run on CUDA tensors, for comparisons against the plain
     versions. ``platform`` and ``tag`` are stamped into every
-    ``DispatchRecord``."""
+    ``DispatchRecord``. ``grad_safe`` binds every op to its
+    differentiable torch implementation (``grad_safe_context``)."""
 
     vmem_budget: int = DEFAULT_BUDGET
     policy: str = "optimized"
@@ -77,6 +87,7 @@ class DispatchContext:
     allow_plain_on_cuda: bool = False
     platform: Optional[str] = None
     tag: Optional[str] = None
+    grad_safe: bool = False
 
     @classmethod
     def for_platform(cls, platform, **overrides) -> "DispatchContext":
@@ -96,6 +107,19 @@ _CTX: Optional[DispatchContext] = None
 def current_context() -> DispatchContext:
     """The innermost ``use_context``, else a default context."""
     return _CTX if _CTX is not None else DispatchContext()
+
+
+def grad_safe_context(ctx: Optional[DispatchContext] = None
+                      ) -> DispatchContext:
+    """A variant of ``ctx`` (default: the current one) for a forward
+    under autograd: the same budget, policy and law, every op bound to
+    its differentiable torch implementation, no forced ``"cuda"``, and
+    records tagged ``"grad_safe"`` unless ``ctx`` has a tag."""
+    ctx = ctx or current_context()
+    force = None if ctx.force_backend == "cuda" else ctx.force_backend
+    backends = {k: v for k, v in ctx.backends.items() if v != "cuda"}
+    return dataclasses.replace(ctx, force_backend=force, backends=backends,
+                               grad_safe=True, tag=ctx.tag or "grad_safe")
 
 
 @contextlib.contextmanager
@@ -247,6 +271,8 @@ def _decide(op: KernelOp, spec: KernelSpec, ctx: DispatchContext,
         order = op.accel_order if decision == "accel" or on_cuda \
             else op.host_order
         backend = _first_allowed(op, order, on_cuda)
+    if ctx.grad_safe:
+        return decision, "torch", footprint
     if on_cuda and backend != "cuda" and not ctx.allow_plain_on_cuda:
         raise ValueError(f"{op.name}: {decision} route to {backend!r} would "
                          f"run the plain version on the card; set "
@@ -274,7 +300,9 @@ def dispatch(op_name: str, *args, ctx: Optional[DispatchContext] = None,
     if tag is not None:
         spec = dataclasses.replace(spec, tag=tag)
     decision, backend, footprint = _decide(op, spec, ctx, args[0].is_cuda)
-    if op_name in _LAUNCHERS:
+    if ctx.grad_safe:
+        out = (op.grad or op.backends[backend])(*args, **kwargs)
+    elif op_name in _LAUNCHERS:
         out = kernel_call(op_name, op.backends[backend], *args, **kwargs)
     else:
         out = op.backends[backend](*args, **kwargs)
@@ -401,6 +429,8 @@ def _register_builtin_ops() -> None:
             "torch": lambda x, w, out_dtype=f32: mm_plain.fp16_matmul(
                 x, w, out_dtype=out_dtype),
         },
+        grad=lambda x, w, out_dtype=f32: mm_plain.fp16_matmul_grad(
+            x, w, out_dtype=out_dtype),
     ))
 
     register(KernelOp(

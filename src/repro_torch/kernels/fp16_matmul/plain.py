@@ -31,3 +31,14 @@ def _rowwise_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(k):
         y += x2[:, i:i + 1] * w[i]
     return y.reshape(*lead, w.shape[1])
+
+
+def fp16_matmul_grad(x: torch.Tensor, w: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """The differentiable binding (the reference's ``xla`` one): one
+    product in the operands' promoted dtype, cast to ``out_dtype``. Two
+    f32 operands make one f32 product (one autograd node, where
+    ``_rowwise_f32`` makes K), and bf16 operands a bf16 one with no f32
+    copy of either."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return (x.to(dt) @ w.to(dt)).to(out_dtype)

@@ -5,7 +5,9 @@ A ``KernelOp`` bundles an op's ``spec`` builder (its call's operands ->
 ``KernelSpec``), its backends and their order on each side of the
 decision. The port's backends are ``"cuda"`` (the hand-written Hopper
 kernel, the ACCEL side) and ``"torch"`` (the plain PyTorch version, the
-HOST side).
+HOST side). ``grad`` is the op's differentiable binding, which a
+training forward takes under ``api.grad_safe_context`` (the ``"torch"``
+backend where it is None): the kernels define no backward.
 
 ``KernelSpec`` lives in ``core/workload.py`` and the footprint model
 the decision compares with the budget, ``kernel_footprint``, in
@@ -15,7 +17,7 @@ the decision compares with the budget, ``kernel_footprint``, in
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 from repro_torch.core.workload import KernelSpec
 
@@ -30,6 +32,7 @@ class KernelOp:
     accel_order: Tuple[str, ...] = ("cuda", "torch")
     host_order: Tuple[str, ...] = ("torch",)
     doc: str = ""
+    grad: Optional[Callable] = None
 
     def __post_init__(self):
         unknown = set(self.backends) - set(BACKENDS)

@@ -22,6 +22,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (bf16_proj, embed, layer_slice,
                                        layernorm, logits_head, mlp, mm,
                                        ninit, pad_vocab, prepare_head,
+                                       remat, remat_on,
                                        sinusoidal_positions, stack_layers,
                                        take_rows)
 from repro_torch.quantize import QTENSORS, as_array
@@ -99,21 +100,28 @@ def _n_stacked(tree) -> int:
     return (tree.q if isinstance(tree, QTENSORS) else tree).shape[0]
 
 
-def encode(params: dict, cfg: ArchConfig,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, S_enc, d_model) frame embeddings -> encoder states."""
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
+           mode: str = "prefill") -> torch.Tensor:
+    """frames: (B, S_enc, d_model) frame embeddings -> encoder states.
+    ``mode="train"``: a training forward, whose layers ``remat_on``
+    may recompute in the backward."""
     b, s, d = frames.shape
     x = frames.to(torch.bfloat16) @ as_array(params["frontend"])
     x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
     layers = params["enc_layers"]
-    for i in range(_n_stacked(layers)):
-        lp = layer_slice(layers, i)
+
+    def layer(x, lp):
         h = layernorm(lp["ln1"], x)
         a, _ = attn_mod.attention(lp["attn"], h, cfg, kind="bidir",
                                   mode="train")
         x = x + a
         h = layernorm(lp["ln2"], x)
-        x = x + mlp(lp["mlp"], h, cfg.act)
+        return x + mlp(lp["mlp"], h, cfg.act)
+
+    ckpt = remat_on(cfg, mode)
+    for i in range(_n_stacked(layers)):
+        lp = layer_slice(layers, i)
+        x = remat(layer, x, lp) if ckpt else layer(x, lp)
     return layernorm(params["enc_ln"], x)
 
 
@@ -172,18 +180,17 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
     layers = params["dec_layers"]
     n_layers = _n_stacked(layers)
-    per_layer = []
-    for i in range(n_layers):
-        lp = layer_slice(layers, i)
+
+    def layer(x, lp, i):
         h = layernorm(lp["ln1"], x)
         if mode == "decode":
-            a, _ = attn_mod.attention(
+            a, self_c = attn_mod.attention(
                 lp["self_attn"], h, cfg, kind="global", mode=mode,
                 cache=cache["layers"]["self"], pos=posv, layer_idx=i,
                 page_table=None if pages is None else pages["self"])
             x = x + a
             h = layernorm(lp["ln_x"], x)
-            c, _ = attn_mod.attention(
+            c, cross_c = attn_mod.attention(
                 lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
                 cache=cache["layers"]["cross"], pos=posv, x_kv=h,
                 layer_idx=i, kv_lens=enc_lens,
@@ -198,10 +205,20 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             c, cross_c = attn_mod.attention(
                 lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
                 cache=None if lc is None else lc["cross"], x_kv=enc_out)
-            per_layer.append({"self": self_c, "cross": cross_c})
         x = x + c
         h = layernorm(lp["ln2"], x)
-        x = x + mlp(lp["mlp"], h, cfg.act)
+        return x + mlp(lp["mlp"], h, cfg.act), {"self": self_c,
+                                                 "cross": cross_c}
+
+    ckpt = remat_on(cfg, mode)
+    per_layer = []
+    for i in range(n_layers):
+        lp = layer_slice(layers, i)
+        if ckpt:
+            x = remat(lambda x, lp, i=i: layer(x, lp, i)[0], x, lp)
+        else:
+            x, new = layer(x, lp, i)
+            per_layer.append(new)
 
     x = layernorm(params["dec_ln"], x)
     logits = logits_head(params["embed"], x, cfg.vocab,

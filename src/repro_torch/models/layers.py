@@ -28,8 +28,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.api import dispatch
+from repro_torch.kernels.api import current_context, dispatch, use_context
 from repro_torch.quantize import (QBLOCK, QTENSORS, Q4Tensor, Q8Tensor,
                                   dequantize_q8_0, unpack_q4)
 
@@ -67,6 +68,27 @@ def ninit(gen: torch.Generator, shape, fan_in: int, device,
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * fan_in ** -0.5).to(device=device, dtype=dtype)
+
+
+def remat_on(cfg, mode: str) -> bool:
+    """Whether a stack recomputes its layers' activations in the
+    backward: ``cfg.remat`` in a train forward under autograd, never in
+    prefill or decode."""
+    return cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations dropped and recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``). The recomputation runs
+    under this call's dispatch context, so it binds what the forward
+    bound (the grad-safe route in training)."""
+    ctx = current_context()
+
+    def again(*a):
+        with use_context(ctx):
+            return fn(*a)
+    return checkpoint(again, *args, use_reentrant=False)
 
 
 def layer_slice(tree, i: int):

@@ -145,7 +145,8 @@ class Model:
                 pos=pos, enc_lens=batch.get("enc_lens"), pages=pages)
         enc_out = batch.get("enc_states")
         if enc_out is None:
-            enc_out = encdec_mod.encode(values, cfg, batch["enc_frames"])
+            enc_out = encdec_mod.encode(values, cfg, batch["enc_frames"],
+                                        mode=mode)
         return encdec_mod.decode_tokens(values, cfg, batch["tokens"],
                                         enc_out, mode=mode, cache=cache)
 

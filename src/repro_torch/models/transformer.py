@@ -42,7 +42,8 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
                                        init_mlp, init_rmsnorm, layer_slice,
                                        logits_head, mlp, ninit, pad_vocab,
-                                       prepare_head, rmsnorm, stack_layers)
+                                       prepare_head, remat, remat_on,
+                                       rmsnorm, stack_layers)
 
 def segment_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
     """[(block_type, attn_kind)] per segment: (mLSTM, sLSTM) for xLSTM,
@@ -288,10 +289,10 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
     """Run the ``n`` stacked layers of ``stack`` (the segments, or the
     hybrid's tail) over x, with their ``cache`` subtree (the
     prefill's fresh one, or the decode's pool, which each block writes in
-    place). Returns (x, the prefill's new stacked subtree, else None)."""
-    new_layers = []
-    for i in range(n):
-        sp = layer_slice(stack, i)
+    place). Returns (x, the prefill's new stacked subtree, else None).
+    A train forward under ``remat_on`` recomputes each layer's
+    activations in the backward."""
+    def layer(x, sp, i):
         sc = None
         if cache is not None and mode != "decode":
             sc = layer_slice(cache, i)
@@ -316,6 +317,16 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
                 if mode == "decode":
                     _write_state(cache[name], nc, i)
             new[name] = nc
+        return x, new
+
+    ckpt = remat_on(cfg, mode)
+    new_layers = []
+    for i in range(n):
+        sp = layer_slice(stack, i)
+        if ckpt:
+            x = remat(lambda x, sp, i=i: layer(x, sp, i)[0], x, sp)
+            continue
+        x, new = layer(x, sp, i)
         new_layers.append(new)
     return x, stack_layers(new_layers) if mode == "prefill" else None
 

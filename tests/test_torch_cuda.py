@@ -40,7 +40,9 @@ attention's card formulation (bf16 planes into f32 results) equals the
 widened one within 1e-5 of the largest output, and the paged bf16 tick
 the slot pool's bit for bit. The static checks (``repro_torch.
 staticcheck``) pass on the card: no synchronising call inside a traced
-program, buffers in place, one capture per tick size.
+program, buffers in place, one capture per tick size. A reduced train
+step on the card launches no kernel (the grad-safe torch bindings) and
+matches the same step on the CPU.
 """
 
 import gc
@@ -1177,3 +1179,41 @@ def test_staticcheck_on_the_card(dev):
     assert len(recomp) == 4
     assert all(f.data["after_admission"] == [1, 2, 1]
                for f in recomp if "decode_block" in f.subject)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny-en", "qwen3-4b"])
+def test_train_step_on_the_card_launches_no_kernel(dev, arch):
+    """A reduced train step on CUDA tensors runs the grad-safe torch
+    bindings (no kernel launch, every dispatch ``(op, accel|host,
+    "torch")``) and matches the same step on the CPU: the loss within a
+    bf16 rounding, the gradient norm within 1e-2 and every parameter
+    within 2 * lr (Adam's first step moves an element +-lr, so a
+    near-zero gradient of another sign moves it 2 * lr apart)."""
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.optim.adamw import AdamWConfig, init_state, leaves
+    from repro_torch.train.step import make_train_step
+    model = build(reduced(get_config(arch)))
+    params = model.init_values(torch.Generator().manual_seed(0),
+                               device="cpu")
+    batch = batch_for_step(model.cfg, 64, 4, seed=0, step=0)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=0,
+                                              total_steps=10))
+    gpu = _cast_tree(params, dev)
+    cpu_state, cpu_m = step({"params": params, "opt": init_state(params)},
+                            batch)
+    before = api.launch_counts()
+    api.reset_dispatch_log()
+    gpu_state, gpu_m = step({"params": gpu, "opt": init_state(gpu)}, batch)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == before
+    routing = api.dispatch_counters()
+    assert routing and all(k[1] in ("accel", "host") and k[2] == "torch"
+                           for k in routing), routing
+    assert gpu_m["loss"].is_cuda and gpu_state["opt"]["step"].is_cuda
+    assert abs(float(gpu_m["loss"]) / float(cpu_m["loss"]) - 1) <= BF16_RTOL
+    assert abs(float(gpu_m["grad_norm"]) / float(cpu_m["grad_norm"])
+               - 1) <= 1e-2
+    bound = 2 * float(cpu_m["lr"]) + 1e-7
+    for a, c in zip(leaves(cpu_state["params"]),
+                    leaves(gpu_state["params"])):
+        assert float((c.cpu() - a).abs().max()) <= bound

@@ -48,7 +48,13 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.staticcheck.recompile",
             "repro_torch.staticcheck.report", "repro_torch.staticcheck.run",
             "repro_torch.staticcheck.syncpoints",
-            "repro_torch.staticcheck.trace"} <= set(mods)
+            "repro_torch.staticcheck.trace", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.data",
+            "repro_torch.data.synthetic", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.store", "repro_torch.train",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.train.setup",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
