@@ -164,6 +164,23 @@ o. training on the card (``repro_torch.train``), last. The kernels
    a restore. Then a
    ``fp16_matmul`` dispatched on CUDA tensors must route ("accel",
    "cuda") and launch its kernel again.
+p. training through the parallel layer, in a process group of one rank
+   over ``nccl`` made for the phase and destroyed after it. p1: o1's
+   run (whisper-tiny.en) and o2's (qwen3-4b, 4 layers), each
+   ``P_STEPS`` steps on a 1x1 ``("data", "model")`` mesh (the state
+   DTensors placed by ``state_shardings``), then the same steps
+   unsharded from the same seed, the first state freed but for its
+   parameters: the losses within ``P_LOSS_RTOL`` and the parameters
+   within ``P_PARAM_RTOL`` / ``P_PARAM_ATOL`` (the reference's bounds);
+   each prints the largest differences, the ms a step of both and how
+   far each run's peak memory rose above the state it started from. p2:
+   the compressed step on a data mesh of 1 against the exact one, 5
+   whisper steps (the loss within ``P_COMPRESSED_LOSS`` a step, the
+   relative drift below ``P_COMPRESSED_DRIFT``, residuals non-zero). p3:
+   p1's sharded whisper state saved, restored onto a plain state and
+   back onto the mesh, bit for bit. p4: ``launch.train`` with
+   ``--devices 1 --mesh 1x1``, 4 steps on ``cuda``. No kernel launches
+   (the grad-safe route); the ``fp16_matmul`` check follows again.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -2557,6 +2574,267 @@ def run_train_o2(phase: str) -> None:
          f"; phase wall {time.monotonic() - t_phase:.2f} s")
 
 
+#: phase p: the sharded train step against the plain one (the
+#: reference's bounds, tests/test_distributed.py): the loss, rtol; the
+#: parameters, rtol and atol
+P_STEPS = 3
+P_LOSS_RTOL = 2e-4
+P_PARAM_RTOL, P_PARAM_ATOL = 2e-2, 2e-4
+#: the compressed step against the exact one over 5 steps: the loss
+#: within 0.05 each step, the parameters' relative drift below 5e-3
+P_COMPRESSED_STEPS = 5
+P_COMPRESSED_LOSS, P_COMPRESSED_DRIFT = 0.05, 5e-3
+P_BACKEND = "nccl"
+
+
+def _p_steps(step, state, ds, n: int) -> tuple:
+    """``n`` steps of ``step``; (state, losses, seconds a step, bytes the
+    steps' peak rose above what was allocated before them), each step
+    timed to its loss's fetch."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(n):
+        t0 = time.monotonic()
+        state, metrics = step(state, ds.global_batch_at(i))
+        losses.append(float(metrics["loss"]))
+        times.append(time.monotonic() - t0)
+    return state, losses, times, torch.cuda.max_memory_allocated() - base
+
+
+def _param_gap(got, want) -> tuple:
+    """(largest abs difference, largest excess over atol + rtol * |want|)
+    of two parameter trees (plain tensors)."""
+    from repro_torch.optim.adamw import leaves
+    gap = over = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        d = (a.float() - b.float()).abs()
+        gap = max(gap, float(d.max()))
+        over = max(over, float((d - P_PARAM_ATOL
+                                - P_PARAM_RTOL * b.float().abs()).max()))
+    return gap, over
+
+
+def run_train_p1(phase: str, arch: str, mesh):
+    """Phase p1: ``arch``'s phase-o run (``TRAIN_SETUP``) for ``P_STEPS``
+    steps on the 1x1 ``("data", "model")`` mesh (the state DTensors
+    placed by ``state_shardings``), then the same steps unsharded from the
+    same seed; the first run's state is freed but for its parameters
+    before the second is drawn. Returns the sharded run's final state
+    for whisper-tiny.en (p3 saves it), else None."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel.sharding import place_tree, rules_for
+    from repro_torch.train.setup import preset
+    from repro_torch.train.step import make_train_step, state_shardings
+
+    t_phase = time.monotonic()
+    model, state, ds, opt_cfg = preset(arch, SEED)
+    rules = rules_for(model.cfg, mesh, mode="train")
+    state = place_tree(state, state_shardings(model, mesh, rules))
+    zero_counts()
+    torch.cuda.synchronize()
+    state, sharded, t_sh, peak_sh = _p_steps(
+        make_train_step(model, opt_cfg, mesh=mesh, rules=rules), state, ds,
+        P_STEPS)
+    train_gate(phase)
+    keep = state if arch == ARCH else None
+    got = tree_map(lambda p: p.to_local().clone(), state["params"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state, ds, opt_cfg = preset(arch, SEED)
+    state, plain, t_pl, peak_pl = _p_steps(make_train_step(model, opt_cfg),
+                                           state, ds, P_STEPS)
+    rel = max(abs(a / b - 1) for a, b in zip(sharded, plain))
+    gap, over = _param_gap(got, state["params"])
+    _log(f"[{phase}] {model.cfg.name} ({model.cfg.n_layers} layers), "
+         f"batch {ds.global_batch} x {ds.seq_len}: losses sharded "
+         f"{sharded}, plain {plain}: max rel diff {rel:.3g}; params after "
+         f"{P_STEPS} steps: max abs diff {gap:.3g} (excess over atol "
+         f"{P_PARAM_ATOL} + rtol {P_PARAM_RTOL}: {over:.3g})")
+    ms_sh = [round(t * 1e3, 2) for t in t_sh]
+    ms_pl = [round(t * 1e3, 2) for t in t_pl]
+    _log(f"[{phase}] ms a step, sharded (1x1 mesh) {ms_sh}, plain "
+         f"{ms_pl}; median of steps 2-{P_STEPS}: sharded "
+         f"{np.median(t_sh[1:]) * 1e3:.2f} ms, plain "
+         f"{np.median(t_pl[1:]) * 1e3:.2f} ms")
+    _log(f"[{phase}] the steps' peak above the state they start from "
+         f"(torch.cuda.max_memory_allocated): sharded {peak_sh} B, plain "
+         f"{peak_pl} B")
+    if not all(np.isfinite(sharded)) or rel > P_LOSS_RTOL or over > 0:
+        raise AssertionError(f"[{phase}] the sharded step is off the "
+                             f"plain one: loss rel {rel:.3g}, params "
+                             f"excess {over:.3g}")
+    del state, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+    return keep
+
+
+def run_train_p2(phase: str) -> None:
+    """Phase p2: whisper-tiny.en's phase-o run, the compressed step on a
+    data mesh of 1 against the exact step, ``P_COMPRESSED_STEPS`` steps
+    each from the same seed; its error-feedback residuals must be
+    non-zero."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.setup import preset
+    from repro_torch.parallel.collectives import init_error_state
+    from repro_torch.train.step import (make_compressed_train_step,
+                                        make_train_step)
+
+    t_phase = time.monotonic()
+    mesh = make_mesh((1,), ("data",))
+    model, exact_state, ds, opt_cfg = preset(ARCH, SEED)
+    _, comp_state, _, _ = preset(ARCH, SEED)
+    comp_state["err"] = init_error_state(comp_state["params"], mesh)
+    exact = make_train_step(model, opt_cfg)
+    comp = make_compressed_train_step(model, opt_cfg, mesh)
+    losses = []
+    for i in range(P_COMPRESSED_STEPS):
+        batch = ds.global_batch_at(i)
+        exact_state, me = exact(exact_state, batch)
+        comp_state, mc = comp(comp_state, batch)
+        losses.append((float(me["loss"]), float(mc["loss"])))
+    num = den = 0.0
+    for a, b in zip(leaves(comp_state["params"]),
+                    leaves(exact_state["params"])):
+        num += float(torch.sum((a.float() - b.float()) ** 2))
+        den += float(torch.sum(b.float() ** 2))
+    drift = (num / den) ** 0.5
+    err = max(float(e.to_local().abs().max())
+              for e in leaves(comp_state["err"]))
+    worst = max(abs(a - b) for a, b in losses)
+    _log(f"[{phase}] (exact, compressed) losses {losses}: largest gap "
+         f"{worst:.4g} (bound {P_COMPRESSED_LOSS}); parameter drift "
+         f"{drift:.4g} (bound {P_COMPRESSED_DRIFT}); largest residual "
+         f"{err:.4g}")
+    if worst >= P_COMPRESSED_LOSS or drift >= P_COMPRESSED_DRIFT \
+            or not np.isfinite(worst) or not err > 0:
+        raise AssertionError(f"[{phase}] the compressed step does not "
+                             f"track the exact one")
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
+def run_train_p3(phase: str, state, mesh) -> None:
+    """Phase p3: p1's sharded whisper-tiny.en state saved, restored onto
+    a plain single-device state and back onto the mesh, bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.store import (CheckpointManager,
+                                              restore_checkpoint)
+    from repro_torch.optim.adamw import leaves, tree_map
+    from repro_torch.parallel.sharding import rules_for
+    from repro_torch.train.setup import preset
+    from repro_torch.train.step import state_shardings
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p3_")
+    try:
+        mgr = CheckpointManager(tmp)
+        mgr.save(P_STEPS, state)
+        mgr.wait()
+        model, like, _, _ = preset(ARCH, SEED)
+        plain, _ = restore_checkpoint(tmp, like)
+        sh = state_shardings(model, mesh, rules_for(model.cfg, mesh))
+        back, _ = restore_checkpoint(tmp, state, shardings=sh)
+        whole = tree_map(lambda x: x.full_tensor(), state["params"])
+        n = 0
+        for a, b, c in zip(leaves(whole), leaves(plain["params"]),
+                           leaves(back["params"])):
+            if not (torch.equal(a, b) and torch.equal(a, c.full_tensor())
+                    and type(c).__name__ == "DTensor"):
+                raise AssertionError(f"[{phase}] a restored leaf differs")
+            n += 1
+        if not all(torch.equal(x.full_tensor(), y) for x, y in zip(
+                leaves(state["opt"]), leaves(plain["opt"]))):
+            raise AssertionError(f"[{phase}] a restored moment differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"[{phase}] {n} parameter leaves and the AdamW state: sharded -> "
+         f"checkpoint -> plain and -> mesh, bit-equal; phase wall "
+         f"{time.monotonic() - t_phase:.2f} s")
+
+
+def run_train_p4(phase: str) -> None:
+    """Phase p4: the launcher on one rank and a 1x1 mesh, on ``cuda``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.setup import TRAIN_SETUP
+
+    t_phase = time.monotonic()
+    p = TRAIN_SETUP[ARCH]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p4_")
+    argv = ["--arch", ARCH, "--devices", "1", "--mesh", "1x1", "--steps",
+            "4", "--batch", str(p["batch"]), "--seq", str(p["seq"]),
+            "--lr", str(p["lr"]), "--warmup", str(p["warmup"]), "--seed",
+            str(SEED), "--ckpt", tmp]
+    try:
+        _log(f"[{phase}] python -m repro_torch.launch.train "
+             f"{' '.join(argv[:-1])} DIR")
+        res = train_cli.main(argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if res.final_step != 4 or len(res.losses) != 4 \
+            or not all(np.isfinite(res.losses)):
+        raise AssertionError(f"[{phase}] launcher run: {res}")
+    _log(f"[{phase}] losses {res.losses}; phase wall "
+         f"{time.monotonic() - t_phase:.2f} s")
+
+
+def run_train_p() -> None:
+    """Phase p: training through the parallel layer in a process group of
+    one rank over ``P_BACKEND`` on the card, made here and destroyed at
+    the phase's end."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.monotonic()
+    rdv = tempfile.TemporaryDirectory(prefix="chip_smoke_p_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(P_BACKEND,
+                            init_method=f"file://{rdv.name}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        kept = run_train_p1("p1: whisper-tiny.en, 1x1 mesh vs plain",
+                            ARCH, mesh)
+        run_train_p3("p3: sharded checkpoint -> plain -> mesh", kept, mesh)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_train_p1("p1: qwen3-4b (4 layers), 1x1 mesh vs plain",
+                     "qwen3-4b", mesh)
+        run_train_p2("p2: compressed step on a data mesh of 1")
+        run_train_p4("p4: launch.train --devices 1 --mesh 1x1")
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[p] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
 def kernels_after_training(phase: str) -> None:
     """A dispatched ``fp16_matmul`` on CUDA tensors right after training
     routes ("accel", "cuda") and launches the kernel: the grad-safe
@@ -2799,6 +3077,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_train_o2("o2: train qwen3-4b (4 layers) 8 steps")
     kernels_after_training("o")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_p()
+    kernels_after_training("p")
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
     left = stop_children()

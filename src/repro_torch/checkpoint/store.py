@@ -18,7 +18,14 @@ in sorted key order, as ``jax.tree_util`` flattens a dict. bfloat16 and
 the float8 types, which numpy cannot store, are written as same-width
 unsigned views with the logical dtype in the manifest. Arrays are stored
 whole; ``restore_checkpoint`` places each leaf on the device of the
-matching leaf of ``like`` (or on ``device``).
+matching leaf of ``like`` (or on ``device``), and with ``shardings``
+(the elastic path) as a DTensor onto the restoring job's mesh, whatever
+mesh wrote it.
+
+Under a process group of several ranks a DTensor leaf is gathered whole
+(``full_tensor()``, a collective every rank joins) on the calling
+thread before the writer gets it; rank 0 writes and every rank waits
+for the write at the next ``wait()`` (a barrier).
 
 Layout::
 
@@ -37,6 +44,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.dtensor import is_dtensor
 
 # logical dtype name -> (torch dtype, the unsigned view it is stored as)
 _EXOTIC = {"bfloat16": (torch.bfloat16, torch.uint16),
@@ -105,7 +114,10 @@ def latest_step(root: str) -> Optional[int]:
 
 def _host(leaf) -> torch.Tensor:
     """A host copy of ``leaf`` that later in-place updates of the leaf do
-    not reach (``.cpu()`` of a CPU tensor would be the tensor itself)."""
+    not reach (``.cpu()`` of a CPU tensor would be the tensor itself); a
+    DTensor's whole global array."""
+    if is_dtensor(leaf):
+        return leaf.detach().full_tensor().to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return torch.as_tensor(np.asarray(leaf))
@@ -121,7 +133,8 @@ def save_checkpoint(root: str, step: int, tree: Any,
     os.makedirs(tmp)
     index = []
     for i, (name, leaf) in enumerate(_flatten_with_names(tree)):
-        t = leaf.detach().cpu() if isinstance(leaf, torch.Tensor) \
+        t = leaf.detach().cpu() if (isinstance(leaf, torch.Tensor)
+                                    and not is_dtensor(leaf)) \
             else _host(leaf)
         arr, dtype_name = _to_numpy(t)
         fname = f"arr-{i:05d}.npy"
@@ -139,10 +152,16 @@ def save_checkpoint(root: str, step: int, tree: Any,
 
 
 def restore_checkpoint(root: str, like: Any, step: Optional[int] = None,
-                       device=None) -> tuple[Any, int]:
+                       device=None, shardings: Any = None
+                       ) -> tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf on ``device``,
-    else on the device of ``like``'s leaf of the same name. Returns
-    (tree, step)."""
+    else on the device of ``like``'s leaf of the same name. ``shardings``
+    (a tree of ``parallel.sharding.Sharding`` or None, shaped as
+    ``like``) places each global array onto the restoring job's mesh;
+    without it a DTensor leaf of ``like`` is placed as that leaf is.
+    Returns (tree, step)."""
+    # the elastic path places onto a mesh: the parallel layer's
+    from repro_torch.parallel.sharding import place, sharding_of
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -151,6 +170,7 @@ def restore_checkpoint(root: str, like: Any, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
+    shard_by = dict(_flatten_with_names(shardings)) if shardings else {}
 
     out = {}
     for name, proto in _flatten_with_names(like):
@@ -163,9 +183,12 @@ def restore_checkpoint(root: str, like: Any, step: Optional[int] = None,
         if want is not None and tuple(t.shape) != want:
             raise ValueError(
                 f"leaf {name!r}: checkpoint shape {tuple(t.shape)} != {want}")
-        dev = device if device is not None else getattr(proto, "device",
+        local = proto.to_local() if is_dtensor(proto) else proto
+        dev = device if device is not None else getattr(local, "device",
                                                          "cpu")
-        out[name] = t.to(dev)
+        t = t.to(dev)
+        sh = shard_by.get(name) if shardings else sharding_of(proto)
+        out[name] = place(t, sh) if sh is not None else t
     return _unflatten_like(like, out), step
 
 
@@ -178,17 +201,33 @@ def _gc(root: str, keep: int) -> None:
         shutil.rmtree(_step_dir(root, s), ignore_errors=True)
 
 
-def _snapshot(tree: Any) -> Any:
+def _snapshot(tree: Any, keep: bool = True) -> Any:
+    """Host copies of ``tree``'s leaves; ``keep=False`` (a rank that does
+    not write) makes the same gathers of DTensor leaves, in the same
+    order, and keeps nothing."""
     if isinstance(tree, dict):
-        return {k: _snapshot(v) for k, v in tree.items()}
+        return {k: _snapshot(v, keep) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_snapshot(v) for v in tree)
+        return type(tree)(_snapshot(v, keep) for v in tree)
+    if not keep:
+        return tree.full_tensor() if is_dtensor(tree) else None
     return _host(tree)
+
+
+def _ranks() -> tuple[int, int]:
+    """(this rank, world size) of the process group, (0, 1) without
+    one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
     """Async writer with retention. One in-flight save at a time (a newer
-    save waits for the previous write to land, preserving ordering)."""
+    save waits for the previous write to land, preserving ordering).
+    Under several ranks every rank calls ``save`` and ``wait`` at the
+    same points; rank 0 alone writes."""
 
     def __init__(self, root: str, keep: int = 3):
         self.root = root
@@ -198,6 +237,9 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, note: str = "") -> None:
         self.wait()
+        if _ranks()[0] != 0:
+            _snapshot(tree, keep=False)   # join rank 0's gathers only
+            return
         # snapshot to host *before* returning so training can mutate state
         host = _snapshot(tree)
 
@@ -215,14 +257,17 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _ranks()[1] > 1:
+            import torch.distributed as dist
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, int]:
+                device=None, shardings: Any = None) -> tuple[Any, int]:
         self.wait()
-        return restore_checkpoint(self.root, like, step, device)
+        return restore_checkpoint(self.root, like, step, device, shardings)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.root)

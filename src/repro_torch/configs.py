@@ -79,6 +79,11 @@ class ArchConfig:
         return self.n_experts > 0
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Whether long_500k decode is runnable (state-based memory)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def scan_unit(self) -> int:
         """Layers per scanned segment (heterogeneous stacks scan groups)."""
         if self.family == "hybrid" and self.attn_every:

@@ -23,7 +23,13 @@ but binds its differentiable torch implementation (``KernelOp.grad``,
 else the plain version), on CPU and CUDA tensors alike, recorded
 ``(op, decision, "torch")`` with the tag ``"grad_safe"``. It is the
 reference's ``grad_safe_context``, which binds XLA where the kernels
-would have run.
+would have run. A kernel is never handed a DTensor (the parallel
+layer's): a DTensor operand binds the torch implementation under
+``grad_safe_context`` and on the CPU, and on the card outside it raises
+as any plain route there does, unless the context sets
+``allow_plain_on_cuda``. The port's steps gather parameters and caches
+to plain tensors before a forward, so no DTensor reaches a kernel call
+on their paths.
 
 A ``DispatchContext`` carries the budget, the packing policy, backend
 overrides and the platform / tag stamped into each record; derive one
@@ -54,6 +60,7 @@ import torch
 from repro_torch.core.footprint import kernel_footprint
 from repro_torch.core.workload import KernelSpec
 from repro_torch.kernels.registry import BACKENDS, KernelOp, get_op, register
+from repro_torch.dtensor import is_dtensor
 
 __all__ = [
     "DispatchContext", "DispatchRecord", "dispatch", "dispatch_counters",
@@ -256,7 +263,7 @@ def _first_allowed(op: KernelOp, order, on_cuda: bool) -> str:
 
 
 def _decide(op: KernelOp, spec: KernelSpec, ctx: DispatchContext,
-            on_cuda: bool) -> tuple[str, str, int]:
+            on_cuda: bool, dtensor: bool = False) -> tuple[str, str, int]:
     footprint = kernel_footprint(spec, ctx.policy)
     forced = ctx.force_backend or ctx.backends.get(op.name)
     if forced:
@@ -273,6 +280,12 @@ def _decide(op: KernelOp, spec: KernelSpec, ctx: DispatchContext,
         backend = _first_allowed(op, order, on_cuda)
     if ctx.grad_safe:
         return decision, "torch", footprint
+    if dtensor:
+        if on_cuda and not ctx.allow_plain_on_cuda:
+            raise ValueError(f"{op.name}: a DTensor operand on the card "
+                             f"reaches no kernel; gather it to a plain "
+                             f"tensor, or run under grad_safe_context")
+        return decision, "torch", footprint
     if on_cuda and backend != "cuda" and not ctx.allow_plain_on_cuda:
         raise ValueError(f"{op.name}: {decision} route to {backend!r} would "
                          f"run the plain version on the card; set "
@@ -282,10 +295,12 @@ def _decide(op: KernelOp, spec: KernelSpec, ctx: DispatchContext,
 
 def decide(op_name: str, spec: KernelSpec,
            ctx: Optional[DispatchContext] = None,
-           on_cuda: bool = True) -> tuple[str, str]:
-    """(decision, backend) the control law would take for ``spec``."""
+           on_cuda: bool = True, dtensor: bool = False) -> tuple[str, str]:
+    """(decision, backend) the control law would take for ``spec``
+    (with a DTensor operand if ``dtensor``)."""
     decision, backend, _ = _decide(get_op(op_name), spec,
-                                   ctx or current_context(), on_cuda)
+                                   ctx or current_context(), on_cuda,
+                                   dtensor)
     return decision, backend
 
 
@@ -299,9 +314,13 @@ def dispatch(op_name: str, *args, ctx: Optional[DispatchContext] = None,
     spec = op.spec(*args, **kwargs)
     if tag is not None:
         spec = dataclasses.replace(spec, tag=tag)
-    decision, backend, footprint = _decide(op, spec, ctx, args[0].is_cuda)
-    if ctx.grad_safe:
-        out = (op.grad or op.backends[backend])(*args, **kwargs)
+    # a DTensor operand never reaches a kernel (its local shard is not
+    # the operand the kernel's plan was made for)
+    dtensor = any(is_dtensor(a) for a in args)
+    decision, backend, footprint = _decide(op, spec, ctx, args[0].is_cuda,
+                                           dtensor)
+    if ctx.grad_safe or dtensor:
+        out = (op.grad or op.backends["torch"])(*args, **kwargs)
     elif op_name in _LAUNCHERS:
         out = kernel_call(op_name, op.backends[backend], *args, **kwargs)
     else:

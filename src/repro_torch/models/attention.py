@@ -46,8 +46,9 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
 from repro_torch.kernels.paged_attention.plain import bf16_decode_attention
-from repro_torch.models.layers import (mm, mm_out, ninit, prepared,
+from repro_torch.models.layers import (filled, mm, mm_out, ninit, prepared,
                                        rmsnorm, rope)
+from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
 
@@ -57,19 +58,22 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device,
     weights (ones) in f32, as the reference keeps them."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": ninit(gen, (d, h, dh), d, device, dtype),
-        "wk": ninit(gen, (d, hk, dh), d, device, dtype),
-        "wv": ninit(gen, (d, hk, dh), d, device, dtype),
-        "wo": ninit(gen, (h, dh, d), h * dh, device, dtype),
+        "wq": ninit(gen, (d, h, dh), d, device, dtype,
+                    axes=("param_embed", "heads", "head_dim")),
+        "wk": ninit(gen, (d, hk, dh), d, device, dtype,
+                    axes=("param_embed", "kv_heads", "head_dim")),
+        "wv": ninit(gen, (d, hk, dh), d, device, dtype,
+                    axes=("param_embed", "kv_heads", "head_dim")),
+        "wo": ninit(gen, (h, dh, d), h * dh, device, dtype,
+                    axes=("heads", "head_dim", "param_embed")),
     }
-    f32 = dict(dtype=torch.float32, device=device)
     if cfg.attn_bias:
-        p["bq"] = torch.zeros((h, dh), **f32)
-        p["bk"] = torch.zeros((hk, dh), **f32)
-        p["bv"] = torch.zeros((hk, dh), **f32)
+        p["bq"] = filled((h, dh), 0.0, device, ("heads", "head_dim"))
+        p["bk"] = filled((hk, dh), 0.0, device, ("kv_heads", "head_dim"))
+        p["bv"] = filled((hk, dh), 0.0, device, ("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((dh,), **f32)
-        p["k_norm"] = torch.ones((dh,), **f32)
+        p["q_norm"] = filled((dh,), 1.0, device, ("head_dim",))
+        p["k_norm"] = filled((dh,), 1.0, device, ("head_dim",))
     return p
 
 
@@ -139,11 +143,15 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             positions = torch.arange(s, device=x.device).expand(b, s)
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
+        q = constrain(q, "batch", "q_seq", "heads", "head_dim")
+        k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
         out = dispatch("flash_attention", q, k, v, causal=causal,
                        window=window, softcap=softcap)
         new_cache = _write_prefill_cache(cache, k, v) \
             if mode == "prefill" else None
-        return mm_out(out, p["wo"]), new_cache
+        return constrain(mm_out(out, p["wo"]), "batch", "q_seq",
+                         "embed"), new_cache
 
     if mode != "decode" or cache is None or layer_idx is None:
         raise ValueError("decode needs the stacked cache and its layer")
@@ -187,10 +195,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if page_table is not None:
             out = _paged_cache_attention(q, cache, layer_idx, page_table,
                                          read_lens)
-            return mm_out(out.to(x.dtype), p["wo"]), cache
+            return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
         if tier != "bf16":
-            return _quant_decode(p, x, q, cache, tier, read_lens,
-                                 layer_idx), cache
+            return _decoded(_quant_decode(p, x, q, cache, tier, read_lens,
+                                          layer_idx)), cache
         kv_len = cache["k"].shape[2]
         kpos = torch.arange(kv_len, device=x.device)
         mask = kpos[None, None, :] <= posq[:, :, None]             # (B,Q,K)
@@ -206,21 +214,27 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     if kv_lens is None else kv_lens)
             out = _paged_cache_attention(q, cache, layer_idx, page_table,
                                          lens)
-            return mm_out(out.to(x.dtype), p["wo"]), cache
+            return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
         kv_len = cache[_CODE_KEYS[tier][0]].shape[2]
         lens = (torch.full((b,), kv_len, device=x.device)
                 if kv_lens is None else kv_lens)
         if tier != "bf16":
-            return _quant_decode(p, x, q, cache, tier, lens,
-                                 layer_idx), cache
+            return _decoded(_quant_decode(p, x, q, cache, tier, lens,
+                                          layer_idx)), cache
         mask = (torch.arange(kv_len, device=x.device)[None, :]
                 < lens[:, None])[:, None, :]
 
     # bf16 cache: einsum decode in torch ops (the reference has no Pallas
     # kernel here), the chain the paged op runs after its gather
+    q = constrain(q, "batch", None, "heads", "head_dim")
     out = bf16_decode_attention(q, cache["k"][layer_idx],
                                 cache["v"][layer_idx], mask, softcap)
-    return mm_out(out.to(x.dtype), p["wo"]), cache
+    return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
+
+
+def _decoded(y: torch.Tensor) -> torch.Tensor:
+    """A decode attention's output, constrained as the reference's."""
+    return constrain(y, "batch", None, "embed")
 
 
 #: the code-plane keys (K, V) of each cache tier

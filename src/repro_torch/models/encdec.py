@@ -19,25 +19,28 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (bf16_proj, embed, layer_slice,
+from repro_torch.models.layers import (bf16_proj, draw, embed, filled,
+                                       init_embedding, layer_slice,
                                        layernorm, logits_head, mlp, mm,
-                                       ninit, pad_vocab, prepare_head,
+                                       ninit, prepare_head,
                                        remat, remat_on,
                                        sinusoidal_positions, stack_layers,
                                        take_rows)
+from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QTENSORS, as_array
 
 MAX_DEC_POS = 32768  # learned decoder positions (the reference's table)
 
 
 def _init_layernorm(d: int, device) -> dict:
-    return {"scale": torch.ones(d, device=device),
-            "bias": torch.zeros(d, device=device)}
+    return {"scale": filled((d,), 1.0, device, ("embed",)),
+            "bias": filled((d,), 0.0, device, ("embed",))}
 
 
 def _init_mlp(gen, d: int, ff: int, device) -> dict:
-    return {"up": ninit(gen, (d, ff), d, device),
-            "down": ninit(gen, (ff, d), ff, device)}
+    return {"up": ninit(gen, (d, ff), d, device, axes=("param_embed", "ff")),
+            "down": ninit(gen, (ff, d), ff, device,
+                          axes=("ff", "param_embed"))}
 
 
 def _init_enc_layer(gen, cfg: ArchConfig, device) -> dict:
@@ -66,10 +69,11 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     positions, unit/zero LayerNorms, layers stacked on a leading axis."""
     d = cfg.d_model
     return {
-        "frontend": ninit(gen, (d, d), d, device),
-        "embed": {"table": ninit(gen, (pad_vocab(cfg.vocab), d), d, device)},
-        "dec_pos": (0.02 * torch.randn((MAX_DEC_POS, d), generator=gen,
-                                       device=gen.device)).to(device),
+        "frontend": ninit(gen, (d, d), d, device,
+                          axes=("param_embed", "embed")),
+        "embed": init_embedding(gen, cfg.vocab, d, device),
+        "dec_pos": draw(gen, (MAX_DEC_POS, d), 0.02, device, torch.float32,
+                        (None, "param_embed")),
         "enc_layers": stack_layers([_init_enc_layer(gen, cfg, device)
                                     for _ in range(cfg.enc_layers)]),
         "enc_ln": _init_layernorm(d, device),
@@ -108,6 +112,7 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     b, s, d = frames.shape
     x = frames.to(torch.bfloat16) @ as_array(params["frontend"])
     x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
+    x = constrain(x, "batch", "q_seq", "embed")
     layers = params["enc_layers"]
 
     def layer(x, lp):
@@ -116,7 +121,8 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
                                   mode="train")
         x = x + a
         h = layernorm(lp["ln2"], x)
-        return x + mlp(lp["mlp"], h, cfg.act)
+        return constrain(x + mlp(lp["mlp"], h, cfg.act), "batch", "q_seq",
+                         "embed")
 
     ckpt = remat_on(cfg, mode)
     for i in range(_n_stacked(layers)):
@@ -177,6 +183,7 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     else:
         x = x + take_rows(params["dec_pos"],
                           torch.arange(s, device=x.device), x.dtype)[None]
+    x = constrain(x, "batch", "q_seq", "embed")
 
     layers = params["dec_layers"]
     n_layers = _n_stacked(layers)
@@ -207,8 +214,9 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 cache=None if lc is None else lc["cross"], x_kv=enc_out)
         x = x + c
         h = layernorm(lp["ln2"], x)
-        return x + mlp(lp["mlp"], h, cfg.act), {"self": self_c,
-                                                 "cross": cross_c}
+        x = constrain(x + mlp(lp["mlp"], h, cfg.act), "batch", "q_seq",
+                      "embed")
+        return x, {"self": self_c, "cross": cross_c}
 
     ckpt = remat_on(cfg, mode)
     per_layer = []

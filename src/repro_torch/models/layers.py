@@ -15,6 +15,10 @@ runs on ``fp16_matmul`` with f32 activations and the bf16 weight as it
 is stored, widened in the kernel, the reference's f32 x f32 product
 without an f32 copy of the weight.
 
+The activations pass ``parallel.sharding.constrain`` at the reference's
+points with its logical axes; without a mesh context, or on a plain
+tensor, it returns its input.
+
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
 the tied head's f32 operand (``prepare_head``); ``prepared`` reads one
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.api import current_context, dispatch, use_context
+from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import (QBLOCK, QTENSORS, Q4Tensor, Q8Tensor,
                                   dequantize_q8_0, unpack_q4)
 
@@ -60,14 +65,54 @@ def bf16_proj(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def ninit(gen: torch.Generator, shape, fan_in: int, device,
-          dtype=torch.float32) -> torch.Tensor:
-    """Scaled-normal init, N(0, 1) / sqrt(fan_in), drawn in float32 on
-    the generator's device and stored in ``dtype`` on ``device`` (a
-    CUDA generator and bf16 keep the f32 peak at one leaf)."""
+class _SpecDevice:
+    """The device an init function is given to walk its tree without
+    drawing anything: every leaf comes back as a ``Spec``."""
+
+    def __repr__(self):
+        return "SPEC"
+
+
+#: pass as ``device`` to an init function for its tree of ``Spec`` leaves
+SPEC = _SpecDevice()
+
+
+class Spec:
+    """A parameter leaf's shape, dtype and logical axes (the reference's
+    ``Param`` box without its value)."""
+    __slots__ = ("shape", "dtype", "axes")
+
+    def __init__(self, shape, dtype, axes):
+        self.shape, self.dtype, self.axes = tuple(shape), dtype, tuple(axes)
+
+    def __repr__(self):
+        return f"Spec({self.shape}, {self.dtype}, {self.axes})"
+
+
+def draw(gen: torch.Generator, shape, scale: float, device, dtype,
+         axes: tuple):
+    """N(0, 1) * ``scale``, drawn in float32 on the generator's device and
+    stored in ``dtype`` on ``device`` (a CUDA generator and bf16 keep the
+    f32 peak at one leaf); on ``SPEC`` the leaf's ``Spec``."""
+    if device is SPEC:
+        return Spec(shape, dtype, axes)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * fan_in ** -0.5).to(device=device, dtype=dtype)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def ninit(gen: torch.Generator, shape, fan_in: int, device,
+          dtype=torch.float32, *, axes: tuple) -> torch.Tensor:
+    """Scaled-normal init, N(0, 1) / sqrt(fan_in) (``draw``)."""
+    return draw(gen, shape, fan_in ** -0.5, device, dtype, axes)
+
+
+def filled(shape, value: float, device, axes: tuple,
+           dtype=torch.float32) -> torch.Tensor:
+    """A constant leaf (zeros, ones), or its ``Spec`` on ``SPEC``."""
+    if device is SPEC:
+        return Spec(shape, dtype, axes)
+    return torch.full(shape, value, dtype=dtype, device=device)
 
 
 def remat_on(cfg, mode: str) -> bool:
@@ -102,9 +147,13 @@ def layer_slice(tree, i: int):
 
 def stack_layers(trees: list):
     """Stack per-layer parameter (or cache) trees on a new leading axis:
-    the inverse of ``layer_slice``."""
+    the inverse of ``layer_slice``. ``Spec`` leaves gain the ``layers``
+    axis (the reference's ``stack_axes``)."""
     if isinstance(trees[0], dict):
         return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], Spec):
+        return Spec((len(trees),) + trees[0].shape, trees[0].dtype,
+                    ("layers",) + trees[0].axes)
     return torch.stack(trees)
 
 
@@ -207,8 +256,8 @@ def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
 # Norms, positions, embedding, head, MLP
 # ----------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, device) -> torch.Tensor:
-    return torch.ones(d, device=device)
+def init_rmsnorm(d: int, device, axes: tuple = ("embed",)) -> torch.Tensor:
+    return filled((d,), 1.0, device, axes)
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor,
@@ -270,7 +319,8 @@ def pad_vocab(v: int, mult: int = VOCAB_MULT) -> int:
 def init_embedding(gen: torch.Generator, vocab: int, d: int, device,
                    dtype=torch.float32) -> dict:
     """The (padded-vocab, d) token table, scaled normal."""
-    return {"table": ninit(gen, (pad_vocab(vocab), d), d, device, dtype)}
+    return {"table": ninit(gen, (pad_vocab(vocab), d), d, device, dtype,
+                           axes=("vocab", "param_embed"))}
 
 
 def embed(p: dict, tokens: torch.Tensor,
@@ -279,8 +329,10 @@ def embed(p: dict, tokens: torch.Tensor,
     Q4 table is widened to bf16, as the reference's ``embed`` does."""
     tbl = p["table"]
     if isinstance(tbl, Q4Tensor):
-        return _q4_rows_bf16(tbl, tokens).to(compute_dtype)
-    return take_rows(tbl, tokens, compute_dtype)
+        x = _q4_rows_bf16(tbl, tokens).to(compute_dtype)
+    else:
+        x = take_rows(tbl, tokens, compute_dtype)
+    return constrain(x, "batch", "q_seq", "embed")
 
 
 def tied_head_f32(tbl) -> torch.Tensor:
@@ -326,7 +378,8 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
         y = softcap * torch.tanh(y / softcap)
     vp = y.shape[-1]
     pad_mask = torch.arange(vp, device=y.device) >= vocab
-    return y - 1e9 * pad_mask.to(y.dtype)
+    return constrain(y - 1e9 * pad_mask.to(y.dtype), "batch", "q_seq",
+                     "vocab")
 
 
 def _r(t: torch.Tensor) -> torch.Tensor:
@@ -367,16 +420,20 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, device,
              dtype=torch.float32) -> dict:
     """The gated MLP's ``up`` (d, ff), ``down`` (ff, d) and ``gate`` (d,
     ff) (the reference's ``init_mlp``, gated)."""
-    return {"up": ninit(gen, (d, ff), d, device, dtype),
-            "down": ninit(gen, (ff, d), ff, device, dtype),
-            "gate": ninit(gen, (d, ff), d, device, dtype)}
+    return {"up": ninit(gen, (d, ff), d, device, dtype,
+                        axes=("param_embed", "ff")),
+            "down": ninit(gen, (ff, d), ff, device, dtype,
+                          axes=("ff", "param_embed")),
+            "gate": ninit(gen, (d, ff), d, device, dtype,
+                          axes=("param_embed", "ff"))}
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Plain two-layer MLP (Whisper); a ``gate`` weight makes it gated."""
-    up = mm(x, p["up"])
+    up = constrain(mm(x, p["up"]), "batch", "q_seq", "ff")
     if "gate" in p:
-        h = _act(act)(mm(x, p["gate"])) * up
+        g = _act(act)(mm(x, p["gate"]))
+        h = constrain(g, "batch", "q_seq", "ff") * up
     else:
         h = _act(act)(up)
-    return mm(h, p["down"])
+    return constrain(mm(h, p["down"]), "batch", "q_seq", "embed")

@@ -1,11 +1,14 @@
 """Model API of the port (the JAX package's ``models/model.py``, for the
 encoder-decoder Whisper models and the decoder-only families: dense and
-MoE attention, xLSTM and the zamba2 hybrid) and the per-lane serving
-state spec."""
+MoE attention, xLSTM and the zamba2 hybrid), the per-lane serving
+state spec, and the shape-and-axes surface the parallel layer reads
+(``param_axes``, ``param_shapes``, ``cache_specs``, ``input_specs``),
+all without allocating."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -13,8 +16,42 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import SPEC
 from repro_torch.platforms import resolve_device
 from repro_torch.quantize import quantize_tree
+
+
+# assigned input shapes: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic (ssm/hybrid) archs."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention arch; 500k dense-KV "
+                       "decode reserved for SSM/hybrid (DESIGN.md §5)")
+    return True, ""
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """[(path joined with ``/``, leaf)] of a nested dict, keys sorted."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out.extend(tree_paths(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +137,46 @@ class Model:
         if self.cfg.enc_dec:
             return encdec_mod.init_encdec(generator, self.cfg, device)
         return tf_mod.init_decoder(generator, self.cfg, device, dtype)
+
+    def param_specs(self) -> dict:
+        """The parameter tree as ``Spec`` leaves (shape, f32 dtype,
+        logical axes): the init walk with nothing drawn."""
+        if self.cfg.enc_dec:
+            return encdec_mod.init_encdec(None, self.cfg, SPEC)
+        return tf_mod.init_decoder(None, self.cfg, SPEC)
+
+    def param_axes(self) -> dict:
+        """The logical-axes tree of ``init_values``' parameters."""
+        return _map_tree(lambda s: s.axes, self.param_specs())
+
+    def param_shapes(self, dtype=None) -> dict:
+        """The parameters as ``meta`` tensors (no storage); ``dtype``
+        casts the float leaves."""
+        return _map_tree(lambda s: torch.empty(
+            s.shape, dtype=dtype or s.dtype, device="meta"),
+            self.param_specs())
+
+    def n_params(self) -> int:
+        return sum(math.prod(s.shape)
+                   for _, s in tree_paths(self.param_specs()))
+
+    def n_active_params(self) -> int:
+        """MoE: experts count at top_k/E of their size (for 6·N·D)."""
+        cfg = self.cfg
+        total = 0
+        for path, s in tree_paths(self.param_specs()):
+            size = math.prod(s.shape)
+            if cfg.is_moe and "moe" in path and any(
+                    k in path for k in ("gate", "up", "down")):
+                size = size * cfg.top_k // max(cfg.n_experts, 1)
+            total += size
+        return total
+
+    def cache_specs(self, batch: int, max_len: int, enc_len: int = 1500,
+                    dtype=torch.bfloat16) -> dict:
+        """The cache tree of ``init_cache`` as ``meta`` tensors."""
+        return self.init_cache(batch, max_len, enc_len, dtype,
+                               device="meta")
 
     def quantize(self, values, tier: str = "q8_0"):
         """``values`` with its weights quantized to ``tier`` (``q8_0``, or
@@ -243,3 +320,45 @@ class Model:
 
 def build(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+# ----------------------------------------------------------------------------
+# Dry-run input specs (meta tensors; no allocation)
+# ----------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: str) -> dict:
+    """Inputs of the step function of an (arch, shape) cell, as ``meta``
+    tensors.
+
+    train:   {tokens, targets[, enc_frames | img_embed]}
+    prefill: {tokens[, enc_frames | img_embed]}
+    decode:  {tokens (B,1), pos ()}  (cache specs: ``Model.cache_specs``)
+    """
+    seq, gbatch, kind = SHAPES[shape]
+    i32, bf16 = torch.int32, torch.bfloat16
+    d = cfg.d_model
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if kind == "train":
+        if cfg.enc_dec:
+            s2 = seq // 2
+            return {"enc_frames": f((gbatch, s2, d), bf16),
+                    "tokens": f((gbatch, s2), i32),
+                    "targets": f((gbatch, s2), i32)}
+        if cfg.vlm:
+            s_text = seq - cfg.n_img_tokens
+            return {"img_embed": f((gbatch, cfg.n_img_tokens, d), bf16),
+                    "tokens": f((gbatch, s_text), i32),
+                    "targets": f((gbatch, seq), i32)}
+        return {"tokens": f((gbatch, seq), i32),
+                "targets": f((gbatch, seq), i32)}
+    if kind == "prefill":
+        out = {"tokens": f((gbatch, seq), i32)}
+        if cfg.enc_dec:
+            out["enc_frames"] = f((gbatch, 1500, d), bf16)
+        if cfg.vlm:
+            out["tokens"] = f((gbatch, seq - cfg.n_img_tokens), i32)
+            out["img_embed"] = f((gbatch, cfg.n_img_tokens, d), bf16)
+        return out
+    return {"tokens": f((gbatch, 1), i32), "pos": f((), i32)}

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import _act, ninit
+from repro_torch.parallel.sharding import constrain
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
@@ -36,10 +37,13 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device,
     """``router`` (d, E) and the experts' gated FFN weights ``gate`` /
     ``up`` (E, d, ff) and ``down`` (E, ff, d)."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": ninit(gen, (d, e), d, device, dtype),
-            "gate": ninit(gen, (e, d, ff), d, device, dtype),
-            "up": ninit(gen, (e, d, ff), d, device, dtype),
-            "down": ninit(gen, (e, ff, d), ff, device, dtype)}
+    expert_in = ("experts", "param_embed", "expert_ff")
+    return {"router": ninit(gen, (d, e), d, device, dtype,
+                            axes=("param_embed", None)),
+            "gate": ninit(gen, (e, d, ff), d, device, dtype, axes=expert_in),
+            "up": ninit(gen, (e, d, ff), d, device, dtype, axes=expert_in),
+            "down": ninit(gen, (e, ff, d), ff, device, dtype,
+                          axes=("experts", "expert_ff", "param_embed"))}
 
 
 def prepare_moe(p: dict) -> dict:
@@ -76,7 +80,8 @@ def _experts(p: dict, x_e: torch.Tensor, act: str) -> torch.Tensor:
     (E, rows, d) bf16 -> (E, rows, d) bf16."""
     g = _act(act)(torch.matmul(x_e, p["gate"].to(_BF16)))
     u = torch.matmul(x_e, p["up"].to(_BF16))
-    return torch.matmul(g * u, p["down"].to(_BF16))
+    h = constrain(g * u, "experts", None, "expert_ff")
+    return torch.matmul(h, p["down"].to(_BF16))
 
 
 def _combine(sel_tok: torch.Tensor, y_e: torch.Tensor,
@@ -109,16 +114,19 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
     if valid_len is not None:
         live = torch.arange(s, device=x.device) < valid_len
         gate = gate * live[None, :, None]
-    sel_gate, sel_tok = torch.topk(gate.transpose(1, 2), cap,
-                                   dim=-1)                      # (b, e, cap)
+    gate_t = constrain(gate.transpose(1, 2), "batch", "experts", None)
+    sel_gate, sel_tok = torch.topk(gate_t, cap, dim=-1)        # (b, e, cap)
 
     rows = torch.arange(b, device=x.device)[:, None, None]
     x_e = x.to(_BF16)[rows, sel_tok]                           # (b, e, cap, d)
+    x_e = constrain(x_e, "batch", "experts", None, "embed")
     y_e = _experts(p, x_e.transpose(0, 1).reshape(e, b * cap, d), cfg.act)
     y_e = y_e.reshape(e, b, cap, d).transpose(0, 1) \
         * sel_gate[..., None].to(_BF16)                        # combine weights
+    y_e = constrain(y_e, "batch", "experts", None, "embed")
     out = _combine(sel_tok.reshape(b, e * cap),
                    y_e.reshape(b, e * cap, d).to(_F32), s).to(x.dtype)
+    out = constrain(out, "batch", "q_seq", "embed")
     if route_counts is not None:
         return out, _count_routes(top_i, b, e, route_counts)
     return out
@@ -140,12 +148,15 @@ def _moe_ffn_global(p: dict, x: torch.Tensor, cfg: ArchConfig,
     if valid_len is not None:
         live = (torch.arange(s, device=x.device) < valid_len).repeat(b)
         gate = gate * live[:, None]
-    sel_gate, sel_tok = torch.topk(gate.T, cap, dim=-1)       # (e, cap)
+    gate_t = constrain(gate.T, "experts", None)                # (e, n)
+    sel_gate, sel_tok = torch.topk(gate_t, cap, dim=-1)       # (e, cap)
 
-    x_e = xf[sel_tok].to(_BF16)                                # (e, cap, d)
+    x_e = constrain(xf[sel_tok].to(_BF16), "experts", None, "embed")
     y_e = _experts(p, x_e, cfg.act).to(_F32) * sel_gate[..., None]
+    y_e = constrain(y_e, "experts", None, "embed")
     out = _combine(sel_tok.reshape(-1), y_e.reshape(e * cap, d), n)
-    out = out.to(x.dtype).reshape(b, s, d)
+    out = constrain(out.to(x.dtype).reshape(b, s, d), "batch", "q_seq",
+                    "embed")
     if route_counts is not None:
         return out, _count_routes(top_i, b, e, route_counts)
     return out

@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.layers import ninit, prepared, rmsnorm, silu_bf16
+from repro_torch.models.layers import (filled, ninit, prepared, rmsnorm,
+                                       silu_bf16)
+from repro_torch.parallel.sharding import constrain
 
 CHUNK = 256
 
@@ -58,21 +60,23 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig, device,
     d = cfg.d_model
     d_in, h, n, _ = _dims(cfg)
     w = cfg.ssm_conv
-    f32 = dict(dtype=_F32, device=device)
     return {
-        "wz": ninit(gen, (d, d_in), d, device, dtype),
-        "wx": ninit(gen, (d, d_in), d, device, dtype),
-        "wB": ninit(gen, (d, n), d, device, dtype),
-        "wC": ninit(gen, (d, n), d, device, dtype),
-        "wdt": ninit(gen, (d, h), d, device),
-        "dt_bias": torch.zeros((h,), **f32),
-        "A_log": torch.zeros((h,), **f32),
-        "D": torch.ones((h,), **f32),
-        "conv_x": ninit(gen, (w, d_in), w, device),
-        "conv_B": ninit(gen, (w, n), w, device),
-        "conv_C": ninit(gen, (w, n), w, device),
-        "out_norm": torch.ones((d_in,), **f32),
-        "wo": ninit(gen, (d_in, d), d_in, device, dtype),
+        "wz": ninit(gen, (d, d_in), d, device, dtype,
+                    axes=("param_embed", "inner")),
+        "wx": ninit(gen, (d, d_in), d, device, dtype,
+                    axes=("param_embed", "inner")),
+        "wB": ninit(gen, (d, n), d, device, dtype, axes=("param_embed", None)),
+        "wC": ninit(gen, (d, n), d, device, dtype, axes=("param_embed", None)),
+        "wdt": ninit(gen, (d, h), d, device, axes=("param_embed", "ssm_heads")),
+        "dt_bias": filled((h,), 0.0, device, ("ssm_heads",)),
+        "A_log": filled((h,), 0.0, device, ("ssm_heads",)),
+        "D": filled((h,), 1.0, device, ("ssm_heads",)),
+        "conv_x": ninit(gen, (w, d_in), w, device, axes=("conv", "inner")),
+        "conv_B": ninit(gen, (w, n), w, device, axes=("conv", None)),
+        "conv_C": ninit(gen, (w, n), w, device, axes=("conv", None)),
+        "out_norm": filled((d_in,), 1.0, device, ("inner",)),
+        "wo": ninit(gen, (d_in, d), d_in, device, dtype,
+                    axes=("inner", "param_embed")),
     }
 
 
@@ -163,7 +167,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     d_in, h, n, hd = _dims(cfg)
     xb = x.to(_BF16)
     zxbc = xb @ prepared(p, "w_in", lambda: _w_in(p))
-    z = silu_bf16(zxbc[..., :d_in])
+    z = constrain(silu_bf16(zxbc[..., :d_in]), "batch", "q_seq", "inner")
     xbc = zxbc[..., d_in:]                                 # x | B | C, bf16
     dt = F.softplus(x.to(_F32) @ p["wdt"].to(_F32) + p["dt_bias"])
     a_log_dt = -torch.exp(p["A_log"].to(_F32)) * dt        # (b, s, h)
@@ -198,7 +202,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     y = rmsnorm(p["out_norm"], y.to(x.dtype), cfg.norm_eps) * z
     out = y.to(_BF16) @ p["wo"].to(_BF16)
-    return out.to(x.dtype), new_cache
+    return constrain(out.to(x.dtype), "batch", "q_seq", "embed"), new_cache
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, dtype=_BF16,

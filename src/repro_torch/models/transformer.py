@@ -44,6 +44,8 @@ from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
                                        logits_head, mlp, ninit, pad_vocab,
                                        prepare_head, remat, remat_on,
                                        rmsnorm, stack_layers)
+from repro_torch.parallel.sharding import constrain
+
 
 def segment_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
     """[(block_type, attn_kind)] per segment: (mLSTM, sLSTM) for xLSTM,
@@ -231,7 +233,8 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device,
         params["shared"] = _init_block(gen, cfg, "attn", device, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = ninit(gen, (cfg.d_model, pad_vocab(cfg.vocab)),
-                                  cfg.d_model, device, dtype)
+                                  cfg.d_model, device, dtype,
+                                  axes=("param_embed", "vocab"))
     return params
 
 
@@ -317,7 +320,7 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
                 if mode == "decode":
                     _write_state(cache[name], nc, i)
             new[name] = nc
-        return x, new
+        return constrain(x, "batch", "q_seq", "embed"), new
 
     ckpt = remat_on(cfg, mode)
     new_layers = []
@@ -348,6 +351,7 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         if n_valid is not None:
             n_valid = n_valid + prefix_embed.shape[1]
+    x = constrain(x, "batch", "q_seq", "embed")
     kw = dict(mode=mode, pos=pos, n_valid=n_valid)
     x, segs = _run_stack(params["segments"],
                          None if cache is None else cache["segments"], x,

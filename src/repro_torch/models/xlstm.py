@@ -33,8 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
-from repro_torch.models.layers import (gelu_bf16, init_rmsnorm, ninit,
+from repro_torch.models.layers import (filled, gelu_bf16, init_rmsnorm, ninit,
                                        prepared, rmsnorm, silu_bf16)
+from repro_torch.parallel.sharding import constrain
 
 MCHUNK = 128
 
@@ -64,16 +65,18 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     d = cfg.d_model
     d_in, h, _ = _mdims(cfg)
     return {
-        "w_up": ninit(gen, (d, d_in), d, device),
-        "w_gate": ninit(gen, (d, d_in), d, device),
-        "wq": ninit(gen, (d_in, d_in), d_in, device),
-        "wk": ninit(gen, (d_in, d_in), d_in, device),
-        "wv": ninit(gen, (d_in, d_in), d_in, device),
-        "wi": ninit(gen, (d_in, h), d_in, device),
-        "wf": ninit(gen, (d_in, h), d_in, device),
-        "f_bias": torch.full((h,), 3.0, device=device),
-        "out_norm": init_rmsnorm(d_in, device),
-        "w_down": ninit(gen, (d_in, d), d_in, device),
+        "w_up": ninit(gen, (d, d_in), d, device, axes=("param_embed", "inner")),
+        "w_gate": ninit(gen, (d, d_in), d, device,
+                        axes=("param_embed", "inner")),
+        "wq": ninit(gen, (d_in, d_in), d_in, device, axes=("inner", None)),
+        "wk": ninit(gen, (d_in, d_in), d_in, device, axes=("inner", None)),
+        "wv": ninit(gen, (d_in, d_in), d_in, device, axes=("inner", None)),
+        "wi": ninit(gen, (d_in, h), d_in, device, axes=("inner", None)),
+        "wf": ninit(gen, (d_in, h), d_in, device, axes=("inner", None)),
+        "f_bias": filled((h,), 3.0, device, (None,)),
+        "out_norm": init_rmsnorm(d_in, device, ("inner",)),
+        "w_down": ninit(gen, (d_in, d), d_in, device,
+                        axes=("inner", "param_embed")),
     }
 
 
@@ -165,7 +168,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     prefill, names the storage dtype of the state returned."""
     b, s, _ = x.shape
     d_in, h, hd = _mdims(cfg)
-    u = _bf16_mm(x, p["w_up"])
+    u = constrain(_bf16_mm(x, p["w_up"]), "batch", "q_seq", "inner")
     g = silu_bf16(_bf16_mm(x, p["w_gate"]))
     q = _bf16_mm(u, p["wq"]).reshape(b, s, h, hd)
     k = _bf16_mm(u, p["wk"]).reshape(b, s, h, hd)
@@ -193,7 +196,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     y = y.reshape(b, -1, d_in).to(x.dtype)
     y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * g[:, :y.shape[1]]
     out = _bf16_mm(y, p["w_down"]).to(x.dtype)
-    return out, new_cache
+    return constrain(out, "batch", "q_seq", "embed"), new_cache
 
 
 def prepare_mlstm(p: dict) -> dict:
@@ -222,15 +225,18 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     up = int(cfg.proj_factor * d)
 
     def gate():
-        return {"w": ninit(gen, (d, h, hd), d, device),
-                "r": ninit(gen, (h, hd, hd), hd, device),
-                "b": torch.zeros((h, hd), device=device)}
+        return {"w": ninit(gen, (d, h, hd), d, device,
+                           axes=("param_embed", None, None)),
+                "r": ninit(gen, (h, hd, hd), hd, device,
+                           axes=(None, None, None)),
+                "b": filled((h, hd), 0.0, device, (None, None))}
 
     return {
         "i": gate(), "f": gate(), "z": gate(), "o": gate(),
         "out_norm": init_rmsnorm(d, device),
-        "w_up": ninit(gen, (d, up), d, device),
-        "w_down": ninit(gen, (up, d), up, device),
+        "w_up": ninit(gen, (d, up), d, device, axes=("param_embed", "inner")),
+        "w_down": ninit(gen, (up, d), up, device,
+                        axes=("inner", "param_embed")),
     }
 
 

@@ -5,7 +5,8 @@ trees.
 The arithmetic is the reference's: f32 moments, bias correction from an
 int32 step, the gradient scaled by ``min(1, clip_norm / (norm + 1e-9))``,
 decay on leaves of two or more dimensions only, the result cast back to
-the parameter's dtype. ``apply_updates`` writes ``params``, ``m``, ``v``
+the parameter's dtype. DTensor leaves (the sharded train step's) update
+their local shards; only the global norm reduces across ranks. ``apply_updates`` writes ``params``, ``m``, ``v``
 and ``step`` in place under ``torch.no_grad()`` (the counterpart of the
 reference launcher's ``donate_argnums=0``: the state is never held twice
 on the card) and returns them. ``step``, ``lr`` and ``grad_norm`` stay
@@ -20,6 +21,8 @@ import math
 from typing import Any, Iterator, Optional
 
 import torch
+
+from repro_torch.dtensor import is_dtensor, local as _local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,11 +80,30 @@ def init_state(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor)."""
-    total = None
-    for x in leaves(tree):
-        sq = torch.linalg.vector_norm(x, dtype=torch.float32).square()
-        total = sq if total is None else total + sq
+    """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor),
+    summed in leaf order. A DTensor leaf's squares are its local
+    shard's, summed over the mesh dims it is sharded on (one reduction
+    for all the leaves of one mesh and pattern), so every rank gets the
+    same scalar, and a one-rank mesh the plain sum's bits."""
+    sqs, groups = [], {}
+    for i, x in enumerate(leaves(tree)):
+        sqs.append(torch.linalg.vector_norm(
+            _local(x), dtype=torch.float32).square())
+        if is_dtensor(x):
+            mesh = x.device_mesh
+            axes = tuple(n for n, p in zip(mesh.mesh_dim_names, x.placements)
+                         if p.is_shard())
+            groups.setdefault((id(mesh), axes), (mesh, axes, []))[2] \
+                .append(i)
+    if groups:
+        from repro_torch.parallel.collectives import mesh_sum
+        for mesh, axes, idx in groups.values():
+            summed = mesh_sum(torch.stack([sqs[i] for i in idx]), mesh, axes)
+            for j, i in enumerate(idx):
+                sqs[i] = summed[j]
+    total = sqs[0]
+    for sq in sqs[1:]:
+        total = total + sq
     return torch.sqrt(total)
 
 
@@ -90,7 +112,7 @@ def apply_updates(params: Any, grads: Any, state: dict,
                   cfg: AdamWConfig) -> tuple[Any, dict, dict]:
     """One AdamW step: writes ``params``, ``state["m"]``, ``state["v"]``
     and ``state["step"]`` in place and returns ``(params, state, {"grad_norm", "lr"})``."""
-    step = state["step"]
+    step = _local(state["step"])
     step.add_(1)
     gnorm = global_norm(grads)
     scale = None
@@ -103,6 +125,8 @@ def apply_updates(params: Any, grads: Any, state: dict,
 
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
+        # a DTensor's update is elementwise over its local shard
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = g.to(torch.float32)
         if scale is not None:
             g = g * scale

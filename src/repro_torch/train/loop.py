@@ -3,10 +3,14 @@
 Responsibilities beyond "call train_step in a loop":
 
 * **checkpoint/restart** — resumes from the newest checkpoint, restored
-  onto the state's device; saves every ``save_every`` steps and at the
+  onto the state's device (or, with ``state_shardings``, onto the
+  restoring job's mesh: the elastic path); saves every ``save_every`` steps and at the
   end through the async CheckpointManager.
 * **preemption handling** — SIGTERM/SIGINT installs a save-and-exit flag;
-  the loop checkpoints at the next step boundary.
+  the loop checkpoints at the next step boundary. Under a process group
+  of several ranks the flag is agreed each step (an all-reduce of its
+  maximum), so every rank stops at the same step and none waits in a
+  collective the others left.
 * **straggler/step-time monitoring** — EWMA of step wall time; a step
   slower than ``straggler_factor``× the EWMA is logged as a straggler
   event.
@@ -50,6 +54,7 @@ class LoopResult:
     losses: list
     straggler_events: list
     preempted: bool
+    step_seconds: list = dataclasses.field(default_factory=list)
 
 
 class TrainLoop:
@@ -80,21 +85,34 @@ class TrainLoop:
         """Programmatic preemption trigger (tests)."""
         self._preempt = True
 
-    def run(self, state: Any, start_step: Optional[int] = None
-            ) -> tuple[Any, LoopResult]:
-        """Train from ``state`` (or the newest checkpoint) to
-        ``total_steps``. With ``handle_signals`` the handlers the run
-        replaced are put back when it returns or raises."""
+    def run(self, state: Any, start_step: Optional[int] = None,
+            state_shardings: Any = None) -> tuple[Any, LoopResult]:
+        """Train from ``state`` (or the newest checkpoint, placed by
+        ``state_shardings`` where given) to ``total_steps``. With
+        ``handle_signals`` the handlers the run replaced are put back
+        when it returns or raises."""
         if not self.cfg.handle_signals:
-            return self._run(state, start_step)
+            return self._run(state, start_step, state_shardings)
         replaced = self._install_signals()
         try:
-            return self._run(state, start_step)
+            return self._run(state, start_step, state_shardings)
         finally:
             for s, h in replaced.items():
                 signal.signal(s, h)
 
-    def _run(self, state, start_step):
+    def _preempt_agreed(self, device) -> bool:
+        """The preempt flag, agreed across ranks where there are
+        several."""
+        import torch
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return self._preempt
+        flag = torch.tensor([int(self._preempt)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def _run(self, state, start_step, state_shardings=None):
         cfg = self.cfg
         step = 0
         if start_step is not None:
@@ -102,9 +120,10 @@ class TrainLoop:
         else:
             latest = self.ckpt.latest_step()
             if latest is not None:
-                state, step = self.ckpt.restore(state, latest)
+                state, step = self.ckpt.restore(state, latest,
+                                                shardings=state_shardings)
 
-        losses, stragglers = [], []
+        losses, stragglers, seconds = [], [], []
         ewma = None
         preempted = False
         while step < cfg.total_steps:
@@ -112,6 +131,7 @@ class TrainLoop:
             batch = self.put_batch(self.dataset.global_batch_at(step))
             state, metrics = self.step_fn(state, batch)
             loss = float(metrics["loss"])
+            device = metrics["loss"].device
             dt = time.monotonic() - t0
 
             if not np.isfinite(loss):
@@ -119,6 +139,7 @@ class TrainLoop:
                 raise FloatingPointError(
                     f"non-finite loss {loss} at step {step}")
             losses.append(loss)
+            seconds.append(dt)
             if ewma is not None and dt > cfg.straggler_factor * ewma:
                 stragglers.append({"step": step, "dt": dt, "ewma": ewma})
             ewma = dt if ewma is None else (
@@ -129,10 +150,11 @@ class TrainLoop:
                 self.on_step(step, loss)
             if step % cfg.save_every == 0 or step == cfg.total_steps:
                 self.ckpt.save(step, state, note=f"loss={loss:.4f}")
-            if self._preempt:
+            if self._preempt_agreed(device):
                 self.ckpt.save(step, state, note="preempt")
                 preempted = True
                 break
 
         self.ckpt.wait()
-        return state, LoopResult(step, losses, stragglers, preempted)
+        return state, LoopResult(step, losses, stragglers, preempted,
+                                 seconds)

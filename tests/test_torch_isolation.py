@@ -54,7 +54,11 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.checkpoint.store", "repro_torch.train",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.train.setup",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.parallel",
+            "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.pipeline",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
