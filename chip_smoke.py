@@ -170,10 +170,13 @@ p. training through the parallel layer, in a process group of one rank
    ``P_STEPS`` steps on a 1x1 ``("data", "model")`` mesh (the state
    DTensors placed by ``state_shardings``), then the same steps
    unsharded from the same seed, the first state freed but for its
-   parameters: the losses within ``P_LOSS_RTOL`` and the parameters
-   within ``P_PARAM_RTOL`` / ``P_PARAM_ATOL`` (the reference's bounds);
-   each prints the largest differences, the ms a step of both and how
-   far each run's peak memory rose above the state it started from. p2:
+   parameters. The sharded step gathers one layer at a time (the
+   forward's stack loops gather each layer's slice, ``remat`` gathers
+   it again in the backward); on one rank its losses and parameters
+   must equal the plain step's bit for bit, and its peak memory above
+   the state it started from the plain one's within
+   ``P_PEAK_SLACK``; each prints the largest differences, the ms a step
+   of both and both peaks. p2:
    the compressed step on a data mesh of 1 against the exact one, 5
    whisper steps (the loss within ``P_COMPRESSED_LOSS`` a step, the
    relative drift below ``P_COMPRESSED_DRIFT``, residuals non-zero). p3:
@@ -181,6 +184,22 @@ p. training through the parallel layer, in a process group of one rank
    back onto the mesh, bit for bit. p4: ``launch.train`` with
    ``--devices 1 --mesh 1x1``, 4 steps on ``cuda``. No kernel launches
    (the grad-safe route); the ``fp16_matmul`` check follows again.
+q. the dry-run (``repro_torch.launch.dryrun``, ``repro_torch.analysis``)
+   against the card. q1: p1's two runs, the plain step and the step on
+   the one-rank 1x1 mesh, each traced on fake ``cuda`` tensors
+   (``dryrun.trace_train``: FlopCounterMode, MemTracker) and run for
+   real: the traced FLOPs must equal ``FlopCounterMode``'s count of the
+   real step exactly, and the traced peak above the state lie within
+   [``Q1_PEAK_LO``, ``Q1_PEAK_HI``] of ``torch.cuda.max_memory_allocated``'s
+   rise over the step; it prints the roofline's bound on ``h100-sxm``
+   beside the median of ``Q1_TIMED`` steps. q2: ``dryrun_cell(Q2_ARCH,
+   "train_4k")`` on fake ``cuda`` tensors over a ``fake`` group of 256
+   ranks (the 16x16 production mesh, 4 microbatches), in a process of
+   its own beside a second that traces the same cell with the whole
+   parameter tree gathered at the forward's start (the step before the
+   per-layer gather), both started before q1 and read after it: both
+   must end ``status: ok``; it prints a rank's peak under each and
+   whether it is under 80 GB and under the card's memory.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -2576,8 +2595,11 @@ def run_train_o2(phase: str) -> None:
 
 #: phase p: the sharded train step against the plain one (the
 #: reference's bounds, tests/test_distributed.py): the loss, rtol; the
-#: parameters, rtol and atol
+#: parameters, rtol and atol. On one rank p1 holds them bit-equal, and
+#: the sharded step's peak above its state to the plain one's within one
+#: of the caching allocator's 2 MiB segments
 P_STEPS = 3
+P_PEAK_SLACK = 2 * 2 ** 20
 P_LOSS_RTOL = 2e-4
 P_PARAM_RTOL, P_PARAM_ATOL = 2e-2, 2e-4
 #: the compressed step against the exact one over 5 steps: the loss
@@ -2665,11 +2687,18 @@ def run_train_p1(phase: str, arch: str, mesh):
          f"{np.median(t_pl[1:]) * 1e3:.2f} ms")
     _log(f"[{phase}] the steps' peak above the state they start from "
          f"(torch.cuda.max_memory_allocated): sharded {peak_sh} B, plain "
-         f"{peak_pl} B")
+         f"{peak_pl} B; losses bit-equal {sharded == plain}, parameters "
+         f"bit-equal {gap == 0.0}")
     if not all(np.isfinite(sharded)) or rel > P_LOSS_RTOL or over > 0:
         raise AssertionError(f"[{phase}] the sharded step is off the "
                              f"plain one: loss rel {rel:.3g}, params "
                              f"excess {over:.3g}")
+    if sharded != plain or gap != 0.0:
+        raise AssertionError(f"[{phase}] the sharded step on one rank is "
+                             f"not bit-equal to the plain one")
+    if peak_sh > peak_pl + P_PEAK_SLACK:
+        raise AssertionError(f"[{phase}] the sharded step's peak {peak_sh}"
+                             f" B is above the plain one's {peak_pl} B")
     del state, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2798,10 +2827,11 @@ def run_train_p4(phase: str) -> None:
          f"{time.monotonic() - t_phase:.2f} s")
 
 
-def run_train_p() -> None:
-    """Phase p: training through the parallel layer in a process group of
-    one rank over ``P_BACKEND`` on the card, made here and destroyed at
-    the phase's end."""
+@contextlib.contextmanager
+def one_rank_group():
+    """A process group of one rank over ``P_BACKEND`` on the card, made
+    for the block and destroyed after it; yields its 1x1 ``("data",
+    "model")`` mesh."""
     import tempfile
 
     import torch
@@ -2809,14 +2839,25 @@ def run_train_p() -> None:
 
     from repro_torch.launch.mesh import make_mesh
 
-    t_phase = time.monotonic()
     rdv = tempfile.TemporaryDirectory(prefix="chip_smoke_p_")
     torch.cuda.set_device(0)
     dist.init_process_group(P_BACKEND,
                             init_method=f"file://{rdv.name}/store",
                             rank=0, world_size=1)
     try:
-        mesh = make_mesh((1, 1), ("data", "model"))
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+
+
+def run_train_p() -> None:
+    """Phase p: training through the parallel layer in a process group of
+    one rank (``one_rank_group``)."""
+    import torch
+
+    t_phase = time.monotonic()
+    with one_rank_group() as mesh:
         kept = run_train_p1("p1: whisper-tiny.en, 1x1 mesh vs plain",
                             ARCH, mesh)
         run_train_p3("p3: sharded checkpoint -> plain -> mesh", kept, mesh)
@@ -2827,12 +2868,311 @@ def run_train_p() -> None:
                      "qwen3-4b", mesh)
         run_train_p2("p2: compressed step on a data mesh of 1")
         run_train_p4("p4: launch.train --devices 1 --mesh 1x1")
-    finally:
-        dist.destroy_process_group()
-        rdv.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
     _log(f"[p] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
+#: phase q1: the traced peak above the state over the card's; the fake
+#: traces of p1's setups on the CPU came to 0.9983 (whisper-tiny.en) and
+#: 1.0000 (qwen3-4b) of the card's p1 peaks
+Q1_PEAK_LO, Q1_PEAK_HI = 0.95, 1.05
+Q1_TIMED = 3
+#: phase q2: the cell traced on the 16x16 fake group. qwen3-4b's train_4k
+#: traces in about 0.6 of qwen3-moe-30b-a3b's time: the MoE cell took
+#: 79-126 s a trace on the card's host, which put phase q at 104-148 s
+#: against its budget of about 120 (`launch.dryrun` traces it alone)
+Q2_ARCH = "qwen3-4b"
+Q2_TIMEOUT = 600
+#: q2's "before": the same cell with the whole parameter tree gathered at
+#: the forward's start, as the sharded step did before it gathered one
+#: layer at a time
+Q2_WHOLE_TREE = (
+    "import sys\n"
+    "from repro_torch.launch import dryrun\n"
+    "from repro_torch.models.layers import gathered\n"
+    "from repro_torch.optim.adamw import tree_map\n"
+    "from repro_torch.train import step\n"
+    "step.layer_params = lambda params, axes, gp=None: tree_map(\n"
+    "    lambda p: gathered(p, gp), params)\n"
+    "sys.exit(dryrun.main(sys.argv[1:]))\n")
+
+
+def _host_split(step, state, batch) -> tuple:
+    """One step of ``step`` with its host pieces timed on the host's clock
+    (``time.perf_counter`` around each call, on whichever thread runs
+    it): ``layer_params`` (the stacks split into layers, the leaves
+    outside them gathered), each per-layer gather (``layers.gathered``
+    outside ``layer_params``, the backward's recompute included), the
+    backward of DTensor's ``to_local`` / ``redistribute`` /
+    ``from_local``, and ``adamw.apply_updates``. Returns (state, the
+    step's ms, {piece: (ms, calls)})."""
+    import torch
+    from torch.distributed.tensor import _api, _redistribute
+
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    spent, inside = {}, threading.local()
+
+    def timed(key, fn, mark=False):
+        def wrap(*a, **k):
+            name = key
+            if key == "per-layer gathers" and getattr(inside, "lp", False):
+                name = "unstacked gathers"
+            if mark:
+                inside.lp = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                ms, n = spent.get(name, (0.0, 0))
+                spent[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+                if mark:
+                    inside.lp = False
+        return wrap
+
+    patches = [(step_mod, "layer_params", "layer_params", True),
+               (layers, "gathered", "per-layer gathers", False),
+               (adamw, "apply_updates", "apply_updates", False)]
+    for mod, cls in ((_api, "_ToTorchTensor"), (_api, "_FromTorchTensor"),
+                     (_redistribute, "Redistribute")):
+        if "backward" in vars(getattr(mod, cls, object)):
+            patches.append((getattr(mod, cls), "backward",
+                            f"{cls}.backward", False))
+    saved = [(obj, attr, obj.__dict__[attr]) for obj, attr, _, _ in patches]
+    try:
+        for obj, attr, key, mark in patches:
+            fn = getattr(obj, attr)
+            wrapped = timed(key, fn, mark)
+            setattr(obj, attr, staticmethod(wrapped)
+                    if isinstance(obj, type) else wrapped)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, attr, old in saved:
+            setattr(obj, attr, old)
+    return state, total, spent
+
+
+def _host_profile(step, state, batch) -> tuple:
+    """One step of ``step`` under ``torch.profiler`` (host activity only).
+    Returns (state, {event: (self host ms, calls)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    return state, {e.key: (e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()}
+
+
+def run_q1(phase: str, arch: str, mesh) -> None:
+    """Phase q1: ``arch``'s p1 run (``TRAIN_SETUP``), plain and on the 1x1
+    mesh: each step traced on fake ``cuda`` tensors, then run on the
+    card (a warm-up step, one under ``FlopCounterMode`` whose peak is
+    read, ``Q1_TIMED`` timed, one under ``_host_split``'s timers), and
+    the two steps' host pieces printed side by side."""
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.roofline import (model_flops,
+                                               roofline_from_cost)
+    from repro_torch.launch.dryrun import trace_train
+    from repro_torch.parallel.sharding import place_tree, rules_for
+    from repro_torch.train.setup import preset
+    from repro_torch.train.step import make_train_step, state_shardings
+
+    medians, splits = {}, {}
+    for label, m in (("plain", None), ("1x1 mesh", mesh)):
+        model, state, ds, opt_cfg = preset(arch, SEED)
+        rules = rules_for(model.cfg, mesh, mode="train")
+        if m is not None:
+            state = place_tree(state, state_shardings(model, m, rules))
+        kw = dict(mesh=m, rules=rules if m is not None else None)
+        batch = {k: torch.as_tensor(v)
+                 for k, v in ds.global_batch_at(1).items()}
+        cost = trace_train(model, opt_cfg, device="cuda", batch=batch, **kw)
+        traced = cost.peak_bytes - cost.tracked_bytes
+        step = make_train_step(model, opt_cfg, **kw)
+        state, _ = step(state, ds.global_batch_at(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step(state, ds.global_batch_at(1))
+        float(metrics["loss"])
+        real = torch.cuda.max_memory_allocated() - base
+        flops = fc.get_total_flops()
+        times = []
+        for i in range(Q1_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, metrics = step(state, ds.global_batch_at(2 + i))
+            float(metrics["loss"])
+            times.append(time.monotonic() - t0)
+        tokens = ds.global_batch * ds.seq_len
+        rl = roofline_from_cost(
+            cost, arch=arch, shape=f"{ds.global_batch}x{ds.seq_len}",
+            mesh=label, chips=1,
+            model_flops=model_flops(model.cfg, model.n_params(),
+                                    model.n_active_params(), tokens,
+                                    "train"))
+        ratio = traced / real
+        _log(f"[{phase}] {label}: traced FLOPs {cost.flops:.0f}, the card's"
+             f" step under FlopCounterMode {flops}; peak above the state "
+             f"traced {traced} B (MemTracker), on the card {real} B "
+             f"(max_memory_allocated): {ratio:.4f} (band [{Q1_PEAK_LO}, "
+             f"{Q1_PEAK_HI}]); trace {cost.seconds:.2f} s")
+        _log(f"[{phase}] {label}: roofline on h100-sxm: compute "
+             f"{rl.compute_s * 1e3:.3f} ms, memory {rl.memory_s * 1e3:.3f} "
+             f"ms, collective {rl.collective_s * 1e3:.3f} ms, bound "
+             f"{rl.bound_s * 1e3:.3f} ms ({rl.dominant}); measured median "
+             f"of {Q1_TIMED} steps {statistics.median(times) * 1e3:.2f} ms "
+             f"({[round(t * 1e3, 2) for t in times]})")
+        if cost.flops != flops:
+            raise AssertionError(f"[{phase}] {label}: traced FLOPs "
+                                 f"{cost.flops} != the card's {flops}")
+        if not Q1_PEAK_LO <= ratio <= Q1_PEAK_HI:
+            raise AssertionError(f"[{phase}] {label}: traced peak off the "
+                                 f"card's: {ratio:.4f}")
+        medians[label] = statistics.median(times) * 1e3
+        state, total, spent = _host_split(step, state,
+                                          ds.global_batch_at(2 + Q1_TIMED))
+        state, events = _host_profile(step, state,
+                                      ds.global_batch_at(3 + Q1_TIMED))
+        splits[label] = (total, spent, events)
+        del state, metrics, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for _ in range(Q1_TIMED):
+        model.param_axes()
+    axes_ms = (time.perf_counter() - t0) * 1e3 / Q1_TIMED
+    parts = {label: ", ".join(f"{k} {ms:.2f} ms ({n})"
+                              for k, (ms, n) in sorted(spent.items()))
+             for label, (_, spent, _) in splits.items()}
+    _log(f"[{phase}] host split: median step, 1x1 mesh minus plain "
+         f"{medians['1x1 mesh'] - medians['plain']:.2f} ms; one timed step"
+         f" each, plain {splits['plain'][0]:.2f} ms ({parts['plain']}), "
+         f"1x1 mesh {splits['1x1 mesh'][0]:.2f} ms "
+         f"({parts['1x1 mesh']}); model.param_axes() {axes_ms:.2f} ms a "
+         f"call (once a step maker)")
+    plain_ev, mesh_ev = splits["plain"][2], splits["1x1 mesh"][2]
+    none = (0.0, 0)
+    diff = sorted(((mesh_ev.get(k, none)[0] - plain_ev.get(k, none)[0], k)
+                   for k in set(plain_ev) | set(mesh_ev)), reverse=True)
+    total = (sum(v[0] for v in mesh_ev.values())
+             - sum(v[0] for v in plain_ev.values()))
+    _log(f"[{phase}] host profile (torch.profiler, self host ms of one "
+         f"step, 1x1 mesh minus plain, the 12 largest; calls plain/mesh): "
+         f"total {total:.2f} ms; "
+         + "; ".join(f"{k} {d:+.2f} ({plain_ev.get(k, none)[1]}/"
+                     f"{mesh_ev.get(k, none)[1]})" for d, k in diff[:12]))
+
+
+def start_q2() -> dict:
+    """Start phase q2: ``Q2_ARCH``'s train_4k cell on the 16x16 fake
+    group, with the per-layer gather and with the whole tree gathered,
+    each traced in a process of its own (their output in temporary
+    files), the two at once. Returns {label: (process, stdout, stderr)}."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    args = ["--arch", Q2_ARCH, "--shape", "train_4k", "--device", "cuda"]
+    runs = {"per-layer gather": [sys.executable, "-m",
+                                 "repro_torch.launch.dryrun"] + args,
+            "whole-tree gather": [sys.executable, "-c", Q2_WHOLE_TREE]
+            + args}
+    procs = {}
+    for label, cmd in runs.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[label] = (subprocess.Popen(cmd, stdout=out, stderr=err,
+                                         env=env, cwd=HERE), out, err)
+    return procs
+
+
+def finish_q2(phase: str, procs: dict, t_start: float) -> None:
+    """Wait for ``start_q2``'s processes (``Q2_TIMEOUT`` from
+    ``t_start``), read their records and gate them: each ends ``ok``,
+    and a rank's peak with the per-layer gather is below the whole
+    tree's and under the card's memory."""
+    import torch
+    recs = {}
+    for label, (proc, out, err) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, t_start + Q2_TIMEOUT
+                                  - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for other, _, _ in procs.values():
+                other.kill()
+                other.wait()
+            raise AssertionError(f"[{phase}] {label}: past {Q2_TIMEOUT} s")
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        if proc.returncode or not lines:
+            raise AssertionError(f"[{phase}] {label}: exit "
+                                 f"{proc.returncode}\n{text[-2000:]}\n"
+                                 f"{err.read()[-4000:]}")
+        recs[label] = json.loads(lines[-1])
+        _log(f"[{phase}] {label}: {lines[-1]}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    for label, rec in recs.items():
+        mem = rec["memory"]
+        _log(f"[{phase}] {label}: status {rec['status']}, a rank's peak "
+             f"{mem['peak_bytes']} B ({mem['peak_bytes'] / 1e9:.3f} GB; "
+             f"state and rows {mem['argument_bytes']} B), under 80 GB: "
+             f"{mem['peak_bytes'] < 80e9}, under the card's {card} B: "
+             f"{mem['peak_bytes'] < card}; traced in "
+             f"{rec['compile_s']:.1f} s")
+        if rec["status"] != "ok":
+            raise AssertionError(f"[{phase}] {label}: {rec}")
+    per = recs["per-layer gather"]["memory"]["peak_bytes"]
+    whole = recs["whole-tree gather"]["memory"]["peak_bytes"]
+    if not per < whole:
+        raise AssertionError(f"[{phase}] the per-layer gather's peak {per}"
+                             f" B is not below the whole tree's {whole} B")
+    if not per < card:
+        raise AssertionError(f"[{phase}] the per-layer gather's peak {per}"
+                             f" B is not under the card's {card} B")
+
+
+def run_phase_q() -> None:
+    """Phase q: q2's two traces (processes of their own, on the host's
+    cores) run while q1 holds the dry-run against the card in a one-rank
+    group."""
+    import torch
+
+    from repro_torch.train.setup import TRAIN_SETUP
+
+    t_phase = time.monotonic()
+    procs = start_q2()
+    try:
+        zero_counts()
+        with one_rank_group() as mesh:
+            for arch in TRAIN_SETUP:
+                run_q1(f"q1: {arch}, traced vs the card", arch, mesh)
+        train_gate("q1")
+    except BaseException:
+        for proc, _, _ in procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    finish_q2(f"q2: {Q2_ARCH} train_4k on 16x16", procs, t_phase)
+    _log(f"[q] phase wall {time.monotonic() - t_phase:.2f} s")
 
 
 def kernels_after_training(phase: str) -> None:
@@ -3081,6 +3421,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_train_p()
     kernels_after_training("p")
+    run_phase_q()
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
     left = stop_children()

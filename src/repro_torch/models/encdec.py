@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (bf16_proj, draw, embed, filled,
-                                       init_embedding, layer_slice,
+                                       gather_layer, init_embedding,
+                                       keep_layer, layer_slice,
                                        layernorm, logits_head, mlp, mm,
                                        ninit, prepare_head,
                                        remat, remat_on,
@@ -116,6 +117,7 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     layers = params["enc_layers"]
 
     def layer(x, lp):
+        lp = gather_layer(lp)
         h = layernorm(lp["ln1"], x)
         a, _ = attn_mod.attention(lp["attn"], h, cfg, kind="bidir",
                                   mode="train")
@@ -154,7 +156,7 @@ def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
     layers = params["dec_layers"]["cross_attn"]
     ks, vs = [], []
     for i in range(_n_stacked(layers)):
-        lp = layer_slice(layers, i)
+        lp = gather_layer(layer_slice(layers, i))
         ks.append(attn_mod.bias_norm(lp, mm(states, lp["wk"]), cfg, "k"))
         vs.append(attn_mod.bias_norm(lp, mm(states, lp["wv"]), cfg, "v"))
     return torch.stack(ks), torch.stack(vs)
@@ -189,6 +191,7 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     n_layers = _n_stacked(layers)
 
     def layer(x, lp, i):
+        lp = gather_layer(lp)
         h = layernorm(lp["ln1"], x)
         if mode == "decode":
             a, self_c = attn_mod.attention(
@@ -226,7 +229,7 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             x = remat(lambda x, lp, i=i: layer(x, lp, i)[0], x, lp)
         else:
             x, new = layer(x, lp, i)
-            per_layer.append(new)
+            per_layer.append(keep_layer(new))
 
     x = layernorm(params["dec_ln"], x)
     logits = logits_head(params["embed"], x, cfg.vocab,

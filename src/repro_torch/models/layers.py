@@ -19,6 +19,15 @@ The activations pass ``parallel.sharding.constrain`` at the reference's
 points with its logical axes; without a mesh context, or on a plain
 tensor, it returns its input.
 
+A sharded step hands the forward DTensor parameters (``layer_params``:
+the stacked leaves split into their layers, the rest gathered whole),
+and every stack loop gathers one layer's slice at the start of the
+function that computes the layer (``gather_layer``) while the step's
+``gather_context`` is active, so a rank holds one layer's parameters
+gathered at a time; under ``remat`` the slice is gathered again when
+the backward recomputes the layer. Outside the context plain trees go
+through untouched.
+
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
 the tied head's f32 operand (``prepare_head``); ``prepared`` reads one
@@ -27,13 +36,16 @@ where it is present and makes it as before where it is not.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dtensor import is_dtensor
 from repro_torch.kernels.api import current_context, dispatch, use_context
 from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import (QBLOCK, QTENSORS, Q4Tensor, Q8Tensor,
@@ -126,12 +138,14 @@ def remat(fn, *args):
     """``fn(*args)``, its activations dropped and recomputed in the
     backward (``torch.utils.checkpoint``, non-reentrant: the reference's
     ``jax.checkpoint`` with ``nothing_saveable``). The recomputation runs
-    under this call's dispatch context, so it binds what the forward
-    bound (the grad-safe route in training)."""
+    under this call's dispatch and gather contexts (the backward may run
+    on another thread), so it binds what the forward bound (the
+    grad-safe route in training) and gathers what it gathered."""
     ctx = current_context()
+    gather = getattr(_GATHER, "ctx", None)
 
     def again(*a):
-        with use_context(ctx):
+        with use_context(ctx), _gather_as(gather):
             return fn(*a)
     return checkpoint(again, *args, use_reentrant=False)
 
@@ -145,15 +159,138 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+# ----------------------------------------------------------------------------
+# Sharded parameters: one layer gathered at a time
+# ----------------------------------------------------------------------------
+
+_GATHER = threading.local()
+
+
+@contextlib.contextmanager
+def _gather_as(ctx):
+    prev = getattr(_GATHER, "ctx", None)
+    _GATHER.ctx = ctx
+    try:
+        yield
+    finally:
+        _GATHER.ctx = prev
+
+
+def gather_context(grad_placements=None,
+                   place_cache: Optional[Callable] = None):
+    """While active, ``gather_layer`` gathers a layer's DTensor leaves
+    whole (``gathered`` with ``grad_placements``) and ``keep_layer``
+    passes a prefill's per-layer cache through ``place_cache``."""
+    return _gather_as((grad_placements, place_cache))
+
+
+def gathered(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
+    """The DTensor ``t`` gathered whole onto every rank as a plain
+    tensor: ``redistribute`` to replicated, then ``to_local``. Under
+    autograd its gradient is read as ``grad_placements`` (partial sums
+    over the data axes), which the gather's backward reduce-scatters
+    onto ``t``'s placements."""
+    from torch.distributed.tensor import Replicate
+    full = t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return full.to_local(grad_placements=grad_placements)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def gather_layer(tree):
+    """One layer's parameters (``layer_slice``'s subtree) with each
+    DTensor leaf gathered whole while a ``gather_context`` is active;
+    ``tree`` itself otherwise (no copy, no collective)."""
+    ctx = getattr(_GATHER, "ctx", None)
+    if ctx is None:
+        return tree
+    return _map_leaves(lambda t: gathered(t, ctx[0]) if is_dtensor(t)
+                       else t, tree)
+
+
+def keep_layer(tree):
+    """A prefill's new per-layer cache subtree, placed by the active
+    ``gather_context``'s ``place_cache`` (as it is without one)."""
+    ctx = getattr(_GATHER, "ctx", None)
+    return tree if ctx is None or ctx[1] is None else ctx[1](tree)
+
+
+def _contiguous_stride(shape: tuple) -> tuple:
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
+
+
+class LayerShards:
+    """A stacked DTensor leaf (L, ...) split into its L layers: its local
+    shard unbound on the layer axis once, each layer a DTensor of the
+    leaf's placements one dim lower. ``layer_slice`` indexes it as it
+    indexes the stacked leaf. The layers' gradients go back through the
+    one ``unbind``, whose backward stacks them once; indexing the stacked
+    leaf L times instead would write L zero-filled shards of the stack's
+    size and sum them."""
+
+    def __init__(self, leaf: torch.Tensor):
+        from torch.distributed.tensor import DTensor, Shard
+        if any(p.is_shard() and p.dim == 0 for p in leaf.placements):
+            raise ValueError("a stacked leaf's layer axis is sharded")
+        placements = [Shard(p.dim - 1) if p.is_shard() else p
+                      for p in leaf.placements]
+        shape = tuple(leaf.shape[1:])
+        self.shape = leaf.shape
+        self._layers = [
+            DTensor.from_local(t, leaf.device_mesh, placements,
+                               run_check=False, shape=shape,
+                               stride=_contiguous_stride(shape))
+            for t in leaf.to_local().unbind(0)]
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self._layers[i]
+
+
+def layer_params(params: dict, axes: dict, grad_placements=None) -> dict:
+    """The tree a forward under ``gather_context`` takes from the
+    parameter tree ``params`` (``axes``: its logical axes): each DTensor
+    leaf whose first axis is ``layers`` as ``LayerShards``, gathered a
+    layer at a time by the stack loops, and every other DTensor leaf
+    (embeddings, head, final norms, the Whisper frontend, the hybrid's
+    shared block) gathered whole once; plain leaves as they are."""
+    def one(t, ax):
+        if not is_dtensor(t):
+            return t
+        if ax[:1] == ("layers",):
+            return LayerShards(t)
+        return gathered(t, grad_placements)
+    return {k: layer_params(v, axes[k], grad_placements)
+            if isinstance(v, dict) else one(v, axes[k])
+            for k, v in params.items()}
+
+
 def stack_layers(trees: list):
     """Stack per-layer parameter (or cache) trees on a new leading axis:
     the inverse of ``layer_slice``. ``Spec`` leaves gain the ``layers``
-    axis (the reference's ``stack_axes``)."""
+    axis (the reference's ``stack_axes``); DTensor leaves stack their
+    local shards, the placements one dim higher."""
     if isinstance(trees[0], dict):
         return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
     if isinstance(trees[0], Spec):
         return Spec((len(trees),) + trees[0].shape, trees[0].dtype,
                     ("layers",) + trees[0].axes)
+    if is_dtensor(trees[0]):
+        from torch.distributed.tensor import DTensor, Shard
+        one = trees[0]
+        shape = (len(trees),) + tuple(one.shape)
+        return DTensor.from_local(
+            torch.stack([t.to_local() for t in trees]), one.device_mesh,
+            [Shard(p.dim + 1) if p.is_shard() else p
+             for p in one.placements],
+            run_check=False, shape=shape, stride=_contiguous_stride(shape))
     return torch.stack(trees)
 
 

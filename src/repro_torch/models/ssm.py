@@ -182,7 +182,8 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         xdt = xh * dt[:, 0, :, None]                       # (b, h, hd)
         dh = xdt[..., None] * Bi[:, None, None, :]         # (b, h, hd, n)
         h_new = cache["h"].to(_F32) * decay[:, :, None, None] + dh
-        y = (h_new @ Ci[:, None, :, None])[..., 0]         # (b, h, hd)
+        # Ci is f32 but for bf16 conv taps (a dry-run's bf16 weights)
+        y = (h_new @ Ci.to(_F32)[:, None, :, None])[..., 0]  # (b, h, hd)
         y = y + xh * p["D"][None, :, None]
         y = y.reshape(b, 1, d_in)
         new_cache = {"conv": tail.to(cache["conv"].dtype),

@@ -40,7 +40,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
-                                       init_mlp, init_rmsnorm, layer_slice,
+                                       gather_layer, init_mlp, init_rmsnorm,
+                                       keep_layer, layer_slice,
                                        logits_head, mlp, ninit, pad_vocab,
                                        prepare_head, remat, remat_on,
                                        rmsnorm, stack_layers)
@@ -294,8 +295,11 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
     prefill's fresh one, or the decode's pool, which each block writes in
     place). Returns (x, the prefill's new stacked subtree, else None).
     A train forward under ``remat_on`` recomputes each layer's
-    activations in the backward."""
+    activations in the backward. Each layer's parameters are gathered
+    at the start of ``layer`` (``gather_layer``), and a prefill's new
+    cache is kept a layer at a time (``keep_layer``)."""
     def layer(x, sp, i):
+        sp = gather_layer(sp)
         sc = None
         if cache is not None and mode != "decode":
             sc = layer_slice(cache, i)
@@ -330,7 +334,8 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
             x = remat(lambda x, sp, i=i: layer(x, sp, i)[0], x, sp)
             continue
         x, new = layer(x, sp, i)
-        new_layers.append(new)
+        if mode == "prefill":
+            new_layers.append(keep_layer(new))
     return x, stack_layers(new_layers) if mode == "prefill" else None
 
 

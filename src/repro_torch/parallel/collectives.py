@@ -69,10 +69,14 @@ _FLAT: dict = {}
 
 def _flat(mesh, axes: tuple):
     """The 1-D sub-mesh of ``mesh`` over ``axes`` (made once: a new
-    process group is a collective of every rank)."""
+    process group is a collective of every rank), outside any dispatch
+    mode: a mesh's ranks are a real tensor, also in a step traced on
+    fake tensors."""
+    from torch.utils._python_dispatch import _disable_current_modes
     key = (id(mesh), axes)
     if key not in _FLAT or _FLAT[key][0] is not mesh:
-        _FLAT[key] = (mesh, mesh[axes]._flatten("_".join(axes)))
+        with _disable_current_modes():
+            _FLAT[key] = (mesh, mesh[axes]._flatten("_".join(axes)))
     return _FLAT[key][1]
 
 

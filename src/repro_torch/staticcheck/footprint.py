@@ -7,12 +7,13 @@ calls: the same shapes and dtypes, drawn from a seed with numpy), its
 ``KernelSpec`` comes from the registry's own spec builder and its host
 backend (``"torch"``, the plain version) runs under two counters:
 ``torch.utils.flop_counter.FlopCounterMode`` for the flops, and a
-``trace.Tracer`` for the bytes, the input and output bytes of every aten
-node that is not a view (eager ops are each materialised, so this is
-what the plain version moves). The measured/analytic ratios must sit
-inside the tolerance bands of the port's ``staticcheck.toml``: a spec
-that drifts from the code it describes (stale ``count``, wrong
-contraction dims) corrupts every downstream energy / PDP figure.
+``trace.Tracer`` for the bytes, each node's ``moved_bytes`` (the input
+and output bytes of every aten node that is not a view: eager ops are
+each materialised, so this is what the plain version moves). The
+measured/analytic ratios must sit inside the tolerance bands of the
+port's ``staticcheck.toml``: a spec that drifts from the code it
+describes (stale ``count``, wrong contraction dims) corrupts every
+downstream energy / PDP figure.
 
 SC-REG requires each op to be host-servable: a backend of its
 ``host_order`` chain (``"torch"``) must be registered, so the CPU can
@@ -102,12 +103,11 @@ def _host_backend(op) -> Optional[str]:
 
 def measure(fn, args: tuple, kwargs: dict) -> tuple[float, float]:
     """(flops, bytes) one call of ``fn`` executes: the flop counter's
-    total, and the bytes of every non-view aten node's tensors."""
+    total, and the bytes its nodes move (``Node.moved_bytes``)."""
     counter = FlopCounterMode(display=False)
     with counter:
         _, nodes = trace_call(fn, *args, **kwargs)
-    nbytes = sum(t.nbytes for n in nodes if not n.view
-                 for t in n.inputs + n.outputs)
+    nbytes = sum(n.moved_bytes for n in nodes)
     return float(counter.get_total_flops()), float(nbytes)
 
 

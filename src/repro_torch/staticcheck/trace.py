@@ -8,7 +8,9 @@ hot-path function dispatches, recorded with a ``TorchDispatchMode``.
 Each ``Node`` keeps the op's name, the dtype, shape, device and storage
 of each tensor it takes and returns, which of its arguments it writes
 (the schema's alias annotation) and whether it only views an input
-(every output on an input's storage).
+(every output on an input's storage), and ``Node.moved_bytes`` is the
+one rule for the bytes an op moves (SC-FOOT's and ``analysis.cost``'s).
+A DTensor op is recorded as the ops it runs on its local tensors.
 
 A kernel call (``kernels.api.kernel_call``: a dispatched op with a
 kernel of its own, or the paged decode op's call of its tier's kernel)
@@ -26,6 +28,8 @@ Tracing executes the function, unlike the reference's ``jitted.trace``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
 from typing import Any, Callable, Iterator
 
 import torch
@@ -43,7 +47,8 @@ class TensorMeta:
     dtype: str            # "bfloat16", "int8", ...
     shape: tuple
     device: str           # "cpu", "cuda", ...: the device type
-    storage: int          # data pointer of the tensor's storage
+    storage: int          # identity of the tensor's storage (its
+                          # StorageImpl: fake tensors have no data)
 
     @property
     def numel(self) -> int:
@@ -57,10 +62,15 @@ class TensorMeta:
         return self.numel * getattr(torch, self.dtype).itemsize
 
 
+@functools.cache
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def meta(t: torch.Tensor) -> TensorMeta:
-    return TensorMeta(dtype=str(t.dtype).removeprefix("torch."),
-                      shape=tuple(t.shape), device=t.device.type,
-                      storage=t.untyped_storage().data_ptr())
+    return TensorMeta(dtype=_dtype_name(t.dtype), shape=tuple(t.shape),
+                      device=t.device.type,
+                      storage=t.untyped_storage()._cdata)
 
 
 def tensors(tree) -> Iterator[torch.Tensor]:
@@ -89,44 +99,106 @@ class Node:
                                # none written: no byte moves
     kernel: str = ""           # the kernel call this op ran inside
     kwargs: tuple = ()         # the names of the keyword arguments given
+    site: str = ""             # "module:function" of the port that issued
+                               # it (``Tracer(sites=True)``)
 
     @property
     def is_kernel(self) -> bool:
         return self.op.startswith("kernel:")
 
+    @property
+    def moved_bytes(self) -> int:
+        """The bytes the op reads and writes in memory: those of the
+        tensors it takes and returns; none for a view, a primitive, or a
+        collective (whose operand bytes cross the interconnect)."""
+        if self.view or self.op.startswith(("prim.", "_c10d_functional.")):
+            return 0
+        return sum(t.nbytes for t in self.inputs + self.outputs)
 
-def _node(func, args, kwargs, out, kernel: str) -> Node:
+
+def site() -> str:
+    """``module:function`` of the innermost frame of the port outside
+    the tracing and the kernel dispatch: the code that issued an op."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_globals.get("__name__", "")
+        if name.startswith("repro_torch.") and not name.startswith(
+                ("repro_torch.analysis", "repro_torch.kernels",
+                 "repro_torch.staticcheck")):
+            return f"{name.removeprefix('repro_torch.')}:{f.f_code.co_name}"
+        f = f.f_back
+    return "?"
+
+
+@functools.cache
+def _wrappers() -> tuple:
+    """Tensor subclasses whose ops are recorded on their local tensors."""
+    try:
+        from torch.distributed._functional_collectives import \
+            AsyncCollectiveTensor
+        from torch.distributed.tensor import DTensor
+    except ImportError:          # a torch built without distributed
+        return ()
+    return (DTensor, AsyncCollectiveTensor)
+
+
+@functools.cache
+def _schema(func) -> tuple:
+    """(the op's name, ((argument name, written), ...)) of ``func``."""
+    return str(func), tuple(
+        (a.name, a.alias_info is not None and a.alias_info.is_write)
+        for a in func._schema.arguments)
+
+
+def _node(func, args, kwargs, out, kernel: str, where: str = "") -> Node:
     inputs, writes = [], []
-    schema = func._schema
-    named = dict(zip((a.name for a in schema.arguments), args))
-    named.update(kwargs)
-    for arg in schema.arguments:
-        ts = list(tensors(named.get(arg.name)))
-        if arg.alias_info is not None and arg.alias_info.is_write:
+    op, arguments = _schema(func)
+    for i, (name, written) in enumerate(arguments):
+        v = args[i] if i < len(args) else kwargs.get(name)
+        ts = (v,) if isinstance(v, torch.Tensor) else list(tensors(v))
+        if written:
             writes.extend(range(len(inputs), len(inputs) + len(ts)))
         inputs.extend(meta(t) for t in ts)
     outputs = tuple(meta(t) for t in tensors(out))
     storages = {t.storage for t in inputs}
     view = bool(outputs) and not writes \
         and all(t.storage in storages for t in outputs)
-    return Node(op=str(func), inputs=tuple(inputs), outputs=outputs,
+    return Node(op=op, inputs=tuple(inputs), outputs=outputs,
                 writes=tuple(writes), view=view, kernel=kernel,
-                kwargs=tuple(sorted(kwargs)))
+                kwargs=tuple(sorted(kwargs)), site=where)
+
+
+def kernel_node(name: str, args: tuple, kwargs: dict, out,
+                where: str = "") -> Node:
+    """The one node of a kernel call of the op ``name``."""
+    return Node(op=f"kernel:{name}",
+                inputs=tuple(meta(t) for t in tensors((args, kwargs))),
+                outputs=tuple(meta(t) for t in tensors(out)), site=where)
 
 
 class Tracer(TorchDispatchMode):
     """Records every aten op dispatched while it is entered, and every
-    kernel call (``kernel_hook``) as one node around the ops it ran."""
+    kernel call (``kernel_hook``) as one node around the ops it ran.
+    ``sites``: each node also names the code that issued it (``site``).
+    ``record`` takes each node; a subclass may fold them instead of
+    keeping them."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         self.nodes: list[Node] = []
         self._kernel = ""
+        self._sites = sites
+
+    def record(self, node: Node) -> None:
+        self.nodes.append(node)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, _wrappers()) for t in types):
+            return NotImplemented      # seen again on the local tensors
         out = func(*args, **kwargs)
-        self.nodes.append(_node(func, args, kwargs, out, self._kernel))
+        self.record(_node(func, args, kwargs, out, self._kernel,
+                          site() if self._sites else ""))
         return out
 
     def kernel(self, name: str, fn: Callable, args: tuple, kwargs: dict):
@@ -137,10 +209,8 @@ class Tracer(TorchDispatchMode):
             out = fn(*args, **kwargs)
         finally:
             self._kernel = ""
-        self.nodes.append(Node(
-            op=f"kernel:{name}",
-            inputs=tuple(meta(t) for t in tensors((args, kwargs))),
-            outputs=tuple(meta(t) for t in tensors(out))))
+        self.record(kernel_node(name, args, kwargs, out,
+                                site() if self._sites else ""))
         return out
 
 

@@ -14,22 +14,28 @@ microbatches and divides, as the reference's ``lax.scan`` does.
 With a ``mesh`` (a ``torch.distributed`` DeviceMesh with ``data`` and
 ``model`` axes, ``pod`` too for two pods) the state is DTensors placed
 by ``state_shardings``: each rank stores its shard of every parameter
-and moment, as the reference's pjit does. The step gathers the
-parameters (``redistribute`` to replicated, FSDP-style), runs the
-forward and backward on this rank's rows of the batch (sharded on dim 0
-over the data axes), and the gradient goes back through the gather as
-a partial sum over the data axes, which DTensor reduce-scatters onto
-each parameter's placements; AdamW then updates every local shard in
-place. The loss is the token mean over the global batch (the ranks'
-NLL sums over their summed token counts), so the step equals the
-single-device one up to summation order. The model axis stores; it
-does not split the compute (the constrain sites redistribute DTensor
-activations only, and the gathered forward has none). Only the storage
-between steps is sharded: during a step each rank holds every
-parameter gathered whole and its full-size gradient beside its shards,
-so only the AdamW moments and the activations of its rows shrink with
-the mesh, and a model whose f32 parameters and gradients do not fit one
-device does not fit a rank either.
+and moment, as the reference's pjit does. The forward takes the DTensor
+tree (``models.layers.layer_params``): the leaves outside the layer
+stacks (embeddings, head, final norms, the Whisper frontend, the
+hybrid's shared block) are gathered whole once a step, each stacked
+leaf is split into its layers once, and every stack loop gathers one
+layer's slice at the start of the function that computes the layer
+(``redistribute`` to replicated, FSDP-style) under the step's
+``gather_context``. With ``remat`` (every full-size config) the slice
+is freed after the layer's forward and gathered again when the backward
+recomputes it, so a rank holds its shards, one layer gathered and the
+unstacked leaves; without it autograd keeps each gathered weight a
+product saves until the backward, and the step peaks at all its layers
+gathered. Each rank runs the forward and backward on its rows of the
+batch (sharded on dim 0 over the data axes); a layer's gradient goes
+back through its gather as a partial sum over the data axes, which
+DTensor reduce-scatters onto the parameter's placements, a layer at a
+time, and AdamW then updates every local shard in place. The loss is
+the token mean over the global batch (the ranks' NLL sums over their
+summed token counts), so the step equals the single-device one up to
+summation order. The model axis stores; it does not split the compute
+(the constrain sites redistribute DTensor activations only, and the
+gathered layers make none).
 
 ``make_compressed_train_step`` keeps the parameters replicated, takes
 each rank's gradients on its rows and averages them over the data axes
@@ -46,6 +52,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.dtensor import is_dtensor, local
 from repro_torch.kernels.api import grad_safe_context, use_context
+from repro_torch.models.layers import gather_context, layer_params
 from repro_torch.models.model import Model, input_specs
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import (axes_size, compressed_psum,
@@ -217,28 +224,24 @@ def local_rows(batch: dict, mesh, device) -> dict:
     return out
 
 
-def _gathered(p, grad_pl):
-    """A DTensor parameter gathered whole onto every rank, as a plain
-    tensor whose gradient is read as a partial sum over ``grad_pl``."""
-    from torch.distributed.tensor import Replicate
-    full = p.redistribute(p.device_mesh, [Replicate()] * p.device_mesh.ndim)
-    return full.to_local(grad_placements=grad_pl)
-
-
-def sharded_value_and_grad(model: Model, params, batch: dict, mesh
-                           ) -> tuple:
+def sharded_value_and_grad(model: Model, params, batch: dict, mesh,
+                           param_axes: dict) -> tuple:
     """(global-batch loss, gradients placed as ``params``) of one step:
-    ``params`` are DTensors, ``batch`` this rank's rows. The loss this
-    rank differentiates is its NLL sum over the global token count, so
-    the gradients' sum over the data ranks is the global mean's."""
+    ``params`` are DTensors, gathered a layer at a time
+    (``layers.layer_params``; ``param_axes``: ``model.param_axes()``,
+    which a step maker computes once), ``batch`` this rank's rows. The
+    loss this rank differentiates is its NLL sum over the global token
+    count, so the gradients' sum over the data ranks is the global
+    mean's."""
     from torch.distributed.tensor import Partial, Replicate
     axes = dp_axes(mesh)
     grad_pl = [Partial() if n in axes else Replicate()
                for n in mesh.mesh_dim_names]
     live = adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        full = adamw.tree_map(lambda p: _gathered(p, grad_pl), live)
-        total, count = nll_sum(*_logits_targets(model, full, batch))
+    with torch.enable_grad(), gather_context(grad_pl):
+        tree = layer_params(live, param_axes, grad_pl)
+        total, count = nll_sum(*_logits_targets(model, tree, batch))
+        del tree
         count = mesh_sum(count.detach(), mesh, axes)
         loss = total / torch.clamp(count, min=1.0)
         grads = iter(torch.autograd.grad(loss, list(adamw.leaves(live)),
@@ -265,10 +268,12 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *,
     one (numpy or tensors, each rank takes its rows) or DTensors
     (``shard_batch``); the body runs under ``logical_context``."""
 
+    axes = None if mesh is None else model.param_axes()
+
     def grads_of(params, batch):
         if mesh is None:
             return value_and_grad(model, params, batch)
-        return sharded_value_and_grad(model, params, batch, mesh)
+        return sharded_value_and_grad(model, params, batch, mesh, axes)
 
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
@@ -369,9 +374,11 @@ def make_prefill_step(model: Model, *, mesh=None,
                       rules: Optional[dict] = None) -> Callable:
     """prefill_step(params, batch) -> (last_logits, cache), the cache
     ``prefill_cache_len(seq)`` long. With ``mesh``: ``params`` (and the
-    batch) may be DTensors, gathered whole; every rank runs the batch
-    under ``logical_context`` and the cache comes back as DTensors
-    placed by ``cache_shardings``, the logits whole on every rank."""
+    batch) may be DTensors; every rank runs the batch under
+    ``logical_context`` and ``no_grad``, gathering the parameters a layer
+    at a time (``layers.layer_params``), and keeps each layer's new
+    cache placed by ``cache_shardings`` as the layer makes it; the logits
+    come back whole on every rank."""
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -384,20 +391,17 @@ def make_prefill_step(model: Model, *, mesh=None,
 
     if mesh is None:
         return prefill
+    axes = model.param_axes()
 
     def prefill_meshed(params, batch):
-        with logical_context(mesh, rules):
-            full = adamw.tree_map(_full, params)
-            device = _first_device(full)
+        with logical_context(mesh, rules), torch.no_grad(), \
+                gather_context(place_cache=lambda t: place_tree(
+                    t, cache_layer_shardings(t, mesh, rules))):
+            tree = layer_params(params, axes)
+            device = _first_device(params)
             batch = {k: torch.as_tensor(_full(v), device=device)
                      for k, v in batch.items()}
-            logits, cache = prefill(full, batch)
-            frames = batch.get("enc_frames")
-            sh = cache_shardings(
-                model, batch["tokens"].shape[0],
-                prefill_cache_len(batch["tokens"].shape[1]), mesh, rules,
-                enc_len=1500 if frames is None else frames.shape[1])
-            return logits, place_tree(cache, sh)
+            return prefill(tree, batch)
 
     return prefill_meshed
 
@@ -407,9 +411,11 @@ def make_decode_step(model: Model, *, mesh=None,
                      sample: bool = False) -> Callable:
     """decode_step(params, cache, tokens, pos) -> (next_tokens|logits,
     cache). ``tokens``: (B, 1); ``pos``: the position, a scalar or (B,).
-    With ``mesh``: ``params`` and ``cache`` DTensors (``cache_shardings``),
-    gathered whole; every rank decodes the batch under
-    ``logical_context`` and the new cache comes back placed as the old."""
+    With ``mesh``: ``params`` and ``cache`` DTensors (``cache_shardings``);
+    every rank decodes the batch under ``logical_context`` and
+    ``no_grad``, the parameters gathered a layer at a time and the cache
+    gathered whole (its blocks write the stacked pool in place at their
+    layer), and the new cache comes back placed as the old."""
 
     def decode(params, cache, tokens, pos):
         logits, new_cache = model.forward(
@@ -419,11 +425,13 @@ def make_decode_step(model: Model, *, mesh=None,
 
     if mesh is None:
         return decode
+    axes = model.param_axes()
 
     def decode_meshed(params, cache, tokens, pos):
-        with logical_context(mesh, rules):
+        with logical_context(mesh, rules), torch.no_grad(), \
+                gather_context():
             sh = adamw.tree_map(sharding_of, cache)
-            out, new_cache = decode(adamw.tree_map(_full, params),
+            out, new_cache = decode(layer_params(params, axes),
                                     adamw.tree_map(_full, cache),
                                     _full(tokens), _full(pos))
             return out, place_tree(new_cache, sh)
@@ -452,22 +460,39 @@ _CACHE_AXES = {
 _FAMILIES = {"kv", "ssm", "mstate", "sstate", "self", "cross"}
 
 
+def _cache_leaf_sharding(keys: list, shape: tuple, mesh,
+                         rules: dict) -> Sharding:
+    """The sharding of the cache leaf at ``keys`` (its path) of
+    ``shape``: the family's logical axes on its last dims (leading
+    stacked-layer dims unsharded), dropped where the mesh does not
+    divide a dim."""
+    fam = next((k for k in reversed(keys[:-1]) if k in _FAMILIES), None)
+    if fam in ("self", "cross"):   # encdec caches hold raw k/v dicts
+        fam = "kv"
+    axes = _CACHE_AXES.get((fam, keys[-1]))
+    full = ((None,) * len(shape) if axes is None
+            else (None,) * (len(shape) - len(axes)) + axes)
+    return enforce_divisibility(Sharding(mesh, spec_for(full, rules)),
+                                torch.empty(shape, device="meta"))
+
+
+def _cache_walk(tree, mesh, rules: dict, keys: list):
+    if isinstance(tree, dict):
+        return {k: _cache_walk(v, mesh, rules, keys + [str(k)])
+                for k, v in tree.items()}
+    return _cache_leaf_sharding(keys, tuple(tree.shape), mesh, rules)
+
+
 def cache_shardings(model: Model, batch: int, max_len: int, mesh,
                     rules: dict, enc_len: int = 1500) -> dict:
     """Shardings of the KV / state cache tree. Leading stacked-layer
     dims (segments) stay unsharded."""
-    specs = model.cache_specs(batch, max_len, enc_len)
+    return _cache_walk(model.cache_specs(batch, max_len, enc_len), mesh,
+                       rules, [])
 
-    def walk(tree, keys):
-        if isinstance(tree, dict):
-            return {k: walk(v, keys + [str(k)]) for k, v in tree.items()}
-        fam = next((k for k in reversed(keys[:-1]) if k in _FAMILIES),
-                   None)
-        if fam in ("self", "cross"):   # encdec caches hold raw k/v dicts
-            fam = "kv"
-        axes = _CACHE_AXES.get((fam, keys[-1]))
-        full = ((None,) * tree.ndim if axes is None
-                else (None,) * (tree.ndim - len(axes)) + axes)
-        return Sharding(mesh, spec_for(full, rules))
 
-    return enforce_divisibility(walk(specs, []), specs)
+def cache_layer_shardings(tree: dict, mesh, rules: dict) -> dict:
+    """Shardings of one layer's cache subtree (a stack loop's per-layer
+    tree, keyed as in the stacked cache below the stack): those of
+    ``cache_shardings`` without the layer dim."""
+    return _cache_walk(tree, mesh, rules, [])

@@ -14,6 +14,12 @@ the JAX package's numbers:
   learning rate the first step moves a parameter by ~1e-5, under the
   parameter bound: the gradient check is the one that sees a wrong
   gradient.);
+* the sharded step gathers one layer at a time: with ``remat`` on
+  (qwen3-4b and whisper-tiny.en, reduced, 4 layers), the bytes of
+  gathered parameter data alive at once, read from the storages'
+  lifetimes, stay within the largest layer's gathered bytes plus the
+  leaves outside the stacks, and a planted whole-tree gather breaks
+  that bound;
 * the meshed prefill + decode of qwen3-4b gives the unmeshed logits
   within 1e-5 of the largest;
 * ``compressed_psum``'s mean is within 1e-6 of the mean over ranks of
@@ -65,7 +71,9 @@ PIPE_FWD_RTOL, PIPE_GRAD_RTOL = 2e-5, 1e-5
 # the module's ranks take ~25 s here; a hung collective fails the module
 # at this wall rather than running into the suite's limit
 RANKS_DEADLINE_S = 300
+GATHER_ARCHS = ("qwen3-4b", "whisper-tiny-en")
 CASES = ([f"sharded_step[{a}]" for a in FAMILIES]
+         + [f"layer_gather_peak[{a}]" for a in GATHER_ARCHS]
          + ["meshed_serving", "compressed_psum", "compressed_step",
             "elastic_restore", "reference_checkpoint_onto_mesh",
             "pipeline", "constrain", "preemption_agreed"])
@@ -111,7 +119,8 @@ def case_sharded_step(arch, work):
                for p in x.placements)
 
     loss, grads = S.sharded_value_and_grad(
-        model, state["params"], S.local_rows(batch, mesh, "cpu"), mesh)
+        model, state["params"], S.local_rows(batch, mesh, "cpu"), mesh,
+        model.param_axes())
     np.testing.assert_allclose(float(loss), float(want_loss),
                                rtol=LOSS_RTOL)
     for i, (a, b) in enumerate(zip(leaves(grads), leaves(want_g))):
@@ -133,6 +142,118 @@ def case_sharded_step(arch, work):
         np.testing.assert_allclose(a.full_tensor().float().numpy(),
                                    b.float().numpy(), rtol=PARAM_RTOL,
                                    atol=PARAM_ATOL)
+
+
+class GatheredBytes:
+    """The bytes of gathered parameter data alive at once, read from the
+    storages' lifetimes: a storage is gathered data when an all-gather
+    made it, or when a ``cat`` made it from views of one such storage
+    (DTensor's reassembly of a gather along a dim other than 0); views
+    share their storage. Each is alive from the op that made it until
+    its storage is freed (a weakref finalizer). The sum is read at every
+    op that takes data other than gathered data (the layers'
+    computations, the backward), when a gather's staging buffers are
+    gone: the peak of what the computations see gathered at once."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return outer._op(func, types, args, kwargs or {})
+
+        self.mode = Mode()
+        self.alive = {}
+        self.peak = 0
+
+    def _op(self, func, types, args, kwargs):
+        from torch.distributed._functional_collectives import \
+            AsyncCollectiveTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+        if any(issubclass(t, (DTensor, AsyncCollectiveTensor))
+               for t in types):
+            return NotImplemented   # seen again on the local tensors
+        out = func(*args, **kwargs)
+        if any(t is not torch.Tensor for t in types):
+            return out              # DTensor's sharding propagation
+        ins = {self._key(t) for t in tree_leaves((args, kwargs))
+               if type(t) is torch.Tensor}
+        if func.__name__.startswith("all_gather") or (
+                func is torch.ops.aten.cat.default and len(ins) == 1
+                and ins <= self.alive.keys()):
+            for t in tree_leaves(out):
+                self._track(t)
+        elif not ins <= self.alive.keys() or not ins:
+            self.peak = max(self.peak, sum(self.alive.values()))
+        return out
+
+    @staticmethod
+    def _key(t):
+        return t.untyped_storage().data_ptr()
+
+    def _track(self, t):
+        import weakref
+        st = t.untyped_storage()
+        key = self._key(t)
+        if key not in self.alive:
+            self.alive[key] = st.nbytes()
+            weakref.finalize(st, self.alive.pop, key, None)
+
+
+def _gather_bound(model):
+    """(the largest layer's f32 parameter bytes, the bytes of the
+    parameters outside the layer stacks)."""
+    from repro_torch.models.model import tree_paths
+    layers, rest = {}, 0
+    for path, s in tree_paths(model.param_specs()):
+        n = int(np.prod(s.shape)) * 4
+        if s.axes[:1] == ("layers",):
+            stack = path.split("/")[0]
+            layers[stack] = layers.get(stack, 0) + n // s.shape[0]
+        else:
+            rest += n
+    return max(layers.values()), rest
+
+
+def case_layer_gather_peak(arch, work):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.layers import gathered
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel.sharding import place_tree, rules_for
+    from repro_torch.train import step as S
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True,
+                              n_layers=4)
+    model = build(cfg)
+    mesh = _mesh((2, 2), ("data", "model"))
+    rules = rules_for(cfg, mesh, mode="train")
+    state = place_tree(_state(model), S.state_shardings(model, mesh, rules))
+    rows = S.local_rows(batch_for_step(cfg, 32, 4, seed=0, step=0), mesh,
+                        "cpu")
+    layer, rest = _gather_bound(model)
+
+    def peak():
+        seen = GatheredBytes()
+        with seen.mode:
+            S.sharded_value_and_grad(model, state["params"], rows, mesh,
+                                     model.param_axes())
+        return seen.peak
+
+    got = peak()
+    assert 0 < got <= layer + rest, (got, layer, rest)
+    whole = S.layer_params
+    S.layer_params = lambda params, axes, gp=None: tree_map(
+        lambda p: gathered(p, gp), params)
+    try:
+        planted = peak()
+    finally:
+        S.layer_params = whole
+    assert planted > layer + rest, (planted, layer, rest)
 
 
 def case_meshed_serving(work):
@@ -356,6 +477,9 @@ def case_preemption_agreed(work):
 def _run_case(name, work):
     if name.startswith("sharded_step["):
         return case_sharded_step(name[len("sharded_step["):-1], work)
+    if name.startswith("layer_gather_peak["):
+        return case_layer_gather_peak(name[len("layer_gather_peak["):-1],
+                                      work)
     return globals()[f"case_{name}"](work)
 
 

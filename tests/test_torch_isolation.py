@@ -58,7 +58,10 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.parallel.sharding",
             "repro_torch.parallel.collectives",
             "repro_torch.parallel.pipeline",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.flags",
+            "repro_torch.analysis", "repro_torch.analysis.cost",
+            "repro_torch.analysis.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.profile_cell"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
