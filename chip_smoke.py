@@ -200,6 +200,22 @@ q. the dry-run (``repro_torch.launch.dryrun``, ``repro_torch.analysis``)
    per-layer gather), both started before q1 and read after it: both
    must end ``status: ok``; it prints a rank's peak under each and
    whether it is under 80 GB and under the card's memory.
+r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
+   with a mesh: a rank runs its rows, the cache stays sharded, a decode
+   step gathers one layer's cache at a time). r1, in a one-rank group:
+   qwen3-4b at full width and depth (bf16 weights drawn on the card) and
+   whisper-tiny.en (1500 frames a lane), each 4 lanes, a prefill and 8
+   greedy decode steps on the 1x1 mesh against the unmeshed steps from
+   the same weights: logits and ids bit-equal, the cache DTensors in
+   their ``cache_shardings`` placements with their storages kept by
+   every step, each step's rise of ``torch.cuda.max_memory_allocated``
+   within one layer's cache and weights plus ``R_PEAK_SLACK`` of the
+   unmeshed step's, and ``fp16_matmul`` / ``flash_attention`` launched
+   as often as unmeshed. r2: ``launch.dryrun`` of qwen3-4b's decode_32k
+   and prefill_32k cells on fake ``cuda`` over the 16x16 fake group, two
+   processes started before r1: both end ``ok``, a rank's peak under
+   ``R2_PEAK_MAX`` (decode_32k under the card's memory too); it prints
+   the peaks, the traced FLOPs and whether each fits the card.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -3079,44 +3095,38 @@ def run_q1(phase: str, arch: str, mesh) -> None:
                      f"{mesh_ev.get(k, none)[1]})" for d, k in diff[:12]))
 
 
-def start_q2() -> dict:
-    """Start phase q2: ``Q2_ARCH``'s train_4k cell on the 16x16 fake
-    group, with the per-layer gather and with the whole tree gathered,
-    each traced in a process of its own (their output in temporary
-    files), the two at once. Returns {label: (process, stdout, stderr)}."""
+def _start_dryruns(runs: dict) -> dict:
+    """Start each of ``runs`` ({label: argv after the interpreter}) in a
+    process of its own, the repository's ``src`` on its path and its
+    output in temporary files, all at once. Returns {label: (process,
+    stdout, stderr)}."""
     import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(HERE, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    args = ["--arch", Q2_ARCH, "--shape", "train_4k", "--device", "cuda"]
-    runs = {"per-layer gather": [sys.executable, "-m",
-                                 "repro_torch.launch.dryrun"] + args,
-            "whole-tree gather": [sys.executable, "-c", Q2_WHOLE_TREE]
-            + args}
     procs = {}
-    for label, cmd in runs.items():
+    for label, argv in runs.items():
         out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-        procs[label] = (subprocess.Popen(cmd, stdout=out, stderr=err,
-                                         env=env, cwd=HERE), out, err)
+        procs[label] = (subprocess.Popen([sys.executable] + argv, stdout=out,
+                                         stderr=err, env=env, cwd=HERE),
+                        out, err)
     return procs
 
 
-def finish_q2(phase: str, procs: dict, t_start: float) -> None:
-    """Wait for ``start_q2``'s processes (``Q2_TIMEOUT`` from
-    ``t_start``), read their records and gate them: each ends ``ok``,
-    and a rank's peak with the per-layer gather is below the whole
-    tree's and under the card's memory."""
-    import torch
+def _finish_dryruns(phase: str, procs: dict, deadline: float) -> dict:
+    """Wait for ``_start_dryruns``'s processes until ``deadline`` (the
+    monotonic clock; past it every one is killed and the phase fails) and
+    return {label: the last JSON record each printed}; a process that
+    exits non-zero or prints no record fails the phase."""
     recs = {}
     for label, (proc, out, err) in procs.items():
         try:
-            proc.wait(timeout=max(1.0, t_start + Q2_TIMEOUT
-                                  - time.monotonic()))
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             for other, _, _ in procs.values():
                 other.kill()
                 other.wait()
-            raise AssertionError(f"[{phase}] {label}: past {Q2_TIMEOUT} s")
+            raise AssertionError(f"[{phase}] {label}: past its deadline")
         out.seek(0)
         err.seek(0)
         text = out.read()
@@ -3127,6 +3137,33 @@ def finish_q2(phase: str, procs: dict, t_start: float) -> None:
                                  f"{err.read()[-4000:]}")
         recs[label] = json.loads(lines[-1])
         _log(f"[{phase}] {label}: {lines[-1]}")
+    return recs
+
+
+def _kill_dryruns(procs: dict) -> None:
+    for proc, _, _ in procs.values():
+        proc.kill()
+        proc.wait()
+
+
+def start_q2() -> dict:
+    """Start phase q2: ``Q2_ARCH``'s train_4k cell on the 16x16 fake
+    group, with the per-layer gather and with the whole tree gathered,
+    each traced in a process of its own (their output in temporary
+    files), the two at once. Returns {label: (process, stdout, stderr)}."""
+    args = ["--arch", Q2_ARCH, "--shape", "train_4k", "--device", "cuda"]
+    return _start_dryruns({
+        "per-layer gather": ["-m", "repro_torch.launch.dryrun"] + args,
+        "whole-tree gather": ["-c", Q2_WHOLE_TREE] + args})
+
+
+def finish_q2(phase: str, procs: dict, t_start: float) -> None:
+    """Wait for ``start_q2``'s processes (``Q2_TIMEOUT`` from
+    ``t_start``), read their records and gate them: each ends ``ok``,
+    and a rank's peak with the per-layer gather is below the whole
+    tree's and under the card's memory."""
+    import torch
+    recs = _finish_dryruns(phase, procs, t_start + Q2_TIMEOUT)
     card = torch.cuda.get_device_properties(0).total_memory
     for label, rec in recs.items():
         mem = rec["memory"]
@@ -3165,14 +3202,252 @@ def run_phase_q() -> None:
                 run_q1(f"q1: {arch}, traced vs the card", arch, mesh)
         train_gate("q1")
     except BaseException:
-        for proc, _, _ in procs.values():
-            proc.kill()
-            proc.wait()
+        _kill_dryruns(procs)
         raise
     gc.collect()
     torch.cuda.empty_cache()
     finish_q2(f"q2: {Q2_ARCH} train_4k on 16x16", procs, t_phase)
     _log(f"[q] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
+#: phase r: the meshed serving steps on the one-rank mesh against the
+#: unmeshed ones. r1 runs R_LANES lanes, a prefill and R_STEPS greedy
+#: decode steps; a step's rise of max_memory_allocated may pass the
+#: unmeshed step's by one layer's cache planes and one layer's weights
+#: plus R_PEAK_SLACK
+R_LANES, R_STEPS = 4, 8
+R_PROMPT = {"qwen3-4b": 256, ARCH: 16}
+R_PEAK_SLACK = 64 * 2 ** 20
+#: r2: the serving cells of R2_ARCH on the 16x16 fake group, and what a
+#: rank's peak must stay under
+R2_ARCH = "qwen3-4b"
+R2_PEAK_MAX = {"decode_32k": 10e9, "prefill_32k": 100e9}
+R2_TIMEOUT = 300
+
+
+def _r_setup(arch: str):
+    """(model, params, prefill batch) of r1's run of ``arch``: qwen3-4b
+    at full width and depth with bf16 weights drawn on the card
+    (``breakdown.decoder_setup``), or whisper-tiny.en with its f32
+    weights and 1500 frames a lane; prompts of ``R_PROMPT[arch]`` ids."""
+    import numpy as np
+    import torch
+
+    from repro_torch.breakdown import decoder_setup
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+
+    rng = np.random.default_rng(SEED)
+    if arch == ARCH:
+        model = build(get_config(ARCH))
+        params = model.init_values(torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+    else:
+        model, params, _ = decoder_setup(arch, SEED)
+    cfg = model.cfg
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab, (R_LANES, R_PROMPT[arch])).astype(np.int32)).cuda()}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.from_numpy(
+            (rng.standard_normal((R_LANES, 1500, cfg.d_model)) * 0.02)
+            .astype(np.float32)).cuda()
+    return model, params, batch
+
+
+def _r_layer_bytes(arch: str, model, params) -> int:
+    """One layer's cache planes for r1's lanes (the largest stack's
+    layer: a segment's blocks, or a Whisper layer's self and cross
+    planes) plus the largest stack's layer of ``params``, as stored."""
+    from repro_torch.models.model import tree_paths
+    from repro_torch.train.step import prefill_cache_len
+
+    def largest(tree, stacked):
+        per = {}
+        for path, t in tree_paths(tree):
+            if stacked(path):
+                key = path.split("/")[0]
+                per[key] = per.get(key, 0) + t.nbytes // t.shape[0]
+        return max(per.values())
+    cache = model.cache_specs(R_LANES, prefill_cache_len(R_PROMPT[arch]))
+    axes = dict(tree_paths(model.param_axes()))
+    return largest(cache, lambda p: True) + largest(
+        params, lambda p: axes[p][:1] == ("layers",))
+
+
+def _r_serve(model, params, batch, mesh=None, rules=None) -> tuple:
+    """r1's prefill and ``R_STEPS`` greedy decode steps, unmeshed or on
+    ``mesh``, under the h100-sxm dispatch context. Returns (each step's
+    logits, the ids fed, each step's rise of max_memory_allocated over
+    what was allocated before it, the launch counts, the cache)."""
+    import torch
+
+    from repro_torch.kernels.api import DispatchContext, use_context
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    kw = {} if mesh is None else dict(mesh=mesh, rules=rules)
+    prefill = make_prefill_step(model, **kw)
+    decode = make_decode_step(model, **kw)
+    rises, logits, ids = [], [], []
+
+    def step(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        rises.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    zero_counts()
+    with use_context(DispatchContext.for_platform("h100-sxm")):
+        last, cache = step(lambda: prefill(params, batch))
+        ptrs = [x.to_local().untyped_storage().data_ptr()
+                if mesh is not None else x.untyped_storage().data_ptr()
+                for x in leaves(cache)]
+        pos = batch["tokens"].shape[1]
+        for t in range(R_STEPS + 1):
+            logits.append(last.clone())
+            if t == R_STEPS:
+                break
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            ids.append(nxt)
+            last, out = step(lambda: decode(params, cache, nxt, pos + t))
+            now = [x.to_local().untyped_storage().data_ptr()
+                   if mesh is not None else x.untyped_storage().data_ptr()
+                   for x in leaves(out)]
+            if out is not cache or now != ptrs:
+                raise AssertionError("a decode step did not return the "
+                                     "cache it was given, written in place")
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    return logits, ids, rises, counts, cache
+
+
+def run_r1(phase: str, arch: str, mesh) -> dict:
+    """Phase r1 for ``arch``: the meshed prefill and decode steps on the
+    one-rank mesh (the weights placed by their serve rules, the cache
+    kept in ``cache_shardings``' placements) against the unmeshed steps
+    from the same weights: logits and ids bit-equal, the cache's
+    storages kept by every step, each step's memory rise within
+    ``_r_layer_bytes`` + ``R_PEAK_SLACK`` of the unmeshed one's, and
+    ``fp16_matmul`` / ``flash_attention`` launched as often. Returns the
+    meshed run's launch counts."""
+    import torch
+
+    from repro_torch.optim.adamw import leaves, tree_map
+    from repro_torch.parallel.sharding import (enforce_divisibility,
+                                               place_tree, rules_for,
+                                               tree_shardings)
+    from repro_torch.train.step import cache_shardings, prefill_cache_len
+
+    t_phase = time.monotonic()
+    model, params, batch = _r_setup(arch)
+    cfg = model.cfg
+    rules = rules_for(cfg, mesh, mode="serve")
+    plain = _r_serve(model, params, batch)
+    kernels = ("fp16_matmul", "flash_attention")
+    read_counts(f"{phase}, unmeshed", kernels, kernels)
+    placed = place_tree(params, enforce_divisibility(
+        tree_shardings(model.param_axes(), mesh, rules),
+        model.param_shapes()))
+    meshed = _r_serve(model, placed, batch, mesh, rules)
+    counts, _ = read_counts(f"{phase}, meshed", kernels, kernels)
+    sh = cache_shardings(model, R_LANES, prefill_cache_len(R_PROMPT[arch]),
+                         mesh, rules)
+    cache = meshed[4]
+    for x, want in zip(leaves(cache), leaves(sh)):
+        if type(x).__name__ != "DTensor" \
+                or tuple(x.placements) != want.placements:
+            raise AssertionError(f"[{phase}] a cache leaf left its "
+                                 f"placements: {x}")
+    same = [torch.equal(a, b) for a, b in zip(meshed[0], plain[0])]
+    ids = [torch.equal(a, b) for a, b in zip(meshed[1], plain[1])]
+    gap = max(float((a - b).abs().max()) for a, b in zip(meshed[0],
+                                                         plain[0]))
+    slack = _r_layer_bytes(arch, model, params) + R_PEAK_SLACK
+    over = [m - p for m, p in zip(meshed[2], plain[2])]
+    _log(f"[{phase}] {cfg.name} ({cfg.n_layers} layers), {R_LANES} lanes x "
+         f"{R_PROMPT[arch]} ids, {R_STEPS} decode steps: logits bit-equal "
+         f"{same} (max abs diff {gap:.3g}), ids equal {ids}; memory rise a "
+         f"step (prefill, then each decode step), meshed {meshed[2]} B, "
+         f"unmeshed {plain[2]} B, meshed minus unmeshed {over} B against "
+         f"{slack} B (one layer's cache and weights + {R_PEAK_SLACK}); "
+         f"launches meshed {counts}, unmeshed {plain[3]}")
+    if not all(same) or not all(ids):
+        raise AssertionError(f"[{phase}] the meshed steps on one rank are "
+                             f"not bit-equal to the unmeshed ones")
+    if max(over) > slack:
+        raise AssertionError(f"[{phase}] a meshed step's memory rise "
+                             f"passes the unmeshed one's by {max(over)} B")
+    for k in kernels:
+        if counts[k] != plain[3][k]:
+            raise AssertionError(f"[{phase}] {k} launched {counts[k]} "
+                                 f"times meshed, {plain[3][k]} unmeshed")
+    del model, params, placed, plain, meshed, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+    return counts
+
+
+def start_r2() -> dict:
+    """Start phase r2: ``R2_ARCH``'s decode_32k and prefill_32k cells on
+    the 16x16 fake group, each traced on fake ``cuda`` tensors in a
+    process of its own, the two at once."""
+    return _start_dryruns({
+        shape: ["-m", "repro_torch.launch.dryrun", "--arch", R2_ARCH,
+                "--shape", shape, "--device", "cuda"]
+        for shape in R2_PEAK_MAX})
+
+
+def finish_r2(phase: str, procs: dict, t_start: float) -> None:
+    """Read ``start_r2``'s records (``R2_TIMEOUT`` from ``t_start``) and
+    gate them: each ends ``ok``, a rank's peak under ``R2_PEAK_MAX``,
+    decode_32k's under the card's memory too."""
+    import torch
+    recs = _finish_dryruns(phase, procs, t_start + R2_TIMEOUT)
+    card = torch.cuda.get_device_properties(0).total_memory
+    for shape, rec in recs.items():
+        mem = rec["memory"]
+        peak = mem["peak_bytes"]
+        _log(f"[{phase}] {shape}: status {rec['status']}, a rank's peak "
+             f"{peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
+             f"{mem['argument_bytes']} B), traced FLOPs {rec['hlo_flops']}"
+             f" (model FLOPs {rec['model_flops']}), under "
+             f"{R2_PEAK_MAX[shape] / 1e9:.0f} GB: {peak < R2_PEAK_MAX[shape]}"
+             f", fits the card's {card} B: {peak < card}; traced in "
+             f"{rec['compile_s']:.1f} s")
+        if rec["status"] != "ok" or not peak < R2_PEAK_MAX[shape]:
+            raise AssertionError(f"[{phase}] {shape}: {rec}")
+    if not recs["decode_32k"]["memory"]["peak_bytes"] < card:
+        raise AssertionError(f"[{phase}] decode_32k's rank does not fit "
+                             f"the card")
+
+
+def run_phase_r() -> dict:
+    """Phase r: the meshed serving steps. r2's traces (processes of their
+    own) run while r1 holds the meshed steps to the unmeshed ones on the
+    card in a one-rank group. Returns r1's launch counts, summed."""
+    import torch
+
+    t_phase = time.monotonic()
+    procs = start_r2()
+    launches = {}
+    try:
+        with one_rank_group() as mesh:
+            for arch in R_PROMPT:
+                for k, n in run_r1(f"r1: {arch}, meshed vs unmeshed", arch,
+                                   mesh).items():
+                    launches[k] = launches.get(k, 0) + n
+    except BaseException:
+        _kill_dryruns(procs)
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    finish_r2(f"r2: {R2_ARCH} serving cells on 16x16", procs, t_phase)
+    _log(f"[r] phase wall {time.monotonic() - t_phase:.2f} s")
+    return launches
 
 
 def kernels_after_training(phase: str) -> None:
@@ -3422,6 +3697,7 @@ def main() -> int:
     run_train_p()
     kernels_after_training("p")
     run_phase_q()
+    add(run_phase_r())
 
     _log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall")
     left = stop_children()

@@ -60,41 +60,41 @@ def attend_bf16_planes(q, k, v, mask, softcap=None) -> torch.Tensor:
     them: the query heads of each KV head grouped into the rows of one
     product (GQA by index, no repeat of K/V), each product taking bf16
     operands into an f32 result (``torch.bmm(..., out_dtype=f32)``)."""
+    return _attend_grouped(q, k, v, mask, softcap, widen=False)
+
+
+def attend_widened(q, k, v, mask, softcap=None) -> torch.Tensor:
+    """``bf16_decode_attention`` with the bf16-rounded operands widened to
+    f32 before the products (a plain f32 ``torch.bmm``), grouped as
+    ``attend_bf16_planes`` groups them: a K/V plane is widened once, and
+    never repeated to every query head."""
+    return _attend_grouped(q, k, v, mask, softcap, widen=True)
+
+
+def _attend_grouped(q, k, v, mask, softcap, widen: bool) -> torch.Tensor:
     b, nq, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     bf, f32 = torch.bfloat16, torch.float32
+
+    def bmm(x, y):
+        if widen:
+            return torch.bmm(x.float(), y.float())
+        return torch.bmm(x, y, out_dtype=f32)
     # query head hk * g + i reads KV head hk (repeat_interleave's order)
     qg = q.to(bf).reshape(b, nq, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(b * hkv, g * nq, d)
     kt = k.to(bf).permute(0, 2, 3, 1).reshape(b * hkv, d, s)
-    vg = v.to(bf).permute(0, 2, 1, 3).reshape(b * hkv, s, d)
-    sc = (torch.bmm(qg, kt, out_dtype=f32) * d ** -0.5) \
-        .view(b, hkv, g, nq, s)
+    sc = (bmm(qg, kt) * d ** -0.5).view(b, hkv, g, nq, s)
+    del kt
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
     sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1).to(bf).view(b * hkv, g * nq, s)
-    out = torch.bmm(w, vg, out_dtype=f32)
+    vg = v.to(bf).permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    out = bmm(w, vg)
     return out.view(b, hkv, g, nq, d).permute(0, 3, 1, 2, 4) \
         .reshape(b, nq, h, d)
-
-
-def attend_widened(q, k, v, mask, softcap=None) -> torch.Tensor:
-    """``bf16_decode_attention`` with K/V repeated to every query head
-    and the bf16-rounded operands widened to f32 before the products."""
-    h, d = q.shape[2], q.shape[3]
-    k = k.repeat_interleave(h // k.shape[2], dim=2)
-    v = v.repeat_interleave(h // v.shape[2], dim=2)
-    bf = torch.bfloat16
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(bf).float(),
-                     k.to(bf).float()) * d ** -0.5
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w.to(bf).float(),
-                        v.to(bf).float())
 
 
 def code_key(kc) -> str:

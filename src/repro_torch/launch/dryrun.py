@@ -8,8 +8,9 @@ shapes, the meshed prefill / decode steps for serving shapes) on a
 ``launch.mesh.make_production_mesh`` makes over it, places the state
 (``state_shardings``; serving weights in bf16 by the parameters' rules,
 the cache by ``cache_shardings``) as DTensors over fake tensors, runs
-the step once under ``analysis.cost.measure`` and records, for one
-rank:
+the step once under ``analysis.cost.measure`` (a serving cell's batch
+placed by ``batch_shardings``, so a rank runs its rows, as the
+reference's pjit does) and records, for one rank:
 
 * ``memory``: the state it stores and its rows of the batch
   (``argument_bytes``), what the step returns (``output_bytes``) and the
@@ -115,17 +116,21 @@ def trace_train(model, opt_cfg: AdamWConfig, *, device: str, batch: dict,
         return measure(fn, state, batch, track=(state, batch))[1]
 
 
-def _trace_serve(model, kind: str, mesh, rules, specs: dict, seq: int,
-                 gbatch: int, device: str):
-    """A prefill or decode step over bf16 serving weights (and, decoding,
-    a cache of ``seq``) traced on fake tensors. Returns its ``Cost``, as
-    ``trace_train``."""
+def _trace_serve(model, shape: str, mesh, rules, device: str):
+    """The prefill or decode step of the serving cell ``shape`` over bf16
+    serving weights (and, decoding, a cache of the cell's length) traced
+    on fake tensors, the batch placed by ``batch_shardings`` (dim 0 over
+    the data axes where they divide it), so a rank runs and is charged
+    its rows. Returns its ``Cost``, as ``trace_train``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    seq, gbatch, kind = SHAPES[shape]
     fm = FakeTensorMode()
     params = place_tree(
         fake_tensors(model.param_shapes(torch.bfloat16), fm, device),
         _param_shardings(model, mesh, rules))
-    batch = fake_tensors(specs, fm, device)
+    batch = place_tree(
+        fake_tensors(input_specs(model.cfg, shape), fm, device),
+        step_mod.batch_shardings(model.cfg, shape, mesh, rules))
     if kind == "prefill":
         fn = step_mod.make_prefill_step(model, mesh=mesh, rules=rules)
         args = (params, batch)
@@ -166,8 +171,7 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 batch=specs, mesh=mesh, rules=rules, n_micro=nm)
             tokens = gbatch * seq
         else:
-            cost = _trace_serve(model, kind, mesh, rules, specs, seq,
-                                gbatch, device)
+            cost = _trace_serve(model, shape, mesh, rules, device)
             tokens = gbatch * seq if kind == "prefill" else gbatch
         label = mesh_label(mesh)
     mflops = model_flops(cfg, model.n_params(), model.n_active_params(),

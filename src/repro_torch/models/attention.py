@@ -46,8 +46,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
 from repro_torch.kernels.paged_attention.plain import bf16_decode_attention
-from repro_torch.models.layers import (filled, mm, mm_out, ninit, prepared,
-                                       rmsnorm, rope)
+from repro_torch.models.layers import (filled, meshed_rows, mm, mm_out,
+                                       ninit, prepared, rmsnorm, rope)
 from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
@@ -123,9 +123,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
               page_table: Optional[torch.Tensor] = None):
     """Returns (y, new_cache). ``mode``: ``train`` (no cache),
     ``prefill`` (returns this layer's K/V, padded to ``cache``'s length
-    when one is given) or ``decode`` (x is (B, Q, d); ``cache`` is the
+    when one is given) or ``decode`` (x is (B, Q, d); ``cache`` is a
     stacked pool, ``layer_idx`` its layer, ``pos`` the (B,) positions of
-    each lane's first token).
+    each lane's first token: the serving pool, or under a meshed decode
+    step ``layers.gather_cache_layer``'s one-layer pool of this rank's
+    rows, which ``write_cache_layer`` writes back into the shards).
     Cross-attention passes ``x_kv`` (the encoder states in prefill; any
     tensor in decode, where the cached K/V are read). ``page_table``
     (decode): ``cache`` is a paged pool (L, n_pages, P, Hkv, .) and the
@@ -164,6 +166,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         raise NotImplementedError("paged KV-cache decode supports plain "
                                   "softmax attention only (no softcap / "
                                   "sliding window)")
+    if page_table is not None and meshed_rows() is not None:
+        raise NotImplementedError("the meshed decode step takes the slot "
+                                  "pool's cache; a paged pool is not "
+                                  "sharded")
     pos_b = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     posq = pos_b[:, None] + torch.arange(s, device=x.device)[None, :]
 

@@ -20,13 +20,14 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (bf16_proj, draw, embed, filled,
-                                       gather_layer, init_embedding,
+                                       gather_cache_layer, gather_layer,
+                                       init_embedding,
                                        keep_layer, layer_slice,
                                        layernorm, logits_head, mlp, mm,
                                        ninit, prepare_head,
                                        remat, remat_on,
                                        sinusoidal_positions, stack_layers,
-                                       take_rows)
+                                       take_rows, write_cache_layer)
 from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QTENSORS, as_array
 
@@ -194,17 +195,24 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         lp = gather_layer(lp)
         h = layernorm(lp["ln1"], x)
         if mode == "decode":
-            a, self_c = attn_mod.attention(
+            # the stacked pools at layer i, or under a meshed decode step
+            # this rank's rows of the layer, gathered (layers.py)
+            pool, at = gather_cache_layer(cache["layers"]["self"], i)
+            a = attn_mod.attention(
                 lp["self_attn"], h, cfg, kind="global", mode=mode,
-                cache=cache["layers"]["self"], pos=posv, layer_idx=i,
-                page_table=None if pages is None else pages["self"])
+                cache=pool, pos=posv, layer_idx=at,
+                page_table=None if pages is None else pages["self"])[0]
+            write_cache_layer(cache["layers"]["self"], i, pool, posv, s)
+            del pool   # a meshed decode's gathered layer: freed first
             x = x + a
             h = layernorm(lp["ln_x"], x)
-            c, cross_c = attn_mod.attention(
+            pool, at = gather_cache_layer(cache["layers"]["cross"], i)
+            c = attn_mod.attention(
                 lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
-                cache=cache["layers"]["cross"], pos=posv, x_kv=h,
-                layer_idx=i, kv_lens=enc_lens,
-                page_table=None if pages is None else pages["cross"])
+                cache=pool, pos=posv, x_kv=h,
+                layer_idx=at, kv_lens=enc_lens,
+                page_table=None if pages is None else pages["cross"])[0]
+            self_c = cross_c = None
         else:
             lc = None if cache is None else layer_slice(cache["layers"], i)
             a, self_c = attn_mod.attention(
@@ -229,7 +237,8 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             x = remat(lambda x, lp, i=i: layer(x, lp, i)[0], x, lp)
         else:
             x, new = layer(x, lp, i)
-            per_layer.append(keep_layer(new))
+            if mode == "prefill":
+                per_layer.append(keep_layer(new))
 
     x = layernorm(params["dec_ln"], x)
     logits = logits_head(params["embed"], x, cfg.vocab,

@@ -26,7 +26,12 @@ function that computes the layer (``gather_layer``) while the step's
 ``gather_context`` is active, so a rank holds one layer's parameters
 gathered at a time; under ``remat`` the slice is gathered again when
 the backward recomputes the layer. Outside the context plain trees go
-through untouched.
+through untouched. A meshed decode step's context carries its rows
+(``MeshRows``): each decode block then fetches one layer's cache, this
+rank's rows gathered over every other sharded mesh axis
+(``gather_cache_layer``), and writes what it wrote back into the local
+shards (``write_cache_layer``); outside it the block reads and writes
+the stacked pool at its layer, as the serving engine's tick does.
 
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
@@ -177,11 +182,15 @@ def _gather_as(ctx):
 
 
 def gather_context(grad_placements=None,
-                   place_cache: Optional[Callable] = None):
+                   place_cache: Optional[Callable] = None,
+                   rows: Optional["MeshRows"] = None):
     """While active, ``gather_layer`` gathers a layer's DTensor leaves
-    whole (``gathered`` with ``grad_placements``) and ``keep_layer``
-    passes a prefill's per-layer cache through ``place_cache``."""
-    return _gather_as((grad_placements, place_cache))
+    whole (``gathered`` with ``grad_placements``), ``keep_layer``
+    passes a prefill's per-layer cache through ``place_cache``, and with
+    ``rows`` (a meshed decode step's) ``gather_cache_layer`` /
+    ``write_cache_layer`` read and write the sharded cache a layer at a
+    time."""
+    return _gather_as((grad_placements, place_cache, rows))
 
 
 def gathered(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
@@ -217,6 +226,190 @@ def keep_layer(tree):
     ``gather_context``'s ``place_cache`` (as it is without one)."""
     ctx = getattr(_GATHER, "ctx", None)
     return tree if ctx is None or ctx[1] is None else ctx[1](tree)
+
+
+# ----------------------------------------------------------------------------
+# The sharded cache of a meshed serving step: a rank's rows, a layer at a time
+# ----------------------------------------------------------------------------
+
+#: the key sets of a KV-plane dict in a cache tree (bf16, q8_0, q4_0)
+KV_PLANE_KEYS = ({"k", "v"}, {"kq", "ks", "vq", "vs"},
+                 {"kp", "ks", "vp", "vs"})
+
+
+class MeshRows:
+    """The rows of a meshed serving step's global batch of ``n`` that
+    this rank runs, and the moves between them and the cache's shards.
+    ``split``: the data mesh dims (``data_axes``) divide the batch, and
+    a rank runs its block of it, pod-major as DTensor shards dim 0 over
+    several mesh dims; else (the divisibility fallback, which leaves the
+    cache's batch dim whole too) every rank runs every row."""
+
+    def __init__(self, mesh, data_axes: tuple, n: int):
+        self.mesh, self.n = mesh, n
+        names = mesh.mesh_dim_names
+        self.data_dims = tuple(names.index(a) for a in data_axes)
+        n_dp = math.prod(mesh.size(m) for m in self.data_dims)
+        self.split = n_dp > 1 and n % n_dp == 0
+        idx = 0
+        coords = mesh.get_coordinate()
+        for m in self.data_dims:
+            idx = idx * mesh.size(m) + coords[m]
+        self.count = n // n_dp if self.split else n
+        self.start = idx * self.count if self.split else 0
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t`` (the global batch on dim 0): a view."""
+        return t.narrow(0, self.start, self.count) if self.split else t
+
+    def own_rows(self, placements) -> bool:
+        """Whether ``placements`` shard dim 0 over the data dims, so that
+        the local shard holds this rank's rows only."""
+        return self.split and any(
+            p.is_shard() and p.dim == 0 and m in self.data_dims
+            for m, p in enumerate(placements))
+
+    def all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of this rank's rows (dim 0) as every rank's, all-gathered
+        over the data dims (``t`` itself where every rank runs every
+        row)."""
+        if not self.split:
+            return t
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = [Shard(0) if m in self.data_dims else Replicate()
+              for m in range(self.mesh.ndim)]
+        shape = (self.n,) + tuple(t.shape[1:])
+        return DTensor.from_local(t.contiguous(), self.mesh, pl,
+                                  run_check=False, shape=shape,
+                                  stride=_contiguous_stride(shape)
+                                  ).full_tensor()
+
+    def block(self, t: torch.Tensor, placements) -> torch.Tensor:
+        """The local shard, by ``placements`` (one layer's), of ``t``:
+        this rank's rows at full width. A leaf whose rows the placements
+        leave whole (the MoE routing counts) takes every rank's rows
+        (``all_rows``). A view of ``t`` where that gathers nothing."""
+        own = self.own_rows(placements)
+        if self.split and not own:
+            t = self.all_rows(t)
+        coords = self.mesh.get_coordinate()
+        for m, p in enumerate(placements):
+            if p.is_shard() and not (own and m in self.data_dims):
+                t = t.chunk(self.mesh.size(m), dim=p.dim)[coords[m]]
+        return t
+
+    def place(self, t: torch.Tensor, placements) -> torch.Tensor:
+        """``t`` (this rank's rows of a global leaf of ``n`` rows, at full
+        width) as the DTensor of ``placements``, built from this rank's
+        block (``block``): nothing is distributed from a whole tensor."""
+        from torch.distributed.tensor import DTensor
+        shape = (self.n,) + tuple(t.shape[1:])
+        return DTensor.from_local(
+            self.block(t, placements).contiguous(), self.mesh,
+            list(placements), run_check=False, shape=shape,
+            stride=_contiguous_stride(shape))
+
+    def gather(self, leaf: torch.Tensor, i: int) -> torch.Tensor:
+        """Layer ``i`` of the stacked cache DTensor ``leaf``: this rank's
+        rows, gathered over every other sharded mesh dim, as a plain
+        tensor (a view of the local shard where nothing is to gather)."""
+        from torch.distributed.tensor import DTensor, Replicate
+        pl = _layer_placements(leaf)
+        own = self.own_rows(pl)
+        keep = [p if own and m in self.data_dims else Replicate()
+                for m, p in enumerate(pl)]
+        local = leaf.to_local()[i]
+        if keep != pl:
+            shape = tuple(leaf.shape[1:])
+            local = DTensor.from_local(
+                local, self.mesh, pl, run_check=False, shape=shape,
+                stride=_contiguous_stride(shape)
+            ).redistribute(self.mesh, keep).to_local()
+        return local if own else self.take(local)
+
+    def write(self, leaf: torch.Tensor, i: int, new: torch.Tensor,
+              at: Optional[torch.Tensor]) -> None:
+        """Write ``new`` (layer ``i`` of ``leaf`` as ``gather`` gives it,
+        written by a block) into this rank's slice of layer ``i`` of
+        ``leaf``'s local shard, in place: the positions ``at`` ((rows,
+        Q), on dim 1) of each row, or the whole layer (``at`` None)."""
+        pl = _layer_placements(leaf)
+        dst = leaf.to_local()[i]
+        if at is None:
+            dst.copy_(self.block(new, pl))
+            return
+        lanes = torch.arange(at.shape[0], device=at.device)[:, None]
+        dst.index_put_((lanes, at), self.block(new[lanes, at], pl))
+
+
+def _layer_placements(leaf: torch.Tensor) -> list:
+    """The placements of one layer of a stacked cache DTensor (each
+    shard one dim lower; its layer dim is never sharded)."""
+    from torch.distributed.tensor import Shard
+    if any(p.is_shard() and p.dim == 0 for p in leaf.placements):
+        raise ValueError("a stacked cache leaf's layer axis is sharded")
+    return [Shard(p.dim - 1) if p.is_shard() else p for p in leaf.placements]
+
+
+def meshed_rows() -> Optional[MeshRows]:
+    """The active meshed serving step's ``MeshRows`` (None outside one)."""
+    ctx = getattr(_GATHER, "ctx", None)
+    return None if ctx is None else ctx[2]
+
+
+def gather_cache_layer(pool, i: int):
+    """(tree, index): a decode block's cache of layer ``i`` of the stacked
+    cache subtree ``pool``, as a pool and the layer's index in it, which
+    the block reads and writes there. Outside a meshed decode step
+    ``(pool, i)``: the stacked pool itself, written in place at layer
+    ``i`` (no copy, no collective, no op). Under one, a one-layer pool
+    and 0: each leaf's layer ``i`` as a plain (1, rows, ...) tensor of
+    this rank's rows, gathered over every other sharded mesh dim
+    (``model`` on the KV heads, head_dim, heads, ssm heads or inner dim;
+    ``MeshRows.gather``), which ``write_cache_layer`` writes back."""
+    rows = meshed_rows()
+    if rows is None:
+        return pool, i
+    return _map_leaves(lambda t: rows.gather(t, i)[None], pool), 0
+
+
+def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1) -> None:
+    """After a decode block wrote ``layer`` (``gather_cache_layer``'s
+    one-layer pool of ``pool``), under a meshed decode step: write what
+    it wrote into this rank's slice of the local shards of ``pool``'s
+    layer ``i``, the K/V planes' rows at positions ``pos`` + 0 .. q - 1
+    (``pos`` a scalar or one a row) and every other leaf whole (recurrent
+    state, routing counts). A leaf whose batch dim the mesh leaves whole
+    (the MoE routing counts) takes every rank's rows, gathered over the
+    data axes, so it holds the global batch's counts on every rank.
+    Nothing outside a meshed decode step: the block wrote the pool."""
+    rows = meshed_rows()
+    if rows is None:
+        return
+
+    def walk(dst, new, planes):
+        if isinstance(dst, dict):
+            inner = set(dst) in KV_PLANE_KEYS
+            for k in dst:
+                walk(dst[k], new[k], inner)
+        else:
+            rows.write(dst, i, new[0], at if planes else None)
+
+    at = None
+    if pos is not None:
+        first = next(_leaves(layer))
+        posv = torch.as_tensor(pos, device=first.device).reshape(-1) \
+            .expand(first.shape[1])
+        at = posv[:, None] + torch.arange(q, device=first.device)[None, :]
+    walk(pool, layer, False)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _contiguous_stride(shape: tuple) -> tuple:

@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import SPEC
+from repro_torch.models.layers import KV_PLANE_KEYS, SPEC
 from repro_torch.platforms import resolve_device
 from repro_torch.quantize import quantize_tree
 
@@ -99,15 +99,10 @@ class LaneStateSpec:
 
 _RECURRENT_KIND = {"mlstm": "mstate", "slstm": "sstate", "mamba": "ssm"}
 
-#: the key sets of a KV-plane dict in a cache tree (bf16, q8_0, q4_0)
-_KV_PLANE_KEYS = ({"k", "v"}, {"kq", "ks", "vq", "vs"},
-                 {"kp", "ks", "vp", "vs"})
-
-
 def cache_bytes(tree) -> tuple[int, int]:
     """(KV-plane bytes, recurrent-state bytes) of a cache tree."""
     if isinstance(tree, dict):
-        if set(tree) in _KV_PLANE_KEYS:
+        if set(tree) in KV_PLANE_KEYS:
             return sum(_nbytes(v) for v in tree.values()), 0
         kv = st = 0
         for sub in tree.values():

@@ -25,7 +25,10 @@ returns a fresh stacked cache (the prompt's K/V padded to the cache's
 length, the prompt's routing counts). Decode writes in place into the
 pool it was given: each attention layer its new K/V rows, each MoE layer
 its counters, each recurrent block its whole new state (the reference
-rewrites that in full every step too); it returns that pool.
+rewrites that in full every step too); it returns that pool. Under a
+meshed decode step each block reads and writes one layer of its cache,
+this rank's rows, gathered (``layers.gather_cache_layer``), and the
+layer's new values go back into the pool's shards.
 """
 
 from __future__ import annotations
@@ -40,11 +43,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
-                                       gather_layer, init_mlp, init_rmsnorm,
-                                       keep_layer, layer_slice,
+                                       gather_cache_layer, gather_layer,
+                                       init_mlp, init_rmsnorm, keep_layer,
+                                       layer_slice,
                                        logits_head, mlp, ninit, pad_vocab,
                                        prepare_head, remat, remat_on,
-                                       rmsnorm, stack_layers)
+                                       rmsnorm, stack_layers,
+                                       write_cache_layer)
 from repro_torch.parallel.sharding import constrain
 
 
@@ -138,9 +143,10 @@ def _init_block(gen, cfg: ArchConfig, btype: str, device, dtype) -> dict:
 def _attn_block(bp: dict, x, cfg: ArchConfig, kind: str, *, mode: str,
                 cache: Optional[dict], pos, layer_idx, n_valid):
     """One attention block with its residuals. ``cache``: this block's
-    subtree, ``{"kv": ..., "routing": ...}``; in decode the stacked pool
-    (``layer_idx`` its layer), which the block writes in place. Returns
-    (x, the prefill's new subtree, else None)."""
+    subtree, ``{"kv": ..., "routing": ...}``; in decode a stacked pool
+    (``layer_idx`` its layer: ``gather_cache_layer``'s), whose K/V rows
+    and routing counts the block writes in place. Returns (x, the
+    prefill's new subtree, else None)."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     a, new_kv = attn_mod.attention(
         bp["attn"], h, cfg, kind=kind, mode=mode,
@@ -279,7 +285,9 @@ def prepare_serving(params: dict, cfg: ArchConfig) -> dict:
 
 
 def _write_state(pool, new, i: int) -> None:
-    """Write segment ``i``'s new block state into the stacked pool."""
+    """Write a block's new state into layer ``i`` of the stacked pool
+    (``gather_cache_layer``'s pool: the stacked cache, or a meshed decode
+    step's one-layer pool)."""
     for key, sub in new.items():
         if isinstance(sub, dict):
             _write_state(pool[key], sub, i)
@@ -296,33 +304,43 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
     place). Returns (x, the prefill's new stacked subtree, else None).
     A train forward under ``remat_on`` recomputes each layer's
     activations in the backward. Each layer's parameters are gathered
-    at the start of ``layer`` (``gather_layer``), and a prefill's new
-    cache is kept a layer at a time (``keep_layer``)."""
+    at the start of ``layer`` (``gather_layer``), a decode block's cache
+    fetched at its start and written back after it
+    (``gather_cache_layer``, ``write_cache_layer``: the pool itself at
+    layer i, or under a meshed decode step this rank's rows of the
+    layer, gathered), and a prefill's new cache is kept a layer at a
+    time (``keep_layer``)."""
+    decode = mode == "decode"
+
     def layer(x, sp, i):
         sp = gather_layer(sp)
         sc = None
-        if cache is not None and mode != "decode":
+        if cache is not None and not decode:
             sc = layer_slice(cache, i)
         new = {}
         for j, (bt, kind) in enumerate(pattern):
             name = f"block{j}"
+            at = None
+            if decode:
+                bc, at = gather_cache_layer(cache[name], i)
+            else:
+                bc = None if sc is None else sc[name]
             if bt in _KV_BLOCKS:
-                # decode: the stacked pool, written in place at layer i
-                bc = cache[name] if mode == "decode" \
-                    else None if sc is None else sc[name]
                 x, nc = _attn_block(shared if bt == "shared_attn"
                                     else sp[name], x, cfg, kind, mode=mode,
-                                    cache=bc, pos=pos,
-                                    layer_idx=i if mode == "decode"
-                                    else None, n_valid=n_valid)
+                                    cache=bc, pos=pos, layer_idx=at,
+                                    n_valid=n_valid)
             else:
-                bc = None if cache is None else (
-                    layer_slice(cache[name], i) if mode == "decode"
-                    else sc[name])
                 x, nc = _state_block(sp[name], x, cfg, bt, mode=mode,
-                                     cache=bc)
-                if mode == "decode":
-                    _write_state(cache[name], nc, i)
+                                     cache=bc if at is None
+                                     else layer_slice(bc, at))
+                if decode:
+                    _write_state(bc, nc, at)
+            if decode:
+                write_cache_layer(cache[name], i, bc,
+                                  pos if bt in _KV_BLOCKS else None,
+                                  x.shape[1])
+            del bc   # a meshed decode's gathered layer: freed before the next
             new[name] = nc
         return constrain(x, "batch", "q_seq", "embed"), new
 

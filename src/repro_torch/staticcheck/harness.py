@@ -43,7 +43,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import api
 from repro_torch.kernels.api import use_context
 from repro_torch.models import encdec
-from repro_torch.models.model import _KV_PLANE_KEYS, build
+from repro_torch.models.layers import KV_PLANE_KEYS
+from repro_torch.models.model import build
 from repro_torch.platforms import resolve_device
 from repro_torch.quantize import quantize_tree
 from repro_torch.serving.engine import ServeEngine, _extend_cross_cache
@@ -120,7 +121,7 @@ def state_shapes(cache) -> tuple:
 
     def walk(tree):
         if isinstance(tree, dict):
-            if set(tree) in _KV_PLANE_KEYS:
+            if set(tree) in KV_PLANE_KEYS:
                 return
             for v in tree.values():
                 walk(v)

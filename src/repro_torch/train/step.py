@@ -37,6 +37,22 @@ summation order. The model axis stores; it does not split the compute
 (the constrain sites redistribute DTensor activations only, and the
 gathered layers make none).
 
+The meshed serving steps (``make_prefill_step`` / ``make_decode_step``
+with a ``mesh``) take bf16 DTensor weights, gathered a layer at a time
+as above, and keep the cache DTensors in the placements of
+``cache_shardings`` (batch over the data axes; KV heads, or head_dim
+where the KV heads do not divide ``model``, heads, ssm heads or the
+inner dim over ``model``) from prefill to the last decode step. Each
+rank runs the rows its cache shard holds (``layers.MeshRows``): the
+prefill keeps each layer's new cache as DTensors built from its rows,
+and a decode block gathers one layer's cache, its rows only, over the
+model axis, reads it and writes the new rows (or a state block's whole
+new state) into the local shards in place
+(``layers.gather_cache_layer`` / ``write_cache_layer``). Where the data
+axes do not divide the batch (``enforce_divisibility`` leaves it whole:
+long_500k's one lane), every rank runs every row, as its cache holds
+them. The logits come back whole on every rank.
+
 ``make_compressed_train_step`` keeps the parameters replicated, takes
 each rank's gradients on its rows and averages them over the data axes
 with the int8 error-feedback all-reduce; its ``err`` leaves are
@@ -52,7 +68,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.dtensor import is_dtensor, local
 from repro_torch.kernels.api import grad_safe_context, use_context
-from repro_torch.models.layers import gather_context, layer_params
+from repro_torch.models.layers import (MeshRows, gather_context,
+                                       layer_params)
 from repro_torch.models.model import Model, input_specs
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import (axes_size, compressed_psum,
@@ -60,7 +77,6 @@ from repro_torch.parallel.collectives import (axes_size, compressed_psum,
                                               mesh_sum)
 from repro_torch.parallel.sharding import (Sharding, enforce_divisibility,
                                            logical_context, place,
-                                           place_tree, sharding_of,
                                            spec_for, tree_shardings)
 from repro_torch.platforms import resolve_device
 
@@ -365,20 +381,54 @@ def init_compressed_state(model: Model, generator: torch.Generator, mesh,
 # Serving steps (prefill / decode)
 # ----------------------------------------------------------------------------
 
-def _full(x):
-    """A DTensor gathered whole (a plain tensor as it is)."""
-    return x.full_tensor() if is_dtensor(x) else x
+def serve_rows(batch: dict, rows: MeshRows, device) -> dict:
+    """The rows ``rows`` runs of a meshed serving step's inputs (global
+    numpy arrays or tensors, or DTensors such as ``shard_batch`` and
+    ``batch_shardings`` place them): a DTensor's local shard where it
+    holds them, else this rank's block of dim 0 (every row where the
+    data axes do not divide the batch). 0-d inputs (a scalar ``pos``) as
+    tensors on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        if is_dtensor(v):
+            if v.ndim and rows.own_rows(v.placements):
+                out[k] = v.to_local()
+                continue
+            v = v.full_tensor()
+        t = torch.as_tensor(v, device=device)
+        out[k] = rows.take(t) if t.ndim else t
+    return out
+
+
+def _mesh_rows(mesh, n: int) -> MeshRows:
+    """The rows of a global batch of ``n`` that this rank runs."""
+    return MeshRows(mesh, dp_axes(mesh), n)
+
+
+def _placed_rows(tree, rows: MeshRows, rules: dict, keys: list):
+    """A prefill layer's new cache subtree, this rank's rows at full
+    width, as DTensors in the placements ``cache_shardings`` gives the
+    layer (``MeshRows.place``: built from this rank's block)."""
+    if isinstance(tree, dict):
+        return {k: _placed_rows(v, rows, rules, keys + [str(k)])
+                for k, v in tree.items()}
+    shape = (rows.n,) + tuple(tree.shape[1:])
+    sh = _cache_leaf_sharding(keys, shape, rows.mesh, rules)
+    return rows.place(tree, sh.placements)
 
 
 def make_prefill_step(model: Model, *, mesh=None,
                       rules: Optional[dict] = None) -> Callable:
     """prefill_step(params, batch) -> (last_logits, cache), the cache
     ``prefill_cache_len(seq)`` long. With ``mesh``: ``params`` (and the
-    batch) may be DTensors; every rank runs the batch under
-    ``logical_context`` and ``no_grad``, gathering the parameters a layer
-    at a time (``layers.layer_params``), and keeps each layer's new
-    cache placed by ``cache_shardings`` as the layer makes it; the logits
-    come back whole on every rank."""
+    batch) may be DTensors; each rank runs its rows of the batch
+    (``serve_rows``: its block over the data axes, every row where they
+    do not divide it) under ``logical_context`` and ``no_grad``,
+    gathering the parameters a layer at a time (``layers.layer_params``),
+    and keeps each layer's new cache as DTensors in the placements of
+    ``cache_shardings`` as the layer makes it, built from this rank's
+    rows (``MeshRows.place``); the last position's logits come back
+    whole on every rank (one all-gather over the data axes)."""
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -394,14 +444,13 @@ def make_prefill_step(model: Model, *, mesh=None,
     axes = model.param_axes()
 
     def prefill_meshed(params, batch):
+        rows = _mesh_rows(mesh, batch["tokens"].shape[0])
+        batch = serve_rows(batch, rows, _first_device(params))
         with logical_context(mesh, rules), torch.no_grad(), \
-                gather_context(place_cache=lambda t: place_tree(
-                    t, cache_layer_shardings(t, mesh, rules))):
-            tree = layer_params(params, axes)
-            device = _first_device(params)
-            batch = {k: torch.as_tensor(_full(v), device=device)
-                     for k, v in batch.items()}
-            return prefill(tree, batch)
+                gather_context(place_cache=lambda t: _placed_rows(
+                    t, rows, rules, [])):
+            logits, cache = prefill(layer_params(params, axes), batch)
+            return rows.all_rows(logits), cache
 
     return prefill_meshed
 
@@ -411,11 +460,16 @@ def make_decode_step(model: Model, *, mesh=None,
                      sample: bool = False) -> Callable:
     """decode_step(params, cache, tokens, pos) -> (next_tokens|logits,
     cache). ``tokens``: (B, 1); ``pos``: the position, a scalar or (B,).
-    With ``mesh``: ``params`` and ``cache`` DTensors (``cache_shardings``);
-    every rank decodes the batch under ``logical_context`` and
-    ``no_grad``, the parameters gathered a layer at a time and the cache
-    gathered whole (its blocks write the stacked pool in place at their
-    layer), and the new cache comes back placed as the old."""
+    With ``mesh``: ``params`` and ``cache`` DTensors (``cache_shardings``,
+    as the meshed prefill returns it); each rank decodes the rows its
+    cache shard holds (``serve_rows``; every row where the data axes do
+    not divide the batch) under ``logical_context`` and ``no_grad``, the
+    parameters gathered a layer at a time and each block's cache too:
+    this rank's rows of the layer, gathered over the model axis, read,
+    and its new rows written into the local shards
+    (``layers.gather_cache_layer`` / ``write_cache_layer``). It returns
+    the same cache tree, written in place, and the logits (or ids)
+    whole on every rank (one all-gather over the data axes)."""
 
     def decode(params, cache, tokens, pos):
         logits, new_cache = model.forward(
@@ -428,13 +482,14 @@ def make_decode_step(model: Model, *, mesh=None,
     axes = model.param_axes()
 
     def decode_meshed(params, cache, tokens, pos):
+        rows = _mesh_rows(mesh, tokens.shape[0])
+        got = serve_rows({"tokens": tokens, "pos": pos}, rows,
+                         _first_device(params))
         with logical_context(mesh, rules), torch.no_grad(), \
-                gather_context():
-            sh = adamw.tree_map(sharding_of, cache)
-            out, new_cache = decode(layer_params(params, axes),
-                                    adamw.tree_map(_full, cache),
-                                    _full(tokens), _full(pos))
-            return out, place_tree(new_cache, sh)
+                gather_context(rows=rows):
+            out, _ = decode(layer_params(params, axes), cache,
+                            got["tokens"], got["pos"])
+            return rows.all_rows(out), cache
 
     return decode_meshed
 
@@ -489,10 +544,3 @@ def cache_shardings(model: Model, batch: int, max_len: int, mesh,
     dims (segments) stay unsharded."""
     return _cache_walk(model.cache_specs(batch, max_len, enc_len), mesh,
                        rules, [])
-
-
-def cache_layer_shardings(tree: dict, mesh, rules: dict) -> dict:
-    """Shardings of one layer's cache subtree (a stack loop's per-layer
-    tree, keyed as in the stacked cache below the stack): those of
-    ``cache_shardings`` without the layer dim."""
-    return _cache_walk(tree, mesh, rules, [])

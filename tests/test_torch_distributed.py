@@ -20,8 +20,19 @@ the JAX package's numbers:
   lifetimes, stay within the largest layer's gathered bytes plus the
   leaves outside the stacks, and a planted whole-tree gather breaks
   that bound;
-* the meshed prefill + decode of qwen3-4b gives the unmeshed logits
-  within 1e-5 of the largest;
+* the 2x2 meshed prefill and 3 decode steps of the seven families
+  (reduced; llava-next-34b's image prefill too) give the unmeshed
+  logits within 1e-5 of the largest; the cache stays DTensors in its
+  ``cache_shardings`` placements, the decode steps write it in place
+  (its storages unchanged), and each rank's local shard equals its block
+  of the unmeshed cache (float leaves within 1e-5 of the largest, the
+  MoE routing counts exactly), after the prefill and after the last
+  step; the same for qwen3-4b on a (1, 4) mesh, where the cache shards
+  head_dim;
+* a meshed decode step gathers one layer's cache at a time: the bytes of
+  gathered cache data alive at once stay within one layer's cache for a
+  rank's rows (qwen3-4b and whisper-tiny.en, reduced, 4 layers), and a
+  planted whole-cache gather breaks that bound;
 * ``compressed_psum``'s mean is within 1e-6 of the mean over ranks of
   the reference's ``dequantize_grad(quantize_grad(g_r + e_r))``, and each
   rank's new residual equals the reference's;
@@ -74,7 +85,10 @@ RANKS_DEADLINE_S = 300
 GATHER_ARCHS = ("qwen3-4b", "whisper-tiny-en")
 CASES = ([f"sharded_step[{a}]" for a in FAMILIES]
          + [f"layer_gather_peak[{a}]" for a in GATHER_ARCHS]
-         + ["meshed_serving", "compressed_psum", "compressed_step",
+         + [f"meshed_serving[{a}]" for a in FAMILIES]
+         + ["meshed_serving_head_dim"]
+         + [f"meshed_decode_peak[{a}]" for a in GATHER_ARCHS]
+         + ["compressed_psum", "compressed_step",
             "elastic_restore", "reference_checkpoint_onto_mesh",
             "pipeline", "constrain", "preemption_agreed"])
 
@@ -256,36 +270,213 @@ def case_layer_gather_peak(arch, work):
     assert planted > layer + rest, (planted, layer, rest)
 
 
-def case_meshed_serving(work):
-    from repro_torch.optim.adamw import leaves, tree_map
+SERVE_ROWS, SERVE_PROMPT, SERVE_FRAMES, SERVE_STEPS = 4, 16, 32, 3
+
+
+def _serve_prompt(cfg, seed, image=False):
+    """A prefill batch of ``SERVE_ROWS`` prompts (numpy, seeded): token
+    ids, and the frames an encoder-decoder model encodes or, with
+    ``image``, the patch embeddings a VLM puts before the ids."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_ROWS, SERVE_PROMPT)).astype(np.int32))}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (SERVE_ROWS, SERVE_FRAMES, cfg.d_model)).astype(np.float32))
+    if image:
+        batch["img_embed"] = torch.from_numpy(rng.standard_normal(
+            (SERVE_ROWS, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _close(got, want, what):
+    """``got`` within ``SERVE_TOL`` of ``want``'s largest magnitude."""
+    got, want = got.float().numpy(), want.float().numpy()
+    gap = np.abs(got - want).max()
+    assert gap <= SERVE_TOL * np.abs(want).max(), (what, gap)
+
+
+def _serve_placed(model, params, mesh, mode="serve"):
+    from repro_torch.optim.adamw import tree_map
     from repro_torch.parallel.sharding import (enforce_divisibility,
                                                place_tree, rules_for,
                                                tree_shardings)
-    from repro_torch.train import step as S
-    model = _port("qwen3-4b")
-    params = model.init_values(torch.Generator().manual_seed(3), "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(4).integers(
-        0, model.cfg.vocab, (4, 16)).astype(np.int32))
-    nxt = torch.full((4, 1), 7, dtype=torch.int32)
-    logits0, cache = S.make_prefill_step(model)(params, {"tokens": tokens})
-    want, _ = S.make_decode_step(model)(params, cache, nxt, 16)
-
-    mesh = _mesh((2, 2), ("data", "model"))
-    rules = rules_for(model.cfg, mesh, mode="serve")
+    rules = rules_for(model.cfg, mesh, mode=mode)
     sh = enforce_divisibility(tree_shardings(model.param_axes(), mesh, rules),
                               model.param_shapes())
-    placed = place_tree(tree_map(lambda p: p.clone(), params), sh)
-    logits1, dcache = S.make_prefill_step(model, mesh=mesh, rules=rules)(
-        placed, {"tokens": tokens})
-    assert any(type(c).__name__ == "DTensor" and
-               any(p.is_shard() for p in c.placements)
-               for c in leaves(dcache))
-    got, dcache = S.make_decode_step(model, mesh=mesh, rules=rules)(
-        placed, dcache, nxt, 16)
-    for a, b in ((logits1, logits0), (got, want)):
-        a, b = a.float().numpy(), b.float().numpy()
-        assert np.abs(a - b).max() <= SERVE_TOL * np.abs(b).max(), \
-            np.abs(a - b).max()
+    return place_tree(tree_map(lambda p: p.clone(), params), sh), rules
+
+
+def _cache_matches(got, want, shardings):
+    """Every leaf of the meshed cache ``got`` is a DTensor in its
+    ``cache_shardings`` placements, and its local shard equals this
+    rank's block of the unmeshed cache ``want``: integer leaves (the MoE
+    routing counts) exactly, float ones within ``SERVE_TOL`` of the
+    leaf's largest value."""
+    from repro_torch.models.model import tree_paths
+    from repro_torch.parallel.sharding import place
+    for (path, g), (_, w), (_, sh) in zip(tree_paths(got), tree_paths(want),
+                                          tree_paths(shardings)):
+        assert type(g).__name__ == "DTensor", path
+        assert tuple(g.placements) == sh.placements, (path, g.placements)
+        assert tuple(g.shape) == tuple(w.shape), (path, g.shape, w.shape)
+        mine = place(w, sh).to_local()
+        if w.dtype.is_floating_point:
+            _close(g.to_local(), mine, path)
+        else:
+            assert torch.equal(g.to_local(), mine), path
+
+
+def _storages(cache):
+    from repro_torch.optim.adamw import leaves
+    return [x.to_local().untyped_storage().data_ptr() for x in leaves(cache)]
+
+
+def _meshed_serving(model, mesh, rules_mode="serve", image=False):
+    """The meshed prefill of a seeded batch, then ``SERVE_STEPS`` decode
+    steps, against the unmeshed steps (``_serve_prompt``): the logits
+    within ``SERVE_TOL``, the cache in its shardings and equal to the
+    unmeshed one's blocks after the prefill and after the last step, its
+    storages unchanged by every step. ``image``: the VLM's prefill with
+    patch embeddings, compared without decode steps (the image fills the
+    cache's decode headroom)."""
+    from repro_torch.train import step as S
+    cfg = model.cfg
+    params = model.init_values(torch.Generator().manual_seed(3), "cpu")
+    batch = _serve_prompt(cfg, 4, image)
+    want_l, want_c = S.make_prefill_step(model)(params, batch)
+    placed, rules = _serve_placed(model, params, mesh, rules_mode)
+    got_l, cache = S.make_prefill_step(model, mesh=mesh, rules=rules)(
+        placed, batch)
+    # the logits of the vocabulary's ids (the padding ids' are -1e9)
+    _close(got_l[:, :cfg.vocab], want_l[:, :cfg.vocab], "prefill logits")
+    length = S.prefill_cache_len(SERVE_PROMPT)
+    sh = S.cache_shardings(model, SERVE_ROWS, length, mesh, rules)
+    _cache_matches(cache, want_c, sh)
+    if image:
+        return
+    before = _storages(cache)
+    decode = S.make_decode_step(model, mesh=mesh, rules=rules)
+    rng = np.random.default_rng(5)
+    for t in range(SERVE_STEPS):
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_ROWS, 1))
+                               .astype(np.int32))
+        pos = SERVE_PROMPT + t
+        want, want_c = S.make_decode_step(model)(params, want_c, nxt, pos)
+        got, out = decode(placed, cache, nxt, pos)
+        assert out is cache
+        _close(got[:, :cfg.vocab], want[:, :cfg.vocab],
+               f"decode step {t} logits")
+        assert _storages(cache) == before, f"decode step {t} copied"
+    _cache_matches(cache, want_c, sh)
+
+
+def case_meshed_serving(arch, work):
+    """The 2x2 meshed prefill and decode steps of ``arch`` against the
+    unmeshed ones (``_meshed_serving``); llava-next-34b's image prefill
+    too."""
+    model = _port(arch)
+    mesh = _mesh((2, 2), ("data", "model"))
+    if model.cfg.vlm:
+        _meshed_serving(model, mesh, image=True)
+    _meshed_serving(model, mesh)
+
+
+def case_meshed_serving_head_dim(work):
+    """qwen3-4b on a (1, 4) mesh: its 2 KV heads do not divide ``model``,
+    so the cache shards head_dim (``rules_for``'s serve rule), which a
+    decode step gathers and writes a layer at a time."""
+    from repro_torch.parallel.sharding import rules_for
+    model = _port("qwen3-4b")
+    mesh = _mesh((1, 4), ("data", "model"))
+    rules = rules_for(model.cfg, mesh, mode="serve")
+    assert rules["kv_heads"] is None and rules["head_dim"] == "model"
+    _meshed_serving(model, mesh)
+
+
+class GatheredCacheBytes(GatheredBytes):
+    """``GatheredBytes`` of the cache alone: an all-gather whose operand
+    is a view of one of ``storages`` (the cache's local shards) or of
+    gathered cache data makes gathered cache data, and so does a ``cat``
+    of one such gather's views. Such a gather's output is then staging,
+    read by nothing but that ``cat``, and counts no more (gloo's work
+    object holds it until a moment of its own)."""
+
+    def __init__(self, storages):
+        super().__init__()
+        self.storages = set(storages)
+
+    def _op(self, func, types, args, kwargs):
+        from torch.utils._pytree import tree_leaves
+        ins = {self._key(t) for t in tree_leaves((args, kwargs))
+               if type(t) is torch.Tensor}
+        if func.__name__.startswith("all_gather") \
+                and not ins & (self.storages | self.alive.keys()):
+            return func(*args, **kwargs)   # a parameter's gather
+        staging = func is torch.ops.aten.cat.default and len(ins) == 1 \
+            and ins <= self.alive.keys()
+        out = super()._op(func, types, args, kwargs)
+        if staging:
+            self.alive.pop(ins.pop(), None)
+        return out
+
+
+def _layer_cache_bytes(model, rows, length):
+    """The largest layer's cache bytes (every block of a segment, or a
+    Whisper layer's self and cross planes) for ``rows`` of the batch."""
+    from repro_torch.models.model import tree_paths
+    per = {}
+    for path, s in tree_paths(model.cache_specs(SERVE_ROWS, length)):
+        stack = path.split("/")[0]
+        per[stack] = per.get(stack, 0) + \
+            s.numel() * s.element_size() // s.shape[0] * rows // SERVE_ROWS
+    return max(per.values())
+
+
+def case_meshed_decode_peak(arch, work):
+    """A 2x2 meshed decode step of ``arch`` (reduced, 4 layers) holds at
+    most one layer's cache for its rows gathered at once, read from the
+    storages' lifetimes; the whole-cache gather it replaced (each leaf
+    gathered whole, every layer and row) breaks that bound."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import encdec, layers, transformer
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import step as S
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=4)
+    model = build(cfg)
+    mesh = _mesh((2, 2), ("data", "model"))
+    params = model.init_values(torch.Generator().manual_seed(3), "cpu")
+    placed, rules = _serve_placed(model, params, mesh)
+    _, cache = S.make_prefill_step(model, mesh=mesh, rules=rules)(
+        placed, _serve_prompt(cfg, 4))
+    decode = S.make_decode_step(model, mesh=mesh, rules=rules)
+    nxt = torch.full((SERVE_ROWS, 1), 7, dtype=torch.int32)
+    bound = _layer_cache_bytes(model, SERVE_ROWS // 2,
+                               S.prefill_cache_len(SERVE_PROMPT))
+
+    def peak():
+        seen = GatheredCacheBytes(_storages(cache))
+        with seen.mode:
+            decode(placed, cache, nxt, SERVE_PROMPT)
+        return seen.peak
+
+    got = peak()
+    assert 0 < got <= bound, (got, bound)
+
+    def whole(pool, i):
+        rows = layers.meshed_rows()
+        full = tree_map(lambda t: t.full_tensor(), pool)
+        return tree_map(lambda t: rows.take(t[i])[None], full), 0
+
+    saved = transformer.gather_cache_layer, encdec.gather_cache_layer
+    transformer.gather_cache_layer = encdec.gather_cache_layer = whole
+    try:
+        planted = peak()
+    finally:
+        transformer.gather_cache_layer, encdec.gather_cache_layer = saved
+    assert planted > bound, (planted, bound)
 
 
 def case_compressed_psum(work):
@@ -475,11 +666,9 @@ def case_preemption_agreed(work):
 
 
 def _run_case(name, work):
-    if name.startswith("sharded_step["):
-        return case_sharded_step(name[len("sharded_step["):-1], work)
-    if name.startswith("layer_gather_peak["):
-        return case_layer_gather_peak(name[len("layer_gather_peak["):-1],
-                                      work)
+    if "[" in name:
+        case, arg = name[:-1].split("[")
+        return globals()[f"case_{case}"](arg, work)
     return globals()[f"case_{name}"](work)
 
 

@@ -13,6 +13,11 @@ process groups (nothing is allocated, nothing launched):
   the data axis); and a rank's peak is below that of the same step with
   the whole tree gathered at the forward's start (the step before the
   per-layer gather);
+* the serving cells of reduced qwen3-4b on the 16x16 fake group: a
+  rank's arguments are its weight and cache shards and its rows of the
+  batch; decode_32k peaks under those plus the gathered weights plus a
+  few layers of its rows' cache planes, and prefill_32k at most 1/8 of
+  the same step running the whole batch on every rank;
 * the CLI prints one record with the reference's keys (a reduced config
   on the 16x16 production mesh), serve cells trace with their kernel
   calls as nodes, and ``profile_cell`` prints its two tables.
@@ -155,6 +160,76 @@ def test_serve_cells_trace_their_kernel_calls(reduced_configs, shape):
     assert ("flash_attention" in rec["cost"].kernels) == (
         shape == "prefill_32k")
     assert rec["memory"]["peak_bytes"] > 0
+
+
+#: what a decode step's rank holds of one layer's cache at once, in
+#: layers of its rows' planes: the gathered planes, a second copy of a
+#: plane in the all-gather's staging, and (CPU tensors) the attention's
+#: f32 widen of a plane with its grouped bf16 copy
+LAYER_COPIES = 3
+
+
+def _rank_bytes(tree, shardings, sizes: dict) -> int:
+    """The bytes a rank stores of ``tree`` (meta tensors) placed by
+    ``shardings`` over a mesh of axis ``sizes``."""
+    total = 0
+    for (_, t), (_, sh) in zip(tree_paths(tree), tree_paths(shardings)):
+        split = 1
+        for e in sh.spec:
+            for name in (e if isinstance(e, tuple) else (e,) if e else ()):
+                split *= sizes[name]
+        total += t.numel() * t.element_size() // split
+    return total
+
+
+def _whole_batch_rows(mesh, n):
+    """``step._mesh_rows`` of the meshed serving steps before they ran a
+    rank's rows: every rank runs every row."""
+    return t_step.MeshRows(mesh, (), n)
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_meshed_serve_cell_runs_a_ranks_rows(reduced_configs, monkeypatch,
+                                              shape):
+    """A serving cell of reduced qwen3-4b on the 16x16 fake group: a
+    rank's arguments are its weight and cache shards and its rows of the
+    batch, no more; decoding, its peak lies under its arguments plus the
+    gathered weights plus ``LAYER_COPIES`` layers of its rows' cache
+    planes (``cache_specs``); in prefill, at most 1/8 of the peak of the
+    same step running the whole batch on every rank."""
+    import types
+    cfg = reduced(get_config("qwen3-4b"))
+    model = build(cfg)
+    seq, gbatch, kind = SHAPES[shape]
+    sizes = {"data": 16, "model": 16}
+    mesh = types.SimpleNamespace(shape=sizes)
+    rules = rules_for(cfg, mesh, mode="serve")
+    weights = model.param_shapes(torch.bfloat16)
+    args = _rank_bytes(weights, dryrun._param_shardings(model, mesh, rules),
+                       sizes)
+    rows = {k: v.numel() * v.element_size() // (16 if v.ndim else 1)
+            for k, v in input_specs(cfg, shape).items()}
+    args += sum(rows.values())
+    cache = model.cache_specs(gbatch, seq)
+    if kind == "decode":
+        args += _rank_bytes(cache, t_step.cache_shardings(
+            model, gbatch, seq, mesh, rules), sizes)
+    rec = dryrun.dryrun_cell("qwen3-4b", shape, device="cpu", verbose=False)
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == args, (mem["argument_bytes"], args)
+    peak = mem["peak_bytes"]
+    if kind == "decode":
+        layer = sum(v.numel() * v.element_size() // v.shape[0]
+                    for _, v in tree_paths(cache)) // 16
+        gathered_weights = sum(v.numel() * v.element_size()
+                               for _, v in tree_paths(weights))
+        bound = args + gathered_weights + LAYER_COPIES * layer
+        assert 0 < peak < bound, (peak, bound)
+        return
+    monkeypatch.setattr(t_step, "_mesh_rows", _whole_batch_rows)
+    whole = dryrun.dryrun_cell("qwen3-4b", shape, device="cpu",
+                               verbose=False)["memory"]["peak_bytes"]
+    assert 8 * peak <= whole, (peak, whole)
 
 
 def test_fake_cuda_needs_a_cuda_build():
