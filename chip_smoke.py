@@ -211,11 +211,25 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    every step, each step's rise of ``torch.cuda.max_memory_allocated``
    within one layer's cache and weights plus ``R_PEAK_SLACK`` of the
    unmeshed step's, and ``fp16_matmul`` / ``flash_attention`` launched
-   as often as unmeshed. r2: ``launch.dryrun`` of qwen3-4b's decode_32k
-   and prefill_32k cells on fake ``cuda`` over the 16x16 fake group, two
-   processes started before r1: both end ``ok``, a rank's peak under
-   ``R2_PEAK_MAX`` (decode_32k under the card's memory too); it prints
-   the peaks, the traced FLOPs and whether each fits the card.
+   as often as unmeshed (a one-rank mesh splits nothing). r2:
+   ``launch.dryrun`` of qwen3-4b's decode_32k and prefill_32k cells on
+   fake ``cuda`` over the 16x16 fake group, where the serving steps split
+   the heads (head_dim form: 8 KV heads on 16), the MLP's columns and the
+   vocabulary over ``model``; two processes started before r1: both end
+   ``ok``, a rank's peak under ``R2_PEAK_MAX`` and the card's memory, the
+   traced FLOPs under ``R2_FLOPS_MAX`` times the model FLOPs; it prints
+   the peaks, the FLOPs and the roofline's compute, memory and
+   collective terms. r3: one qwen3-4b layer at full width split over 16
+   ranks of ``model`` (head_dim form) and over 8 (heads form), shard by
+   shard in one process (a thread a shard, the collectives met in
+   memory) through the kernels: the prefill of 4 lanes x 256 ids, a
+   decode step, the MLP, the embedding and the head against the unsplit
+   layer (``run_r3``: the row-parallel f32 sums within ``R3_REL``);
+   ``fp16_matmul`` and ``flash_attention`` must launch. r4: r1's
+   qwen3-4b (36 layers) split over 4 ranks of ``model`` shard by shard
+   on the card, as a four-card 1x4 mesh splits it, against the unmeshed
+   steps (``run_r4``: logits within ``LOGIT_REL_TOL_DECODER``, ids equal
+   but at near-ties); it prints each step's gap.
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -247,6 +261,9 @@ non-initial state, with R in f32 and in bf16, and a case with saturated
 gates, and each counts the outputs that differ from the plain version
 bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
+The shard shapes of phase r3 (qwen3-4b's products and prefill attention
+split over 16 or 8 ranks of ``model``) are cases of the dense GEMM and
+flash attention too.
 
 Every phase of 3, 4, 5, e, f, g, h, i, j, k, l and d (not m, whose
 tick is captured before its load, nor n, which checks one capture per
@@ -555,6 +572,32 @@ def kernel_cases():
                lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb, torch.float32),
                lambda x=x, w=wb: torch.matmul(x, w).float(),
                _nbytes(x, wb, y), 2.0 * 4 * n * k, "bf16", BF16_REL))
+    # phase r3's shard shapes: qwen3-4b split over 16 (8 for the heads
+    # form's wo) ranks of ``model``, 4 lanes of 256 ids in prefill and a
+    # decode step: the column-parallel MLP up / gate (bf16 out), the
+    # row-parallel wo and MLP down (f32 partials), the head's vocabulary
+    # columns (f32 x, the bf16 weight as stored, f32 out)
+    f32 = torch.float32
+    for label, m, k, n, xdt, odt in (
+            ("prefill wo, tp=16", 1024, 256, 2560, bf, f32),
+            ("prefill wo, tp=8", 1024, 512, 2560, bf, f32),
+            ("prefill MLP up / gate, tp=16", 1024, 2560, 608, bf, bf),
+            ("prefill MLP down, tp=16", 1024, 608, 2560, bf, f32),
+            ("decode wo, 4 lanes, tp=16", 4, 256, 2560, bf, f32),
+            ("decode MLP up / gate, 4 lanes, tp=16", 4, 2560, 608, bf, bf),
+            ("decode MLP down, 4 lanes, tp=16", 4, 608, 2560, bf, f32),
+            ("head, 4 lanes, tp=16", 4, 2560, 9600, f32, f32)):
+        x, wb = randn((m, k), xdt), randn((k, n), bf, k ** -0.5)
+        y = torch.empty((m, n), dtype=odt, device=dev)
+        mm.append((f"qwen3-4b shard: {label} ({m},{k})@({k},{n}) "
+                   f"{str(xdt)[6:]} x, {str(odt)[6:]} out",
+                   lambda x=x, wb=wb, o=odt: mm_ops.fp16_matmul(
+                       x, wb, out_dtype=o),
+                   lambda x=x, wb=wb, o=odt: mm_plain.fp16_matmul(x, wb, o),
+                   lambda x=x, w=wb.to(xdt), o=odt: torch.matmul(x, w).to(o),
+                   _nbytes(x, wb, y), 2.0 * m * n * k,
+                   "bf16" if xdt == bf else "f32",
+                   BF16_REL if xdt == bf else F32_REL))
     # the zamba2-7b head (phase l): the untied head multiplies f32
     # activations by the bf16 lm_head as stored, over the padded vocab
     k, n = 3584, 32768
@@ -661,6 +704,12 @@ def kernel_cases():
              None),
             ("qwen3-moe prefill, causal", 1, 256, 256, 32, 4, 128, True,
              None, None),
+            # phase r3's shards of qwen3-4b's prefill, 4 lanes: 16 ranks
+            # (2 query heads reading 1 KV head), 8 (4 reading 1)
+            ("qwen3-4b shard prefill, tp=16, causal", 4, 256, 256, 2, 1,
+             128, True, None, None),
+            ("qwen3-4b shard prefill, tp=8, causal", 4, 256, 256, 4, 1,
+             128, True, None, None),
             ("split KV, GQA", 1, 33, 1500, 32, 8, 128, False, None, None),
             ("split KV, ragged", 2, 40, 65, 4, 2, 128, False, None, None),
             # D = 256: gemma2-2b's prefill with its softcap of 50, on a
@@ -3221,8 +3270,35 @@ R_PEAK_SLACK = 64 * 2 ** 20
 #: r2: the serving cells of R2_ARCH on the 16x16 fake group, and what a
 #: rank's peak must stay under
 R2_ARCH = "qwen3-4b"
-R2_PEAK_MAX = {"decode_32k": 10e9, "prefill_32k": 100e9}
+R2_PEAK_MAX = {"decode_32k": 5e9, "prefill_32k": 16e9}
+#: r2: a cell's traced FLOPs (scaled to the mesh) over the model FLOPs
+R2_FLOPS_MAX = 8.0
 R2_TIMEOUT = 300
+#: r3: one qwen3-4b layer at full width split over ``model`` shard by
+#: shard on the card, (ranks of ``model``, the attention's form): 16 ranks
+#: split head_dim (8 KV heads), 8 split the KV heads; 4 lanes, a prefill of
+#: R3_PROMPT ids and a decode step over an R3_CACHE-position cache
+R3_ARCH = "qwen3-4b"
+R3_SPLITS = ((16, "head_dim"), (8, "heads"))
+R3_PROMPT, R3_CACHE = 256, 300
+#: r3: the shards' f32 sum against the exact (f64) product of the same
+#: bf16 inputs, over the largest magnitude: f32 summation order only.
+#: The CPU tests hold the sums within 1e-6 of the unsplit plain product;
+#: on the card the unsplit kernel's own tensor-core sum over K = 9728
+#: lies 1.2e-5 from exact, so the exact product is the yardstick here.
+#: Measured 7.95e-8 to 1.37e-6 on an NVIDIA H100 80GB HBM3 at 700 W; a
+#: partial rounded to bf16 before the sum lies ~2e-3 out
+R3_REL = 5e-6
+#: r3: a split layer's bf16 output against the unsplit one's: one bf16
+#: rounding of the largest magnitude apart at most
+R3_OUT_REL = 2 ** -7
+#: r4: r1's qwen3-4b split over R4_TP ranks of ``model`` shard by shard
+#: on one card, each unit in the form a 1x4 mesh gives it (8 KV heads on
+#: 4: the heads form), against the unmeshed steps; held to the bound the
+#: decoder phases hold 36 layers of kernel-against-plain logits to
+R4_TP = 4
+R4_FORMS = {"attention": "heads", "mlp": "ff", "embed": "vocab",
+            "head": "vocab_cols"}
 
 
 def _r_setup(arch: str):
@@ -3403,26 +3479,336 @@ def start_r2() -> dict:
 
 def finish_r2(phase: str, procs: dict, t_start: float) -> None:
     """Read ``start_r2``'s records (``R2_TIMEOUT`` from ``t_start``) and
-    gate them: each ends ``ok``, a rank's peak under ``R2_PEAK_MAX``,
-    decode_32k's under the card's memory too."""
+    gate them: each ends ``ok``, a rank's peak under ``R2_PEAK_MAX`` and
+    under the card's memory, its traced FLOPs under ``R2_FLOPS_MAX``
+    times the model FLOPs; it prints the roofline's three terms."""
     import torch
     recs = _finish_dryruns(phase, procs, t_start + R2_TIMEOUT)
     card = torch.cuda.get_device_properties(0).total_memory
     for shape, rec in recs.items():
         mem = rec["memory"]
         peak = mem["peak_bytes"]
+        ratio = rec["hlo_flops"] / rec["model_flops"]
         _log(f"[{phase}] {shape}: status {rec['status']}, a rank's peak "
              f"{peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
              f"{mem['argument_bytes']} B), traced FLOPs {rec['hlo_flops']}"
-             f" (model FLOPs {rec['model_flops']}), under "
-             f"{R2_PEAK_MAX[shape] / 1e9:.0f} GB: {peak < R2_PEAK_MAX[shape]}"
-             f", fits the card's {card} B: {peak < card}; traced in "
-             f"{rec['compile_s']:.1f} s")
-        if rec["status"] != "ok" or not peak < R2_PEAK_MAX[shape]:
+             f" (model FLOPs {rec['model_flops']}, {ratio:.3f}x), "
+             f"compute term {rec['compute_s'] * 1e3:.4f} ms, memory term "
+             f"{rec['memory_s'] * 1e3:.4f} ms, collective term "
+             f"{rec['collective_s'] * 1e3:.4f} ms ({rec['collectives']}), "
+             f"under {R2_PEAK_MAX[shape] / 1e9:.0f} GB: "
+             f"{peak < R2_PEAK_MAX[shape]}, fits the card's {card} B: "
+             f"{peak < card}; traced in {rec['compile_s']:.1f} s")
+        if rec["status"] != "ok" or not peak < R2_PEAK_MAX[shape] \
+                or not peak < card:
             raise AssertionError(f"[{phase}] {shape}: {rec}")
-    if not recs["decode_32k"]["memory"]["peak_bytes"] < card:
-        raise AssertionError(f"[{phase}] decode_32k's rank does not fit "
-                             f"the card")
+        if not ratio < R2_FLOPS_MAX:
+            raise AssertionError(f"[{phase}] {shape}: traced FLOPs "
+                                 f"{ratio:.3f}x the model FLOPs")
+
+
+def _r3_gap(got, want) -> float:
+    """|got - want|'s largest over want's largest magnitude."""
+    return float((got.float() - want.float()).abs().max()) \
+        / float(want.float().abs().max())
+
+
+def run_r3(phase: str) -> dict:
+    """Phase r3: one layer of ``R3_ARCH`` at full width (seeded bf16
+    weights on the card) split over ``model`` as ``R3_SPLITS`` say, shard
+    by shard: a thread a shard (``parallel.model_axis.run_shards``), each
+    running the split layer on its shard through the kernels, their
+    collectives met in memory. The attention's prefill (``R3_PROMPT`` ids
+    a lane, causal, rope, qk-norm) and one decode step over a cache of
+    ``R3_CACHE`` positions, the MLP, the embedding and the head on the
+    last position, against the unsplit layer:
+
+    * each row-parallel product (``wo``, the MLP's ``down``): the
+      shards' f32 partials summed within ``R3_REL`` of the exact product
+      of the same inputs (the shards' inputs side by side, in f64); it
+      prints their gaps to the unsplit kernel's product of those inputs
+      and that product's own gap to exact;
+    * those inputs (the attention's output before ``wo``, the MLP's
+      activation) within ``BF16_REL`` of the unsplit layer's: a shard's
+      flash attention over 2 heads splits its KV range (``kv_splits``)
+      where 32 heads fill the card without, so its bf16 output may round
+      apart;
+    * the layer's bf16 outputs within ``R3_OUT_REL``, each shard's cache
+      slice within ``R3_REL``, the embedding bit-equal, the head's
+      columns within ``R3_REL``, ``sharded_argmax`` the unsplit argmax.
+
+    ``fp16_matmul`` and ``flash_attention`` must launch. Returns the
+    launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.api import DispatchContext, use_context
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import (_act, embed, gather_context,
+                                           layer_slice, logits_head, mlp, mm,
+                                           mm_out, model_axis,
+                                           sharded_argmax, split_unit)
+    from repro_torch.models.model import build
+    from repro_torch.parallel.model_axis import run_shards
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(R3_ARCH), n_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = build(cfg).init_values(gen, device="cuda", dtype=torch.bfloat16)
+    block = layer_slice(params["segments"], 0)["block0"]
+    attn, unit = block["attn"], block["mlp"]
+    rng = np.random.default_rng(SEED)
+
+    def draw(shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) * scale).cuda().to(torch.bfloat16)
+    lanes = R_LANES
+    x = draw((lanes, R3_PROMPT, cfg.d_model))
+    xd = draw((lanes, 1, cfg.d_model))
+    pool = {k: draw((1, lanes, R3_CACHE, cfg.n_kv_heads, cfg.head_dim))
+            for k in ("k", "v")}
+    pos = torch.tensor([R3_CACHE - 1, R3_PROMPT, R3_PROMPT // 2, 17],
+                       device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        lanes, R3_PROMPT)).astype(np.int32)).cuda()
+    head = params["lm_head"]
+    last = x[:, -1:]
+
+    def act_in(u):
+        """The MLP's activation, the input of its ``down``."""
+        return _act(cfg.act)(mm(x, u["gate"])) * mm(x, u["up"])
+
+    def exact(a, w):
+        """a @ w of bf16 operands in f64: every product and sum exact to
+        f64's rounding."""
+        return (a.double() @ w.double()).float()
+
+    plain_out = A._project_out
+    seen = {}
+
+    def record(p, out):
+        """``_project_out``, its input kept under the shard's rank (-1:
+        the unsplit layer)."""
+        axis = model_axis()
+        seen.setdefault(-1 if axis is None else axis.rank, []).append(out)
+        return plain_out(p, out)
+
+    launches = {}
+    with use_context(DispatchContext.for_platform("h100-sxm")), \
+            torch.no_grad():
+        A._project_out = record
+        try:
+            want_p, want_pc = A.attention(attn, x, cfg, mode="prefill",
+                                          use_rope=True)
+            whole = {k: v.clone() for k, v in pool.items()}
+            want_d, _ = A.attention(attn, xd, cfg, mode="decode",
+                                    cache=whole, pos=pos, layer_idx=0,
+                                    use_rope=True)
+            want_po, want_do = seen.pop(-1)
+            want_h = act_in(unit)
+            want_m = mlp(unit, x, cfg.act)
+            want_x = embed(params["embed"], tokens)
+            want_l = logits_head(params["embed"], last, cfg.vocab,
+                                 head=head)
+            torch.cuda.synchronize()
+
+            for tp, form in R3_SPLITS:
+                t0 = time.monotonic()
+                zero_counts()
+                seen.clear()
+                split = (2, 3) if form == "heads" else (3, 4)
+
+                def one(axis, tp=tp, form=form, split=split):
+                    with torch.no_grad(), gather_context(model=axis):
+                        p = split_unit(attn, axis, form)
+                        yp, cp = A.attention(p, x, cfg, mode="prefill",
+                                             use_rope=True)
+                        sp = axis.reduced[-1]
+                        mine = {k: v.chunk(tp, split[1])[axis.rank].clone()
+                                for k, v in pool.items()}
+                        yd, _ = A.attention(p, xd, cfg, mode="decode",
+                                            cache=mine, pos=pos,
+                                            layer_idx=0, use_rope=True)
+                        sd = axis.reduced[-1]
+                        u = split_unit(unit, axis, "ff")
+                        ym = mlp(u, x, cfg.act)
+                        sm = axis.reduced[-1]
+                        tbl = split_unit(params["embed"], axis, "vocab")
+                        xs = embed(tbl, tokens)
+                        ls = logits_head(tbl, last, cfg.vocab,
+                                         head=split_unit(head, axis,
+                                                         "vocab_cols"))
+                        ids = sharded_argmax(ls[:, -1])
+                    return dict(yp=yp, cp=cp, sp=sp, yd=yd, mine=mine,
+                                sd=sd, ym=ym, sm=sm, h=act_in(u), xs=xs,
+                                ls=ls, ids=ids)
+                outs = run_shards(tp, one)
+                torch.cuda.synchronize()
+                counts = {k: fn.launches
+                          for k, fn in launch_counters().items()}
+                # the row-parallel products of the shards' inputs: exact
+                # (f64) and by the unsplit kernel
+                po = torch.cat([seen[r][0] for r in range(tp)], 2)
+                do = torch.cat([seen[r][1] for r in range(tp)], 2)
+                hs = torch.cat([o["h"] for o in outs], -1)
+                wo = attn["wo"].reshape(-1, cfg.d_model)
+                refs = {
+                    "prefill wo": (exact(po.flatten(-2), wo),
+                                   mm_out(po, attn["wo"],
+                                          out_dtype=torch.float32)),
+                    "decode wo": (exact(do.flatten(-2), wo),
+                                  mm_out(do, attn["wo"],
+                                         out_dtype=torch.float32)),
+                    "MLP down": (exact(hs, unit["down"]),
+                                 mm(hs, unit["down"],
+                                    out_dtype=torch.float32))}
+                gaps, bad = {}, []
+
+                def close(what, got, want, rel):
+                    g = _r3_gap(got, want)
+                    key = what.split(" shard")[0]
+                    gaps[key] = max(gaps.get(key, 0.0), g)
+                    if not g <= rel:
+                        bad.append(f"{what}: {g:.3g} > {rel:.3g}")
+                close("prefill attention output", po, want_po, BF16_REL)
+                close("decode attention output", do, want_do, BF16_REL)
+                close("MLP activation", hs, want_h, BF16_REL)
+                for what, (ex, kern) in refs.items():
+                    gaps[f"unsplit {what} to exact"] = _r3_gap(kern, ex)
+                for r, o in enumerate(outs):
+                    for key, got in (("prefill wo", o["sp"]),
+                                     ("decode wo", o["sd"]),
+                                     ("MLP down", o["sm"])):
+                        ex, kern = refs[key]
+                        close(f"{key} sum to exact shard {r}", got, ex,
+                              R3_REL)
+                        what = f"{key} sum to unsplit"   # printed only
+                        gaps[what] = max(gaps.get(what, 0.0),
+                                         _r3_gap(got, kern))
+                    for what, got, want, rel in (
+                            ("prefill output", o["yp"], want_p, R3_OUT_REL),
+                            ("decode output", o["yd"], want_d, R3_OUT_REL),
+                            ("MLP output", o["ym"], want_m, R3_OUT_REL),
+                            *((f"prefill cache {k}", o["cp"][k],
+                               want_pc[k].chunk(tp, split[0])[r], R3_REL)
+                              for k in ("k", "v")),
+                            *((f"decode cache {k}", o["mine"][k],
+                               whole[k].chunk(tp, split[1])[r], R3_REL)
+                              for k in ("k", "v"))):
+                        close(f"{what} shard {r}", got, want, rel)
+                    if not torch.equal(o["xs"], want_x):
+                        bad.append(f"shard {r}: the embedding differs")
+                close("head columns",
+                      torch.cat([o["ls"] for o in outs], -1), want_l,
+                      R3_REL)
+                want_ids = torch.argmax(want_l[:, -1], -1).to(torch.int32)
+                bad += [f"sharded_argmax {o['ids'].tolist()} against "
+                        f"{want_ids.tolist()}" for o in outs
+                        if not torch.equal(o["ids"], want_ids)]
+                _log(f"[{phase}] {cfg.name} layer at tp={tp} ({form}), "
+                     f"{lanes} lanes x {R3_PROMPT} ids, a decode step over "
+                     f"{R3_CACHE} positions: largest gap over the largest "
+                     f"magnitude {({k: f'{v:.3g}' for k, v in gaps.items()})}"
+                     f"; embedding bit-equal {not any('embedding' in b for b in bad)}, "
+                     f"ids {want_ids.tolist()}; launches {counts}; "
+                     f"{time.monotonic() - t0:.2f} s")
+                if bad:
+                    raise AssertionError(f"[{phase}] tp={tp} {form}: "
+                                         f"{'; '.join(bad)}")
+                for k in ("fp16_matmul", "flash_attention"):
+                    if counts[k] < 1:
+                        raise AssertionError(f"[{phase}] tp={tp}: {k} never "
+                                             f"launched")
+                    launches[k] = launches.get(k, 0) + counts[k]
+        finally:
+            A._project_out = plain_out
+    del params, block, attn, unit, head, pool, whole, outs, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+    return launches
+
+
+def run_r4(phase: str) -> None:
+    """Phase r4: the split of a four-card ``launch.serve_mesh`` run on a
+    1x4 mesh, on one card. r1's qwen3-4b (36 layers, bf16 weights drawn
+    on the card) runs its unmeshed prefill and ``R_STEPS`` greedy decode
+    steps (``_r_serve``), then the same steps shard by shard: a thread a
+    rank of ``R4_TP`` (``run_shards`` with ``R4_FORMS``: the whole plain
+    weights, each unit split as the mesh splits it, the collectives met
+    in memory), fed the unmeshed run's ids. Each step's logits, gathered
+    over the ranks, within ``LOGIT_REL_TOL_DECODER`` of the unmeshed
+    ones' largest, the greedy ids equal but at near-ties
+    (``TIE_MARGIN``), every unit split (``split_counts``), and
+    ``fp16_matmul`` / ``flash_attention`` launched. It prints each
+    step's gap: the four-card run's own gap holds the same splits of the
+    same products, summed by ``nccl`` in its order."""
+    import torch
+
+    from repro_torch.kernels.api import DispatchContext, use_context
+    from repro_torch.models.layers import (gather_context, layer_params,
+                                           reset_split_counts, split_counts)
+    from repro_torch.parallel.model_axis import run_shards
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    t_phase = time.monotonic()
+    model, params, batch = _r_setup(R3_ARCH)
+    want, ids = _r_serve(model, params, batch)[:2]
+    vocab = model.cfg.vocab
+    pos = batch["tokens"].shape[1]
+    zero_counts()
+    reset_split_counts()
+
+    def one(axis):
+        with torch.no_grad(), gather_context(model=axis):
+            lp = layer_params(params, model.param_axes())
+            decode = make_decode_step(model)
+            last, cache = make_prefill_step(model)(lp, batch)
+            out = [axis.all_gather(last, dim=-1)]
+            for t, nxt in enumerate(ids):
+                last, cache = decode(lp, cache, nxt, pos + t)
+                out.append(axis.all_gather(last, dim=-1))
+        return out if axis.rank == 0 else None
+    with use_context(DispatchContext.for_platform("h100-sxm")):
+        got = run_shards(R4_TP, one, R4_FORMS)[0]
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    splits = {f"{u}:{f}": n for (u, f), n in split_counts().items()}
+    gaps, flips = [], []
+    for t, (g, w) in enumerate(zip(got, want)):
+        g, w = g[:, :vocab].float(), w[:, :vocab].float()
+        gaps.append(float((g - w).abs().max() / w.abs().max()))
+        if t < len(ids):
+            gi = g.argmax(-1)
+            flips += [(t, r, _tie_gap(w[r], int(ids[t][r, 0]), int(gi[r])))
+                      for r in torch.nonzero(gi != ids[t][:, 0]).flatten()
+                      .tolist()]
+    _log(f"[{phase}] {model.cfg.name} ({model.cfg.n_layers} layers) split "
+         f"over {R4_TP} shard by shard, {R_LANES} lanes x "
+         f"{R_PROMPT[R3_ARCH]} ids, {R_STEPS} decode steps fed the "
+         f"unmeshed ids: logits gap over the largest a step "
+         f"{[f'{x:.4g}' for x in gaps]} (bound {LOGIT_REL_TOL_DECODER}); "
+         f"greedy flips (step, lane, margin) {flips}; splits {splits}; "
+         f"launches {counts}; {time.monotonic() - t_phase:.2f} s")
+    want_splits = {f"{u}:{f}" for u, f in R4_FORMS.items()}
+    if set(splits) != want_splits:
+        raise AssertionError(f"[{phase}] units split {splits}, not "
+                             f"{sorted(want_splits)}")
+    if max(gaps) > LOGIT_REL_TOL_DECODER:
+        raise AssertionError(f"[{phase}] logits {max(gaps)} of the "
+                             f"largest apart")
+    if any(m >= TIE_MARGIN for *_, m in flips):
+        raise AssertionError(f"[{phase}] a greedy id flipped off a "
+                             f"near-tie: {flips}")
+    for k in ("fp16_matmul", "flash_attention"):
+        if counts[k] < 1:
+            raise AssertionError(f"[{phase}] {k} never launched")
+    del model, params, batch, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def run_phase_r() -> dict:
@@ -3445,6 +3831,12 @@ def run_phase_r() -> dict:
         raise
     gc.collect()
     torch.cuda.empty_cache()
+    try:
+        run_r3(f"r3: {R3_ARCH} layer split over model, shard by shard")
+        run_r4(f"r4: {R3_ARCH} split over {R4_TP}, shard by shard")
+    except BaseException:
+        _kill_dryruns(procs)
+        raise
     finish_r2(f"r2: {R2_ARCH} serving cells on 16x16", procs, t_phase)
     _log(f"[r] phase wall {time.monotonic() - t_phase:.2f} s")
     return launches

@@ -72,29 +72,55 @@ def attend_widened(q, k, v, mask, softcap=None) -> torch.Tensor:
 
 
 def _attend_grouped(q, k, v, mask, softcap, widen: bool) -> torch.Tensor:
+    # the scores go in unnamed: grouped_values' rebinding then frees
+    # them before the softmax, where a name here would hold them
+    return grouped_values(grouped_scores(q, k, widen) * q.shape[-1] ** -0.5,
+                          v, mask, softcap, q.shape, widen)
+
+
+def _bmm(x, y, widen: bool) -> torch.Tensor:
+    """x @ y of bf16 operands into f32: widened to f32 first, or one
+    bf16 x bf16 -> f32 product."""
+    if widen:
+        return torch.bmm(x.float(), y.float())
+    return torch.bmm(x, y, out_dtype=torch.float32)
+
+
+def grouped_scores(q, k, widen: bool) -> torch.Tensor:
+    """``_attend_grouped``'s raw f32 scores of q (B, Q, H, D) against the
+    K rows (B, S, Hkv, D), unscaled: the query heads of each KV head
+    grouped into the rows of one product, (B*Hkv, G*Q, S) with G =
+    H / Hkv."""
     b, nq, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    bf, f32 = torch.bfloat16, torch.float32
-
-    def bmm(x, y):
-        if widen:
-            return torch.bmm(x.float(), y.float())
-        return torch.bmm(x, y, out_dtype=f32)
+    bf = torch.bfloat16
     # query head hk * g + i reads KV head hk (repeat_interleave's order)
     qg = q.to(bf).reshape(b, nq, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(b * hkv, g * nq, d)
     kt = k.to(bf).permute(0, 2, 3, 1).reshape(b * hkv, d, s)
-    sc = (bmm(qg, kt) * d ** -0.5).view(b, hkv, g, nq, s)
-    del kt
+    return _bmm(qg, kt, widen)
+
+
+def grouped_values(sc, v, mask, softcap, q_shape, widen: bool) \
+        -> torch.Tensor:
+    """The rest of ``_attend_grouped`` from the scaled scores ``sc``
+    (``grouped_scores``' layout) of queries of ``q_shape`` (B, Q, H, .):
+    the softcap, the mask, the softmax and P.V over the V rows (B, S,
+    Hkv, Dv). Returns f32 (B, Q, H, Dv)."""
+    b, nq, h, _ = q_shape
+    s, hkv, dv = v.shape[1:]
+    g = h // hkv
+    bf = torch.bfloat16
+    sc = sc.view(b, hkv, g, nq, s)
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
     sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1).to(bf).view(b * hkv, g * nq, s)
-    vg = v.to(bf).permute(0, 2, 1, 3).reshape(b * hkv, s, d)
-    out = bmm(w, vg)
-    return out.view(b, hkv, g, nq, d).permute(0, 3, 1, 2, 4) \
-        .reshape(b, nq, h, d)
+    vg = v.to(bf).permute(0, 2, 1, 3).reshape(b * hkv, s, dv)
+    out = _bmm(w, vg, widen)
+    return out.view(b, hkv, g, nq, dv).permute(0, 3, 1, 2, 4) \
+        .reshape(b, nq, h, dv)
 
 
 def code_key(kc) -> str:

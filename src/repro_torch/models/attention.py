@@ -29,6 +29,17 @@ tensor, so a captured tick takes them from the lane state:
 The quantized tiers and the paged pool take plain softmax attention
 only, as the reference's do: a softcap or a window raises there.
 
+Split over ``model`` (a meshed serving step, ``layers.split_unit``) the
+block runs on this rank's query heads and ``wo`` is row-parallel. In
+the ``heads`` form its K/V heads are its shard too, and so is the cache
+it reads. In the ``head_dim`` form (the KV heads do not divide
+``model``; the cache splits head_dim) K and V are whole: the prefill's
+query heads read their KV heads at full head_dim and the cache keeps
+its slice, and a decode step gathers the query of every head, sums the
+scores of its head_dim slice over ``model`` in f32, and moves P.V from
+its slice of every head to the whole head_dim of its heads with one
+all-to-all.
+
 With a ``page_table`` the planes are a paged pool (L, n_pages, P, Hkv,
 .) shared by the lanes (``repro_torch.paging``): self-attention writes
 token j of lane b at (layer, table[b, (pos + j) // P], (pos + j) % P),
@@ -45,9 +56,14 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.api import dispatch
-from repro_torch.kernels.paged_attention.plain import bf16_decode_attention
-from repro_torch.models.layers import (filled, meshed_rows, mm, mm_out,
-                                       ninit, prepared, rmsnorm, rope)
+from repro_torch.kernels.paged_attention.plain import (bf16_decode_attention,
+                                                      grouped_scores,
+                                                      grouped_values)
+from repro_torch.models.layers import (attention_form, filled,
+                                       meshed_rows, mm, mm_out,
+                                       model_axis, model_dim, model_local,
+                                       ninit, prepared, rmsnorm, rope,
+                                       row_parallel)
 from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
@@ -82,8 +98,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
     if x_kv is None and isinstance(wq, torch.Tensor):
         # self-attention with plain weights: one QKV product over the
-        # head-concatenated weight (the same per-element contraction)
-        h, hk = cfg.n_heads, cfg.n_kv_heads
+        # head-concatenated weight (the same per-element contraction);
+        # the heads as the weights hold them (a split's: this rank's)
+        h, hk = wq.shape[1], wk.shape[1]
         wqkv = prepared(p, "wqkv", lambda: torch.cat([wq, wk, wv], dim=1))
         y = mm(x, wqkv)
         q, k, v = y[..., :h, :], y[..., h:h + hk, :], y[..., h + hk:, :]
@@ -138,6 +155,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     causal = kind != "bidir" and x_kv is None
     window = _window_for(cfg, kind)
     softcap = cfg.attn_softcap
+    form = attention_form(p)
 
     if mode in ("train", "prefill"):
         q, k, v = _project_qkv(p, x, cfg, x_kv)
@@ -148,11 +166,23 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         q = constrain(q, "batch", "q_seq", "heads", "head_dim")
         k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
         v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
-        out = dispatch("flash_attention", q, k, v, causal=causal,
+        kq, vq = k, v
+        if form == "head_dim":
+            # every KV head at full head_dim (wk, wv whole): the query
+            # heads read theirs, the cache keeps its head_dim slice
+            lo, hi = _kv_span(q.shape[2], cfg)
+            kq, vq = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+            k, v = _d_slice(k), _d_slice(v)
+        out = dispatch("flash_attention", q, kq, vq, causal=causal,
                        window=window, softcap=softcap)
-        new_cache = _write_prefill_cache(cache, k, v) \
-            if mode == "prefill" else None
-        return constrain(mm_out(out, p["wo"]), "batch", "q_seq",
+        new_cache = None
+        if mode == "prefill":
+            new_cache = _write_prefill_cache(cache, k, v)
+            if form is not None:
+                split = 2 if form == "heads" else 3
+                new_cache = {key: model_local(t, split)
+                             for key, t in new_cache.items()}
+        return constrain(_project_out(p, out), "batch", "q_seq",
                          "embed"), new_cache
 
     if mode != "decode" or cache is None or layer_idx is None:
@@ -181,6 +211,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         # token j attends [0, pos + j]; Q == 1 keeps the (B,) form
         read_lens = pos_b + 1 if s == 1 else posq + 1
         new = {"k": k_new, "v": v_new}
+        if form == "head_dim":
+            if tier != "bf16":
+                raise NotImplementedError("a quantized cache on a mesh "
+                                          "keeps the attention whole")
+            new = {"k": _d_slice(k_new), "v": _d_slice(v_new)}
         if tier != "bf16":
             qz = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
             kt, vt = qz(k_new, axis=-1), qz(v_new, axis=-1)
@@ -201,7 +236,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if page_table is not None:
             out = _paged_cache_attention(q, cache, layer_idx, page_table,
                                          read_lens)
-            return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
+            return _decoded(_project_out(p, out.to(x.dtype))), cache
         if tier != "bf16":
             return _decoded(_quant_decode(p, x, q, cache, tier, read_lens,
                                           layer_idx)), cache
@@ -220,7 +255,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     if kv_lens is None else kv_lens)
             out = _paged_cache_attention(q, cache, layer_idx, page_table,
                                          lens)
-            return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
+            return _decoded(_project_out(p, out.to(x.dtype))), cache
         kv_len = cache[_CODE_KEYS[tier][0]].shape[2]
         lens = (torch.full((b,), kv_len, device=x.device)
                 if kv_lens is None else kv_lens)
@@ -233,14 +268,59 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     # bf16 cache: einsum decode in torch ops (the reference has no Pallas
     # kernel here), the chain the paged op runs after its gather
     q = constrain(q, "batch", None, "heads", "head_dim")
-    out = bf16_decode_attention(q, cache["k"][layer_idx],
-                                cache["v"][layer_idx], mask, softcap)
-    return _decoded(mm_out(out.to(x.dtype), p["wo"])), cache
+    if form == "head_dim":
+        out = _split_d_decode(q, cache["k"][layer_idx],
+                              cache["v"][layer_idx], mask, softcap)
+    else:
+        out = bf16_decode_attention(q, cache["k"][layer_idx],
+                                    cache["v"][layer_idx], mask, softcap)
+    return _decoded(_project_out(p, out.to(x.dtype))), cache
 
 
 def _decoded(y: torch.Tensor) -> torch.Tensor:
     """A decode attention's output, constrained as the reference's."""
     return constrain(y, "batch", None, "embed")
+
+
+def _project_out(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """The output projection of an attention's (..., heads, head_dim)
+    output: ``mm_out``, or, where ``wo`` holds this rank's heads (a
+    split), row-parallel: this rank's f32 partial, summed over
+    ``model`` and rounded once (``layers.row_parallel``)."""
+    if model_dim(p["wo"]) is not None:
+        return row_parallel(mm_out(out, p["wo"], out_dtype=torch.float32))
+    return mm_out(out, p["wo"])
+
+
+def _d_slice(t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the last dim (head_dim) of ``t``."""
+    axis = model_axis()
+    return t.chunk(axis.size, -1)[axis.rank]
+
+
+def _kv_span(n_local: int, cfg: ArchConfig) -> tuple:
+    """[lo, hi): the KV heads this rank's ``n_local`` query heads read
+    (GQA: query head j reads KV head j // (heads / kv_heads))."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = model_axis().rank * n_local
+    return first // g, (first + n_local - 1) // g + 1
+
+
+def _split_d_decode(q, k, v, mask, softcap) -> torch.Tensor:
+    """Decode attention of this rank's query heads q (B, Q, H/tp, D) over
+    a cache split along head_dim (k, v (B, S, Hkv, D/tp)): the query of
+    every head gathered over ``model``, the scores on this rank's slice
+    of head_dim summed over ``model`` in f32, the softmax whole, P.V on
+    the slice, and one all-to-all from the slice of every head to the
+    whole head_dim of this rank's heads. Returns f32 (B, Q, H/tp, D)."""
+    axis = model_axis()
+    q_all = _d_slice(axis.all_gather(q, dim=2))
+    widen = not q.is_cuda    # bf16_decode_attention's choice
+    # the scores go in unnamed, so grouped_values frees them as it goes
+    out = grouped_values(
+        axis.all_reduce(grouped_scores(q_all, k, widen))
+        * q.shape[-1] ** -0.5, v, mask, softcap, q_all.shape, widen)
+    return axis.all_to_all(out, split_dim=2, cat_dim=3)
 
 
 #: the code-plane keys (K, V) of each cache tier
@@ -257,7 +337,7 @@ def _quant_decode(p: dict, x: torch.Tensor, q: torch.Tensor, cache: dict,
     op = "q8_decode_attention" if tier == "q8_0" else "q4_decode_attention"
     out = dispatch(op, q, cache[ck], cache["ks"], cache[cv], cache["vs"],
                    lens, layer=layer_idx)
-    return mm_out(out.to(x.dtype), p["wo"])
+    return _project_out(p, out.to(x.dtype))
 
 
 def _paged_cache_attention(q: torch.Tensor, planes: dict, layer_idx: int,

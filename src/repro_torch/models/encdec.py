@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (bf16_proj, draw, embed, filled,
+from repro_torch.models.layers import (attention_form, bf16_proj, draw,
+                                       embed, filled,
                                        gather_cache_layer, gather_layer,
                                        init_embedding,
                                        keep_layer, layer_slice,
@@ -166,7 +167,7 @@ def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
 def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None, *,
                   mode: str = "train", cache=None, pos=None, enc_lens=None,
-                  pages=None):
+                  pages=None, last_only: bool = False):
     """Decoder pass. train/prefill: tokens (B, S) with ``enc_out`` given;
     prefill returns the per-layer self and cross K/V stacked as
     ``{"layers": {"self": {k, v}, "cross": {k, v}}}`` (padded to
@@ -176,7 +177,8 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     verify); ``enc_lens`` (B,) masks each lane's cross-attention.
     ``pages`` (decode): ``{"self": (B, n_lp), "cross": (B, n_lp_c)}``
     page tables, when ``cache`` is a paged pool (``repro_torch.paging``)
-    that each attention writes and reads through its lane's row."""
+    that each attention writes and reads through its lane's row.
+    ``last_only``: the head on the last position alone."""
     b, s = tokens.shape
     x = embed(params["embed"], tokens)
     if mode == "decode":
@@ -196,17 +198,21 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         h = layernorm(lp["ln1"], x)
         if mode == "decode":
             # the stacked pools at layer i, or under a meshed decode step
-            # this rank's rows of the layer, gathered (layers.py)
-            pool, at = gather_cache_layer(cache["layers"]["self"], i)
+            # this rank's rows of the layer, gathered but over ``model``
+            # where the attention is split (layers.py)
+            keep = attention_form(lp["self_attn"]) is not None
+            pool, at = gather_cache_layer(cache["layers"]["self"], i, keep)
             a = attn_mod.attention(
                 lp["self_attn"], h, cfg, kind="global", mode=mode,
                 cache=pool, pos=posv, layer_idx=at,
                 page_table=None if pages is None else pages["self"])[0]
-            write_cache_layer(cache["layers"]["self"], i, pool, posv, s)
+            write_cache_layer(cache["layers"]["self"], i, pool, posv, s,
+                              keep)
             del pool   # a meshed decode's gathered layer: freed first
             x = x + a
             h = layernorm(lp["ln_x"], x)
-            pool, at = gather_cache_layer(cache["layers"]["cross"], i)
+            keep = attention_form(lp["cross_attn"]) is not None
+            pool, at = gather_cache_layer(cache["layers"]["cross"], i, keep)
             c = attn_mod.attention(
                 lp["cross_attn"], h, cfg, kind="bidir", mode=mode,
                 cache=pool, pos=posv, x_kv=h,
@@ -240,6 +246,8 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             if mode == "prefill":
                 per_layer.append(keep_layer(new))
 
+    if last_only:
+        x = x[:, -1:]
     x = layernorm(params["dec_ln"], x)
     logits = logits_head(params["embed"], x, cfg.vocab,
                          softcap=cfg.final_softcap)

@@ -33,6 +33,18 @@ rank's rows gathered over every other sharded mesh axis
 shards (``write_cache_layer``); outside it the block reads and writes
 the stacked pool at its layer, as the serving engine's tick does.
 
+A meshed serving step's context also carries its ``model`` axis
+(``parallel.model_axis``). The layers every family shares then take
+their ``model`` shards instead of the whole gather (``unit_form``,
+``split_unit``): the attention its query heads (and KV heads, or the
+whole K/V where the cache splits head_dim), the MLP its columns, the
+embedding its vocabulary rows and the untied head its vocabulary
+columns, each shard a plain tensor that says so (``model_dim``). The
+split layers are plain functions of their shard plus a collective:
+``row_parallel`` (the attention's ``wo`` and the MLP's ``down``: one f32
+all-reduce, one rounding), the vocab-parallel embedding's all-reduce,
+``vocab_offset`` and ``sharded_argmax``.
+
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
 the tied head's f32 operand (``prepare_head``); ``prepared`` reads one
@@ -41,10 +53,11 @@ where it is present and makes it as before where it is not.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import threading
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -171,6 +184,15 @@ def layer_slice(tree, i: int):
 _GATHER = threading.local()
 
 
+class _Gather(NamedTuple):
+    """A ``gather_context``'s state."""
+    grad_placements: Any
+    place_cache: Optional[Callable]
+    rows: Optional["MeshRows"]
+    model: Any        # the split's ModelAxis (parallel.model_axis)
+    split_attention: bool
+
+
 @contextlib.contextmanager
 def _gather_as(ctx):
     prev = getattr(_GATHER, "ctx", None)
@@ -183,14 +205,33 @@ def _gather_as(ctx):
 
 def gather_context(grad_placements=None,
                    place_cache: Optional[Callable] = None,
-                   rows: Optional["MeshRows"] = None):
+                   rows: Optional["MeshRows"] = None, model=None,
+                   split_attention: bool = True):
     """While active, ``gather_layer`` gathers a layer's DTensor leaves
     whole (``gathered`` with ``grad_placements``), ``keep_layer``
     passes a prefill's per-layer cache through ``place_cache``, and with
     ``rows`` (a meshed decode step's) ``gather_cache_layer`` /
     ``write_cache_layer`` read and write the sharded cache a layer at a
-    time."""
-    return _gather_as((grad_placements, place_cache, rows))
+    time. With ``model`` (a meshed serving step's ``ModelAxis`` of more
+    than one rank) the layers every family shares take their ``model``
+    shards instead (``split_unit``); ``split_attention=False`` keeps the
+    attention whole (a quantized cache, whose planes the mesh leaves
+    whole)."""
+    if model is not None and model.size == 1:
+        model = None
+    return _gather_as(_Gather(grad_placements, place_cache, rows, model,
+                              split_attention))
+
+
+def _active() -> Optional[_Gather]:
+    return getattr(_GATHER, "ctx", None)
+
+
+def model_axis():
+    """The active split's ``ModelAxis`` (None outside a meshed serving
+    step, or where ``model`` is one rank)."""
+    ctx = _active()
+    return None if ctx is None else ctx.model
 
 
 def gathered(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
@@ -204,28 +245,232 @@ def gathered(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
     return full.to_local(grad_placements=grad_placements)
 
 
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def gather_layer(tree):
     """One layer's parameters (``layer_slice``'s subtree) with each
-    DTensor leaf gathered whole while a ``gather_context`` is active;
-    ``tree`` itself otherwise (no copy, no collective)."""
-    ctx = getattr(_GATHER, "ctx", None)
+    DTensor leaf gathered whole while a ``gather_context`` is active (or,
+    under a split, the shared layers' leaves as their ``model`` shards:
+    ``split_unit``); ``tree`` itself otherwise (no copy, no
+    collective)."""
+    ctx = _active()
     if ctx is None:
         return tree
-    return _map_leaves(lambda t: gathered(t, ctx[0]) if is_dtensor(t)
-                       else t, tree)
+    return _gather_tree(tree, None, ctx, ctx.grad_placements)
+
+
+def _gather_tree(tree, name, ctx: _Gather, grad_placements):
+    """``tree`` (the subtree at key ``name``) with each unit the active
+    split takes split (``unit_form``) and every other DTensor leaf
+    gathered whole."""
+    if ctx.model is not None:
+        form = unit_form(name, tree, ctx)
+        if form is not None:
+            return split_unit(tree, ctx.model, form, grad_placements)
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, k, ctx, grad_placements)
+                for k, v in tree.items()}
+    return gathered(tree, grad_placements) if is_dtensor(tree) else tree
 
 
 def keep_layer(tree):
     """A prefill's new per-layer cache subtree, placed by the active
     ``gather_context``'s ``place_cache`` (as it is without one)."""
-    ctx = getattr(_GATHER, "ctx", None)
-    return tree if ctx is None or ctx[1] is None else ctx[1](tree)
+    ctx = _active()
+    return tree if ctx is None or ctx.place_cache is None \
+        else ctx.place_cache(tree)
+
+
+# ----------------------------------------------------------------------------
+# The split over ``model``: the layers every family shares on their shards
+# ----------------------------------------------------------------------------
+
+#: the keys of an attention unit in a layer tree
+ATTN_UNITS = ("attn", "self_attn", "cross_attn")
+
+#: each split form's leaves that take their ``model`` shard, with the
+#: tensor dim the shard splits; a unit's other leaves are gathered whole.
+#: ``heads``: the query and KV heads (Megatron's column-parallel Q/K/V and
+#: row-parallel output); ``head_dim``: the query heads, with K and V
+#: whole (their KV heads do not divide ``model``; the cache splits
+#: head_dim); ``ff``: the MLP's columns; ``vocab`` / ``vocab_cols``: the
+#: embedding table's rows / the untied head's columns
+FORMS = {
+    "heads": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
+              "bv": 0},
+    "head_dim": {"wq": 1, "wo": 0, "bq": 0},
+    "ff": {"up": 1, "gate": 1, "down": 0},
+    "vocab": {"table": 0},
+    "vocab_cols": {"lm_head": 1},
+}
+
+_SPLITS: collections.Counter = collections.Counter()
+
+
+def split_counts() -> collections.Counter:
+    """(unit, form) -> how many times a split step took that unit in that
+    form (``"whole"``: gathered whole over ``model``), since the last
+    ``reset_split_counts``."""
+    return collections.Counter(_SPLITS)
+
+
+def reset_split_counts() -> None:
+    _SPLITS.clear()
+
+
+def _model_shard_dim(t) -> Optional[int]:
+    """The tensor dim a DTensor's placement on the ``model`` mesh axis
+    shards, else None."""
+    if not is_dtensor(t):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    p = t.placements[names.index("model")]
+    return p.dim if p.is_shard() else None
+
+
+def _takes(tree: dict, form: str) -> bool:
+    """Whether every leaf of ``form`` that ``tree`` has is placed on
+    ``model`` along the form's dim (the required ones present)."""
+    dims = FORMS[form]
+    need = {"heads": ("wq", "wk", "wv", "wo"), "head_dim": ("wq", "wo"),
+            "ff": ("up", "down"), "vocab": ("table",)}[form]
+    return all(k in tree for k in need) and all(
+        _model_shard_dim(tree[k]) == d for k, d in dims.items()
+        if k in tree)
+
+
+def _unit(name, tree) -> Optional[str]:
+    """The unit the split may take at key ``name`` of a layer (see
+    ``unit_form``), else None."""
+    if name in ATTN_UNITS and isinstance(tree, dict) and "wq" in tree:
+        return "attention"
+    if name in ("mlp", "embed") and isinstance(tree, dict):
+        return name
+    if name == "lm_head" and not isinstance(tree, dict):
+        return "head"
+    return None
+
+
+def unit_form(name, tree, ctx: Optional[_Gather] = None) -> Optional[str]:
+    """The form in which the split takes the subtree ``tree`` at key
+    ``name`` of a layer, or None where ``name`` is no unit it splits. A
+    unit whose placements do not give a form is taken whole (counted as
+    ``"whole"``): decided from the leaves' placements and global shapes
+    and the mesh alone, so every rank takes the same branch. The units:
+    attention (``ATTN_UNITS``: ``heads`` where the query and KV heads
+    divide ``model``, else ``head_dim`` where the cache splits head_dim
+    and each rank's query heads read one KV head; whole where the heads
+    do not divide ``model``, the reference's ``serve_row_tp``, or the
+    cache is quantized), the dense MLP (``mlp``: ``ff``), the embedding
+    (``embed``: ``vocab``) and the untied head (``lm_head``:
+    ``vocab_cols``). Everything else (the MoE experts, mamba, xLSTM, the
+    norms, the Whisper frontend) is gathered whole. A shard-by-shard
+    run's axis that names ``forms`` takes each unit of whole plain
+    weights in the form named there."""
+    ctx = ctx or _active()
+    if ctx is None or ctx.model is None:
+        return None
+    unit = _unit(name, tree)
+    if unit is None:
+        return None
+    form = None
+    if ctx.model.forms is not None:
+        form = ctx.model.forms.get(unit)
+        if unit == "attention" and not ctx.split_attention:
+            form = None
+    elif unit == "attention":
+        if ctx.split_attention and _takes(tree, "heads"):
+            form = "heads"
+        elif ctx.split_attention and _takes(tree, "head_dim") \
+                and _model_shard_dim(tree["wk"]) == 2 \
+                and ctx.model.size % tree["wk"].shape[1] == 0:
+            form = "head_dim"
+    elif unit == "mlp":
+        form = "ff" if _takes(tree, "ff") else None
+    elif unit == "embed":
+        form = "vocab" if _takes(tree, "vocab") else None
+    else:
+        form = "vocab_cols" if _model_shard_dim(tree) == 1 else None
+    _SPLITS[(unit, form or "whole")] += 1
+    return form
+
+
+def model_local(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t``, this rank's ``model`` shard along ``dim``, as a view that
+    says so (``model_dim``)."""
+    v = t.view(t.shape)
+    v._model_dim = dim
+    return v
+
+
+def model_dim(t) -> Optional[int]:
+    """The dim along which ``t`` is this rank's ``model`` shard
+    (``model_local``), else None: a whole tensor."""
+    return getattr(t, "_model_dim", None)
+
+
+def _local_shard(t, dim: int, axis) -> torch.Tensor:
+    """This rank's ``model`` shard of ``t`` along ``dim``: a DTensor's
+    local tensor (gathered over any other sharded mesh axis first), or a
+    whole plain tensor's chunk ``axis.rank``."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        m = t.device_mesh.mesh_dim_names.index("model")
+        want = [p if i == m else Replicate()
+                for i, p in enumerate(t.placements)]
+        if list(t.placements) != want:
+            t = t.redistribute(t.device_mesh, want)
+        return model_local(t.to_local(), dim)
+    return model_local(t.chunk(axis.size, dim)[axis.rank], dim)
+
+
+def split_unit(tree, axis, form: str, grad_placements=None):
+    """The unit ``tree`` (a dict, or the ``lm_head`` leaf) in ``form``:
+    its form leaves as this rank's ``model`` shards (``model_local``),
+    every other DTensor leaf gathered whole. Takes DTensors (a meshed
+    step's) or whole plain tensors, which it chunks as the placements
+    would (a shard-by-shard run: ``parallel.model_axis.run_shards``)."""
+    dims = FORMS[form]
+    if not isinstance(tree, dict):
+        return _local_shard(tree, dims["lm_head"], axis)
+    return {k: _local_shard(v, dims[k], axis) if k in dims
+            else gathered(v, grad_placements) if is_dtensor(v) else v
+            for k, v in tree.items()}
+
+
+def attention_form(p) -> Optional[str]:
+    """The form of an attention unit as the split handed it over:
+    ``heads``, ``head_dim``, or None (whole)."""
+    if model_dim(p["wq"]) is None:
+        return None
+    return "heads" if model_dim(p["wk"]) is not None else "head_dim"
+
+
+def row_parallel(partial: torch.Tensor, dtype=_BF16) -> torch.Tensor:
+    """A row-parallel product's output: one all-reduce (sum) over
+    ``model`` of this rank's f32 partial, then one rounding to
+    ``dtype``."""
+    return model_axis().all_reduce(partial).to(dtype)
+
+
+def vocab_offset(n_local: int) -> int:
+    """The first id of this rank's vocabulary shard of ``n_local`` ids."""
+    return model_axis().rank * n_local
+
+
+def sharded_argmax(local: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax`` over the last dim of the logits whose columns are
+    split over ``model`` (``local``: this rank's), as int32: this rank's
+    (max, first index), then one all-gather of the (rows, tp) pairs; the
+    first rank holding the largest value gives the lowest global index
+    among equal maxima, as ``torch.argmax`` returns. Indices travel as
+    f32, exact below 2**24."""
+    idx = torch.argmax(local, dim=-1)
+    val = local.gather(-1, idx[..., None]).to(_F32)
+    glob = (idx[..., None] + vocab_offset(local.shape[-1])).to(_F32)
+    pairs = model_axis().all_gather(torch.stack([val, glob], -1), dim=-2)
+    best = torch.argmax(pairs[..., 0], dim=-1, keepdim=True)
+    return pairs[..., 1].gather(-1, best)[..., 0].to(torch.int32)
 
 
 # ----------------------------------------------------------------------------
@@ -243,12 +488,15 @@ class MeshRows:
     ``split``: the data mesh dims (``data_axes``) divide the batch, and
     a rank runs its block of it, pod-major as DTensor shards dim 0 over
     several mesh dims; else (the divisibility fallback, which leaves the
-    cache's batch dim whole too) every rank runs every row."""
+    cache's batch dim whole too) every rank runs every row. ``model``:
+    the mesh dim of the ``model`` axis (None without one), whose shard of
+    a cache leaf a split attention keeps (``keep_model``)."""
 
     def __init__(self, mesh, data_axes: tuple, n: int):
         self.mesh, self.n = mesh, n
         names = mesh.mesh_dim_names
         self.data_dims = tuple(names.index(a) for a in data_axes)
+        self.model = names.index("model") if "model" in names else None
         n_dp = math.prod(mesh.size(m) for m in self.data_dims)
         self.split = n_dp > 1 and n % n_dp == 0
         idx = 0
@@ -284,40 +532,67 @@ class MeshRows:
                                   stride=_contiguous_stride(shape)
                                   ).full_tensor()
 
-    def block(self, t: torch.Tensor, placements) -> torch.Tensor:
+    def _kept(self, keep_model: bool) -> tuple:
+        return (self.model,) if keep_model and self.model is not None \
+            else ()
+
+    def block(self, t: torch.Tensor, placements,
+              keep_model: bool = False) -> torch.Tensor:
         """The local shard, by ``placements`` (one layer's), of ``t``:
-        this rank's rows at full width. A leaf whose rows the placements
-        leave whole (the MoE routing counts) takes every rank's rows
+        this rank's rows at full width (at its ``model`` shard already
+        with ``keep_model``). A leaf whose rows the placements leave
+        whole (the MoE routing counts) takes every rank's rows
         (``all_rows``). A view of ``t`` where that gathers nothing."""
         own = self.own_rows(placements)
         if self.split and not own:
             t = self.all_rows(t)
         coords = self.mesh.get_coordinate()
+        kept = self._kept(keep_model)
         for m, p in enumerate(placements):
-            if p.is_shard() and not (own and m in self.data_dims):
+            if p.is_shard() and m not in kept \
+                    and not (own and m in self.data_dims):
                 t = t.chunk(self.mesh.size(m), dim=p.dim)[coords[m]]
         return t
 
+    def global_shape(self, t: torch.Tensor) -> tuple:
+        """The global leaf's shape of ``t``: this rank's rows, at full
+        width or at its ``model`` shard where ``model_dim`` says so."""
+        shape = [self.n] + list(t.shape[1:])
+        if model_dim(t) is not None:
+            shape[model_dim(t)] *= self.mesh.size(self.model)
+        return tuple(shape)
+
     def place(self, t: torch.Tensor, placements) -> torch.Tensor:
-        """``t`` (this rank's rows of a global leaf of ``n`` rows, at full
-        width) as the DTensor of ``placements``, built from this rank's
-        block (``block``): nothing is distributed from a whole tensor."""
+        """``t`` (``global_shape``'s: this rank's rows of a global leaf of
+        ``n`` rows, whole or at its ``model`` shard) as the DTensor of
+        ``placements``, built from this rank's block (``block``):
+        nothing is distributed from a whole tensor."""
         from torch.distributed.tensor import DTensor
-        shape = (self.n,) + tuple(t.shape[1:])
+        local = model_dim(t)
+        if local is not None:
+            p = placements[self.model]
+            if not (p.is_shard() and p.dim == local):
+                raise ValueError(f"a cache leaf split along dim {local} "
+                                 f"is placed {placements}")
+        shape = self.global_shape(t)
         return DTensor.from_local(
-            self.block(t, placements).contiguous(), self.mesh,
-            list(placements), run_check=False, shape=shape,
+            self.block(t, placements, local is not None).contiguous(),
+            self.mesh, list(placements), run_check=False, shape=shape,
             stride=_contiguous_stride(shape))
 
-    def gather(self, leaf: torch.Tensor, i: int) -> torch.Tensor:
+    def gather(self, leaf: torch.Tensor, i: int,
+               keep_model: bool = False) -> torch.Tensor:
         """Layer ``i`` of the stacked cache DTensor ``leaf``: this rank's
-        rows, gathered over every other sharded mesh dim, as a plain
-        tensor (a view of the local shard where nothing is to gather)."""
+        rows, gathered over every other sharded mesh dim (but ``model``
+        with ``keep_model``: a split attention reads its shard), as a
+        plain tensor (a view of the local shard where nothing is to
+        gather)."""
         from torch.distributed.tensor import DTensor, Replicate
         pl = _layer_placements(leaf)
         own = self.own_rows(pl)
-        keep = [p if own and m in self.data_dims else Replicate()
-                for m, p in enumerate(pl)]
+        kept = self._kept(keep_model)
+        keep = [p if (own and m in self.data_dims) or m in kept
+                else Replicate() for m, p in enumerate(pl)]
         local = leaf.to_local()[i]
         if keep != pl:
             shape = tuple(leaf.shape[1:])
@@ -328,7 +603,7 @@ class MeshRows:
         return local if own else self.take(local)
 
     def write(self, leaf: torch.Tensor, i: int, new: torch.Tensor,
-              at: Optional[torch.Tensor]) -> None:
+              at: Optional[torch.Tensor], keep_model: bool = False) -> None:
         """Write ``new`` (layer ``i`` of ``leaf`` as ``gather`` gives it,
         written by a block) into this rank's slice of layer ``i`` of
         ``leaf``'s local shard, in place: the positions ``at`` ((rows,
@@ -336,10 +611,11 @@ class MeshRows:
         pl = _layer_placements(leaf)
         dst = leaf.to_local()[i]
         if at is None:
-            dst.copy_(self.block(new, pl))
+            dst.copy_(self.block(new, pl, keep_model))
             return
         lanes = torch.arange(at.shape[0], device=at.device)[:, None]
-        dst.index_put_((lanes, at), self.block(new[lanes, at], pl))
+        dst.index_put_((lanes, at), self.block(new[lanes, at], pl,
+                                               keep_model))
 
 
 def _layer_placements(leaf: torch.Tensor) -> list:
@@ -353,11 +629,11 @@ def _layer_placements(leaf: torch.Tensor) -> list:
 
 def meshed_rows() -> Optional[MeshRows]:
     """The active meshed serving step's ``MeshRows`` (None outside one)."""
-    ctx = getattr(_GATHER, "ctx", None)
-    return None if ctx is None else ctx[2]
+    ctx = _active()
+    return None if ctx is None else ctx.rows
 
 
-def gather_cache_layer(pool, i: int):
+def gather_cache_layer(pool, i: int, keep_model: bool = False):
     """(tree, index): a decode block's cache of layer ``i`` of the stacked
     cache subtree ``pool``, as a pool and the layer's index in it, which
     the block reads and writes there. Outside a meshed decode step
@@ -366,23 +642,28 @@ def gather_cache_layer(pool, i: int):
     and 0: each leaf's layer ``i`` as a plain (1, rows, ...) tensor of
     this rank's rows, gathered over every other sharded mesh dim
     (``model`` on the KV heads, head_dim, heads, ssm heads or inner dim;
-    ``MeshRows.gather``), which ``write_cache_layer`` writes back."""
+    ``MeshRows.gather``), but ``model`` with ``keep_model`` (the block's
+    attention is split: it reads its shard), which ``write_cache_layer``
+    writes back."""
     rows = meshed_rows()
     if rows is None:
         return pool, i
-    return _map_leaves(lambda t: rows.gather(t, i)[None], pool), 0
+    return _map_leaves(lambda t: rows.gather(t, i, keep_model)[None],
+                       pool), 0
 
 
-def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1) -> None:
+def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1,
+                      keep_model: bool = False) -> None:
     """After a decode block wrote ``layer`` (``gather_cache_layer``'s
-    one-layer pool of ``pool``), under a meshed decode step: write what
-    it wrote into this rank's slice of the local shards of ``pool``'s
-    layer ``i``, the K/V planes' rows at positions ``pos`` + 0 .. q - 1
-    (``pos`` a scalar or one a row) and every other leaf whole (recurrent
-    state, routing counts). A leaf whose batch dim the mesh leaves whole
-    (the MoE routing counts) takes every rank's rows, gathered over the
-    data axes, so it holds the global batch's counts on every rank.
-    Nothing outside a meshed decode step: the block wrote the pool."""
+    one-layer pool of ``pool``, taken with the same ``keep_model``),
+    under a meshed decode step: write what it wrote into this rank's
+    slice of the local shards of ``pool``'s layer ``i``, the K/V planes'
+    rows at positions ``pos`` + 0 .. q - 1 (``pos`` a scalar or one a
+    row) and every other leaf whole (recurrent state, routing counts). A
+    leaf whose batch dim the mesh leaves whole (the MoE routing counts)
+    takes every rank's rows, gathered over the data axes, so it holds
+    the global batch's counts on every rank. Nothing outside a meshed
+    decode step: the block wrote the pool."""
     rows = meshed_rows()
     if rows is None:
         return
@@ -393,7 +674,7 @@ def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1) -> None:
             for k in dst:
                 walk(dst[k], new[k], inner)
         else:
-            rows.write(dst, i, new[0], at if planes else None)
+            rows.write(dst, i, new[0], at if planes else None, keep_model)
 
     at = None
     if pos is not None:
@@ -402,6 +683,12 @@ def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1) -> None:
             .expand(first.shape[1])
         at = posv[:, None] + torch.arange(q, device=first.device)[None, :]
     walk(pool, layer, False)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _leaves(tree):
@@ -453,16 +740,24 @@ def layer_params(params: dict, axes: dict, grad_placements=None) -> dict:
     leaf whose first axis is ``layers`` as ``LayerShards``, gathered a
     layer at a time by the stack loops, and every other DTensor leaf
     (embeddings, head, final norms, the Whisper frontend, the hybrid's
-    shared block) gathered whole once; plain leaves as they are."""
-    def one(t, ax):
-        if not is_dtensor(t):
-            return t
-        if ax[:1] == ("layers",):
-            return LayerShards(t)
-        return gathered(t, grad_placements)
-    return {k: layer_params(v, axes[k], grad_placements)
-            if isinstance(v, dict) else one(v, axes[k])
-            for k, v in params.items()}
+    shared block) gathered whole once, or, under a split, taken as its
+    unit's ``model`` shards (``unit_form``: the embedding, the untied
+    head, the shared block's attention and MLP); plain leaves as they
+    are."""
+    ctx = _active() or _Gather(None, None, None, None, True)
+
+    def stacked(ax) -> bool:
+        if isinstance(ax, dict):
+            return any(stacked(v) for v in ax.values())
+        return ax[:1] == ("layers",)
+
+    def walk(tree, ax, name):
+        if isinstance(tree, dict) and stacked(ax):
+            return {k: walk(v, ax[k], k) for k, v in tree.items()}
+        if is_dtensor(tree) and stacked(ax):
+            return LayerShards(tree)
+        return _gather_tree(tree, name, ctx, grad_placements)
+    return {k: walk(v, axes[k], k) for k, v in params.items()}
 
 
 def stack_layers(trees: list):
@@ -531,11 +826,14 @@ def _dequant_q4_bf16(t: Q4Tensor) -> torch.Tensor:
 # Matrix products (C1: the serving path takes quantized weights)
 # ----------------------------------------------------------------------------
 
-def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16,
+       out_dtype=None) -> torch.Tensor:
     """x @ w, contracting x's last dim with w's first. ``w`` is a
     Q8Tensor or Q4Tensor (dispatched ``q8_matmul`` / ``q4_matmul``), a
     2-D tensor (dispatched ``fp16_matmul``) or a 3-D (k, heads,
-    head_dim) tensor (``torch.matmul``)."""
+    head_dim) tensor (``torch.matmul``). ``out_dtype`` (a 2-D weight's
+    product; default ``compute_dtype``): the kernel's output dtype, f32
+    for a row-parallel product's partial."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     if isinstance(w, QTENSORS):
@@ -556,7 +854,7 @@ def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
                 and w.dtype in (torch.bfloat16, torch.float16)):
             w = w.to(compute_dtype)
         return dispatch("fp16_matmul", x.contiguous(), w.contiguous(),
-                        out_dtype=compute_dtype)
+                        out_dtype=out_dtype or compute_dtype)
     w = w.to(compute_dtype)
     if w.dim() == 3:   # (k, heads, head_dim)
         y = x.reshape(-1, k) @ w.reshape(k, -1)
@@ -564,10 +862,12 @@ def mm(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
     raise ValueError(f"unsupported weight rank {w.dim()}")
 
 
-def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16,
+           out_dtype=None) -> torch.Tensor:
     """(..., h, d) @ (h, d, n) -> (..., n) output projection. A Q4Tensor
     is packed along head_dim: (h, d // 2, n), and d % 32 == 0 keeps the
-    flattened (h * d) contraction's 32-blocks inside one head."""
+    flattened (h * d) contraction's 32-blocks inside one head.
+    ``out_dtype`` (float weights): as ``mm``'s."""
     if isinstance(w, QTENSORS):
         op = "q8_matmul" if isinstance(w, Q8Tensor) else "q4_matmul"
         h, dq, n = w.q.shape
@@ -579,7 +879,7 @@ def mm_out(x: torch.Tensor, w, compute_dtype=torch.bfloat16) -> torch.Tensor:
     xc = x.to(compute_dtype).reshape(*x.shape[:-2], h * d).contiguous()
     return dispatch("fp16_matmul", xc,
                     w.to(compute_dtype).reshape(h * d, n).contiguous(),
-                    out_dtype=compute_dtype)
+                    out_dtype=out_dtype or compute_dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -656,9 +956,19 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, device,
 def embed(p: dict, tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Token rows of the (padded-vocab, d) table, in ``compute_dtype``. A
-    Q4 table is widened to bf16, as the reference's ``embed`` does."""
+    Q4 table is widened to bf16, as the reference's ``embed`` does. A
+    table split over ``model`` (its rows) is vocab-parallel: an id
+    outside this rank's rows reads zeros, then one all-reduce, exact as
+    each element has one nonzero term."""
     tbl = p["table"]
-    if isinstance(tbl, Q4Tensor):
+    if model_dim(tbl) is not None:
+        n = tbl.shape[0]
+        idx = tokens - vocab_offset(n)
+        inside = ((idx >= 0) & (idx < n))[..., None]
+        x = take_rows(tbl, idx.clamp(0, n - 1), compute_dtype)
+        x = model_axis().all_reduce(torch.where(inside, x,
+                                                torch.zeros_like(x)))
+    elif isinstance(tbl, Q4Tensor):
         x = _q4_rows_bf16(tbl, tokens).to(compute_dtype)
     else:
         x = take_rows(tbl, tokens, compute_dtype)
@@ -695,7 +1005,12 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
     table (the draft's) is widened to bf16 and multiplied with
     bf16-rounded x as f32 operands: each product of two bf16 values is
     exact in f32, so this is the reference's bf16 x bf16 -> f32 einsum,
-    accumulated in f32 and never rounded to bf16."""
+    accumulated in f32 and never rounded to bf16. A head split over
+    ``model`` (the untied head's columns, or the tied table's rows)
+    computes this rank's vocabulary columns, the padding mask offset by
+    ``vocab_offset``; the logits come back as this rank's shard
+    (``model_dim``: the last)."""
+    split = model_dim(p["table"] if head is None else head) is not None
     if head is not None:
         y = mm(x, head, torch.float32)
     else:
@@ -707,6 +1022,10 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
     if softcap is not None:
         y = softcap * torch.tanh(y / softcap)
     vp = y.shape[-1]
+    if split:
+        off = vocab_offset(vp)
+        pad_mask = torch.arange(off, off + vp, device=y.device) >= vocab
+        return model_local(y - 1e9 * pad_mask.to(y.dtype), y.dim() - 1)
     pad_mask = torch.arange(vp, device=y.device) >= vocab
     return constrain(y - 1e9 * pad_mask.to(y.dtype), "batch", "q_seq",
                      "vocab")
@@ -759,11 +1078,16 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, device,
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Plain two-layer MLP (Whisper); a ``gate`` weight makes it gated."""
+    """Plain two-layer MLP (Whisper); a ``gate`` weight makes it gated.
+    Split over ``model`` (``ff``): ``up`` and ``gate`` column-parallel,
+    the activation on this rank's columns, ``down`` row-parallel (its
+    f32 partial, ``row_parallel``)."""
     up = constrain(mm(x, p["up"]), "batch", "q_seq", "ff")
     if "gate" in p:
         g = _act(act)(mm(x, p["gate"]))
         h = constrain(g, "batch", "q_seq", "ff") * up
     else:
         h = _act(act)(up)
+    if model_dim(p["down"]) is not None:
+        return row_parallel(mm(h, p["down"], out_dtype=_F32))
     return constrain(mm(h, p["down"]), "batch", "q_seq", "embed")

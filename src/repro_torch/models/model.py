@@ -191,7 +191,7 @@ class Model:
                              tier=tier)
 
     def forward(self, values, batch: dict, *, mode: str = "train",
-                cache=None, pos=None, pages=None):
+                cache=None, pos=None, pages=None, last_only: bool = False):
         """Returns (logits, new_cache). ``batch``: ``tokens``; for the
         enc-dec model also ``enc_frames`` or ``enc_states``
         (train/prefill; states skip the encoder) or ``enc_lens`` (decode:
@@ -203,24 +203,29 @@ class Model:
         the new K/V rows, routing counts and recurrent state into
         ``cache`` in place and returns it. ``pages`` (enc-dec decode):
         the per-lane page tables when ``cache`` is a paged pool
-        (``init_paged_cache``)."""
+        (``init_paged_cache``). ``last_only``: the head on the last
+        position alone (logits (B, 1, padded vocab)), where only the next
+        token's logits are read."""
         cfg = self.cfg
         if not cfg.enc_dec:
             prefix = batch.get("img_embed") if mode != "decode" else None
             return tf_mod.decoder_forward(values, cfg, batch["tokens"],
                                           mode=mode, cache=cache, pos=pos,
                                           prefix_embed=prefix,
-                                          n_valid=batch.get("n_valid"))
+                                          n_valid=batch.get("n_valid"),
+                                          last_only=last_only)
         if mode == "decode":
             return encdec_mod.decode_tokens(
                 values, cfg, batch["tokens"], mode="decode", cache=cache,
-                pos=pos, enc_lens=batch.get("enc_lens"), pages=pages)
+                pos=pos, enc_lens=batch.get("enc_lens"), pages=pages,
+                last_only=last_only)
         enc_out = batch.get("enc_states")
         if enc_out is None:
             enc_out = encdec_mod.encode(values, cfg, batch["enc_frames"],
                                         mode=mode)
         return encdec_mod.decode_tokens(values, cfg, batch["tokens"],
-                                        enc_out, mode=mode, cache=cache)
+                                        enc_out, mode=mode, cache=cache,
+                                        last_only=last_only)
 
     def prepare_serving(self, values):
         """The serving tree of ``values``: the tensors a forward derives

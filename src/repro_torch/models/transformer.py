@@ -42,7 +42,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (bf16_proj, embed, init_embedding,
+from repro_torch.models.layers import (attention_form, bf16_proj, embed,
+                                       init_embedding,
                                        gather_cache_layer, gather_layer,
                                        init_mlp, init_rmsnorm, keep_layer,
                                        layer_slice,
@@ -308,8 +309,9 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
     fetched at its start and written back after it
     (``gather_cache_layer``, ``write_cache_layer``: the pool itself at
     layer i, or under a meshed decode step this rank's rows of the
-    layer, gathered), and a prefill's new cache is kept a layer at a
-    time (``keep_layer``)."""
+    layer, gathered, but over ``model`` where the block's attention is
+    split), and a prefill's new cache is kept a layer at a time
+    (``keep_layer``)."""
     decode = mode == "decode"
 
     def layer(x, sp, i):
@@ -320,14 +322,17 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
         new = {}
         for j, (bt, kind) in enumerate(pattern):
             name = f"block{j}"
+            bp = shared if bt == "shared_attn" else sp[name]
+            # a split attention reads and writes its model shard of the
+            # cache (the K/V heads or head_dim this rank holds)
+            keep = bt in _KV_BLOCKS and attention_form(bp["attn"]) is not None
             at = None
             if decode:
-                bc, at = gather_cache_layer(cache[name], i)
+                bc, at = gather_cache_layer(cache[name], i, keep)
             else:
                 bc = None if sc is None else sc[name]
             if bt in _KV_BLOCKS:
-                x, nc = _attn_block(shared if bt == "shared_attn"
-                                    else sp[name], x, cfg, kind, mode=mode,
+                x, nc = _attn_block(bp, x, cfg, kind, mode=mode,
                                     cache=bc, pos=pos, layer_idx=at,
                                     n_valid=n_valid)
             else:
@@ -339,7 +344,7 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
             if decode:
                 write_cache_layer(cache[name], i, bc,
                                   pos if bt in _KV_BLOCKS else None,
-                                  x.shape[1])
+                                  x.shape[1], keep)
             del bc   # a meshed decode's gathered layer: freed before the next
             new[name] = nc
         return constrain(x, "batch", "q_seq", "embed"), new
@@ -360,7 +365,7 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
 def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                     mode: str = "train", cache=None, pos=None,
                     prefix_embed: Optional[torch.Tensor] = None,
-                    n_valid=None):
+                    n_valid=None, last_only: bool = False):
     """tokens: (B, S) (S = 1 for decode, or the verify's Q). Returns
     (logits (B, S, padded vocab) f32, cache): None for train, a fresh
     stacked cache for prefill (``cache`` names its length and dtype),
@@ -368,7 +373,8 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``prefix_embed`` (B, P, d): embeddings put before the tokens (the VLM
     patch stub; the logits cover them too). ``n_valid`` (serving
     prefill): the live prompt length of a padded bucket, whose padding
-    the MoE capacity cut must not count."""
+    the MoE capacity cut must not count. ``last_only``: the head on the
+    last position alone, logits (B, 1, padded vocab)."""
     x = embed(params["embed"], tokens)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
@@ -393,6 +399,8 @@ def decoder_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                                  **kw)
         if mode == "prefill":
             new_cache["tail"] = new_tail
+    if last_only:
+        x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_head(params["embed"], x, cfg.vocab,
                          softcap=cfg.final_softcap,

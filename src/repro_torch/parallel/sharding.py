@@ -180,6 +180,13 @@ def _divisible(spec: tuple, shape, mesh) -> tuple:
     return tuple(parts)
 
 
+def fit(sharding: Sharding, shape: tuple) -> Sharding:
+    """``sharding`` with the entries dropped that the mesh axes do not
+    divide on a tensor of ``shape`` (no tensor is made)."""
+    return Sharding(sharding.mesh, _divisible(sharding.spec, tuple(shape),
+                                              sharding.mesh))
+
+
 def enforce_divisibility(sharding_tree, shape_tree):
     """Drop sharding on dims the mesh axes do not divide (whisper's
     1500-frame cross cache, batch-1 decode, ...); ``shape_tree`` holds
@@ -187,8 +194,7 @@ def enforce_divisibility(sharding_tree, shape_tree):
     def fix(sh, leaf):
         if not isinstance(sh, Sharding) or not hasattr(leaf, "shape"):
             return sh
-        return Sharding(sh.mesh, _divisible(sh.spec, tuple(leaf.shape),
-                                            sh.mesh))
+        return fit(sh, leaf.shape)
     return _map(fix, sharding_tree, shape_tree)
 
 

@@ -33,25 +33,32 @@ DTensor reduce-scatters onto the parameter's placements, a layer at a
 time, and AdamW then updates every local shard in place. The loss is
 the token mean over the global batch (the ranks' NLL sums over their
 summed token counts), so the step equals the single-device one up to
-summation order. The model axis stores; it does not split the compute
-(the constrain sites redistribute DTensor activations only, and the
-gathered layers make none).
+summation order. In training the model axis stores; it does not split
+the compute (the constrain sites redistribute DTensor activations only,
+and the gathered layers make none).
 
 The meshed serving steps (``make_prefill_step`` / ``make_decode_step``
-with a ``mesh``) take bf16 DTensor weights, gathered a layer at a time
-as above, and keep the cache DTensors in the placements of
-``cache_shardings`` (batch over the data axes; KV heads, or head_dim
-where the KV heads do not divide ``model``, heads, ssm heads or the
-inner dim over ``model``) from prefill to the last decode step. Each
-rank runs the rows its cache shard holds (``layers.MeshRows``): the
-prefill keeps each layer's new cache as DTensors built from its rows,
-and a decode block gathers one layer's cache, its rows only, over the
-model axis, reads it and writes the new rows (or a state block's whole
-new state) into the local shards in place
-(``layers.gather_cache_layer`` / ``write_cache_layer``). Where the data
-axes do not divide the batch (``enforce_divisibility`` leaves it whole:
-long_500k's one lane), every rank runs every row, as its cache holds
-them. The logits come back whole on every rank.
+with a ``mesh``) take bf16 DTensor weights and keep the cache DTensors
+in the placements of ``cache_shardings`` (batch over the data axes; KV
+heads, or head_dim where the KV heads do not divide ``model``, heads,
+ssm heads or the inner dim over ``model``) from prefill to the last
+decode step. Each rank runs the rows its cache shard holds
+(``layers.MeshRows``). The layers every family shares run on this
+rank's ``model`` shard (Megatron-style tensor parallelism, the split the
+reference's pjit makes): the attention on its heads (``wo``
+row-parallel), the MLP on its columns (``down`` row-parallel), the
+embedding vocab-parallel and the head on its vocabulary columns
+(``layers.unit_form``, ``parallel.model_axis.MeshAxis``); every other
+layer (MoE experts, mamba, xLSTM, a layer whose heads do not divide
+``model``) is gathered a layer at a time, whole, as above. The prefill
+keeps each layer's new cache as DTensors built from its rows and shard,
+and a decode block reads its shard of one layer's cache where its
+attention is split (else its rows gathered over the model axis) and
+writes the new rows (or a state block's whole new state) into the local
+shards in place (``layers.gather_cache_layer`` / ``write_cache_layer``).
+Where the data axes do not divide the batch (``enforce_divisibility``
+leaves it whole: long_500k's one lane), every rank runs every row, as
+its cache holds them. The logits come back whole on every rank.
 
 ``make_compressed_train_step`` keeps the parameters replicated, takes
 each rank's gradients on its rows and averages them over the data axes
@@ -68,15 +75,18 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.dtensor import is_dtensor, local
 from repro_torch.kernels.api import grad_safe_context, use_context
-from repro_torch.models.layers import (MeshRows, gather_context,
-                                       layer_params)
+from repro_torch.models.layers import (KV_PLANE_KEYS, MeshRows,
+                                       gather_context, layer_params,
+                                       model_axis, model_dim,
+                                       sharded_argmax)
 from repro_torch.models.model import Model, input_specs
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import (axes_size, compressed_psum,
                                               dp_axes, init_error_state,
                                               mesh_sum)
+from repro_torch.parallel.model_axis import MeshAxis
 from repro_torch.parallel.sharding import (Sharding, enforce_divisibility,
-                                           logical_context, place,
+                                           fit, logical_context, place,
                                            spec_for, tree_shardings)
 from repro_torch.platforms import resolve_device
 
@@ -405,39 +415,116 @@ def _mesh_rows(mesh, n: int) -> MeshRows:
     return MeshRows(mesh, dp_axes(mesh), n)
 
 
+def _model_axis(mesh) -> Optional[MeshAxis]:
+    """The split's model axis of ``mesh`` (None without a ``model`` axis
+    of more than one rank: nothing is split)."""
+    names = mesh.mesh_dim_names
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return None
+    return MeshAxis(mesh)
+
+
 def _placed_rows(tree, rows: MeshRows, rules: dict, keys: list):
     """A prefill layer's new cache subtree, this rank's rows at full
-    width, as DTensors in the placements ``cache_shardings`` gives the
-    layer (``MeshRows.place``: built from this rank's block)."""
+    width (or, where a split attention made it, at its ``model`` shard:
+    ``layers.model_dim``), as DTensors in the placements
+    ``cache_shardings`` gives the layer (``MeshRows.place``: built from
+    this rank's block)."""
     if isinstance(tree, dict):
         return {k: _placed_rows(v, rows, rules, keys + [str(k)])
                 for k, v in tree.items()}
-    shape = (rows.n,) + tuple(tree.shape[1:])
-    sh = _cache_leaf_sharding(keys, shape, rows.mesh, rules)
+    sh = _cache_leaf_sharding(keys, rows.global_shape(tree), rows.mesh,
+                              rules)
     return rows.place(tree, sh.placements)
+
+
+class _Planes:
+    """A prefill template's KV plane: the shape and dtype by which a
+    prefill pads and casts a layer's new K/V (all that
+    ``attention._write_prefill_cache`` reads of it), indexed by layer as
+    the stacked leaf is. No storage."""
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+    def __getitem__(self, i) -> "_Planes":
+        return _Planes(self.shape[1:], self.dtype)
+
+
+def prefill_template(model: Model, batch: int, length: int, device) -> dict:
+    """The cache a prefill is handed to name its length and dtypes: each
+    KV plane a ``_Planes`` (the prefill makes new planes; zeros of the
+    old would take 2 x 36 x 134 MB at a qwen3-4b prefill_32k rank of two
+    rows), every other leaf (the MoE routing counts, a recurrent block's
+    state, which the prefill reads) zeros on ``device``. The tree's
+    shapes come from ``model.cache_specs`` made outside any tracing
+    mode, so a dry-run's trace holds no op on them."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        specs = model.cache_specs(batch, length)
+
+    def walk(t, planes):
+        if isinstance(t, dict):
+            inner = set(t) in KV_PLANE_KEYS
+            return {k: walk(v, inner) for k, v in t.items()}
+        if planes:
+            return _Planes(t.shape, t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+    return walk(specs, False)
+
+
+def _last(logits: torch.Tensor, sample: bool) -> torch.Tensor:
+    """The last position's logits (B, V) of ``logits`` (B, S, V), or its
+    greedy ids with ``sample``: where the head's columns are split over
+    ``model`` (``model_dim``), gathered over ``model`` once, or their ids
+    by ``sharded_argmax``."""
+    split = model_dim(logits) is not None
+    last = logits[:, -1]
+    if not split:
+        return torch.argmax(last, dim=-1).to(torch.int32) if sample else last
+    return sharded_argmax(last) if sample \
+        else model_axis().all_gather(last, dim=-1)
+
+
+def _quantized(tree) -> bool:
+    """Whether a cache tree holds quantized KV planes."""
+    if isinstance(tree, dict):
+        if set(tree) in KV_PLANE_KEYS:
+            return set(tree) != {"k", "v"}
+        return any(_quantized(v) for v in tree.values())
+    return False
 
 
 def make_prefill_step(model: Model, *, mesh=None,
                       rules: Optional[dict] = None) -> Callable:
     """prefill_step(params, batch) -> (last_logits, cache), the cache
-    ``prefill_cache_len(seq)`` long. With ``mesh``: ``params`` (and the
-    batch) may be DTensors; each rank runs its rows of the batch
+    ``prefill_cache_len(seq)`` long, the head run on the last position
+    alone (``Model.forward(last_only=True)``; nothing reads the rest),
+    the cache named by ``prefill_template``. With ``mesh``: ``params``
+    (and the batch) may be DTensors; each rank runs its rows of the batch
     (``serve_rows``: its block over the data axes, every row where they
     do not divide it) under ``logical_context`` and ``no_grad``,
-    gathering the parameters a layer at a time (``layers.layer_params``),
-    and keeps each layer's new cache as DTensors in the placements of
-    ``cache_shardings`` as the layer makes it, built from this rank's
-    rows (``MeshRows.place``); the last position's logits come back
-    whole on every rank (one all-gather over the data axes)."""
+    gathering the parameters a layer at a time (``layers.layer_params``)
+    but for the layers every family shares, which it runs on its
+    ``model`` shards (``layers.unit_form``: the attention heads, the
+    MLP's columns, the vocabulary), and keeps each layer's new cache as
+    DTensors in the placements of ``cache_shardings`` as the layer makes
+    it, built from this rank's rows and shard (``MeshRows.place``); the
+    last position's logits come back whole on every rank (one all-gather
+    over ``model``, one over the data axes)."""
 
-    def prefill(params, batch):
+    def run(params, batch):
         tokens = batch["tokens"]
         b, seq = tokens.shape
-        cache = model.init_cache(b, prefill_cache_len(seq),
-                                 device=tokens.device)
-        logits, cache = model.forward(params, batch, mode="prefill",
-                                      cache=cache)
-        return logits[:, -1], cache
+        cache = prefill_template(model, b, prefill_cache_len(seq),
+                                 tokens.device)
+        return model.forward(params, batch, mode="prefill", cache=cache,
+                             last_only=True)
+
+    def prefill(params, batch):
+        logits, cache = run(params, batch)
+        return _last(logits, False), cache
 
     if mesh is None:
         return prefill
@@ -448,9 +535,9 @@ def make_prefill_step(model: Model, *, mesh=None,
         batch = serve_rows(batch, rows, _first_device(params))
         with logical_context(mesh, rules), torch.no_grad(), \
                 gather_context(place_cache=lambda t: _placed_rows(
-                    t, rows, rules, [])):
-            logits, cache = prefill(layer_params(params, axes), batch)
-            return rows.all_rows(logits), cache
+                    t, rows, rules, []), model=_model_axis(mesh)):
+            logits, cache = run(layer_params(params, axes), batch)
+            return rows.all_rows(_last(logits, False)), cache
 
     return prefill_meshed
 
@@ -464,18 +551,21 @@ def make_decode_step(model: Model, *, mesh=None,
     as the meshed prefill returns it); each rank decodes the rows its
     cache shard holds (``serve_rows``; every row where the data axes do
     not divide the batch) under ``logical_context`` and ``no_grad``, the
-    parameters gathered a layer at a time and each block's cache too:
-    this rank's rows of the layer, gathered over the model axis, read,
-    and its new rows written into the local shards
-    (``layers.gather_cache_layer`` / ``write_cache_layer``). It returns
-    the same cache tree, written in place, and the logits (or ids)
-    whole on every rank (one all-gather over the data axes)."""
+    parameters gathered a layer at a time but for the split layers, as
+    the meshed prefill, and each block's cache too: this rank's rows of
+    the layer, gathered over the model axis where the block's attention
+    is whole (a split one reads its shard: its KV heads, or head_dim),
+    read, and its new rows written into the local shards
+    (``layers.gather_cache_layer`` / ``write_cache_layer``). A quantized
+    cache keeps the attention whole. It returns the same cache tree,
+    written in place, and the logits (or ids: ``layers.sharded_argmax``)
+    whole on every rank (one all-gather over ``model``, one over the
+    data axes)."""
 
     def decode(params, cache, tokens, pos):
         logits, new_cache = model.forward(
             params, {"tokens": tokens}, mode="decode", cache=cache, pos=pos)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return (nxt if sample else logits[:, -1]), new_cache
+        return _last(logits, sample), new_cache
 
     if mesh is None:
         return decode
@@ -486,7 +576,8 @@ def make_decode_step(model: Model, *, mesh=None,
         got = serve_rows({"tokens": tokens, "pos": pos}, rows,
                          _first_device(params))
         with logical_context(mesh, rules), torch.no_grad(), \
-                gather_context(rows=rows):
+                gather_context(rows=rows, model=_model_axis(mesh),
+                               split_attention=not _quantized(cache)):
             out, _ = decode(layer_params(params, axes), cache,
                             got["tokens"], got["pos"])
             return rows.all_rows(out), cache
@@ -527,8 +618,7 @@ def _cache_leaf_sharding(keys: list, shape: tuple, mesh,
     axes = _CACHE_AXES.get((fam, keys[-1]))
     full = ((None,) * len(shape) if axes is None
             else (None,) * (len(shape) - len(axes)) + axes)
-    return enforce_divisibility(Sharding(mesh, spec_for(full, rules)),
-                                torch.empty(shape, device="meta"))
+    return fit(Sharding(mesh, spec_for(full, rules)), shape)
 
 
 def _cache_walk(tree, mesh, rules: dict, keys: list):

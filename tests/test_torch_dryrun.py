@@ -18,6 +18,10 @@ process groups (nothing is allocated, nothing launched):
   batch; decode_32k peaks under those plus the gathered weights plus a
   few layers of its rows' cache planes, and prefill_32k at most 1/8 of
   the same step running the whole batch on every rank;
+* the serving cells of reduced qwen3-4b on a 4x4 fake group, where the
+  serving steps split the attention (head_dim form), the MLP and the
+  vocabulary over ``model``: a rank's traced FLOPs about a quarter of
+  the whole-layer gather's, and no op on a global cache leaf's shape;
 * the CLI prints one record with the reference's keys (a reduced config
   on the 16x16 production mesh), serve cells trace with their kernel
   calls as nodes, and ``profile_cell`` prints its two tables.
@@ -251,3 +255,33 @@ def test_profile_cell_prints_its_two_tables(reduced_configs, capsys):
     rows = [ln for ln in colls.splitlines() if " GB " in ln]
     assert rows and any("all-gather" in r and "models.layers:gathered" in r
                         for r in rows)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_meshed_serve_cell_splits_over_model(monkeypatch, shape):
+    """A serving cell of reduced qwen3-4b on a 4x4 fake group, where its
+    heads, MLP columns and vocabulary divide ``model`` (its 2 KV heads do
+    not: the attention takes the head_dim form): a rank's traced FLOPs
+    fall by about ``model``'s size against the whole-layer gather (the
+    K/V projections stay whole in the head_dim form, so a little less
+    than 4), and the trace holds no op on a global cache leaf's shape,
+    stacked or of one layer."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = reduced(get_config("qwen3-4b"))
+    model = build(cfg)
+    seq, gbatch, _ = SHAPES[shape]
+    with dryrun.fake_world(16):
+        mesh = make_mesh((4, 4), ("data", "model"), "cpu")
+        rules = rules_for(cfg, mesh, mode="serve")
+        split = dryrun._trace_serve(model, shape, mesh, rules, "cpu")
+        monkeypatch.setattr(t_step, "_model_axis", lambda mesh: None)
+        whole = dryrun._trace_serve(model, shape, mesh, rules, "cpu")
+    ratio = whole.flops / split.flops
+    assert 3.0 <= ratio <= 4.0, (whole.flops, split.flops)
+    length = t_step.prefill_cache_len(seq) if shape == "prefill_32k" \
+        else seq
+    cache = model.cache_specs(gbatch, length)
+    shapes = {str(tuple(t.shape[k:])) for _, t in tree_paths(cache)
+              for k in (0, 1)}
+    held = {s for _, s, _ in split.instructions} & shapes
+    assert not held, held

@@ -19,7 +19,16 @@ process (and one subprocess for the reference's meshes):
   ``grad_safe_context``, and on the card outside it raises;
 * ``make_production_mesh`` over a ``fake`` process group of 256 and 512
   ranks has the shape and axis names of the reference's (which the
-  subprocess builds over 512 forced host devices).
+  subprocess builds over 512 forced host devices);
+* the split over ``model`` of a meshed serving step, shard by shard (a
+  thread a shard, ``parallel.model_axis.run_shards``), at reduced
+  qwen3-4b and whisper-tiny.en over 2 (heads form) and 4 (head_dim
+  form) shards: the attention's prefill and decode step, the MLP, the
+  embedding and the head against the unsplit layers, the row-parallel
+  f32 sums within ``SPLIT_REL`` (1e-6) of the unsplit product before its
+  one rounding; ``sharded_argmax`` equals ``torch.argmax`` with maxima
+  tied across shard edges; and which units a split takes, from the
+  serve rules' placements of full-size configs on a ``fake`` group.
 """
 
 import json
@@ -320,3 +329,331 @@ def test_production_mesh_over_a_fake_group(reference_specs, multi_pod):
             _FakeMesh(**dict(zip(want_names, want_shape))))
     finally:
         dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------------
+# The split over ``model``, shard by shard (no ranks: one thread a shard)
+# ----------------------------------------------------------------------------
+
+#: a split layer's f32 sum against the unsplit layer's f32 output before
+#: its one rounding, over the largest magnitude
+SPLIT_REL = 1e-6
+SPLIT_ARCHS = ("qwen3-4b", "whisper-tiny-en")
+SPLIT_ROWS, SPLIT_SEQ, SPLIT_CACHE = 2, 8, 12
+
+
+def _split_setup(arch):
+    """(cfg, float params, a layer's attention and MLP units, bf16 x)."""
+    from repro_torch.models.layers import layer_slice
+    cfg = reduced(get_config(arch))
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu")
+    if cfg.enc_dec:
+        layer = layer_slice(params["dec_layers"], 0)
+        attn = layer["self_attn"]
+    else:
+        layer = layer_slice(params["segments"], 0)["block0"]
+        attn = layer["attn"]
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, SPLIT_SEQ, cfg.d_model)).astype(np.float32))
+    return cfg, params, attn, layer["mlp"], x.to(torch.bfloat16)
+
+
+def _form(cfg, tp: int) -> str:
+    """The attention form ``unit_form`` gives the serve rules at ``tp``."""
+    return "heads" if cfg.n_kv_heads % tp == 0 else "head_dim"
+
+
+def _shards(tp: int, fn) -> list:
+    """``fn(axis)`` for each of ``tp`` shards in its thread, under a
+    ``gather_context`` with the shard's model axis."""
+    from repro_torch.models.layers import gather_context
+    from repro_torch.parallel.model_axis import run_shards
+
+    def one(axis):
+        with torch.no_grad(), gather_context(model=axis):
+            return fn(axis)
+    return run_shards(tp, one)
+
+
+def _near(got, want, what, rel=SPLIT_REL):
+    gap = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    assert gap <= rel * top, (what, gap, top)
+
+
+@pytest.fixture
+def unsplit_wo(monkeypatch):
+    """The unsplit attention's output projection, recording its f32
+    product before the one rounding (the same bits once rounded)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import mm_out
+    seen = []
+
+    def project(p, out):
+        y = mm_out(out, p["wo"], out_dtype=torch.float32)
+        seen.append(y)
+        return y.to(torch.bfloat16)
+    monkeypatch.setattr(A, "_project_out", project)
+    return seen
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_attention_prefill_sums_to_the_unsplit(arch, tp, unsplit_wo,
+                                                      monkeypatch):
+    """The prefill (causal, rope where the decoder-only family has it) on
+    each shard's heads: the shards' f32 ``wo`` partials summed equal the
+    unsplit product before its rounding, and each shard's new cache is
+    its slice of the unsplit one (its KV heads, or its head_dim slice)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import model_dim, split_unit
+    cfg, _, attn, _, x = _split_setup(arch)
+    rope = not cfg.enc_dec
+    want, want_c = A.attention(attn, x, cfg, mode="prefill", use_rope=rope)
+    want_f32 = unsplit_wo[-1]
+    monkeypatch.undo()
+    form = _form(cfg, tp)
+
+    def one(axis):
+        p = split_unit(attn, axis, form)
+        y, c = A.attention(p, x, cfg, mode="prefill", use_rope=rope)
+        return y, c, axis.reduced[-1]
+    outs = _shards(tp, one)
+    split = 2 if form == "heads" else 3
+    for r, (y, c, summed) in enumerate(outs):
+        _near(summed, want_f32, f"shard {r} sum")
+        _near(y, want, f"shard {r} output", rel=2 ** -7)
+        for key in ("k", "v"):
+            assert model_dim(c[key]) == split
+            _near(c[key], want_c[key].chunk(tp, split)[r], f"cache {key}")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_attention_decode_sums_to_the_unsplit(arch, tp, unsplit_wo,
+                                                     monkeypatch):
+    """One decode step of two queries a lane over a 12-position cache
+    split as the serve rules split it: by KV heads (each shard reads its
+    heads), or by head_dim (the query of every head gathered, the scores
+    summed over the shards in f32, P.V on the slice, an all-to-all back
+    to the heads). The f32 ``wo`` sums equal the unsplit product before
+    its rounding, and the new rows land in each shard's slice."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import split_unit
+    cfg, _, attn, _, x = _split_setup(arch)
+    rope = not cfg.enc_dec
+    rng = np.random.default_rng(12)
+    shape = (1, SPLIT_ROWS, SPLIT_CACHE, cfg.n_kv_heads, cfg.head_dim)
+    pool = {k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16) for k in ("k", "v")}
+    pos = torch.tensor([5, 9])
+    xq = x[:, :2]
+    whole = {k: v.clone() for k, v in pool.items()}
+    want, _ = A.attention(attn, xq, cfg, mode="decode", cache=whole,
+                          pos=pos, layer_idx=0, use_rope=rope)
+    want_f32 = unsplit_wo[-1]
+    monkeypatch.undo()
+    form = _form(cfg, tp)
+    split = 3 if form == "heads" else 4
+
+    def one(axis):
+        p = split_unit(attn, axis, form)
+        mine = {k: v.chunk(tp, split)[axis.rank].clone()
+                for k, v in pool.items()}
+        y, _ = A.attention(p, xq, cfg, mode="decode", cache=mine, pos=pos,
+                           layer_idx=0, use_rope=rope)
+        return y, mine, axis.reduced[-1]
+    for r, (y, mine, summed) in enumerate(_shards(tp, one)):
+        _near(summed, want_f32, f"shard {r} sum")
+        _near(y, want, f"shard {r} output", rel=2 ** -7)
+        for key in ("k", "v"):
+            _near(mine[key], whole[key].chunk(tp, split)[r], f"cache {key}")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_mlp_sums_to_the_unsplit(arch, tp):
+    """``up`` (and ``gate``) column-parallel, the activation on the
+    shard's columns, ``down`` row-parallel: the f32 partials summed equal
+    the unsplit ``down`` product before its rounding."""
+    from repro_torch.models.layers import _act, mlp, mm, split_unit
+    cfg, _, _, unit, x = _split_setup(arch)
+    up = mm(x, unit["up"])
+    h = _act(cfg.act)(mm(x, unit["gate"])) * up if "gate" in unit \
+        else _act(cfg.act)(up)
+    want_f32 = mm(h, unit["down"], out_dtype=torch.float32)
+    assert torch.equal(want_f32.to(torch.bfloat16), mlp(unit, x, cfg.act))
+
+    def one(axis):
+        y = mlp(split_unit(unit, axis, "ff"), x, cfg.act)
+        return y, axis.reduced[-1]
+    for r, (y, summed) in enumerate(_shards(tp, one)):
+        _near(summed, want_f32, f"shard {r} sum")
+        _near(y, want_f32, f"shard {r} output", rel=2 ** -7)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_embedding_and_head_equal_the_unsplit(arch, tp):
+    """The vocab-parallel embedding equals the unsplit one bit for bit
+    (one nonzero term an element); the head's vocabulary columns, shard
+    by shard in rank order, equal the unsplit logits (the padding ids'
+    mask offset by ``vocab_offset``), and ``sharded_argmax`` their
+    argmax."""
+    from repro_torch.models.layers import (embed, logits_head, model_dim,
+                                           sharded_argmax, split_unit)
+    cfg, params, _, _, x = _split_setup(arch)
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        SPLIT_ROWS, SPLIT_SEQ)).astype(np.int32))
+    head = params.get("lm_head")
+    want_x = embed(params["embed"], tokens)
+    want = logits_head(params["embed"], x, cfg.vocab,
+                       softcap=cfg.final_softcap, head=head)
+
+    def one(axis):
+        tbl = split_unit(params["embed"], axis, "vocab")
+        h = None if head is None else split_unit(head, axis, "vocab_cols")
+        y = logits_head(tbl, x, cfg.vocab, softcap=cfg.final_softcap,
+                        head=h)
+        assert model_dim(y) == 2
+        return embed(tbl, tokens), y, sharded_argmax(y[:, -1])
+    outs = _shards(tp, one)
+    for got_x, _, ids in outs:
+        assert torch.equal(got_x, want_x)
+        assert torch.equal(ids, torch.argmax(want[:, -1], -1).to(
+            torch.int32))
+    _near(torch.cat([y for _, y, _ in outs], -1), want, "logits")
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_sharded_argmax_takes_the_first_of_tied_maxima(tp):
+    """Maxima planted on both sides of shard edges, and a row whose
+    every value ties: the lowest global index wins, as ``torch.argmax``
+    returns it."""
+    from repro_torch.models.layers import sharded_argmax
+    rng = np.random.default_rng(14)
+    n = 64
+    logits = torch.from_numpy(rng.standard_normal((6, n)).astype(
+        np.float32))
+    w = n // tp
+    logits[0, [w - 1, w]] = 9.0          # across the first edge
+    logits[1, [w, 2 * w - 1]] = 9.0      # within one shard
+    logits[2, [n - 1, w - 1]] = 9.0      # the first and last shards
+    logits[3] = 1.0                      # every value ties
+    logits[4, [n - w, n - 1]] = 9.0      # the last shard alone
+    want = torch.argmax(logits, -1).to(torch.int32)
+    outs = _shards(tp, lambda axis: sharded_argmax(
+        logits.chunk(tp, -1)[axis.rank]))
+    for got in outs:
+        assert torch.equal(got, want), (got, want)
+
+
+#: a whole model's logits split shard by shard against the unsplit ones,
+#: over the largest: test_torch_distributed.py's SPLIT_TOL, with its
+#: argument (a row-parallel sum that lies at a bf16 rounding boundary
+#: rounds the other way, and later layers carry it)
+STEPS_REL = 1e-2
+TIE = 0.25
+
+
+@pytest.mark.parametrize("tp,form", [(2, "heads"), (4, "head_dim")])
+def test_whole_steps_run_shard_by_shard(tp, form):
+    """Reduced qwen3-4b's unmeshed prefill and 2 decode steps on whole
+    bf16 weights, shard by shard (``run_shards`` with ``forms``: each
+    unit split in the form named, as a 1 x ``tp`` mesh splits it), fed
+    the unsplit run's greedy ids: every unit split in its form, each
+    step's logits (gathered over the shards) within ``STEPS_REL`` of the
+    unsplit ones' largest, the greedy ids equal but at near-ties."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.model_axis import run_shards
+    cfg = reduced(get_config("qwen3-4b"))
+    model = build(cfg)
+    params = model.init_values(torch.Generator().manual_seed(3), "cpu",
+                               dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SPLIT_ROWS, SPLIT_SEQ)).astype(np.int32))}
+    forms = {"attention": form, "mlp": "ff", "embed": "vocab",
+             "head": "vocab_cols"}
+
+    def steps(p, ids=None, axis=None):
+        decode = t_step.make_decode_step(model)
+        last, cache = t_step.make_prefill_step(model)(p, batch)
+        out, fed = [last], []
+        for t in range(2):
+            nxt = (torch.argmax(last[:, :cfg.vocab], -1).to(torch.int32)
+                   [:, None] if ids is None else ids[t])
+            fed.append(nxt)
+            last, cache = decode(p, cache, nxt, SPLIT_SEQ + t)
+            out.append(last)
+        if axis is not None:
+            out = [axis.all_gather(x, dim=-1) for x in out]
+        return out, fed
+
+    with torch.no_grad():
+        want, ids = steps(params)
+
+    def one(axis):
+        with torch.no_grad(), L.gather_context(model=axis):
+            return steps(L.layer_params(params, model.param_axes()), ids,
+                         axis)[0]
+    L.reset_split_counts()
+    got = run_shards(tp, one, forms)[0]
+    assert set(L.split_counts()) == set(forms.items())
+    for t, (g, w) in enumerate(zip(got, want)):
+        g, w = g[:, :cfg.vocab].float(), w[:, :cfg.vocab].float()
+        _near(g, w, f"step {t} logits", STEPS_REL)
+        for r in torch.nonzero(g.argmax(-1) != w.argmax(-1)).flatten():
+            gap = float(w[r].max() - w[r, g[r].argmax()])
+            assert gap < TIE, (t, int(r), gap)
+
+
+def test_unit_forms_follow_the_placements():
+    """Which units a split takes, from the DTensor placements of the
+    serve rules on a ``fake`` group (full-size configs on fake tensors):
+    qwen3-4b on 16 ranks of ``model`` takes the head_dim form (its 8 KV
+    heads do not divide 16), its MLP, embedding and head split; whisper-
+    tiny.en on 4 keeps its attention and MLP whole (6 heads on 4: the
+    serve rules shard d_model, the reference's ``serve_row_tp``), and
+    mixtral-8x7b keeps its experts whole; a quantized cache keeps the
+    attention whole. ``split_counts`` names each fallback."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import fake_tensors, fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.model_axis import ModelAxis
+    from repro_torch.parallel.sharding import (enforce_divisibility,
+                                               place_tree, tree_shardings)
+
+    def counts(arch, tp, **kw):
+        model = build(get_config(arch))
+        fm = FakeTensorMode()
+        with fake_world(tp):
+            mesh = make_mesh((1, tp), ("data", "model"), "cpu")
+            rules = rules_for(model.cfg, mesh, mode="serve")
+            params = place_tree(
+                fake_tensors(model.param_shapes(torch.bfloat16), fm, "cpu"),
+                enforce_divisibility(tree_shardings(model.param_axes(), mesh,
+                                                    rules),
+                                     model.param_shapes()))
+            L.reset_split_counts()
+            with fm, L.gather_context(model=ModelAxis(tp, 0), **kw):
+                tree = L.layer_params(params, model.param_axes())
+                stack = "dec_layers" if model.cfg.enc_dec else "segments"
+                L.gather_layer(L.layer_slice(tree[stack], 0))
+            return dict(L.split_counts())
+
+    assert counts("qwen3-4b", 16) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("attention", "head_dim"): 1, ("mlp", "ff"): 1}
+    assert counts("qwen3-4b", 16, split_attention=False) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("attention", "whole"): 1, ("mlp", "ff"): 1}
+    assert counts("whisper-tiny-en", 4) == {
+        ("embed", "vocab"): 1, ("attention", "whole"): 2,
+        ("mlp", "whole"): 1}
+    assert counts("mixtral-8x7b", 16) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("attention", "head_dim"): 1}
