@@ -212,14 +212,17 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    within one layer's cache and weights plus ``R_PEAK_SLACK`` of the
    unmeshed step's, and ``fp16_matmul`` / ``flash_attention`` launched
    as often as unmeshed (a one-rank mesh splits nothing). r2:
-   ``launch.dryrun`` of qwen3-4b's decode_32k and prefill_32k cells on
-   fake ``cuda`` over the 16x16 fake group, where the serving steps split
-   the heads (head_dim form: 8 KV heads on 16), the MLP's columns and the
-   vocabulary over ``model``; two processes started before r1: both end
-   ``ok``, a rank's peak under ``R2_PEAK_MAX`` and the card's memory, the
-   traced FLOPs under ``R2_FLOPS_MAX`` times the model FLOPs; it prints
-   the peaks, the FLOPs and the roofline's compute, memory and
-   collective terms. r3: one qwen3-4b layer at full width split over 16
+   ``launch.dryrun`` of the ``R2_CELLS`` on fake ``cuda`` over the 16x16
+   fake group (qwen3-4b decode_32k and prefill_32k, qwen3-moe-30b-a3b
+   prefill_32k and decode_32k, mixtral-8x7b and zamba2-7b decode_32k),
+   where the serving steps split the heads, the MLP's columns, the
+   vocabulary, the MoE experts (``experts`` or ``expert_ff`` form) and
+   the mamba blocks (``inner`` form) over ``model``; six processes
+   started before r1: each ends ``ok``, a rank's peak under its bound and
+   the card's memory, the traced FLOPs under its bound times the model
+   FLOPs; it prints the peaks, the FLOPs, the roofline's compute, memory
+   and collective terms, and the figures before the MoE and mamba split.
+   r3: one qwen3-4b layer at full width split over 16
    ranks of ``model`` (head_dim form) and over 8 (heads form), shard by
    shard in one process (a thread a shard, the collectives met in
    memory) through the kernels: the prefill of 4 lanes x 256 ids, a
@@ -229,7 +232,18 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    qwen3-4b (36 layers) split over 4 ranks of ``model`` shard by shard
    on the card, as a four-card 1x4 mesh splits it, against the unmeshed
    steps (``run_r4``: logits within ``LOGIT_REL_TOL_DECODER``, ids equal
-   but at near-ties); it prints each step's gap.
+   but at near-ties); then qwen3-moe-30b-a3b at 8 layers (32 experts a
+   shard, ``LOGIT_REL_TOL_MOE``) and zamba2-7b at ``R4_HYBRID_LAYERS``
+   (28 SSM heads a shard, ``LOGIT_REL_TOL_HYBRID``) the same way, every
+   MoE and mamba unit split; it prints each step's gap. r5: one MoE layer
+   or mamba block at full width shard by shard (``R5_SPLITS``:
+   qwen3-moe-30b-a3b's experts over 16 and 4, mixtral-8x7b's FFN columns
+   over 16, a zamba2-7b mamba block over 16), a prefill of 4 lanes x 256
+   positions and a decode step (``run_r5``: the all-reduced sums within
+   ``R3_REL`` of the exact sum of the shards' inputs, outputs within
+   ``R3_OUT_REL``, the mamba state within ``BF16_REL``, the routing
+   counts equal, the unsplit gather-sum combine within ``F32_REL`` of
+   its f64 sum).
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -3267,12 +3281,29 @@ def run_phase_q() -> None:
 R_LANES, R_STEPS = 4, 8
 R_PROMPT = {"qwen3-4b": 256, ARCH: 16}
 R_PEAK_SLACK = 64 * 2 ** 20
-#: r2: the serving cells of R2_ARCH on the 16x16 fake group, and what a
-#: rank's peak must stay under
-R2_ARCH = "qwen3-4b"
-R2_PEAK_MAX = {"decode_32k": 5e9, "prefill_32k": 16e9}
-#: r2: a cell's traced FLOPs (scaled to the mesh) over the model FLOPs
-R2_FLOPS_MAX = 8.0
+#: r2: the serving cells traced on the 16x16 fake group, (arch, shape) ->
+#: (the bound on a rank's peak in bytes, the bound on its traced FLOPs,
+#: scaled to the mesh, over the model FLOPs). qwen3-moe-30b-a3b's decode
+#: bound of 16 is its capacity at S = 1, which runs every expert: 128 / 8
+#: times the active experts' FLOPs, as the reference does
+R2_CELLS = {
+    ("qwen3-4b", "decode_32k"): (5e9, 8.0),
+    ("qwen3-4b", "prefill_32k"): (16e9, 8.0),
+    ("qwen3-moe-30b-a3b", "prefill_32k"): (16e9, 8.0),
+    ("qwen3-moe-30b-a3b", "decode_32k"): (6.5e9, 16.0),
+    ("mixtral-8x7b", "decode_32k"): (9.5e9, 8.0),
+    ("zamba2-7b", "decode_32k"): (5.1e9, 5.0),
+}
+#: r2: a rank's peak in bytes and traced / model FLOPs of the cells whose
+#: MoE experts or mamba blocks were gathered whole over ``model`` before
+#: the split took them (their one-hot combine too), traced on fake ``cpu``
+#: tensors; printed beside this run's
+R2_BEFORE = {
+    ("qwen3-moe-30b-a3b", "prefill_32k"): (124958907408, 168.8),
+    ("qwen3-moe-30b-a3b", "decode_32k"): (6802180484, 142.8),
+    ("mixtral-8x7b", "decode_32k"): (11763720356, 57.1),
+    ("zamba2-7b", "decode_32k"): (5074458380, 15.9),
+}
 R2_TIMEOUT = 300
 #: r3: one qwen3-4b layer at full width split over ``model`` shard by
 #: shard on the card, (ranks of ``model``, the attention's form): 16 ranks
@@ -3299,13 +3330,40 @@ R3_OUT_REL = 2 ** -7
 R4_TP = 4
 R4_FORMS = {"attention": "heads", "mlp": "ff", "embed": "vocab",
             "head": "vocab_cols"}
+#: r4: the MoE and hybrid models split over R4_TP shard by shard the same
+#: way, (arch, layers, the forms of a 1x4 mesh, the logits bound): qwen3-
+#: moe-30b-a3b at phase j's 8 layers (32 experts a shard) and zamba2-7b
+#: cut to R4_HYBRID_LAYERS (whole segments of 5 mamba blocks and the
+#: shared block; 28 SSM heads a shard), at the bounds phases j and l hold
+#: kernel-against-plain logits to
+R4_HYBRID_LAYERS = 24
+R4_MORE = (
+    ("qwen3-moe-30b-a3b", 8, {"attention": "heads", "moe": "experts",
+                              "embed": "vocab", "head": "vocab_cols"},
+     LOGIT_REL_TOL_MOE),
+    ("zamba2-7b", R4_HYBRID_LAYERS, {"attention": "heads", "mlp": "ff",
+                                     "mamba": "inner", "embed": "vocab",
+                                     "head": "vocab_cols"},
+     LOGIT_REL_TOL_HYBRID))
+#: r5: one MoE layer or mamba block at full width split over ``model``
+#: shard by shard on the card, (arch, unit, ranks of ``model``, form):
+#: qwen3-moe-30b-a3b's 128 experts over 16 and 4 (8 and 32 a shard),
+#: mixtral-8x7b's 8 experts over 16 (896 FFN columns a shard), a
+#: zamba2-7b mamba block over 16 (7 SSM heads of 64 a shard); 4 lanes, a
+#: prefill of R3_PROMPT positions, then a decode step on what it left
+R5_SPLITS = (("qwen3-moe-30b-a3b", "moe", 16, "experts"),
+             ("qwen3-moe-30b-a3b", "moe", 4, "experts"),
+             ("mixtral-8x7b", "moe", 16, "expert_ff"),
+             ("zamba2-7b", "mamba", 16, "inner"))
 
 
-def _r_setup(arch: str):
+def _r_setup(arch: str, layers=None):
     """(model, params, prefill batch) of r1's run of ``arch``: qwen3-4b
     at full width and depth with bf16 weights drawn on the card
     (``breakdown.decoder_setup``), or whisper-tiny.en with its f32
-    weights and 1500 frames a lane; prompts of ``R_PROMPT[arch]`` ids."""
+    weights and 1500 frames a lane; prompts of ``R_PROMPT[arch]`` ids.
+    Another decoder (r4's) is cut to ``layers`` (``decoder_setup``'s)
+    and takes prompts of ``R_PROMPT["qwen3-4b"]`` ids."""
     import numpy as np
     import torch
 
@@ -3319,10 +3377,11 @@ def _r_setup(arch: str):
         params = model.init_values(torch.Generator().manual_seed(SEED),
                                    device="cuda")
     else:
-        model, params, _ = decoder_setup(arch, SEED)
+        model, params, _ = decoder_setup(arch, SEED, layers)
     cfg = model.cfg
     batch = {"tokens": torch.from_numpy(rng.integers(
-        3, cfg.vocab, (R_LANES, R_PROMPT[arch])).astype(np.int32)).cuda()}
+        3, cfg.vocab, (R_LANES, R_PROMPT.get(arch, R_PROMPT["qwen3-4b"])))
+        .astype(np.int32)).cuda()}
     if cfg.enc_dec:
         batch["enc_frames"] = torch.from_numpy(
             (rng.standard_normal((R_LANES, 1500, cfg.d_model)) * 0.02)
@@ -3468,43 +3527,52 @@ def run_r1(phase: str, arch: str, mesh) -> dict:
 
 
 def start_r2() -> dict:
-    """Start phase r2: ``R2_ARCH``'s decode_32k and prefill_32k cells on
-    the 16x16 fake group, each traced on fake ``cuda`` tensors in a
-    process of its own, the two at once."""
+    """Start phase r2: the ``R2_CELLS`` on the 16x16 fake group, each
+    traced on fake ``cuda`` tensors in a process of its own, all at
+    once."""
     return _start_dryruns({
-        shape: ["-m", "repro_torch.launch.dryrun", "--arch", R2_ARCH,
-                "--shape", shape, "--device", "cuda"]
-        for shape in R2_PEAK_MAX})
+        f"{arch} {shape}": ["-m", "repro_torch.launch.dryrun", "--arch",
+                            arch, "--shape", shape, "--device", "cuda"]
+        for arch, shape in R2_CELLS})
 
 
 def finish_r2(phase: str, procs: dict, t_start: float) -> None:
     """Read ``start_r2``'s records (``R2_TIMEOUT`` from ``t_start``) and
-    gate them: each ends ``ok``, a rank's peak under ``R2_PEAK_MAX`` and
-    under the card's memory, its traced FLOPs under ``R2_FLOPS_MAX``
-    times the model FLOPs; it prints the roofline's three terms."""
+    gate them: each ends ``ok``, a rank's peak under its ``R2_CELLS``
+    bound and under the card's memory, its traced FLOPs under its bound
+    times the model FLOPs; it prints the roofline's three terms and,
+    where ``R2_BEFORE`` has them, the figures before the MoE and mamba
+    split."""
     import torch
     recs = _finish_dryruns(phase, procs, t_start + R2_TIMEOUT)
     card = torch.cuda.get_device_properties(0).total_memory
-    for shape, rec in recs.items():
+    bad = []
+    for (arch, shape), (peak_max, flops_max) in R2_CELLS.items():
+        rec = recs[f"{arch} {shape}"]
         mem = rec["memory"]
         peak = mem["peak_bytes"]
         ratio = rec["hlo_flops"] / rec["model_flops"]
-        _log(f"[{phase}] {shape}: status {rec['status']}, a rank's peak "
-             f"{peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
+        before = R2_BEFORE.get((arch, shape))
+        was = "" if before is None else (
+            f"; before the split {before[0]} B, {before[1]}x (fake cpu)")
+        _log(f"[{phase}] {arch} {shape}: status {rec['status']}, a rank's "
+             f"peak {peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
              f"{mem['argument_bytes']} B), traced FLOPs {rec['hlo_flops']}"
              f" (model FLOPs {rec['model_flops']}, {ratio:.3f}x), "
              f"compute term {rec['compute_s'] * 1e3:.4f} ms, memory term "
              f"{rec['memory_s'] * 1e3:.4f} ms, collective term "
              f"{rec['collective_s'] * 1e3:.4f} ms ({rec['collectives']}), "
-             f"under {R2_PEAK_MAX[shape] / 1e9:.0f} GB: "
-             f"{peak < R2_PEAK_MAX[shape]}, fits the card's {card} B: "
-             f"{peak < card}; traced in {rec['compile_s']:.1f} s")
-        if rec["status"] != "ok" or not peak < R2_PEAK_MAX[shape] \
-                or not peak < card:
-            raise AssertionError(f"[{phase}] {shape}: {rec}")
-        if not ratio < R2_FLOPS_MAX:
-            raise AssertionError(f"[{phase}] {shape}: traced FLOPs "
-                                 f"{ratio:.3f}x the model FLOPs")
+             f"under {peak_max / 1e9:.1f} GB: {peak < peak_max}, under "
+             f"{flops_max}x: {ratio < flops_max}, fits the card's {card} B:"
+             f" {peak < card}; traced in {rec['compile_s']:.1f} s{was}")
+        if rec["status"] != "ok" or not peak < peak_max or not peak < card:
+            bad.append(f"{arch} {shape}: peak {peak} B, status "
+                       f"{rec['status']}")
+        if not ratio < flops_max:
+            bad.append(f"{arch} {shape}: traced FLOPs {ratio:.3f}x the "
+                       f"model FLOPs")
+    if bad:
+        raise AssertionError(f"[{phase}] {'; '.join(bad)}")
 
 
 def _r3_gap(got, want) -> float:
@@ -3732,20 +3800,23 @@ def run_r3(phase: str) -> dict:
     return launches
 
 
-def run_r4(phase: str) -> None:
+def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
+           forms: dict = R4_FORMS,
+           tol: float = LOGIT_REL_TOL_DECODER) -> None:
     """Phase r4: the split of a four-card ``launch.serve_mesh`` run on a
-    1x4 mesh, on one card. r1's qwen3-4b (36 layers, bf16 weights drawn
-    on the card) runs its unmeshed prefill and ``R_STEPS`` greedy decode
-    steps (``_r_serve``), then the same steps shard by shard: a thread a
-    rank of ``R4_TP`` (``run_shards`` with ``R4_FORMS``: the whole plain
-    weights, each unit split as the mesh splits it, the collectives met
-    in memory), fed the unmeshed run's ids. Each step's logits, gathered
-    over the ranks, within ``LOGIT_REL_TOL_DECODER`` of the unmeshed
-    ones' largest, the greedy ids equal but at near-ties
-    (``TIE_MARGIN``), every unit split (``split_counts``), and
-    ``fp16_matmul`` / ``flash_attention`` launched. It prints each
-    step's gap: the four-card run's own gap holds the same splits of the
-    same products, summed by ``nccl`` in its order."""
+    1x4 mesh, on one card. ``arch`` (r1's qwen3-4b, 36 layers, or an
+    ``R4_MORE`` model cut to ``layers``; bf16 weights drawn on the card)
+    runs its unmeshed prefill and ``R_STEPS`` greedy decode steps
+    (``_r_serve``), then the same steps shard by shard: a thread a rank
+    of ``R4_TP`` (``run_shards`` with ``forms``: the whole plain weights,
+    each unit split as the mesh splits it, the collectives met in
+    memory), fed the unmeshed run's ids. Each step's logits, gathered
+    over the ranks, within ``tol`` of the unmeshed ones' largest, the
+    greedy ids equal but at near-ties (``TIE_MARGIN``), every unit split
+    in its form and none whole (``split_counts``), and ``fp16_matmul`` /
+    ``flash_attention`` launched. It prints each step's gap: the
+    four-card run's own gap holds the same splits of the same products,
+    summed by ``nccl`` in its order."""
     import torch
 
     from repro_torch.kernels.api import DispatchContext, use_context
@@ -3755,7 +3826,7 @@ def run_r4(phase: str) -> None:
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     t_phase = time.monotonic()
-    model, params, batch = _r_setup(R3_ARCH)
+    model, params, batch = _r_setup(arch, layers)
     want, ids = _r_serve(model, params, batch)[:2]
     vocab = model.cfg.vocab
     pos = batch["tokens"].shape[1]
@@ -3773,7 +3844,7 @@ def run_r4(phase: str) -> None:
                 out.append(axis.all_gather(last, dim=-1))
         return out if axis.rank == 0 else None
     with use_context(DispatchContext.for_platform("h100-sxm")):
-        got = run_shards(R4_TP, one, R4_FORMS)[0]
+        got = run_shards(R4_TP, one, forms)[0]
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     splits = {f"{u}:{f}": n for (u, f), n in split_counts().items()}
@@ -3788,16 +3859,16 @@ def run_r4(phase: str) -> None:
                       .tolist()]
     _log(f"[{phase}] {model.cfg.name} ({model.cfg.n_layers} layers) split "
          f"over {R4_TP} shard by shard, {R_LANES} lanes x "
-         f"{R_PROMPT[R3_ARCH]} ids, {R_STEPS} decode steps fed the "
+         f"{batch['tokens'].shape[1]} ids, {R_STEPS} decode steps fed the "
          f"unmeshed ids: logits gap over the largest a step "
-         f"{[f'{x:.4g}' for x in gaps]} (bound {LOGIT_REL_TOL_DECODER}); "
+         f"{[f'{x:.4g}' for x in gaps]} (bound {tol}); "
          f"greedy flips (step, lane, margin) {flips}; splits {splits}; "
          f"launches {counts}; {time.monotonic() - t_phase:.2f} s")
-    want_splits = {f"{u}:{f}" for u, f in R4_FORMS.items()}
+    want_splits = {f"{u}:{f}" for u, f in forms.items()}
     if set(splits) != want_splits:
         raise AssertionError(f"[{phase}] units split {splits}, not "
                              f"{sorted(want_splits)}")
-    if max(gaps) > LOGIT_REL_TOL_DECODER:
+    if max(gaps) > tol:
         raise AssertionError(f"[{phase}] logits {max(gaps)} of the "
                              f"largest apart")
     if any(m >= TIE_MARGIN for *_, m in flips):
@@ -3809,6 +3880,157 @@ def run_r4(phase: str) -> None:
     del model, params, batch, want, got
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _spied(module, name: str):
+    """``module.name`` wrapped for the block so that each call's
+    arguments and result are kept under the calling shard's rank (-1
+    outside a split): yields {rank: [(args, result), ...]}."""
+    from repro_torch.models.layers import model_axis
+    real, seen = getattr(module, name), {}
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        axis = model_axis()
+        seen.setdefault(-1 if axis is None else axis.rank, []).append(
+            (args, out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _exact_combine(sel_tok, y_e, n: int):
+    """``moe._combine`` of every expert's entries (``sel_tok`` (b, E, C),
+    ``y_e`` (b, E * C, d)) in f64: a one-hot product over the entries,
+    each token's at most top_k terms summed to f64's rounding."""
+    import torch
+    flat = sel_tok.reshape(sel_tok.shape[0], -1)
+    onehot = (flat[:, None, :] == torch.arange(
+        n, device=flat.device)[:, None]).double()
+    return torch.matmul(onehot, y_e.double())
+
+
+def run_r5(phase: str) -> None:
+    """Phase r5: the units this split adds, at full width, shard by shard
+    on the card (``R5_SPLITS``): one MoE layer in the ``experts`` or
+    ``expert_ff`` form, or one mamba block in the ``inner`` form, each
+    shard in a thread (``run_shards``) on its ``split_unit`` of seeded
+    bf16 weights. Four lanes of a prefill of ``R3_PROMPT`` positions, then
+    a decode step on what it left (the routing counts; the mamba state,
+    its ``h`` a shard's heads and its ``conv`` tail whole), against the
+    unsplit unit:
+
+    * each all-reduced sum (the experts form's combine, the expert_ff
+      form's ``down``, the mamba block's ``wo``) within ``R3_REL`` of the
+      exact (f64) sum of the shards' own bf16 inputs;
+    * the outputs within ``R3_OUT_REL`` of the unsplit unit's, the mamba
+      state within ``BF16_REL``, the routing counts equal;
+    * the unsplit combine (the gather-sum) within ``F32_REL`` of the f64
+      sum of its own entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.layers import gather_context, split_unit
+    from repro_torch.parallel.model_axis import run_shards
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED)
+    for arch, unit, tp, form in R5_SPLITS:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        init = moe.init_moe if unit == "moe" else ssm.init_mamba
+        p = init(gen, cfg, "cuda", torch.bfloat16)
+        xs = [torch.from_numpy(rng.standard_normal(
+            (R_LANES, s, cfg.d_model)).astype(np.float32)).cuda()
+            .to(torch.bfloat16) for s in (R3_PROMPT, 1)]
+        zero = torch.zeros((R_LANES, cfg.n_experts), dtype=torch.int32,
+                           device="cuda")
+
+        def run(q, axis=None):
+            """The prefill, then a decode step: [(output, state, the last
+            all-reduced sum)] (the sum None unsplit)."""
+            out, state = [], zero if unit == "moe" else None
+            for mode, x in zip(("prefill", "decode"), xs):
+                if unit == "moe":
+                    y, state = moe.moe_ffn(q, x, cfg, route_counts=state)
+                else:
+                    y, state = ssm.mamba_block(q, x, cfg, mode=mode,
+                                               cache=state)
+                out.append((y, state, None if axis is None
+                            else axis.reduced[-1]))
+            return out
+
+        def one(axis):
+            with torch.no_grad(), gather_context(model=axis):
+                return run(split_unit(p, axis, form), axis)
+
+        # the calls whose inputs make each shard's all-reduced sum
+        target = {"experts": (moe, "_combine"),
+                  "expert_ff": (moe, "_partial_down"),
+                  "inner": (ssm, "_wo")}[form]
+        with torch.no_grad(), _spied(moe, "_combine") as combines, \
+                _spied(*target) as seen:
+            want = run(p)
+            outs = run_shards(tp, one)
+        torch.cuda.synchronize()
+        gaps, bad = {}, []
+
+        def close(what, got, ref, rel):
+            g = _r3_gap(got, ref)
+            key = what.split(" shard")[0]
+            gaps[key] = max(gaps.get(key, 0.0), g)
+            if not g <= rel:
+                bad.append(f"{what}: {g:.3g} > {rel:.3g}")
+        for step in range(2):
+            if unit == "moe":
+                (sel, y_e, top_i, *_), out = combines[-1][step]
+                close(f"unsplit combine to exact, step {step}", out,
+                      _exact_combine(sel, y_e, top_i.shape[-2]), F32_REL)
+            parts = [seen[r][step][0] for r in range(tp)]
+            if form == "experts":
+                b, d = R_LANES, cfg.d_model
+                sel = torch.cat([a[0] for a in parts], 1)
+                y_e = torch.cat([a[1].reshape(b, a[0].shape[1], -1, d)
+                                 for a in parts], 1).reshape(b, -1, d)
+                exact = _exact_combine(sel, y_e, parts[0][2].shape[-2])
+            else:
+                exact = torch.matmul(
+                    torch.cat([a[0] for a in parts], -1).double(),
+                    torch.cat([a[1] for a in parts], -2).double())
+            y_w, s_w, _ = want[step]
+            for r, o in enumerate(outs):
+                y, st, summed = o[step]
+                close(f"sum to exact, step {step} shard {r}", summed,
+                      exact.reshape(summed.shape), R3_REL)
+                close(f"output, step {step} shard {r}", y, y_w, R3_OUT_REL)
+                if unit == "moe":
+                    if not torch.equal(st, s_w):
+                        bad.append(f"step {step} shard {r}: the routing "
+                                   f"counts differ")
+                else:
+                    close(f"state h, step {step} shard {r}", st["h"],
+                          s_w["h"].chunk(tp, 1)[r], BF16_REL)
+                    close(f"conv tail, step {step} shard {r}", st["conv"],
+                          s_w["conv"], BF16_REL)
+        _log(f"[{phase}] {arch} {unit} at tp={tp} ({form}), {R_LANES} lanes,"
+             f" a prefill of {R3_PROMPT} positions and a decode step: "
+             f"largest gap over the largest magnitude "
+             f"{({k: f'{v:.3g}' for k, v in gaps.items()})}; "
+             f"{time.monotonic() - t0:.2f} s")
+        if bad:
+            raise AssertionError(f"[{phase}] {arch} tp={tp} {form}: "
+                                 f"{'; '.join(bad)}")
+        del p, xs, want, outs, combines, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
 
 
 def run_phase_r() -> dict:
@@ -3834,10 +4056,14 @@ def run_phase_r() -> dict:
     try:
         run_r3(f"r3: {R3_ARCH} layer split over model, shard by shard")
         run_r4(f"r4: {R3_ARCH} split over {R4_TP}, shard by shard")
+        for arch, layers, forms, tol in R4_MORE:
+            run_r4(f"r4: {arch} split over {R4_TP}, shard by shard", arch,
+                   layers, forms, tol)
+        run_r5("r5: MoE and mamba units split over model, shard by shard")
     except BaseException:
         _kill_dryruns(procs)
         raise
-    finish_r2(f"r2: {R2_ARCH} serving cells on 16x16", procs, t_phase)
+    finish_r2("r2: serving cells on 16x16", procs, t_phase)
     _log(f"[r] phase wall {time.monotonic() - t_phase:.2f} s")
     return launches
 

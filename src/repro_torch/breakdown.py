@@ -202,17 +202,19 @@ def xlstm_setup(seed: int = 0):
     return model, params, _prompts(cfg.vocab, seed)
 
 
-def decoder_setup(arch: str, seed: int = 0):
+def decoder_setup(arch: str, seed: int = 0, layers=None):
     """The configuration of ``chip_smoke.py``'s phase i, j, k or l:
-    ``arch`` at full width, cut to ``DECODER_LAYERS[arch]`` layers where
-    that is set, with seeded random weights drawn leaf by leaf by a CUDA
-    generator and stored in bf16 (the f32 peak is one leaf; the hybrid's
+    ``arch`` at full width, cut to ``layers`` layers, or by default to
+    ``DECODER_LAYERS[arch]`` where that is set, with seeded random
+    weights drawn leaf by leaf by a CUDA generator and stored in bf16
+    (the f32 peak is one leaf; the hybrid's
     SSM leaves stay f32), and the ``XLSTM_PROMPTS`` prompts' ids
     (``HYBRID_PROMPTS`` for the hybrid) drawn from ``seed``. Returns
     (model, params, prompts)."""
     cfg = get_config(arch)
-    if DECODER_LAYERS[arch] is not None:
-        cfg = dataclasses.replace(cfg, n_layers=DECODER_LAYERS[arch])
+    layers = DECODER_LAYERS.get(arch) if layers is None else layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_values(gen, device="cuda", dtype=torch.bfloat16)

@@ -34,16 +34,18 @@ shards (``write_cache_layer``); outside it the block reads and writes
 the stacked pool at its layer, as the serving engine's tick does.
 
 A meshed serving step's context also carries its ``model`` axis
-(``parallel.model_axis``). The layers every family shares then take
-their ``model`` shards instead of the whole gather (``unit_form``,
-``split_unit``): the attention its query heads (and KV heads, or the
-whole K/V where the cache splits head_dim), the MLP its columns, the
-embedding its vocabulary rows and the untied head its vocabulary
-columns, each shard a plain tensor that says so (``model_dim``). The
+(``parallel.model_axis``). The split units then take their ``model``
+shards instead of the whole gather (``unit_form``, ``split_unit``): the
+attention its query heads (and KV heads, or the whole K/V where the
+cache splits head_dim), the MLP its columns, the embedding its
+vocabulary rows, the untied head its vocabulary columns, the MoE its
+experts or each expert's columns, a mamba block its inner channels and
+SSM heads, each shard a plain tensor that says so (``model_dim``). The
 split layers are plain functions of their shard plus a collective:
-``row_parallel`` (the attention's ``wo`` and the MLP's ``down``: one f32
-all-reduce, one rounding), the vocab-parallel embedding's all-reduce,
-``vocab_offset`` and ``sharded_argmax``.
+``row_parallel`` (the attention's ``wo``, the MLP's ``down``, the MoE's
+combine or ``down``, the mamba block's ``wo``: one all-reduce, one
+rounding), the vocab-parallel embedding's all-reduce, a split
+``rmsnorm``'s mean square, ``vocab_offset`` and ``sharded_argmax``.
 
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
@@ -292,7 +294,11 @@ ATTN_UNITS = ("attn", "self_attn", "cross_attn")
 #: row-parallel output); ``head_dim``: the query heads, with K and V
 #: whole (their KV heads do not divide ``model``; the cache splits
 #: head_dim); ``ff``: the MLP's columns; ``vocab`` / ``vocab_cols``: the
-#: embedding table's rows / the untied head's columns
+#: embedding table's rows / the untied head's columns; ``experts``: the
+#: MoE's experts (expert parallelism), ``expert_ff``: each expert's FFN
+#: columns (the router whole either way); ``inner``: a mamba block's
+#: inner channels and SSM heads (``wB``, ``wC`` and their conv taps,
+#: which the serve rules leave off ``model``, whole)
 FORMS = {
     "heads": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
               "bv": 0},
@@ -300,6 +306,10 @@ FORMS = {
     "ff": {"up": 1, "gate": 1, "down": 0},
     "vocab": {"table": 0},
     "vocab_cols": {"lm_head": 1},
+    "experts": {"gate": 0, "up": 0, "down": 0},
+    "expert_ff": {"gate": 2, "up": 2, "down": 1},
+    "inner": {"wz": 1, "wx": 1, "conv_x": 1, "out_norm": 0, "wo": 0,
+              "wdt": 1, "dt_bias": 0, "A_log": 0, "D": 0},
 }
 
 _SPLITS: collections.Counter = collections.Counter()
@@ -333,7 +343,7 @@ def _takes(tree: dict, form: str) -> bool:
     ``model`` along the form's dim (the required ones present)."""
     dims = FORMS[form]
     need = {"heads": ("wq", "wk", "wv", "wo"), "head_dim": ("wq", "wo"),
-            "ff": ("up", "down"), "vocab": ("table",)}[form]
+            "ff": ("up", "down"), "vocab": ("table",)}.get(form, tuple(dims))
     return all(k in tree for k in need) and all(
         _model_shard_dim(tree[k]) == d for k, d in dims.items()
         if k in tree)
@@ -344,7 +354,7 @@ def _unit(name, tree) -> Optional[str]:
     ``unit_form``), else None."""
     if name in ATTN_UNITS and isinstance(tree, dict) and "wq" in tree:
         return "attention"
-    if name in ("mlp", "embed") and isinstance(tree, dict):
+    if name in ("mlp", "embed", "moe", "mamba") and isinstance(tree, dict):
         return name
     if name == "lm_head" and not isinstance(tree, dict):
         return "head"
@@ -362,11 +372,14 @@ def unit_form(name, tree, ctx: Optional[_Gather] = None) -> Optional[str]:
     and each rank's query heads read one KV head; whole where the heads
     do not divide ``model``, the reference's ``serve_row_tp``, or the
     cache is quantized), the dense MLP (``mlp``: ``ff``), the embedding
-    (``embed``: ``vocab``) and the untied head (``lm_head``:
-    ``vocab_cols``). Everything else (the MoE experts, mamba, xLSTM, the
-    norms, the Whisper frontend) is gathered whole. A shard-by-shard
-    run's axis that names ``forms`` takes each unit of whole plain
-    weights in the form named there."""
+    (``embed``: ``vocab``), the untied head (``lm_head``:
+    ``vocab_cols``), the MoE (``moe``: ``experts`` where the experts
+    divide ``model``, else ``expert_ff``; quantized experts, which a
+    mesh does not place, whole) and a mamba block (``mamba``: ``inner``
+    where its inner channels and SSM heads both lie on ``model``).
+    Everything else (xLSTM, the norms, the Whisper frontend) is gathered
+    whole. A shard-by-shard run's axis that names ``forms`` takes each
+    unit of whole plain weights in the form named there."""
     ctx = ctx or _active()
     if ctx is None or ctx.model is None:
         return None
@@ -389,6 +402,11 @@ def unit_form(name, tree, ctx: Optional[_Gather] = None) -> Optional[str]:
         form = "ff" if _takes(tree, "ff") else None
     elif unit == "embed":
         form = "vocab" if _takes(tree, "vocab") else None
+    elif unit == "moe":
+        form = next((f for f in ("experts", "expert_ff")
+                     if _takes(tree, f)), None)
+    elif unit == "mamba":
+        form = "inner" if _takes(tree, "inner") else None
     else:
         form = "vocab_cols" if _model_shard_dim(tree) == 1 else None
     _SPLITS[(unit, form or "whole")] += 1
@@ -633,7 +651,13 @@ def meshed_rows() -> Optional[MeshRows]:
     return None if ctx is None else ctx.rows
 
 
-def gather_cache_layer(pool, i: int, keep_model: bool = False):
+def _keeps(keep_model, key) -> bool:
+    """Whether the cache leaf at key ``key`` keeps its ``model`` shard:
+    ``keep_model`` a bool for every leaf, or the keys that keep it."""
+    return keep_model if isinstance(keep_model, bool) else key in keep_model
+
+
+def gather_cache_layer(pool, i: int, keep_model=False):
     """(tree, index): a decode block's cache of layer ``i`` of the stacked
     cache subtree ``pool``, as a pool and the layer's index in it, which
     the block reads and writes there. Outside a meshed decode step
@@ -643,17 +667,22 @@ def gather_cache_layer(pool, i: int, keep_model: bool = False):
     this rank's rows, gathered over every other sharded mesh dim
     (``model`` on the KV heads, head_dim, heads, ssm heads or inner dim;
     ``MeshRows.gather``), but ``model`` with ``keep_model`` (the block's
-    attention is split: it reads its shard), which ``write_cache_layer``
-    writes back."""
+    attention is split: it reads its shard; or the keys of the leaves
+    that keep it, a split mamba block's ``h``), which
+    ``write_cache_layer`` writes back."""
     rows = meshed_rows()
     if rows is None:
         return pool, i
-    return _map_leaves(lambda t: rows.gather(t, i, keep_model)[None],
-                       pool), 0
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return rows.gather(t, i, _keeps(keep_model, key))[None]
+    return walk(pool, None), 0
 
 
 def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1,
-                      keep_model: bool = False) -> None:
+                      keep_model=False) -> None:
     """After a decode block wrote ``layer`` (``gather_cache_layer``'s
     one-layer pool of ``pool``, taken with the same ``keep_model``),
     under a meshed decode step: write what it wrote into this rank's
@@ -668,13 +697,14 @@ def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1,
     if rows is None:
         return
 
-    def walk(dst, new, planes):
+    def walk(dst, new, planes, key):
         if isinstance(dst, dict):
             inner = set(dst) in KV_PLANE_KEYS
             for k in dst:
-                walk(dst[k], new[k], inner)
+                walk(dst[k], new[k], inner, k)
         else:
-            rows.write(dst, i, new[0], at if planes else None, keep_model)
+            rows.write(dst, i, new[0], at if planes else None,
+                       _keeps(keep_model, key))
 
     at = None
     if pos is not None:
@@ -682,13 +712,7 @@ def write_cache_layer(pool, i: int, layer, pos=None, q: int = 1,
         posv = torch.as_tensor(pos, device=first.device).reshape(-1) \
             .expand(first.shape[1])
         at = posv[:, None] + torch.arange(q, device=first.device)[None, :]
-    walk(pool, layer, False)
-
-
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)
+    walk(pool, layer, False, None)
 
 
 def _leaves(tree):
@@ -892,10 +916,18 @@ def init_rmsnorm(d: int, device, axes: tuple = ("embed",)) -> torch.Tensor:
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim in f32, returned in x's dtype."""
+    """RMSNorm over the last dim in f32, returned in x's dtype. Where
+    ``w`` is this rank's ``model`` shard (``model_dim``: a mamba block's
+    gated norm over its inner channels), x is the row's shard too: the
+    mean square takes one f32 all-reduce of the partial sums of
+    squares."""
     dt = x.dtype
     x = x.to(torch.float32)
-    var = x.square().mean(dim=-1, keepdim=True)
+    if model_dim(w) is not None:
+        var = model_axis().all_reduce(x.square().sum(dim=-1, keepdim=True)) \
+            / (x.shape[-1] * model_axis().size)
+    else:
+        var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * w.to(torch.float32)).to(dt)
 
 

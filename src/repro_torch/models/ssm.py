@@ -10,16 +10,35 @@ tail. Every decay exponential is of a non-positive argument (log a <= 0),
 so the chunked form needs no rescaling. All of it is torch ops, as the
 reference computes it in inline einsums outside any Pallas kernel.
 
-The in-projections (z, x, B, C) and the out-projection are bf16 products
-(bf16 operands, bf16 out, as the reference's bf16 einsums); ``dt`` is an
-f32 product, as the reference computes ``dt_raw``. The SSD's einsums and
-the conv run in f32. On the card f32 products must not round through
-TF32: the library entry points rely on torch's default
+The in-projections (z, x, B, C) are bf16 products (bf16 operands, bf16
+out, as the reference's bf16 einsums), the out-projection a product of
+bf16 operands rounded once to bf16 (``_wo``; split, its f32 partial is
+all-reduced first); ``dt`` is an f32 product, as the reference computes
+``dt_raw``. The SSD's einsums and the conv run in
+f32. On the card f32 products must not round through TF32: the library
+entry points rely on torch's default
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
 The cache is ``{"conv": (B, W - 1, d_in + 2N), "h": (B, H, hd, N)}`` in
 its storage dtype (bf16 in a serving pool): the steps compute in f32 and
 cast back on write, as the reference does.
+
+Under a meshed serving step with ``model`` > 1 the block takes its
+``inner`` shard (``layers.unit_form``): this rank's columns of ``wz`` /
+``wx``, its conv taps and its SSM heads (``wdt``, ``dt_bias``, ``A_log``,
+``D``), with ``wB``, ``wC`` and their taps whole. Its in-projection is
+those columns beside the whole B and C ones; the conv, ``dt`` and the
+SSD run on its heads; the gated norm takes the row's mean square with
+one f32 all-reduce; ``wo`` is row-parallel (``layers.row_parallel``).
+The state ``h`` lies on the SSM heads, as the split does, and stays this
+rank's shard (``SPLIT_STATE``). The ``conv`` leaf is the exception: the
+cache places the last dim of (B, W - 1, d_in + 2N) on ``model``, whose
+chunks do not line up with a rank's x channels beside the whole B and
+C (zamba2-7b: 456 stored against 448 + 128 read). So a decode step
+reads that leaf whole (gathered over ``model``, a few KB a row) and
+takes its part, and the block returns the new tail whole, its x
+channels all-gathered over ``model``, of which the step writes back
+this rank's chunk.
 """
 
 from __future__ import annotations
@@ -30,8 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.layers import (filled, ninit, prepared, rmsnorm,
-                                       silu_bf16)
+from repro_torch.models.layers import (filled, mm, model_axis, model_dim,
+                                       model_local, ninit, prepared, rmsnorm,
+                                       row_parallel, silu_bf16)
 from repro_torch.parallel.sharding import constrain
 
 CHUNK = 256
@@ -43,6 +63,9 @@ _F32 = torch.float32
 _IN = ("wz", "wx", "wB", "wC")
 #: the depthwise conv taps, fused in this order into ``conv_w`` (W, d_in + 2N)
 _CONV = ("conv_x", "conv_B", "conv_C")
+#: the cache leaves a split block reads and writes as its ``model`` shard
+#: (``layers.gather_cache_layer``'s ``keep_model``); ``conv`` is read whole
+SPLIT_STATE = ("h",)
 
 
 def _dims(cfg: ArchConfig):
@@ -158,26 +181,80 @@ def _ssd_chunked(xh, dt, a_log_dt, B, C, h0, chunk: int = CHUNK):
     return torch.cat(ys, dim=1)[:, :s], h_prev
 
 
+def is_split(p: dict) -> bool:
+    """Whether a mamba block's weights are this rank's ``inner`` shard."""
+    return model_dim(p["wz"]) is not None
+
+
+def _conv_part(state: torch.Tensor, d_in: int, d_l: int) -> torch.Tensor:
+    """This rank's part of a whole conv state (..., d_in + 2N): its d_l
+    x channels beside B and C."""
+    r = model_axis().rank
+    return torch.cat([state[..., r * d_l:(r + 1) * d_l],
+                      state[..., d_in:]], dim=-1)
+
+
+def _whole_tail(tail: torch.Tensor, d_l: int) -> torch.Tensor:
+    """A split block's new conv tail (..., d_l + 2N) whole: its x
+    channels all-gathered over ``model`` in rank order, then B and C."""
+    return torch.cat([model_axis().all_gather(tail[..., :d_l], dim=-1),
+                      tail[..., d_l:]], dim=-1)
+
+
+def _wo(y: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+    """The out-projection y @ wo of bf16 operands, rounded once to bf16.
+    On the card the unsplit block takes one bf16 library product (as the
+    reference's einsum; differentiable), a split one its f32 partial
+    (``mm``'s ``out_dtype``: the ``fp16_matmul`` kernel), all-reduced
+    over ``model`` before the rounding (``row_parallel``). On the CPU
+    an f64 product, split or not: its sums of the exact bf16 products
+    lie within f64 rounding of exact, so a split block rounds as the
+    unsplit one does. The CPU's split checks of the hybrid are exact for
+    that reason alone: an f32 sum reassociated over ``model`` flips one
+    bf16 rounding in a few thousand, which the reduced 12-layer hybrid's
+    random weights carry to 1.2e-2 of the largest logit, past
+    ``SPLIT_TOL`` (1e-2)."""
+    y, wo = y.to(_BF16), wo.to(_BF16)
+    if not y.is_cuda:
+        out = y.double() @ wo.double()
+        return row_parallel(out) if split else out.to(_BF16)
+    if split:
+        return row_parallel(mm(y, wo, out_dtype=_F32))
+    return y @ wo
+
+
 def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 mode: str = "train", cache: Optional[dict] = None):
     """x: (B, S, d). Returns (out (B, S, d) in x's dtype, new cache or
     None). ``cache`` is the lane state (decode) or, at prefill, names the
-    storage dtype of the state returned (bf16 without one)."""
+    storage dtype of the state returned (bf16 without one). Split over
+    ``model`` (``is_split``) the block runs its inner shard, as the
+    module says: ``h`` comes in and goes out as this rank's heads
+    (``model_local``), ``conv`` whole."""
     b, s, _ = x.shape
-    d_in, h, n, hd = _dims(cfg)
+    d_in, _, n, hd = _dims(cfg)
+    split = is_split(p)
+    d_l, h = p["wz"].shape[-1], p["wdt"].shape[-1]   # this rank's
     xb = x.to(_BF16)
-    zxbc = xb @ prepared(p, "w_in", lambda: _w_in(p))
-    z = constrain(silu_bf16(zxbc[..., :d_in]), "batch", "q_seq", "inner")
-    xbc = zxbc[..., d_in:]                                 # x | B | C, bf16
+    # a split block fuses its own shard's projections (a serving tree's
+    # fused leaves are the whole block's)
+    w_in = _w_in(p) if split else prepared(p, "w_in", lambda: _w_in(p))
+    zxbc = xb @ w_in
+    z = constrain(silu_bf16(zxbc[..., :d_l]), "batch", "q_seq", "inner")
+    xbc = zxbc[..., d_l:]                                  # x | B | C, bf16
     dt = F.softplus(x.to(_F32) @ p["wdt"].to(_F32) + p["dt_bias"])
     a_log_dt = -torch.exp(p["A_log"].to(_F32)) * dt        # (b, s, h)
-    conv_w = prepared(p, "conv_w", lambda: _conv_w(p))
+    conv_w = _conv_w(p) if split \
+        else prepared(p, "conv_w", lambda: _conv_w(p))
 
     if mode == "decode":
         assert cache is not None
-        xbc, tail = _causal_conv(xbc, conv_w, cache["conv"])
-        xh = xbc[:, 0, :d_in].reshape(b, h, hd)
-        Bi, Ci = xbc[:, 0, d_in:d_in + n], xbc[:, 0, d_in + n:]
+        state = cache["conv"]
+        if split:
+            state = _conv_part(state, d_in, d_l)
+        xbc, tail = _causal_conv(xbc, conv_w, state)
+        xh = xbc[:, 0, :d_l].reshape(b, h, hd)
+        Bi, Ci = xbc[:, 0, d_l:d_l + n], xbc[:, 0, d_l + n:]
         decay = torch.exp(a_log_dt[:, 0])                  # (b, h)
         xdt = xh * dt[:, 0, :, None]                       # (b, h, hd)
         dh = xdt[..., None] * Bi[:, None, None, :]         # (b, h, hd, n)
@@ -185,24 +262,27 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         # Ci is f32 but for bf16 conv taps (a dry-run's bf16 weights)
         y = (h_new @ Ci.to(_F32)[:, None, :, None])[..., 0]  # (b, h, hd)
         y = y + xh * p["D"][None, :, None]
-        y = y.reshape(b, 1, d_in)
+        y = y.reshape(b, 1, d_l)
         new_cache = {"conv": tail.to(cache["conv"].dtype),
                      "h": h_new.to(cache["h"].dtype)}
     else:
         xbc, tail = _causal_conv(xbc, conv_w)
-        xh = xbc[..., :d_in].reshape(b, s, h, hd)
-        Bi, Ci = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+        xh = xbc[..., :d_l].reshape(b, s, h, hd)
+        Bi, Ci = xbc[..., d_l:d_l + n], xbc[..., d_l + n:]
         h0 = torch.zeros((b, h, hd, n), dtype=_F32, device=x.device)
         y, h_fin = _ssd_chunked(xh, dt, a_log_dt, Bi, Ci, h0)
         y = y + xh * p["D"][None, None, :, None]
-        y = y.reshape(b, s, d_in)
+        y = y.reshape(b, s, d_l)
         new_cache = None
         if mode == "prefill":
             cdt = cache["h"].dtype if cache is not None else _BF16
             new_cache = {"conv": tail.to(cdt), "h": h_fin.to(cdt)}
+    if split and new_cache is not None:
+        new_cache = {"conv": _whole_tail(new_cache["conv"], d_l),
+                     "h": model_local(new_cache["h"], 1)}
 
     y = rmsnorm(p["out_norm"], y.to(x.dtype), cfg.norm_eps) * z
-    out = y.to(_BF16) @ p["wo"].to(_BF16)
+    out = _wo(y, p["wo"], split)
     return constrain(out.to(x.dtype), "batch", "q_seq", "embed"), new_cache
 
 

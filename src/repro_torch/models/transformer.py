@@ -310,7 +310,8 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
     (``gather_cache_layer``, ``write_cache_layer``: the pool itself at
     layer i, or under a meshed decode step this rank's rows of the
     layer, gathered, but over ``model`` where the block's attention is
-    split), and a prefill's new cache is kept a layer at a time
+    split, or for a split mamba block's state ``h``), and a prefill's new
+    cache is kept a layer at a time
     (``keep_layer``)."""
     decode = mode == "decode"
 
@@ -324,8 +325,13 @@ def _run_stack(stack: dict, cache: Optional[dict], x, cfg: ArchConfig,
             name = f"block{j}"
             bp = shared if bt == "shared_attn" else sp[name]
             # a split attention reads and writes its model shard of the
-            # cache (the K/V heads or head_dim this rank holds)
-            keep = bt in _KV_BLOCKS and attention_form(bp["attn"]) is not None
+            # cache (the K/V heads or head_dim this rank holds), a split
+            # mamba block its state's heads (its conv tail whole)
+            if bt in _KV_BLOCKS:
+                keep = attention_form(bp["attn"]) is not None
+            else:
+                keep = bt == "mamba" and ssm_mod.is_split(bp["mamba"]) \
+                    and ssm_mod.SPLIT_STATE
             at = None
             if decode:
                 bc, at = gather_cache_layer(cache[name], i, keep)

@@ -41,8 +41,10 @@ widened one within 1e-5 of the largest output, and the paged bf16 tick
 the slot pool's bit for bit. The static checks (``repro_torch.
 staticcheck``) pass on the card: no synchronising call inside a traced
 program, buffers in place, one capture per tick size. A reduced train
-step on the card launches no kernel (the grad-safe torch bindings) and
-matches the same step on the CPU.
+step on the card (whisper-tiny.en, qwen3-4b, and qwen3-moe-30b-a3b and
+zamba2-7b, whose backward runs through the MoE combine and the mamba
+blocks) launches no kernel (the grad-safe torch bindings) and matches
+the same step on the CPU.
 """
 
 import gc
@@ -1181,7 +1183,8 @@ def test_staticcheck_on_the_card(dev):
                for f in recomp if "decode_block" in f.subject)
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny-en", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny-en", "qwen3-4b",
+                                  "qwen3-moe-30b-a3b", "zamba2-7b"])
 def test_train_step_on_the_card_launches_no_kernel(dev, arch):
     """A reduced train step on CUDA tensors runs the grad-safe torch
     bindings (no kernel launch, every dispatch ``(op, accel|host,

@@ -22,7 +22,8 @@ the JAX package's numbers:
   that bound;
 * the 2x2 meshed prefill and 3 decode steps of the seven families
   (reduced; llava-next-34b's image prefill too), which split the
-  attention heads, the MLP's columns and the vocabulary over ``model``,
+  attention heads, the MLP's columns, the vocabulary, the MoE experts
+  and the mamba blocks' inner channels over ``model``,
   give the unmeshed logits within ``SPLIT_TOL`` of the largest (the
   row-parallel sums round apart; ``SERVE_TOL``, 1e-5, where ``model`` is
   one rank) and their greedy ids but at near-ties; the cache stays
@@ -39,7 +40,9 @@ the JAX package's numbers:
   holds more than a layer at once; a 2x2 meshed prefill and decode step
   gather no parameter leaf and no cache leaf over ``model``, where the
   whole-layer gather of every leaf on ``model`` is seen when the split is
-  off;
+  off (qwen3-4b, whisper-tiny.en, qwen3-moe-30b-a3b's experts, zamba2-
+  7b's mamba blocks, whose ``conv`` state leaf alone a decode step
+  gathers a layer at a time);
 * ``compressed_psum``'s mean is within 1e-6 of the mean over ranks of
   the reference's ``dequantize_grad(quantize_grad(g_r + e_r))``, and each
   rank's new residual equals the reference's;
@@ -107,12 +110,13 @@ PIPE_FWD_RTOL, PIPE_GRAD_RTOL = 2e-5, 1e-5
 # at this wall rather than running into the suite's limit
 RANKS_DEADLINE_S = 300
 GATHER_ARCHS = ("qwen3-4b", "whisper-tiny-en")
+SPLIT_ARCHS = GATHER_ARCHS + ("qwen3-moe-30b-a3b", "zamba2-7b")
 CASES = ([f"sharded_step[{a}]" for a in FAMILIES]
          + [f"layer_gather_peak[{a}]" for a in GATHER_ARCHS]
          + [f"meshed_serving[{a}]" for a in FAMILIES]
          + ["meshed_serving_head_dim"]
          + [f"meshed_decode_peak[{a}]" for a in GATHER_ARCHS]
-         + [f"meshed_split_bytes[{a}]" for a in GATHER_ARCHS]
+         + [f"meshed_split_bytes[{a}]" for a in SPLIT_ARCHS]
          + ["compressed_psum", "compressed_step",
             "elastic_restore", "reference_checkpoint_onto_mesh",
             "pipeline", "constrain", "preemption_agreed"])
@@ -543,11 +547,12 @@ def case_meshed_decode_peak(arch, work):
 
 class GatheredLeaves:
     """The paths of the parameter and cache leaves whose local shards an
-    all-gather takes as its operand (DTensor's gather of a leaf reads its
-    local shard, which shares the leaf's storage), seen on the local
-    tensors under a dispatch mode."""
+    all-gather over the process group ``group`` (by name) takes as its
+    operand (DTensor's gather of a leaf reads its local shard, which
+    shares the leaf's storage), seen on the local tensors under a
+    dispatch mode."""
 
-    def __init__(self, named: dict):
+    def __init__(self, named: dict, group: str):
         from torch.utils._python_dispatch import TorchDispatchMode
         outer = self
 
@@ -556,6 +561,7 @@ class GatheredLeaves:
                 return outer._op(func, types, args, kwargs or {})
 
         self.mode, self.named, self.seen = Mode(), named, set()
+        self.group = group
 
     def _op(self, func, types, args, kwargs):
         from torch.distributed._functional_collectives import \
@@ -565,7 +571,8 @@ class GatheredLeaves:
         if any(issubclass(t, (DTensor, AsyncCollectiveTensor))
                for t in types):
             return NotImplemented
-        if func.__name__.startswith("all_gather"):
+        if func.__name__.startswith("all_gather") \
+                and self.group in tree_leaves((args, kwargs)):
             for t in tree_leaves((args, kwargs)):
                 if type(t) is torch.Tensor:
                     key = t.untyped_storage().data_ptr()
@@ -576,18 +583,23 @@ class GatheredLeaves:
 
 def case_meshed_split_bytes(arch, work):
     """A 2x2 meshed prefill and decode step of ``arch`` (reduced: its
-    heads, KV heads, MLP columns and vocabulary divide ``model``) gather
-    no parameter and no cache leaf over ``model``: every leaf the serve
-    rules place on ``model`` belongs to a unit the split takes
-    (attention, MLP, embedding, head), and a split attention reads its
-    shard of the cache. The same steps with the split off (the
-    whole-layer gather) gather every parameter leaf placed on
-    ``model`` and, decoding, every KV plane."""
+    heads, KV heads, MLP columns, vocabulary, experts and SSM heads
+    divide ``model``) gather no parameter and no cache leaf over
+    ``model``: every leaf the serve rules place on ``model`` belongs to
+    a unit the split takes (attention, MLP, embedding, head, MoE experts,
+    mamba block), a split attention reads its shard of the cache and a
+    split mamba block its state's heads. The one exception is a mamba
+    block's ``conv`` leaf, which the decode step gathers a layer at a
+    time (its chunks over ``model`` do not line up with a rank's
+    channels: ``models/ssm.py``). The same steps with the split off (the
+    whole-layer gather) gather every parameter leaf placed on ``model``
+    and, decoding, every cache leaf placed on it."""
     from repro_torch.models.model import tree_paths
     from repro_torch.train import step as S
     model = _port(arch)
     mesh = _mesh((2, 2), ("data", "model"))
     m = mesh.mesh_dim_names.index("model")
+    group = mesh.get_group(m).group_name
     params = model.init_values(torch.Generator().manual_seed(3), "cpu")
     placed, rules = _serve_placed(model, params, mesh)
     on_model = {path for path, t in tree_paths(placed)
@@ -598,7 +610,7 @@ def case_meshed_split_bytes(arch, work):
         prefill = S.make_prefill_step(model, mesh=mesh, rules=rules)
         named = {t.to_local().untyped_storage().data_ptr(): path
                  for path, t in tree_paths(placed)}
-        seen = GatheredLeaves(named)
+        seen = GatheredLeaves(named, group)
         with seen.mode:
             _, cache = prefill(placed, _serve_prompt(model.cfg, 4))
         got_p = set(seen.seen)
@@ -606,7 +618,7 @@ def case_meshed_split_bytes(arch, work):
                        if t.placements[m].is_shard()}
         seen = GatheredLeaves({
             t.to_local().untyped_storage().data_ptr(): "cache/" + path
-            for path, t in tree_paths(cache)})
+            for path, t in tree_paths(cache)}, group)
         seen.named.update(named)
         with seen.mode:
             S.make_decode_step(model, mesh=mesh, rules=rules)(
@@ -621,7 +633,9 @@ def case_meshed_split_bytes(arch, work):
         prefill_p, decode_p, _ = run()
     finally:
         S._model_axis = whole
-    assert not split_p and not split_d, (split_p, split_d)
+    conv = {"cache/" + p for p in cache_paths if p.endswith("/ssm/conv")}
+    assert (model.cfg.family == "hybrid") == bool(conv)
+    assert not split_p and split_d == conv, (split_p, split_d ^ conv)
     assert prefill_p == on_model, on_model ^ prefill_p
     assert {p for p in decode_p if p.startswith("cache/")} == \
         {"cache/" + p for p in cache_paths}

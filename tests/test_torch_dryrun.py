@@ -257,17 +257,24 @@ def test_profile_cell_prints_its_two_tables(reduced_configs, capsys):
                         for r in rows)
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-def test_meshed_serve_cell_splits_over_model(monkeypatch, shape):
-    """A serving cell of reduced qwen3-4b on a 4x4 fake group, where its
+@pytest.mark.parametrize("arch,shape", [
+    pytest.param("qwen3-4b", "prefill_32k", id="prefill_32k"),
+    pytest.param("qwen3-4b", "decode_32k", id="decode_32k"),
+    pytest.param("qwen3-moe-30b-a3b", "prefill_32k",
+                 id="qwen3-moe-30b-a3b-prefill_32k")])
+def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape):
+    """A serving cell on a 4x4 fake group of reduced qwen3-4b, whose
     heads, MLP columns and vocabulary divide ``model`` (its 2 KV heads do
-    not: the attention takes the head_dim form): a rank's traced FLOPs
-    fall by about ``model``'s size against the whole-layer gather (the
-    K/V projections stay whole in the head_dim form, so a little less
-    than 4), and the trace holds no op on a global cache leaf's shape,
-    stacked or of one layer."""
+    not: the attention takes the head_dim form), or reduced
+    qwen3-moe-30b-a3b, whose 4 experts take the ``experts`` form (one a
+    rank): a rank's traced FLOPs fall by about ``model``'s size against
+    the whole-layer gather (the K/V projections stay whole in the
+    head_dim form, and the MoE's router and routing on every rank, so a
+    little less than 4), and the trace holds no op on a global cache
+    leaf's shape, stacked or of one layer (the MoE routing counts, which
+    the cache keeps whole, aside)."""
     from repro_torch.launch.mesh import make_mesh
-    cfg = reduced(get_config("qwen3-4b"))
+    cfg = reduced(get_config(arch))
     model = build(cfg)
     seq, gbatch, _ = SHAPES[shape]
     with dryrun.fake_world(16):
@@ -281,7 +288,7 @@ def test_meshed_serve_cell_splits_over_model(monkeypatch, shape):
     length = t_step.prefill_cache_len(seq) if shape == "prefill_32k" \
         else seq
     cache = model.cache_specs(gbatch, length)
-    shapes = {str(tuple(t.shape[k:])) for _, t in tree_paths(cache)
-              for k in (0, 1)}
+    shapes = {str(tuple(t.shape[k:])) for path, t in tree_paths(cache)
+              if not path.endswith("routing") for k in (0, 1)}
     held = {s for _, s, _ in split.instructions} & shapes
     assert not held, held

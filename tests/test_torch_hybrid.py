@@ -73,6 +73,35 @@ def _hybrid(n_layers: int = 12):
     return _setup(ARCH, n_layers=n_layers)
 
 
+class _Jitted:
+    """A reference model whose ``forward`` runs under ``jax.jit``, as the
+    reference's serving engine runs it: one compile a mode and shape,
+    where each eager call traces and compiles its layer scans again. Its
+    outputs equal the eager calls' bit for bit on these tests' inputs
+    (train, prefill and three decode steps at 15 layers, checked), at
+    about half the time."""
+
+    def __init__(self, jm):
+        self._jm = jm
+        self.forward = jax.jit(jm.forward, static_argnames=("mode",))
+
+    def __getattr__(self, name):
+        return getattr(self._jm, name)
+
+
+@pytest.fixture(scope="module")
+def jitted():
+    """``_Jitted`` of each reduced reference model, made once a model and
+    shared by the cases that run it (its compiles with it)."""
+    made = {}
+
+    def get(jm):
+        if id(jm) not in made:
+            made[id(jm)] = _Jitted(jm)
+        return made[id(jm)]
+    return get
+
+
 def _block(n_layers: int = 12, seg: int = 0, j: int = 0):
     """Mamba block ``j`` of segment ``seg``: (reference cfg, port cfg,
     reference params, bridged params)."""
@@ -268,15 +297,17 @@ def test_bridge_carries_the_hybrid_tree():
 
 
 @pytest.mark.parametrize("n_layers", LAYERS)
-def test_model_prefill_and_decode_match_reference(n_layers):
+def test_model_prefill_and_decode_match_reference(n_layers, jitted):
     """``Model.forward`` train and prefill of a 30-token prompt, then 3
     greedy decode steps, the first from the port's own prefill cache and
     each from the reference's cache carried across: logits within
     ``LOGIT_REL`` in relative norm, the same greedy picks position by
     position but for near-ties, padding ids at the large negative logit, and the decode
     writing into the pool it was given (the shared block's K/V rows at
-    each occurrence, every mamba state, the tail's)."""
+    each occurrence, every mamba state, the tail's). The reference runs
+    jitted (``_Jitted``)."""
     jm, tm, jp, tp = _hybrid(n_layers)
+    jm = jitted(jm)
     toks = np.random.default_rng(3).integers(3, VOCAB, size=(2, 30))
     jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
@@ -377,13 +408,14 @@ def test_engine_refuses_spec_k_and_pages():
 
 @pytest.mark.parametrize("n_layers", LAYERS)
 @pytest.mark.parametrize("cache_dtype", ["bf16", "q8_0"])
-def test_conformance_battery(n_layers, cache_dtype):
+def test_conformance_battery(n_layers, cache_dtype, jitted):
     """The reference's battery for zamba2-7b (its rows at 12 layers, and
     at 15 with the tail): exact-length prefill, fused ticks, EOS mid-block,
     abort, the ledger drained, one host sync a tick, the tokens the
-    reference's full forward picks up to a near-tie."""
+    reference's full forward (jitted: ``_Jitted``) picks up to a
+    near-tie."""
     jm, tm, jp, tp = _hybrid(n_layers)
-    eng = conformance_battery(jm, jp, tm, tp, cache_dtype)
+    eng = conformance_battery(jitted(jm), jp, tm, tp, cache_dtype)
     rep = eng.cache_report()
     assert rep["state_kinds"] == ["self_kv", "ssm"]
     assert rep["state_bytes_total"] > 0

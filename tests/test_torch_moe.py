@@ -172,6 +172,85 @@ def test_decode_step_reads_every_expert(ffn):
                   <= 2 ** -8 * (np.abs(w) + np.abs(w).max()))
 
 
+def _one_hot_combine(sel_tok, y_e, top_i, first=0, n_experts=0):
+    """The port's combine before the gather-sum, kept as the oracle: a
+    one-hot ((b,) n, E * C) f32 product with the entries' f32 outputs."""
+    n = top_i.shape[-2]
+    flat = sel_tok.reshape(*sel_tok.shape[:-2], -1)
+    onehot = (flat[..., None, :] == torch.arange(n)[:, None]).to(
+        torch.float32)
+    return torch.matmul(onehot, y_e.to(torch.float32))
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("experts,top_k", [(4, 2), (16, 8)])
+def test_combine_equals_the_one_hot_product(monkeypatch, grouped, experts,
+                                            top_k):
+    """The gather-sum combine (each token's top_k entries added in f32 in
+    ascending expert id), in one chunk and in chunks of ceil(n / k)
+    tokens, equals the one-hot product it replaced bit for bit on the
+    CPU, grouped and global, at 4 experts top 2 and 16 top 8,
+    over 2 rows of 12 tokens and five seeds, with a bucket's padding
+    (``valid_len``) on the last seed. At this size (at most 240 entries)
+    the library sums the product's entries one after another; over more
+    (a global top 8 product of 480 entries: 6 of 20 seeds differ in a
+    last bit) it sums them in blocks, and the oracle itself
+    reassociates."""
+    cfg = dataclasses.replace(t_reduced(t_get_config("qwen3-moe-30b-a3b")),
+                              n_experts=experts, top_k=top_k)
+    for seed in range(5):
+        gen = torch.Generator().manual_seed(seed)
+        p = tmoe.init_moe(gen, cfg, "cpu")
+        x = torch.randn((2, 12, cfg.d_model), generator=gen).to(
+            torch.bfloat16)
+        kw = dict(grouped=grouped, valid_len=9 if seed == 4 else None)
+        got = tmoe.moe_ffn(p, x, cfg, **kw)
+        with monkeypatch.context() as m:
+            # chunks of ceil(n / k) tokens (at this size the default is
+            # one chunk)
+            m.setattr(tmoe, "COMBINE_ELEMS", 0)
+            chunked = tmoe.moe_ffn(p, x, cfg, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tmoe, "_combine", _one_hot_combine)
+            want = tmoe.moe_ffn(p, x, cfg, **kw)
+        for out in (got, chunked):
+            assert torch.equal(out, want), (seed, float(
+                (out.float() - want.float()).abs().max()))
+
+
+def test_combine_holds_nothing_of_tokens_by_entries():
+    """A grouped prefill of 4096 tokens (reduced qwen3-moe-30b-a3b: 4
+    experts, top 2, capacity 2560 an expert, 10240 entries) traced on
+    fake tensors: no intermediate scales with tokens x entries (the
+    one-hot's 4096 x 10240), the largest being the experts' activations
+    (E, C, d_ff)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    cfg = t_reduced(t_get_config("qwen3-moe-30b-a3b"))
+    s = 4096
+    cap = int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts)
+    entries = cfg.n_experts * cap
+    sizes = []
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            sizes.extend(t.numel() for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor))
+            return out
+
+    with FakeTensorMode():
+        p = tmoe.init_moe(torch.Generator(), cfg, "cpu")
+        x = torch.empty((1, s, cfg.d_model), dtype=torch.bfloat16)
+        with Sizes():
+            out = tmoe.moe_ffn(p, x, cfg)
+    assert out.shape == x.shape
+    assert max(sizes) <= entries * max(cfg.d_ff, cfg.d_model), \
+        (max(sizes), entries)
+    assert max(sizes) * 16 <= s * entries, (max(sizes), s * entries)
+
+
 # ----------------------------------------------------------------------------
 # The MoE models
 # ----------------------------------------------------------------------------

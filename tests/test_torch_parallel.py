@@ -26,7 +26,14 @@ process (and one subprocess for the reference's meshes):
   form) shards: the attention's prefill and decode step, the MLP, the
   embedding and the head against the unsplit layers, the row-parallel
   f32 sums within ``SPLIT_REL`` (1e-6) of the unsplit product before its
-  one rounding; ``sharded_argmax`` equals ``torch.argmax`` with maxima
+  one rounding; the MoE layer in the ``experts`` form (reduced
+  qwen3-moe-30b-a3b over 2) and the ``expert_ff`` form (reduced
+  mixtral-8x7b with 6 experts over 4) and a mamba block in the ``inner``
+  form (reduced zamba2-7b over 2 and 4; a prefill and a decode step),
+  their all-reduced f32 sums within ``SPLIT_REL`` of the unsplit
+  product of the shards' own inputs, their outputs within one bf16
+  rounding of the unsplit layer's, the routing counts and the mamba
+  state equal; ``sharded_argmax`` equals ``torch.argmax`` with maxima
   tied across shard edges; and which units a split takes, from the
   serve rules' placements of full-size configs on a ``fake`` group.
 """
@@ -550,6 +557,130 @@ def test_sharded_argmax_takes_the_first_of_tied_maxima(tp):
         assert torch.equal(got, want), (got, want)
 
 
+def _recorded(monkeypatch, module, name) -> list:
+    """``module.name`` wrapped to record its arguments under the calling
+    shard's rank (-1 outside a split): {rank: [args, ...]}."""
+    from repro_torch.models.layers import model_axis
+    real, seen = getattr(module, name), {}
+
+    def spy(*args, **kwargs):
+        axis = model_axis()
+        seen.setdefault(-1 if axis is None else axis.rank, []).append(args)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(module, name, spy)
+    return seen
+
+
+def _moe_setup(form):
+    """(cfg, one MoE layer's float params, bf16 x, tp) of ``form``:
+    reduced qwen3-moe-30b-a3b (4 experts over 2: ``experts``), or reduced
+    mixtral-8x7b with 6 experts, which do not divide 4 (``expert_ff``)."""
+    import dataclasses
+    from repro_torch.models.layers import layer_slice
+    if form == "experts":
+        cfg, tp = reduced(get_config("qwen3-moe-30b-a3b")), 2
+    else:
+        cfg = dataclasses.replace(reduced(get_config("mixtral-8x7b")),
+                                  n_experts=6)
+        tp = 4
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, SPLIT_SEQ, cfg.d_model)).astype(np.float32))
+    return (cfg, layer_slice(params["segments"], 0)["block0"]["moe"],
+            x.to(torch.bfloat16), tp)
+
+
+@pytest.mark.parametrize("form", ["experts", "expert_ff"])
+def test_split_moe_sums_to_the_unsplit(form, monkeypatch):
+    """The MoE layer on each shard, the routing computed whole: in the
+    ``experts`` form each shard runs its experts and all-reduces its f32
+    partial of the combine; in the ``expert_ff`` form every expert runs
+    on the shard's FFN columns and the ``down`` product's f32 partial is
+    all-reduced. Each all-reduced sum lies within ``SPLIT_REL`` of the
+    unsplit product of the shards' own inputs (the combine of every
+    shard's entries; ``down`` over every shard's columns), the outputs
+    within one bf16 rounding of the unsplit layer's, and the routing
+    counts equal the unsplit ones."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import split_unit
+    cfg, unit, x, tp = _moe_setup(form)
+    counts = torch.zeros((SPLIT_ROWS, cfg.n_experts), dtype=torch.int32)
+    want, want_c = moe.moe_ffn(unit, x, cfg, route_counts=counts)
+    seen = _recorded(monkeypatch, moe,
+                     "_combine" if form == "experts" else "_partial_down")
+    outs = _shards(tp, lambda axis: (
+        moe.moe_ffn(split_unit(unit, axis, form), x, cfg,
+                    route_counts=counts), axis.reduced[-1]))
+    parts = [seen[r][-1] for r in range(tp)]
+    if form == "experts":
+        # each shard's (tokens taken, weighted outputs) of its experts
+        b, d = SPLIT_ROWS, cfg.d_model
+        sel = torch.cat([a[0] for a in parts], 1)
+        y_e = torch.cat([a[1].reshape(b, a[0].shape[1], -1, d)
+                         for a in parts], 1)
+        exact = moe._combine(sel, y_e.reshape(b, -1, d), parts[0][2])
+    else:
+        exact = torch.matmul(torch.cat([a[0] for a in parts], -1).double(),
+                             torch.cat([a[1] for a in parts], 1).double())
+    for r, ((y, c), summed) in enumerate(outs):
+        _near(summed, exact, f"shard {r} sum")
+        _near(y, want, f"shard {r} output", rel=2 ** -7)
+        assert torch.equal(c, want_c)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_split_mamba_sums_to_the_unsplit(mode, monkeypatch):
+    """A mamba block of reduced zamba2-7b (8 SSM heads of 32) on each of
+    2 and 4 shards' ``inner`` channels and heads: the prefill (chunked
+    SSD), or a decode step on the unsplit prefill's state (``conv``
+    whole, ``h`` the shard's heads). The gated norm's mean square is one
+    f32 all-reduce; ``wo``'s all-reduced f32 sum lies within
+    ``SPLIT_REL`` of the unsplit product of the shards' own inputs, the
+    output within one bf16 rounding of the unsplit block's, the shard's
+    new ``h`` its heads of the unsplit state and the new conv tail the
+    whole unsplit one, each within one bf16 rounding."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import layer_slice, model_dim, split_unit
+    cfg = reduced(get_config("zamba2-7b"))
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu",
+                                    dtype=torch.bfloat16)
+    unit = layer_slice(params["segments"], 0)["block0"]["mamba"]
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, SPLIT_SEQ, cfg.d_model)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    _, state = ssm.mamba_block(unit, x, cfg, mode="prefill")
+    if mode == "decode":
+        x = x[:, :1] * 0.5
+    run = lambda p, cache: ssm.mamba_block(p, x, cfg, mode=mode,  # noqa: E731
+                                           cache=cache)
+    want, want_c = run(unit, None if mode == "prefill" else
+                       {k: v.clone() for k, v in state.items()})
+    seen = _recorded(monkeypatch, ssm, "_wo")
+    for tp in (2, 4):
+        seen.clear()
+
+        def one(axis, tp=tp):
+            cache = None if mode == "prefill" else {
+                "conv": state["conv"].clone(),
+                "h": state["h"].chunk(tp, 1)[axis.rank].clone()}
+            y, c = run(split_unit(unit, axis, "inner"), cache)
+            return y, c, axis.reduced[-1]
+        outs = _shards(tp, one)
+        parts = [seen[r][-1] for r in range(tp)]
+        exact = torch.matmul(torch.cat([a[0] for a in parts], -1).double(),
+                             torch.cat([a[1] for a in parts], 0).double())
+        for r, (y, c, summed) in enumerate(outs):
+            _near(summed, exact.reshape(summed.shape),
+                  f"tp {tp} shard {r} sum")
+            _near(y, want, f"tp {tp} shard {r} output", rel=2 ** -7)
+            assert model_dim(c["h"]) == 1
+            _near(c["h"], want_c["h"].chunk(tp, 1)[r], "state h",
+                  rel=2 ** -7)
+            _near(c["conv"], want_c["conv"], "conv tail", rel=2 ** -7)
+
+
 #: a whole model's logits split shard by shard against the unsplit ones,
 #: over the largest: test_torch_distributed.py's SPLIT_TOL, with its
 #: argument (a row-parallel sum that lies at a bf16 rounding boundary
@@ -616,9 +747,12 @@ def test_unit_forms_follow_the_placements():
     qwen3-4b on 16 ranks of ``model`` takes the head_dim form (its 8 KV
     heads do not divide 16), its MLP, embedding and head split; whisper-
     tiny.en on 4 keeps its attention and MLP whole (6 heads on 4: the
-    serve rules shard d_model, the reference's ``serve_row_tp``), and
-    mixtral-8x7b keeps its experts whole; a quantized cache keeps the
-    attention whole. ``split_counts`` names each fallback."""
+    serve rules shard d_model, the reference's ``serve_row_tp``);
+    mixtral-8x7b's 8 experts on 16 take the ``expert_ff`` form and
+    qwen3-moe-30b-a3b's 128 the ``experts`` form, zamba2-7b's mamba blocks
+    the ``inner`` form on 16 (112 SSM heads) and whole on 32, where its
+    heads do not divide ``model``; a quantized cache keeps the attention
+    whole. ``split_counts`` names each fallback."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.launch.dryrun import fake_tensors, fake_world
     from repro_torch.launch.mesh import make_mesh
@@ -656,4 +790,11 @@ def test_unit_forms_follow_the_placements():
         ("mlp", "whole"): 1}
     assert counts("mixtral-8x7b", 16) == {
         ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
-        ("attention", "head_dim"): 1}
+        ("attention", "head_dim"): 1, ("moe", "expert_ff"): 1}
+    assert counts("qwen3-moe-30b-a3b", 16) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("attention", "head_dim"): 1, ("moe", "experts"): 1}
+    assert counts("zamba2-7b", 16) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("attention", "heads"): 1, ("mlp", "ff"): 1, ("mamba", "inner"): 5}
+    assert counts("zamba2-7b", 32)[("mamba", "whole")] == 5
