@@ -214,14 +214,19 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    as often as unmeshed (a one-rank mesh splits nothing). r2:
    ``launch.dryrun`` of the ``R2_CELLS`` on fake ``cuda`` over the 16x16
    fake group (qwen3-4b decode_32k and prefill_32k, qwen3-moe-30b-a3b
-   prefill_32k and decode_32k, mixtral-8x7b and zamba2-7b decode_32k),
+   prefill_32k and decode_32k, mixtral-8x7b, zamba2-7b, gemma2-2b and
+   xlstm-350m decode_32k, llava-next-34b decode_32k and prefill_32k),
    where the serving steps split the heads, the MLP's columns, the
-   vocabulary, the MoE experts (``experts`` or ``expert_ff`` form) and
-   the mamba blocks (``inner`` form) over ``model``; six processes
-   started before r1: each ends ``ok``, a rank's peak under its bound and
-   the card's memory, the traced FLOPs under its bound times the model
-   FLOPs; it prints the peaks, the FLOPs, the roofline's compute, memory
-   and collective terms, and the figures before the MoE and mamba split.
+   vocabulary, the MoE experts (``experts`` or ``expert_ff`` form), the
+   mamba blocks (``inner`` form) and, where the heads do not divide
+   ``model`` (``R2_ROW_TP``), every product along d_model
+   (``param_embed``) over ``model``; ten processes started before r1:
+   each ends ``ok``, a rank's peak under its bound and the card's
+   memory, the traced FLOPs under its bound times the model FLOPs, and
+   an ``R2_ROW_TP`` cell takes no attention, MLP, head or xLSTM unit
+   whole and holds no op on a global cache leaf's shape; it prints the
+   peaks, the FLOPs, the roofline's compute, memory and collective
+   terms, the units split, and the figures before the split.
    r3: one qwen3-4b layer at full width split over 16
    ranks of ``model`` (head_dim form) and over 8 (heads form), shard by
    shard in one process (a thread a shard, the collectives met in
@@ -235,15 +240,22 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    but at near-ties); then qwen3-moe-30b-a3b at 8 layers (32 experts a
    shard, ``LOGIT_REL_TOL_MOE``) and zamba2-7b at ``R4_HYBRID_LAYERS``
    (28 SSM heads a shard, ``LOGIT_REL_TOL_HYBRID``) the same way, every
-   MoE and mamba unit split; it prints each step's gap. r5: one MoE layer
-   or mamba block at full width shard by shard (``R5_SPLITS``:
+   MoE and mamba unit split, then ``R4_SPLIT``: xlstm-350m (24 blocks)
+   over 4 in its heads forms, whisper-tiny.en over 4 and gemma2-2b
+   (``R4_GEMMA_LAYERS``) over 16 in the ``param_embed`` form, each within
+   ``LOGIT_REL_TOL_DECODER``; it prints each step's gap. r5: one MoE
+   layer or mamba block at full width shard by shard (``R5_SPLITS``:
    qwen3-moe-30b-a3b's experts over 16 and 4, mixtral-8x7b's FFN columns
    over 16, a zamba2-7b mamba block over 16), a prefill of 4 lanes x 256
    positions and a decode step (``run_r5``: the all-reduced sums within
    ``R3_REL`` of the exact sum of the shards' inputs, outputs within
    ``R3_OUT_REL``, the mamba state within ``BF16_REL``, the routing
    counts equal, the unsplit gather-sum combine within ``F32_REL`` of
-   its f64 sum).
+   its f64 sum), then ``R5_UNITS`` (``run_r5_units``: a llava-next-34b
+   layer and gemma2-2b's local and global layers over 16, xlstm-350m's
+   mLSTM and sLSTM blocks over 16 and 4; the sums within ``R3_REL`` of
+   exact, outputs within ``R3_OUT_REL``, KV slices and states within
+   ``BF16_REL``).
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -612,6 +624,24 @@ def kernel_cases():
                    _nbytes(x, wb, y), 2.0 * m * n * k,
                    "bf16" if xdt == bf else "f32",
                    BF16_REL if xdt == bf else F32_REL))
+    # phase r5's serve_row_tp shard shapes: the row-parallel products of
+    # llava-next-34b and gemma2-2b split along d_model over 16 ranks of
+    # ``model`` (their f32 partials, 4 lanes of 256 ids and a decode
+    # step), and xlstm-350m's mLSTM Q/K/V over its inner channels
+    for label, m, k, n in (
+            ("llava-next-34b Q/K/V, tp=16", 1024, 448, 9216),
+            ("llava-next-34b MLP down, tp=16", 1024, 1280, 7168),
+            ("gemma2-2b MLP up, decode, tp=16", 4, 144, 9216),
+            ("xlstm-350m mLSTM Q/K/V, decode, tp=16", 4, 128, 6144)):
+        x, wb = randn((m, k), bf), randn((k, n), bf, k ** -0.5)
+        y = torch.empty((m, n), dtype=f32, device=dev)
+        mm.append((f"serve_row_tp shard: {label} ({m},{k})@({k},{n}) "
+                   f"bf16 x, float32 out",
+                   lambda x=x, wb=wb: mm_ops.fp16_matmul(x, wb,
+                                                         out_dtype=f32),
+                   lambda x=x, wb=wb: mm_plain.fp16_matmul(x, wb, f32),
+                   lambda x=x, w=wb: torch.matmul(x, w).to(f32),
+                   _nbytes(x, wb, y), 2.0 * m * n * k, "bf16", BF16_REL))
     # the zamba2-7b head (phase l): the untied head multiplies f32
     # activations by the bf16 lm_head as stored, over the padded vocab
     k, n = 3584, 32768
@@ -3293,18 +3323,35 @@ R2_CELLS = {
     ("qwen3-moe-30b-a3b", "decode_32k"): (6.5e9, 16.0),
     ("mixtral-8x7b", "decode_32k"): (9.5e9, 8.0),
     ("zamba2-7b", "decode_32k"): (5.1e9, 5.0),
+    ("llava-next-34b", "decode_32k"): (10e9, 4.0),
+    ("llava-next-34b", "prefill_32k"): (40e9, 18.0),
+    ("gemma2-2b", "decode_32k"): (3.5e9, 4.0),
+    ("xlstm-350m", "decode_32k"): (0.6e9, 4.0),
 }
+#: r2: the cells whose heads do not divide ``model`` (the reference's
+#: ``serve_row_tp``; xlstm-350m's 4 heads on 16): no attention, MLP, head
+#: or xLSTM unit may be taken whole (``split_counts``), and the trace may
+#: hold no op on a global cache leaf's shape (``cache_leaf_ops``)
+R2_ROW_TP = {("llava-next-34b", "decode_32k"),
+             ("llava-next-34b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
+             ("xlstm-350m", "decode_32k")}
+R2_SPLIT_UNITS = ("attention", "mlp", "head", "mlstm", "slstm")
 #: r2: a rank's peak in bytes and traced / model FLOPs of the cells whose
-#: MoE experts or mamba blocks were gathered whole over ``model`` before
-#: the split took them (their one-hot combine too), traced on fake ``cpu``
-#: tensors; printed beside this run's
+#: MoE experts, mamba blocks, xLSTM blocks or ``serve_row_tp`` layers were
+#: gathered whole over ``model`` before the split took them (the MoE's
+#: one-hot combine too), traced on fake ``cpu`` tensors; printed beside
+#: this run's
 R2_BEFORE = {
     ("qwen3-moe-30b-a3b", "prefill_32k"): (124958907408, 168.8),
     ("qwen3-moe-30b-a3b", "decode_32k"): (6802180484, 142.8),
     ("mixtral-8x7b", "decode_32k"): (11763720356, 57.1),
     ("zamba2-7b", "decode_32k"): (5074458380, 15.9),
+    ("llava-next-34b", "decode_32k"): (13217134916, 28.89),
+    ("llava-next-34b", "prefill_32k"): (39508909568, 28.67),
+    ("gemma2-2b", "decode_32k"): (5089393540, 33.97),
+    ("xlstm-350m", "decode_32k"): (595946180, 14.56),
 }
-R2_TIMEOUT = 300
+R2_TIMEOUT = 420
 #: r3: one qwen3-4b layer at full width split over ``model`` shard by
 #: shard on the card, (ranks of ``model``, the attention's form): 16 ranks
 #: split head_dim (8 KV heads), 8 split the KV heads; 4 lanes, a prefill of
@@ -3355,6 +3402,48 @@ R5_SPLITS = (("qwen3-moe-30b-a3b", "moe", 16, "experts"),
              ("qwen3-moe-30b-a3b", "moe", 4, "experts"),
              ("mixtral-8x7b", "moe", 16, "expert_ff"),
              ("zamba2-7b", "mamba", 16, "inner"))
+#: r4: the xLSTM and ``serve_row_tp`` models split shard by shard,
+#: (arch, layers, ranks of ``model``, the forms, the kernels that must
+#: launch): xlstm-350m over 4 (one head a rank: the mLSTM's ``inner``,
+#: the sLSTM's ``heads`` form) cut to R4_XLSTM_LAYERS, r1's whisper-
+#: tiny.en over 4 (6 heads on 4: ``param_embed``), gemma2-2b over 16 (8
+#: heads on 16) cut to R4_GEMMA_LAYERS (whole (local, global) segments),
+#: each held to LOGIT_REL_TOL_DECODER. xlstm-350m's random blocks carry a
+#: changed bf16 rounding further with each block: two equally valid
+#: roundings of the unsplit products (the library's, and each rounded
+#: from its exact sum: r4's yardstick) put the logits 0.0139-0.0293 of
+#: the largest apart at 4 blocks and 0.2365-0.4516 at all 24, and the
+#: split as far (0.0131-0.0254; 0.2743-0.4092), so at 24 no bound that
+#: an exact split meets would see a fault of it (PERF.md, section 6)
+R4_XLSTM_LAYERS = 4
+R4_GEMMA_LAYERS = 8
+R4_SPLIT = (
+    ("xlstm-350m", R4_XLSTM_LAYERS, 4, {"mlstm": "inner", "slstm": "heads",
+                             "embed": "vocab", "head": "vocab_cols"},
+     ("fp16_matmul", "slstm_scan")),
+    (ARCH, None, 4, {"attention": "param_embed", "mlp": "param_embed",
+                     "embed": "vocab", "frontend": "param_embed",
+                     "dec_pos": "param_embed"},
+     ("fp16_matmul", "flash_attention")),
+    ("gemma2-2b", R4_GEMMA_LAYERS, 16, {"attention": "param_embed",
+                                        "mlp": "param_embed",
+                                        "embed": "vocab"},
+     ("fp16_matmul", "flash_attention")))
+#: r5: the units the xLSTM and ``serve_row_tp`` split adds, at full width
+#: shard by shard, (arch, unit, ranks of ``model``, form): a llava-next-34b
+#: layer (attention, MLP, the untied head) and gemma2-2b's global and
+#: local layers (softcap 50, window 4096, head_dim 256 split 16 ways) in
+#: the ``param_embed`` form over 16; xlstm-350m's mLSTM and sLSTM blocks
+#: over 16 (``param_embed``) and over 4 (their heads, one a rank); 4
+#: lanes, a prefill of R3_PROMPT positions, then a decode step over an
+#: R3_CACHE-position cache or on the state the prefill left
+R5_UNITS = (("llava-next-34b", "global", 16, "param_embed"),
+            ("gemma2-2b", "global", 16, "param_embed"),
+            ("gemma2-2b", "local", 16, "param_embed"),
+            ("xlstm-350m", "mlstm", 16, "param_embed"),
+            ("xlstm-350m", "mlstm", 4, "inner"),
+            ("xlstm-350m", "slstm", 16, "param_embed"),
+            ("xlstm-350m", "slstm", 4, "heads"))
 
 
 def _r_setup(arch: str, layers=None):
@@ -3555,6 +3644,15 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
         before = R2_BEFORE.get((arch, shape))
         was = "" if before is None else (
             f"; before the split {before[0]} B, {before[1]}x (fake cpu)")
+        was += (f"; units {rec['split_counts']}; ops on a global cache "
+                f"leaf's shape {rec['cache_leaf_ops']}")
+        if (arch, shape) in R2_ROW_TP:
+            whole = [k for k in rec["split_counts"]
+                     if k.split(":")[0] in R2_SPLIT_UNITS
+                     and k.endswith(":whole")]
+            if whole or rec["cache_leaf_ops"]:
+                bad.append(f"{arch} {shape}: units whole {whole}, ops on "
+                           f"a global cache leaf {rec['cache_leaf_ops']}")
         _log(f"[{phase}] {arch} {shape}: status {rec['status']}, a rank's "
              f"peak {peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
              f"{mem['argument_bytes']} B), traced FLOPs {rec['hlo_flops']}"
@@ -3802,21 +3900,25 @@ def run_r3(phase: str) -> dict:
 
 def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
            forms: dict = R4_FORMS,
-           tol: float = LOGIT_REL_TOL_DECODER) -> None:
+           tol: float = LOGIT_REL_TOL_DECODER, tp: int = R4_TP,
+           kernels: tuple = ("fp16_matmul", "flash_attention")) -> None:
     """Phase r4: the split of a four-card ``launch.serve_mesh`` run on a
     1x4 mesh, on one card. ``arch`` (r1's qwen3-4b, 36 layers, or an
     ``R4_MORE`` model cut to ``layers``; bf16 weights drawn on the card)
     runs its unmeshed prefill and ``R_STEPS`` greedy decode steps
     (``_r_serve``), then the same steps shard by shard: a thread a rank
-    of ``R4_TP`` (``run_shards`` with ``forms``: the whole plain weights,
+    of ``tp`` (``run_shards`` with ``forms``: the whole plain weights,
     each unit split as the mesh splits it, the collectives met in
     memory), fed the unmeshed run's ids. Each step's logits, gathered
     over the ranks, within ``tol`` of the unmeshed ones' largest, the
     greedy ids equal but at near-ties (``TIE_MARGIN``), every unit split
-    in its form and none whole (``split_counts``), and ``fp16_matmul`` /
-    ``flash_attention`` launched. It prints each step's gap: the
+    in its form and none whole (``split_counts``), and ``kernels``
+    launched. It prints each step's gap: the
     four-card run's own gap holds the same splits of the same products,
-    summed by ``nccl`` in its order."""
+    summed by ``nccl`` in its order. For xLSTM it also prints a
+    yardstick: the unmeshed steps, fed the same ids, with each bf16
+    product rounded from its exact sum instead of the library's (an
+    equally valid rounding), against the unmeshed run."""
     import torch
 
     from repro_torch.kernels.api import DispatchContext, use_context
@@ -3844,10 +3946,32 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
                 out.append(axis.all_gather(last, dim=-1))
         return out if axis.rank == 0 else None
     with use_context(DispatchContext.for_platform("h100-sxm")):
-        got = run_shards(R4_TP, one, forms)[0]
+        got = run_shards(tp, one, forms)[0]
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     splits = {f"{u}:{f}": n for (u, f), n in split_counts().items()}
+    yard = ""
+    if model.cfg.xlstm:
+        from repro_torch.models import xlstm
+        library = xlstm._bf16_mm
+        xlstm._bf16_mm = lambda x, w: (x.to(torch.bfloat16).double()
+                                       @ w.to(torch.bfloat16).double()
+                                       ).to(torch.bfloat16)
+        try:
+            with use_context(DispatchContext.for_platform("h100-sxm")), \
+                    torch.no_grad():
+                decode = make_decode_step(model)
+                last, cache = make_prefill_step(model)(params, batch)
+                exact = [last]
+                for t, nxt in enumerate(ids):
+                    last, cache = decode(params, cache, nxt, pos + t)
+                    exact.append(last)
+        finally:
+            xlstm._bf16_mm = library
+        yard = "; exactly rounded unsplit steps against the unmeshed " \
+            "ones (the yardstick) " + str([
+                f"{float((e - w)[:, :vocab].abs().max() / w[:, :vocab].float().abs().max()):.4g}"
+                for e, w in zip(exact, want)])
     gaps, flips = [], []
     for t, (g, w) in enumerate(zip(got, want)):
         g, w = g[:, :vocab].float(), w[:, :vocab].float()
@@ -3858,12 +3982,12 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
                       for r in torch.nonzero(gi != ids[t][:, 0]).flatten()
                       .tolist()]
     _log(f"[{phase}] {model.cfg.name} ({model.cfg.n_layers} layers) split "
-         f"over {R4_TP} shard by shard, {R_LANES} lanes x "
+         f"over {tp} shard by shard, {R_LANES} lanes x "
          f"{batch['tokens'].shape[1]} ids, {R_STEPS} decode steps fed the "
          f"unmeshed ids: logits gap over the largest a step "
          f"{[f'{x:.4g}' for x in gaps]} (bound {tol}); "
          f"greedy flips (step, lane, margin) {flips}; splits {splits}; "
-         f"launches {counts}; {time.monotonic() - t_phase:.2f} s")
+         f"launches {counts}{yard}; {time.monotonic() - t_phase:.2f} s")
     want_splits = {f"{u}:{f}" for u, f in forms.items()}
     if set(splits) != want_splits:
         raise AssertionError(f"[{phase}] units split {splits}, not "
@@ -3874,7 +3998,7 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
     if any(m >= TIE_MARGIN for *_, m in flips):
         raise AssertionError(f"[{phase}] a greedy id flipped off a "
                              f"near-tie: {flips}")
-    for k in ("fp16_matmul", "flash_attention"):
+    for k in kernels:
         if counts[k] < 1:
             raise AssertionError(f"[{phase}] {k} never launched")
     del model, params, batch, want, got
@@ -4033,6 +4157,235 @@ def run_r5(phase: str) -> None:
     _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
 
 
+@contextlib.contextmanager
+def _row_sums(module, name: str):
+    """``module.name`` (a row-parallel product, ``(x, w, dtype=...,
+    compute_dtype=...)``) wrapped for the block so that each call's
+    operands, cast as the product casts them, and the sum its all-reduce
+    made are kept under the calling shard's rank: yields {rank: [(x, w,
+    sum), ...]}."""
+    import torch
+
+    from repro_torch.models.layers import model_axis
+    real, seen = getattr(module, name), {}
+
+    def spy(x, w, dtype=torch.bfloat16, compute_dtype=None):
+        kw = {} if compute_dtype is None else {"compute_dtype":
+                                               compute_dtype}
+        out = real(x, w, dtype, **kw)
+        axis = model_axis()
+        cd = compute_dtype or dtype
+        keep = cd == torch.float32 and w.dtype == torch.bfloat16
+        seen.setdefault(axis.rank, []).append(
+            (x.to(cd), w if keep else w.to(cd), axis.reduced[-1]))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _sums_to_exact(seen: dict, tp: int, close) -> int:
+    """Each shard's all-reduced sum of every call ``_row_sums`` kept
+    against the exact (f64) product of the shards' operands side by side
+    (``close(what, got, exact)``). Returns the calls a shard made."""
+    calls = len(seen[0])
+    for j in range(calls):
+        exact = None
+        for r in range(tp):
+            x, w, _ = seen[r][j]
+            part = x.double().reshape(-1, x.shape[-1]) \
+                @ w.double().reshape(w.shape[0], -1)
+            exact = part if exact is None else exact + part
+        exact = exact.float()
+        for r in range(tp):
+            got = seen[r][j][2]
+            close(f"sums to exact shard {r}, call {j}",
+                  got.reshape(exact.shape), exact)
+        seen_j = [seen[r][j] for r in range(tp)]
+        for r in range(tp):
+            seen[r][j] = None
+        del seen_j, exact
+    return calls
+
+
+def run_r5_units(phase: str) -> None:
+    """Phase r5 for the units the xLSTM and ``serve_row_tp`` split adds
+    (``R5_UNITS``), at full width, shard by shard on the card (a thread a
+    shard, ``run_shards``, on its ``split_unit`` of seeded weights: bf16
+    for the attention layers, f32 for the xLSTM blocks as the model
+    stores them). Four lanes: a prefill of ``R3_PROMPT`` positions, then
+    a decode step (the attention over an ``R3_CACHE``-position cache, an
+    xLSTM block on the state its prefill left), against the unsplit
+    unit:
+
+    * each all-reduced sum of a row-parallel product within ``R3_REL``
+      of the exact (f64) sum of the shards' own operands;
+    * the outputs (the attention's, the MLP's, the xLSTM block's) within
+      ``R3_OUT_REL`` of the unsplit unit's, the untied head's f32 logits
+      within ``R3_REL`` and their argmax equal;
+    * each shard's KV cache (its head_dim slice) and xLSTM state (its
+      heads, or whole) within ``BF16_REL`` of its part of the unsplit
+      one: K and V are themselves row-parallel sums, each rounded once
+      to bf16, so an element whose sum lies at a bf16 rounding boundary
+      rounds to the other side of it than the unsplit product's;
+    * ``fp16_matmul`` launched, ``flash_attention`` for an attention
+      layer and ``slstm_scan`` for an sLSTM block (one head a shard over
+      4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.api import DispatchContext, use_context
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm
+    from repro_torch.models.model import build
+    from repro_torch.parallel.model_axis import run_shards
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED)
+
+    def draw(shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) * scale).cuda().to(torch.bfloat16)
+    for arch, unit, tp, form in R5_UNITS:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = draw((R_LANES, R3_PROMPT, cfg.d_model))
+        xd = draw((R_LANES, 1, cfg.d_model))
+        gaps, bad = {}, []
+
+        def close(what, got, want, rel=R3_REL):
+            g = _r3_gap(got, want)
+            key = what.split(" shard")[0]
+            gaps[key] = max(gaps.get(key, 0.0), g)
+            if not g <= rel:
+                bad.append(f"{what}: {g:.3g} > {rel:.3g}")
+        if unit in ("mlstm", "slstm"):
+            init, block, cache0 = {
+                "mlstm": (xlstm.init_mlstm, xlstm.mlstm_block,
+                          xlstm.init_mlstm_cache),
+                "slstm": (xlstm.init_slstm, xlstm.slstm_block,
+                          xlstm.init_slstm_cache)}[unit]
+            p = init(gen, cfg, "cuda")
+            kernels = ("fp16_matmul",) + (("slstm_scan",)
+                                          if unit == "slstm" else ())
+
+            def run(q):
+                y, st = block(q, x, cfg, mode="prefill",
+                              cache=cache0(cfg, R_LANES, device="cuda"))
+                yd, st = block(q, xd, cfg, mode="decode", cache=st)
+                return y, yd, st
+
+            def one(axis):
+                with torch.no_grad(), L.gather_context(model=axis):
+                    return run(L.split_unit(p, axis, form))
+            with use_context(DispatchContext.for_platform("h100-sxm")), \
+                    torch.no_grad():
+                want = run(p)
+                zero_counts()
+                with _row_sums(xlstm, "_row_mm") as seen:
+                    outs = run_shards(tp, one)
+                    torch.cuda.synchronize()
+                    counts = {k: fn.launches
+                              for k, fn in launch_counters().items()}
+                    calls = _sums_to_exact(seen, tp, close)
+            for r, (y, yd, st) in enumerate(outs):
+                close(f"prefill output shard {r}", y, want[0], R3_OUT_REL)
+                close(f"decode output shard {r}", yd, want[1], R3_OUT_REL)
+                for key, t in st.items():
+                    dim = L.model_dim(t)
+                    ref = want[2][key] if dim is None \
+                        else want[2][key].chunk(tp, dim)[r]
+                    close(f"state {key} shard {r}", t, ref, BF16_REL)
+            shape = f"{cfg.n_heads // tp if form != 'param_embed' else cfg.n_heads} heads a shard"
+            del p, want, outs
+        else:
+            layers = 2 if cfg.local_global else 1
+            mcfg = dataclasses.replace(cfg, n_layers=layers)
+            params = build(mcfg).init_values(gen, device="cuda",
+                                             dtype=torch.bfloat16)
+            seg = L.layer_slice(params["segments"], 0)
+            bp = seg["block0" if unit == "local" or layers == 1
+                     else "block1"]
+            attn, mlp_p = bp["attn"], bp["mlp"]
+            head = params.get("lm_head")
+            pool = {k: draw((1, R_LANES, R3_CACHE, cfg.n_kv_heads,
+                             cfg.head_dim)) for k in ("k", "v")}
+            pos = torch.tensor([R3_CACHE - 1, R3_PROMPT, R3_PROMPT // 2,
+                                17], device="cuda")
+            last = x[:, -1:]
+            kernels = ("fp16_matmul", "flash_attention")
+
+            def run(pa, pm, ph, cache):
+                yp, cp = A.attention(pa, x, cfg, kind=unit, mode="prefill",
+                                     use_rope=True)
+                yd, _ = A.attention(pa, xd, cfg, kind=unit, mode="decode",
+                                    cache=cache, pos=pos, layer_idx=0,
+                                    use_rope=True)
+                ym = L.mlp(pm, x, cfg.act)
+                lg = None if ph is None else L.logits_head(
+                    params["embed"], last, cfg.vocab, head=ph)
+                return yp, cp, yd, cache, ym, lg
+
+            def one(axis):
+                with torch.no_grad(), L.gather_context(model=axis):
+                    mine = {k: v.chunk(tp, 4)[axis.rank].clone()
+                            for k, v in pool.items()}
+                    return run(L.split_unit(attn, axis, form),
+                               L.split_unit(mlp_p, axis, form),
+                               None if head is None else L.split_unit(
+                                   head, axis, form), mine)
+            with use_context(DispatchContext.for_platform("h100-sxm")), \
+                    torch.no_grad():
+                want = run(attn, mlp_p, head,
+                           {k: v.clone() for k, v in pool.items()})
+                zero_counts()
+                with _row_sums(A, "row_parallel_mm") as seen_a, \
+                        _row_sums(L, "row_parallel_mm") as seen_l:
+                    outs = run_shards(tp, one)
+                    torch.cuda.synchronize()
+                    counts = {k: fn.launches
+                              for k, fn in launch_counters().items()}
+                    calls = _sums_to_exact(seen_a, tp, close) \
+                        + _sums_to_exact(seen_l, tp, close)
+            wp, wcp, wd, wpool, wm, wl = want
+            for r, (yp, cp, yd, mine, ym, lg) in enumerate(outs):
+                close(f"prefill output shard {r}", yp, wp, R3_OUT_REL)
+                close(f"decode output shard {r}", yd, wd, R3_OUT_REL)
+                close(f"MLP output shard {r}", ym, wm, R3_OUT_REL)
+                for k in ("k", "v"):
+                    close(f"prefill cache {k} shard {r}", cp[k],
+                          wcp[k].chunk(tp, 3)[r], BF16_REL)
+                    close(f"decode cache {k} shard {r}", mine[k],
+                          wpool[k].chunk(tp, 4)[r], BF16_REL)
+                if lg is not None:
+                    close(f"head logits shard {r}", lg, wl)
+                    if not torch.equal(lg.argmax(-1), wl.argmax(-1)):
+                        bad.append(f"shard {r}: the head's argmax differs")
+            shape = (f"{cfg.n_heads} heads, d_model {cfg.d_model // tp} "
+                     f"and head_dim {cfg.head_dim // tp} a shard")
+            del params, seg, bp, attn, mlp_p, head, pool, want, outs
+        _log(f"[{phase}] {arch} {unit} at tp={tp} ({form}, {shape}), "
+             f"{R_LANES} lanes, a prefill of {R3_PROMPT} positions and a "
+             f"decode step: {calls} row-parallel sums a shard; largest gap "
+             f"over the largest magnitude "
+             f"{({k: f'{v:.3g}' for k, v in gaps.items()})}; launches "
+             f"{counts}; {time.monotonic() - t0:.2f} s")
+        bad += [f"{k} never launched" for k in kernels if counts[k] < 1]
+        if bad:
+            raise AssertionError(f"[{phase}] {arch} {unit} tp={tp} {form}: "
+                                 f"{'; '.join(bad)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
+
+
 def run_phase_r() -> dict:
     """Phase r: the meshed serving steps. r2's traces (processes of their
     own) run while r1 holds the meshed steps to the unmeshed ones on the
@@ -4059,7 +4412,12 @@ def run_phase_r() -> dict:
         for arch, layers, forms, tol in R4_MORE:
             run_r4(f"r4: {arch} split over {R4_TP}, shard by shard", arch,
                    layers, forms, tol)
+        for arch, layers, tp, forms, kernels in R4_SPLIT:
+            run_r4(f"r4: {arch} split over {tp}, shard by shard", arch,
+                   layers, forms, LOGIT_REL_TOL_DECODER, tp, kernels)
         run_r5("r5: MoE and mamba units split over model, shard by shard")
+        run_r5_units("r5: xLSTM and serve_row_tp units split over model, "
+                     "shard by shard")
     except BaseException:
         _kill_dryruns(procs)
         raise

@@ -17,7 +17,14 @@ reference's pjit does) and records, for one rank:
   peak of the bytes alive at once (``peak_bytes``, MemTracker's), the
   peak above the arguments as ``temp_bytes``;
 * the traced FLOPs, bytes and collective bytes, scaled to the mesh, and
-  the three-term roofline on ``h100-sxm``.
+  the three-term roofline on ``h100-sxm``;
+* for a serving cell, the units its split over ``model`` took in each
+  form (``split_counts``: ``"unit:form"`` -> count, ``"whole"`` where a
+  unit was gathered whole) and the traced ops on a global cache leaf's
+  shape, stacked or of one layer (``cache_leaf_ops``: a rank's step
+  holds its rows and shards of the cache, so any such op gathered one;
+  the MoE routing counts, which the cache keeps whole, and the write of
+  a leaf whose rows it keeps whole aside).
 
 Where the reference compiles, the port executes the step on fake
 tensors, so ``compile_s`` is the trace's wall time. The fake tensors
@@ -46,6 +53,7 @@ import torch
 from repro_torch.analysis.cost import measure
 from repro_torch.analysis.roofline import model_flops, roofline_from_cost
 from repro_torch.configs import get_config, list_archs
+from repro_torch.models.layers import reset_split_counts, split_counts
 from repro_torch.models.model import (SHAPES, build, input_specs,
                                       shape_applicable)
 from repro_torch.optim.adamw import AdamWConfig, tree_map
@@ -144,6 +152,30 @@ def _trace_serve(model, shape: str, mesh, rules, device: str):
         return measure(fn, *args, track=args)[1]
 
 
+def cache_leaf_ops(cost, model, shape: str, mesh, rules) -> list:
+    """The traced ops (op, shape, site) of a serving cell's ``cost`` on a
+    global cache leaf's shape, stacked or of one layer, but the MoE
+    routing counts (kept whole) and the write (``copy_`` at
+    ``models.layers:write``) of a leaf whose rows the cache keeps whole
+    on every rank (an sLSTM's ``m`` where its heads' dim, which its
+    axes name ``batch`` as the reference's do, does not divide the data
+    axes). A rank holds its rows and shards of the cache, so any other
+    such op gathered a leaf."""
+    from repro_torch.models.model import tree_paths
+    seq, gbatch, kind = SHAPES[shape]
+    length = step_mod.prefill_cache_len(seq) if kind == "prefill" else seq
+    specs = dict(tree_paths(model.cache_specs(gbatch, length)))
+    shards = dict(tree_paths(step_mod.cache_shardings(model, gbatch, length,
+                                                      mesh, rules)))
+    shapes = {str(tuple(t.shape[k:])) for path, t in specs.items()
+              if not path.endswith("routing") for k in (0, 1)}
+    written = {str(tuple(t.shape[1:])) for path, t in specs.items()
+               if shards[path].spec[1] is None}
+    return sorted((op, s, site) for op, s, site in cost.instructions
+                  if s in shapes and not (s in written and op == "copy_"
+                                          and site == "models.layers:write"))
+
+
 def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 verbose: bool = True, opt_overrides: Optional[dict] = None,
                 n_micro: Optional[int] = None, device: str = "cuda"):
@@ -171,8 +203,13 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 batch=specs, mesh=mesh, rules=rules, n_micro=nm)
             tokens = gbatch * seq
         else:
+            reset_split_counts()
             cost = _trace_serve(model, shape, mesh, rules, device)
             tokens = gbatch * seq if kind == "prefill" else gbatch
+            serve = {"split_counts": {f"{u}:{f}": n for (u, f), n
+                                      in sorted(split_counts().items())},
+                     "cache_leaf_ops": [list(op) for op in cache_leaf_ops(
+                         cost, model, shape, mesh, rules)]}
         label = mesh_label(mesh)
     mflops = model_flops(cfg, model.n_params(), model.n_active_params(),
                          tokens, kind)
@@ -200,6 +237,8 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "roofline_frac": rl.roofline_fraction,
         "cost": cost,
     }
+    if kind != "train":
+        rec.update(serve)
     if verbose:
         print(f"[{arch} x {shape} x {label}] traced {cost.seconds:.1f}s on "
               f"fake {device} | peak {cost.peak_bytes / 1e9:.3f} GB a rank "

@@ -39,6 +39,8 @@ import time
 
 #: the prefill's lanes, and the seed of the weights and the prompts
 LANES, SEED = 4, 0
+#: an encoder-decoder model's frames a lane (Whisper's 30 s window)
+ENC_FRAMES = 1500
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -96,8 +98,10 @@ def main(argv=None) -> dict:
 
 
 def _setup(arch: str, reduced: bool, prompt: int, device):
-    """(model, bf16 params drawn from ``SEED`` on ``device``, the
-    prefill batch of ``LANES`` x ``prompt`` ids)."""
+    """(model, bf16 params drawn from ``SEED`` on ``device`` (an
+    encoder-decoder model's in f32, as it stores them), the prefill batch
+    of ``LANES`` x ``prompt`` ids; for an encoder-decoder model also
+    ``ENC_FRAMES`` seeded frame embeddings a lane)."""
     import numpy as np
     import torch
 
@@ -111,7 +115,12 @@ def _setup(arch: str, reduced: bool, prompt: int, device):
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
         0, model.cfg.vocab, (LANES, prompt)).astype(np.int32))
-    return model, params, {"tokens": tokens.to(device)}
+    batch = {"tokens": tokens.to(device)}
+    if model.cfg.enc_dec:
+        frames = rng.standard_normal((LANES, ENC_FRAMES, model.cfg.d_model))
+        batch["enc_frames"] = torch.from_numpy(
+            (frames * 0.02).astype(np.float32)).to(device)
+    return model, params, batch
 
 
 def _sync(device) -> None:

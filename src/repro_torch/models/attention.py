@@ -38,7 +38,16 @@ query heads read their KV heads at full head_dim and the cache keeps
 its slice, and a decode step gathers the query of every head, sums the
 scores of its head_dim slice over ``model`` in f32, and moves P.V from
 its slice of every head to the whole head_dim of its heads with one
-all-to-all.
+all-to-all. In the ``param_embed`` form (the heads do not divide
+``model``: the reference's ``serve_row_tp``) Q, K and V are
+row-parallel on this rank's d_model slice of x and whole after their
+sum, and every head runs on every rank. Where the cache splits head_dim
+(``wo`` lies on head_dim), the cache keeps this rank's slice, a decode
+step sums the scores of the slice over ``model`` in f32 from the whole
+query (no gather of it) and runs P.V on the slice, and ``wo`` is
+row-parallel over the slice; where head_dim does not divide ``model``
+the cache is whole, read locally, and ``wo`` (on d_model) is
+column-parallel, its output all-gathered.
 
 With a ``page_table`` the planes are a paged pool (L, n_pages, P, Hkv,
 .) shared by the lanes (``repro_torch.paging``): self-attention writes
@@ -61,9 +70,9 @@ from repro_torch.kernels.paged_attention.plain import (bf16_decode_attention,
                                                       grouped_values)
 from repro_torch.models.layers import (attention_form, filled,
                                        meshed_rows, mm, mm_out,
-                                       model_axis, model_dim, model_local,
-                                       ninit, prepared, rmsnorm, rope,
-                                       row_parallel)
+                                       model_axis, model_chunk, model_dim,
+                                       model_local, ninit, prepared,
+                                       rmsnorm, rope, row_parallel_mm)
 from repro_torch.parallel.sharding import constrain
 from repro_torch.quantize import QBLOCK, quantize_q4_0, quantize_q8_0
 
@@ -96,7 +105,18 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device,
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
                  x_kv: Optional[torch.Tensor] = None):
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
-    if x_kv is None and isinstance(wq, torch.Tensor):
+    if attention_form(p) == "param_embed":
+        # row-parallel on this rank's d_model slice, whole after the sum
+        xl = model_chunk(x)
+        if x_kv is None:
+            h, hk = wq.shape[1], wk.shape[1]
+            y = row_parallel_mm(xl, torch.cat([wq, wk, wv], dim=1))
+            q, k, v = y[..., :h, :], y[..., h:h + hk, :], y[..., h + hk:, :]
+        else:
+            kvl = model_chunk(x_kv)
+            q, k, v = (row_parallel_mm(xl, wq), row_parallel_mm(kvl, wk),
+                       row_parallel_mm(kvl, wv))
+    elif x_kv is None and isinstance(wq, torch.Tensor):
         # self-attention with plain weights: one QKV product over the
         # head-concatenated weight (the same per-element contraction);
         # the heads as the weights hold them (a split's: this rank's)
@@ -167,21 +187,25 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
         v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
         kq, vq = k, v
+        d_split = _cache_splits_head_dim(p)
         if form == "head_dim":
             # every KV head at full head_dim (wk, wv whole): the query
             # heads read theirs, the cache keeps its head_dim slice
             lo, hi = _kv_span(q.shape[2], cfg)
             kq, vq = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+        if d_split:
             k, v = _d_slice(k), _d_slice(v)
         out = dispatch("flash_attention", q, kq, vq, causal=causal,
                        window=window, softcap=softcap)
         new_cache = None
         if mode == "prefill":
             new_cache = _write_prefill_cache(cache, k, v)
-            if form is not None:
+            if form == "heads" or d_split:
                 split = 2 if form == "heads" else 3
                 new_cache = {key: model_local(t, split)
                              for key, t in new_cache.items()}
+        if form == "param_embed" and d_split:
+            out = _d_slice(out)   # wo's rows: this rank's head_dim slice
         return constrain(_project_out(p, out), "batch", "q_seq",
                          "embed"), new_cache
 
@@ -211,7 +235,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         # token j attends [0, pos + j]; Q == 1 keeps the (B,) form
         read_lens = pos_b + 1 if s == 1 else posq + 1
         new = {"k": k_new, "v": v_new}
-        if form == "head_dim":
+        if _cache_splits_head_dim(p):
             if tier != "bf16":
                 raise NotImplementedError("a quantized cache on a mesh "
                                           "keeps the attention whole")
@@ -246,7 +270,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if window is not None:
             mask &= (posq[:, :, None] - kpos[None, None, :]) < window
     else:              # cross-attention: read the cached encoder K/V
-        q = bias_norm(p, mm(x, p["wq"]), cfg, "q")
+        q = bias_norm(p, row_parallel_mm(model_chunk(x), p["wq"])
+                      if form == "param_embed" else mm(x, p["wq"]), cfg, "q")
         if page_table is not None:
             # read-only paged cross block; lane b attends its gathered
             # logical positions [0, kv_lens[b])
@@ -271,6 +296,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if form == "head_dim":
         out = _split_d_decode(q, cache["k"][layer_idx],
                               cache["v"][layer_idx], mask, softcap)
+    elif _cache_splits_head_dim(p):
+        out = _slice_decode(_d_slice(q), cache["k"][layer_idx],
+                            cache["v"][layer_idx], mask, softcap,
+                            q.shape[-1])
     else:
         out = bf16_decode_attention(q, cache["k"][layer_idx],
                                     cache["v"][layer_idx], mask, softcap)
@@ -284,12 +313,28 @@ def _decoded(y: torch.Tensor) -> torch.Tensor:
 
 def _project_out(p: dict, out: torch.Tensor) -> torch.Tensor:
     """The output projection of an attention's (..., heads, head_dim)
-    output: ``mm_out``, or, where ``wo`` holds this rank's heads (a
-    split), row-parallel: this rank's f32 partial, summed over
-    ``model`` and rounded once (``layers.row_parallel``)."""
-    if model_dim(p["wo"]) is not None:
-        return row_parallel(mm_out(out, p["wo"], out_dtype=torch.float32))
-    return mm_out(out, p["wo"])
+    output: ``mm_out``, or, where ``wo`` holds this rank's heads or its
+    head_dim slice (a split; ``out`` the same rows of it),
+    row-parallel: this rank's f32 partial, summed over ``model`` and
+    rounded once (``layers.row_parallel_mm``); where ``wo`` holds this
+    rank's d_model columns, column-parallel: those columns of every
+    row, all-gathered over ``model``."""
+    wo = p["wo"]
+    dim = model_dim(wo)
+    if dim == 2:
+        return model_axis().all_gather(mm_out(out, wo), dim=-1)
+    if dim is not None:
+        return row_parallel_mm(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    return mm_out(out, wo)
+
+
+def _cache_splits_head_dim(p: dict) -> bool:
+    """Whether a split attention's cache holds this rank's head_dim
+    slice: the ``head_dim`` form, or ``param_embed`` with ``wo`` on
+    head_dim (the serve rules place both on ``model`` together)."""
+    form = attention_form(p)
+    return form == "head_dim" or (form == "param_embed"
+                                  and model_dim(p["wo"]) == 1)
 
 
 def _d_slice(t: torch.Tensor) -> torch.Tensor:
@@ -306,20 +351,28 @@ def _kv_span(n_local: int, cfg: ArchConfig) -> tuple:
     return first // g, (first + n_local - 1) // g + 1
 
 
+def _slice_decode(q, k, v, mask, softcap, head_dim: int) -> torch.Tensor:
+    """Decode attention over this rank's head_dim slice: q (B, Q, H,
+    D/tp) against the cache's k, v (B, S, Hkv, D/tp), the scores summed
+    over ``model`` in f32 (scaled by the whole ``head_dim``), the
+    softcap, mask and softmax whole, P.V on the slice. Returns f32 (B,
+    Q, H, D/tp)."""
+    widen = not q.is_cuda    # bf16_decode_attention's choice
+    # the scores go in unnamed, so grouped_values frees them as it goes
+    return grouped_values(
+        model_axis().all_reduce(grouped_scores(q, k, widen))
+        * head_dim ** -0.5, v, mask, softcap, q.shape, widen)
+
+
 def _split_d_decode(q, k, v, mask, softcap) -> torch.Tensor:
     """Decode attention of this rank's query heads q (B, Q, H/tp, D) over
     a cache split along head_dim (k, v (B, S, Hkv, D/tp)): the query of
-    every head gathered over ``model``, the scores on this rank's slice
-    of head_dim summed over ``model`` in f32, the softmax whole, P.V on
-    the slice, and one all-to-all from the slice of every head to the
-    whole head_dim of this rank's heads. Returns f32 (B, Q, H/tp, D)."""
+    every head gathered over ``model``, ``_slice_decode`` of its head_dim
+    slice, and one all-to-all from the slice of every head to the whole
+    head_dim of this rank's heads. Returns f32 (B, Q, H/tp, D)."""
     axis = model_axis()
-    q_all = _d_slice(axis.all_gather(q, dim=2))
-    widen = not q.is_cuda    # bf16_decode_attention's choice
-    # the scores go in unnamed, so grouped_values frees them as it goes
-    out = grouped_values(
-        axis.all_reduce(grouped_scores(q_all, k, widen))
-        * q.shape[-1] ** -0.5, v, mask, softcap, q_all.shape, widen)
+    out = _slice_decode(_d_slice(axis.all_gather(q, dim=2)), k, v, mask,
+                        softcap, q.shape[-1])
     return axis.all_to_all(out, split_dim=2, cat_dim=3)
 
 

@@ -9,6 +9,12 @@ stem. Encoder: sinusoidal positions + bidirectional attention + GELU MLP
 learned positions, causal self-attention, cross-attention, GELU MLP and
 the tied embedding head. The reference's ``lax.scan`` over the stacked
 layer axis is a Python loop over it here.
+
+Under a meshed serving step whose heads do not divide ``model`` (the
+reference's ``serve_row_tp``), the frontend's projection is
+row-parallel on d_model and the decoder positions come as this rank's
+columns, all-gathered; the attention and MLP take their forms
+(``layers.unit_form``) and the encoder runs every frame on every rank.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from repro_torch.models.layers import (attention_form, bf16_proj, draw,
                                        init_embedding,
                                        keep_layer, layer_slice,
                                        layernorm, logits_head, mlp, mm,
+                                       model_axis, model_chunk, model_dim,
                                        ninit, prepare_head,
-                                       remat, remat_on,
+                                       remat, remat_on, row_parallel_mm,
                                        sinusoidal_positions, stack_layers,
                                        take_rows, write_cache_layer)
 from repro_torch.parallel.sharding import constrain
@@ -113,7 +120,11 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     ``mode="train"``: a training forward, whose layers ``remat_on``
     may recompute in the backward."""
     b, s, d = frames.shape
-    x = frames.to(torch.bfloat16) @ as_array(params["frontend"])
+    front = params["frontend"]
+    if model_dim(front) == 0:    # serve_row_tp: its rows, d_model
+        x = row_parallel_mm(model_chunk(frames.to(torch.bfloat16)), front)
+    else:
+        x = frames.to(torch.bfloat16) @ as_array(front)
     x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
     x = constrain(x, "batch", "q_seq", "embed")
     layers = params["enc_layers"]
@@ -164,6 +175,16 @@ def cross_attn_kv(params: dict, cfg: ArchConfig, states: torch.Tensor):
     return torch.stack(ks), torch.stack(vs)
 
 
+def _positions(table, idx: torch.Tensor, dtype=torch.float32):
+    """Rows ``idx`` of the learned decoder positions (``take_rows``);
+    a table split over ``model`` along d_model (``serve_row_tp``) gives
+    this rank's columns of them, all-gathered over ``model``."""
+    rows = take_rows(table, idx, dtype)
+    if model_dim(table) is None:
+        return rows
+    return model_axis().all_gather(rows, dim=-1)
+
+
 def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None, *,
                   mode: str = "train", cache=None, pos=None, enc_lens=None,
@@ -184,10 +205,10 @@ def decode_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     if mode == "decode":
         posv = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
         idx = posv[:, None] + torch.arange(s, device=x.device)[None, :]
-        x = x + take_rows(params["dec_pos"], idx).to(x.dtype)
+        x = x + _positions(params["dec_pos"], idx).to(x.dtype)
     else:
-        x = x + take_rows(params["dec_pos"],
-                          torch.arange(s, device=x.device), x.dtype)[None]
+        x = x + _positions(params["dec_pos"],
+                           torch.arange(s, device=x.device), x.dtype)[None]
     x = constrain(x, "batch", "q_seq", "embed")
 
     layers = params["dec_layers"]

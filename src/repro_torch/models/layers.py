@@ -39,13 +39,17 @@ shards instead of the whole gather (``unit_form``, ``split_unit``): the
 attention its query heads (and KV heads, or the whole K/V where the
 cache splits head_dim), the MLP its columns, the embedding its
 vocabulary rows, the untied head its vocabulary columns, the MoE its
-experts or each expert's columns, a mamba block its inner channels and
-SSM heads, each shard a plain tensor that says so (``model_dim``). The
-split layers are plain functions of their shard plus a collective:
-``row_parallel`` (the attention's ``wo``, the MLP's ``down``, the MoE's
-combine or ``down``, the mamba block's ``wo``: one all-reduce, one
-rounding), the vocab-parallel embedding's all-reduce, a split
-``rmsnorm``'s mean square, ``vocab_offset`` and ``sharded_argmax``.
+experts or each expert's columns, a mamba or mLSTM block its inner
+channels and heads, an sLSTM block its heads; where the heads do not
+divide ``model`` (the reference's ``serve_row_tp``), each product its
+rows along d_model (or the inner dim it contracts); each shard a plain
+tensor that says so (``model_dim``). The split layers are plain
+functions of their shard plus a collective: ``row_parallel`` /
+``row_parallel_mm`` (the attention's ``wo``, the MLP's ``down``, the
+MoE's combine or ``down``, the mamba block's ``wo``, every product split
+along d_model: one all-reduce, one rounding, a block of rows at a time),
+the vocab-parallel embedding's all-reduce, a split ``rmsnorm``'s mean
+square, ``vocab_offset`` and ``sharded_argmax``.
 
 A serving tree (``Model.prepare_serving``) carries tensors that a
 forward would otherwise derive from the weights at every call, such as
@@ -266,7 +270,7 @@ def _gather_tree(tree, name, ctx: _Gather, grad_placements):
     if ctx.model is not None:
         form = unit_form(name, tree, ctx)
         if form is not None:
-            return split_unit(tree, ctx.model, form, grad_placements)
+            return split_unit(tree, ctx.model, form, grad_placements, name)
     if isinstance(tree, dict):
         return {k: _gather_tree(v, k, ctx, grad_placements)
                 for k, v in tree.items()}
@@ -291,17 +295,25 @@ ATTN_UNITS = ("attn", "self_attn", "cross_attn")
 #: each split form's leaves that take their ``model`` shard, with the
 #: tensor dim the shard splits; a unit's other leaves are gathered whole.
 #: ``heads``: the query and KV heads (Megatron's column-parallel Q/K/V and
-#: row-parallel output); ``head_dim``: the query heads, with K and V
-#: whole (their KV heads do not divide ``model``; the cache splits
-#: head_dim); ``ff``: the MLP's columns; ``vocab`` / ``vocab_cols``: the
-#: embedding table's rows / the untied head's columns; ``experts``: the
-#: MoE's experts (expert parallelism), ``expert_ff``: each expert's FFN
-#: columns (the router whole either way); ``inner``: a mamba block's
-#: inner channels and SSM heads (``wB``, ``wC`` and their conv taps,
-#: which the serve rules leave off ``model``, whole)
+#: row-parallel output), and an sLSTM block's FFN columns (its heads'
+#: gate weights, which the serve rules leave whole, sliced locally);
+#: ``head_dim``: the query heads, with K and V whole (their KV heads do
+#: not divide ``model``; the cache splits head_dim); ``ff``: the MLP's
+#: columns; ``vocab`` / ``vocab_cols``: the embedding table's rows / the
+#: untied head's columns; ``experts``: the MoE's experts (expert
+#: parallelism), ``expert_ff``: each expert's FFN columns (the router
+#: whole either way); ``inner``: a mamba block's inner channels and SSM
+#: heads (``wB``, ``wC`` and their conv taps, which the serve rules
+#: leave off ``model``, whole), or an mLSTM block's inner channels and
+#: heads; ``param_embed``: the reference's ``serve_row_tp`` (the heads
+#: do not divide ``model``), every product split along d_model, or
+#: along the inner dim it contracts (an xLSTM block's, the MLP's
+#: ``down``), ``wo`` along head_dim where it divides ``model`` (the
+#: cache splits head_dim), else along d_model (a tuple: the first dim
+#: ``model`` divides); the Whisper frontend and decoder positions too
 FORMS = {
     "heads": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
-              "bv": 0},
+              "bv": 0, "w_up": 1, "w_down": 0},
     "head_dim": {"wq": 1, "wo": 0, "bq": 0},
     "ff": {"up": 1, "gate": 1, "down": 0},
     "vocab": {"table": 0},
@@ -309,8 +321,38 @@ FORMS = {
     "experts": {"gate": 0, "up": 0, "down": 0},
     "expert_ff": {"gate": 2, "up": 2, "down": 1},
     "inner": {"wz": 1, "wx": 1, "conv_x": 1, "out_norm": 0, "wo": 0,
-              "wdt": 1, "dt_bias": 0, "A_log": 0, "D": 0},
+              "wdt": 1, "dt_bias": 0, "A_log": 0, "D": 0,
+              "w_up": 1, "w_gate": 1, "wq": 0, "wk": 0, "wv": 0, "wi": 0,
+              "wf": 0, "w_down": 0},
+    "param_embed": {"wq": 0, "wk": 0, "wv": 0, "wo": (1, 2), "up": 0,
+                    "gate": 0, "down": 0, "lm_head": 0, "w_up": 0,
+                    "w_gate": 0, "wi": 0, "wf": 0, "w_down": 0, "w": 0,
+                    "frontend": 0, "dec_pos": 1},
 }
+
+#: the leaves a unit must have to take a form (the form's other leaves
+#: that it has must lie as the form says too)
+_NEED = {
+    ("attention", "heads"): ("wq", "wk", "wv", "wo"),
+    ("attention", "head_dim"): ("wq", "wo"),
+    ("attention", "param_embed"): ("wq", "wk", "wv", "wo"),
+    ("mlp", "ff"): ("up", "down"),
+    ("mlp", "param_embed"): ("up", "down"),
+    ("embed", "vocab"): ("table",),
+    ("moe", "experts"): ("gate", "up", "down"),
+    ("moe", "expert_ff"): ("gate", "up", "down"),
+    ("mamba", "inner"): ("wz", "wx", "conv_x", "out_norm", "wo", "wdt",
+                         "dt_bias", "A_log", "D"),
+    ("mlstm", "inner"): ("w_up", "w_gate", "wq", "wk", "wv", "wi", "wf",
+                         "out_norm", "w_down"),
+    ("mlstm", "param_embed"): ("w_up", "w_gate", "wq", "wk", "wv", "wi",
+                               "wf", "w_down"),
+    ("slstm", "heads"): ("w_up", "w_down"),
+    ("slstm", "param_embed"): ("w_up", "w_down"),
+}
+
+#: an sLSTM block's gate subtrees
+SLSTM_GATES = ("i", "f", "z", "o")
 
 _SPLITS: collections.Counter = collections.Counter()
 
@@ -338,15 +380,26 @@ def _model_shard_dim(t) -> Optional[int]:
     return p.dim if p.is_shard() else None
 
 
-def _takes(tree: dict, form: str) -> bool:
-    """Whether every leaf of ``form`` that ``tree`` has is placed on
-    ``model`` along the form's dim (the required ones present)."""
+def _on(dim, want) -> bool:
+    """Whether a leaf placed on ``model`` along ``dim`` lies as a form's
+    entry ``want`` (a dim, or a tuple of the dims it may take) says."""
+    return dim in want if isinstance(want, tuple) else dim == want
+
+
+def _takes(tree: dict, unit: str, form: str) -> bool:
+    """Whether the ``unit`` subtree ``tree`` has the leaves ``form``
+    needs and every leaf of ``form`` that it has is placed on ``model``
+    along the form's dim."""
     dims = FORMS[form]
-    need = {"heads": ("wq", "wk", "wv", "wo"), "head_dim": ("wq", "wo"),
-            "ff": ("up", "down"), "vocab": ("table",)}.get(form, tuple(dims))
-    return all(k in tree for k in need) and all(
-        _model_shard_dim(tree[k]) == d for k, d in dims.items()
+    return all(k in tree for k in _NEED[(unit, form)]) and all(
+        _on(_model_shard_dim(tree[k]), d) for k, d in dims.items()
         if k in tree)
+
+
+#: the top-level leaves the split may take (a key of ``FORMS``'s forms):
+#: the untied head, the Whisper frontend and decoder positions
+_LEAF_UNITS = {"lm_head": "head", "frontend": "frontend",
+               "dec_pos": "dec_pos"}
 
 
 def _unit(name, tree) -> Optional[str]:
@@ -354,10 +407,11 @@ def _unit(name, tree) -> Optional[str]:
     ``unit_form``), else None."""
     if name in ATTN_UNITS and isinstance(tree, dict) and "wq" in tree:
         return "attention"
-    if name in ("mlp", "embed", "moe", "mamba") and isinstance(tree, dict):
+    if name in ("mlp", "embed", "moe", "mamba", "mlstm", "slstm") \
+            and isinstance(tree, dict):
         return name
-    if name == "lm_head" and not isinstance(tree, dict):
-        return "head"
+    if name in _LEAF_UNITS and not isinstance(tree, dict):
+        return _LEAF_UNITS[name]
     return None
 
 
@@ -369,46 +423,70 @@ def unit_form(name, tree, ctx: Optional[_Gather] = None) -> Optional[str]:
     and the mesh alone, so every rank takes the same branch. The units:
     attention (``ATTN_UNITS``: ``heads`` where the query and KV heads
     divide ``model``, else ``head_dim`` where the cache splits head_dim
-    and each rank's query heads read one KV head; whole where the heads
-    do not divide ``model``, the reference's ``serve_row_tp``, or the
-    cache is quantized), the dense MLP (``mlp``: ``ff``), the embedding
-    (``embed``: ``vocab``), the untied head (``lm_head``:
-    ``vocab_cols``), the MoE (``moe``: ``experts`` where the experts
+    and each rank's query heads read one KV head, else ``param_embed``
+    where the heads do not divide ``model``, the reference's
+    ``serve_row_tp``; whole where the cache is quantized), the dense MLP
+    (``mlp``: ``ff``, or ``param_embed``), the embedding (``embed``:
+    ``vocab``), the untied head (``lm_head``: ``vocab_cols``, or
+    ``param_embed``), the MoE (``moe``: ``experts`` where the experts
     divide ``model``, else ``expert_ff``; quantized experts, which a
-    mesh does not place, whole) and a mamba block (``mamba``: ``inner``
-    where its inner channels and SSM heads both lie on ``model``).
-    Everything else (xLSTM, the norms, the Whisper frontend) is gathered
-    whole. A shard-by-shard run's axis that names ``forms`` takes each
-    unit of whole plain weights in the form named there."""
+    mesh does not place, whole), a mamba block (``mamba``: ``inner``
+    where its inner channels and SSM heads both lie on ``model``), the
+    xLSTM blocks (``mlstm``: ``inner`` where its heads divide ``model``,
+    ``slstm``: ``heads`` there; both ``param_embed`` where they do not)
+    and the Whisper frontend and decoder positions (``frontend``,
+    ``dec_pos``: ``param_embed``, under ``serve_row_tp`` alone).
+    Everything else (the norms, the biases) is gathered whole. A
+    shard-by-shard run's axis that names ``forms`` takes each unit of
+    whole plain weights in the form named there."""
     ctx = ctx or _active()
     if ctx is None or ctx.model is None:
         return None
     unit = _unit(name, tree)
     if unit is None:
         return None
+    size = ctx.model.size
     form = None
     if ctx.model.forms is not None:
         form = ctx.model.forms.get(unit)
         if unit == "attention" and not ctx.split_attention:
             form = None
     elif unit == "attention":
-        if ctx.split_attention and _takes(tree, "heads"):
+        if ctx.split_attention and _takes(tree, unit, "heads"):
             form = "heads"
-        elif ctx.split_attention and _takes(tree, "head_dim") \
+        elif ctx.split_attention and _takes(tree, unit, "head_dim") \
                 and _model_shard_dim(tree["wk"]) == 2 \
-                and ctx.model.size % tree["wk"].shape[1] == 0:
+                and size % tree["wk"].shape[1] == 0:
             form = "head_dim"
-    elif unit == "mlp":
-        form = "ff" if _takes(tree, "ff") else None
+        elif ctx.split_attention and _takes(tree, unit, "param_embed"):
+            form = "param_embed"
+    elif unit in ("mlp", "moe"):
+        form = next((f for f in ("ff", "param_embed", "experts",
+                                 "expert_ff")
+                     if (unit, f) in _NEED and _takes(tree, unit, f)), None)
     elif unit == "embed":
-        form = "vocab" if _takes(tree, "vocab") else None
-    elif unit == "moe":
-        form = next((f for f in ("experts", "expert_ff")
-                     if _takes(tree, f)), None)
+        form = "vocab" if _takes(tree, unit, "vocab") else None
     elif unit == "mamba":
-        form = "inner" if _takes(tree, "inner") else None
+        form = "inner" if _takes(tree, unit, "inner") else None
+    elif unit == "mlstm":
+        if tree["wi"].shape[1] % size == 0 and _takes(tree, unit, "inner"):
+            form = "inner"
+        elif _takes(tree, unit, "param_embed"):
+            form = "param_embed"
+    elif unit == "slstm":
+        gates = {_model_shard_dim(tree[g]["w"]) for g in SLSTM_GATES}
+        if gates == {None} and tree["i"]["w"].shape[1] % size == 0 \
+                and _takes(tree, unit, "heads"):
+            form = "heads"
+        elif gates == {0} and _takes(tree, unit, "param_embed"):
+            form = "param_embed"
     else:
-        form = "vocab_cols" if _model_shard_dim(tree) == 1 else None
+        dim = _model_shard_dim(tree)
+        form = next((f for f in ("vocab_cols", "param_embed")
+                     if FORMS[f].get(name) == dim), None) \
+            if dim is not None else None
+    if form is None and unit in ("frontend", "dec_pos"):
+        return None    # off ``model`` but under serve_row_tp: not a unit
     _SPLITS[(unit, form or "whole")] += 1
     return form
 
@@ -427,10 +505,14 @@ def model_dim(t) -> Optional[int]:
     return getattr(t, "_model_dim", None)
 
 
-def _local_shard(t, dim: int, axis) -> torch.Tensor:
-    """This rank's ``model`` shard of ``t`` along ``dim``: a DTensor's
-    local tensor (gathered over any other sharded mesh axis first), or a
-    whole plain tensor's chunk ``axis.rank``."""
+def _local_shard(t, dim, axis) -> torch.Tensor:
+    """This rank's ``model`` shard of ``t`` along ``dim`` (a tuple: the
+    DTensor's own placement, or the first of its dims that ``model``
+    divides): a DTensor's local tensor (gathered over any other sharded
+    mesh axis first), or a whole plain tensor's chunk ``axis.rank``."""
+    if isinstance(dim, tuple):
+        dim = _model_shard_dim(t) if is_dtensor(t) else next(
+            d for d in dim if t.shape[d] % axis.size == 0)
     if is_dtensor(t):
         from torch.distributed.tensor import Replicate
         m = t.device_mesh.mesh_dim_names.index("model")
@@ -442,25 +524,33 @@ def _local_shard(t, dim: int, axis) -> torch.Tensor:
     return model_local(t.chunk(axis.size, dim)[axis.rank], dim)
 
 
-def split_unit(tree, axis, form: str, grad_placements=None):
-    """The unit ``tree`` (a dict, or the ``lm_head`` leaf) in ``form``:
-    its form leaves as this rank's ``model`` shards (``model_local``),
-    every other DTensor leaf gathered whole. Takes DTensors (a meshed
-    step's) or whole plain tensors, which it chunks as the placements
-    would (a shard-by-shard run: ``parallel.model_axis.run_shards``)."""
+def split_unit(tree, axis, form: str, grad_placements=None,
+               name: str = "lm_head"):
+    """The unit ``tree`` (a dict, or the top-level leaf at key ``name``:
+    the head, the Whisper frontend or decoder positions) in ``form``:
+    its form leaves as this rank's ``model`` shards (``model_local``;
+    an sLSTM block's gate subtrees leaf by leaf), every other DTensor
+    leaf gathered whole. Takes DTensors (a meshed step's) or whole plain
+    tensors, which it chunks as the placements would (a shard-by-shard
+    run: ``parallel.model_axis.run_shards``)."""
     dims = FORMS[form]
     if not isinstance(tree, dict):
-        return _local_shard(tree, dims["lm_head"], axis)
-    return {k: _local_shard(v, dims[k], axis) if k in dims
+        return _local_shard(tree, dims[name], axis)
+    return {k: split_unit(v, axis, form, grad_placements)
+            if isinstance(v, dict)
+            else _local_shard(v, dims[k], axis) if k in dims
             else gathered(v, grad_placements) if is_dtensor(v) else v
             for k, v in tree.items()}
 
 
 def attention_form(p) -> Optional[str]:
     """The form of an attention unit as the split handed it over:
-    ``heads``, ``head_dim``, or None (whole)."""
-    if model_dim(p["wq"]) is None:
+    ``heads``, ``head_dim``, ``param_embed``, or None (whole)."""
+    dim = model_dim(p["wq"])
+    if dim is None:
         return None
+    if dim == 0:
+        return "param_embed"
     return "heads" if model_dim(p["wk"]) is not None else "head_dim"
 
 
@@ -469,6 +559,62 @@ def row_parallel(partial: torch.Tensor, dtype=_BF16) -> torch.Tensor:
     ``model`` of this rank's f32 partial, then one rounding to
     ``dtype``."""
     return model_axis().all_reduce(partial).to(dtype)
+
+
+#: the rows (positions of every batch row) a row-parallel product sums
+#: over ``model`` at a time: its f32 partial then holds no more than the
+#: bf16 product of a prefill's rows it stands for
+ROW_BLOCK = 4096
+
+
+def row_parallel_mm(x: torch.Tensor, w: torch.Tensor, dtype=_BF16,
+                    compute_dtype=_BF16) -> torch.Tensor:
+    """x @ w where x (..., k) holds this rank's ``model`` slice of the
+    contraction and w (k, ...) its rows: the f32 partial (``mm``'s
+    ``out_dtype``; a 3-D weight flattened past its first dim), summed
+    over ``model`` and rounded once to ``dtype`` (``row_parallel``),
+    ``ROW_BLOCK`` rows of x at a time."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    w2 = w.reshape(w.shape[0], -1)
+
+    def part(rows):
+        return row_parallel(mm(rows, w2, compute_dtype, out_dtype=_F32),
+                            dtype)
+    m = x.numel() // k
+    if m <= ROW_BLOCK:
+        y = part(x)
+    else:
+        x2 = x.reshape(m, k)
+        y = torch.empty((m, w2.shape[1]), dtype=dtype, device=x.device)
+        for i in range(0, m, ROW_BLOCK):
+            y[i:i + ROW_BLOCK] = part(x2[i:i + ROW_BLOCK])
+    return y.reshape(*lead, *w.shape[1:])
+
+
+def by_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a map ``fn`` of each row of x (..., d) alone (a
+    position-wise unit), ``ROW_BLOCK`` rows at a time: its temporaries
+    then hold a block's rows, not a prefill's."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    m = x.numel() // d
+    if m <= ROW_BLOCK:
+        return fn(x)
+    x2, out = x.reshape(m, d), None
+    for i in range(0, m, ROW_BLOCK):
+        y = fn(x2[i:i + ROW_BLOCK])
+        if out is None:
+            out = torch.empty((m, y.shape[-1]), dtype=y.dtype,
+                              device=y.device)
+        out[i:i + ROW_BLOCK] = y
+    return out.reshape(*lead, out.shape[-1])
+
+
+def model_chunk(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's ``model`` chunk of the whole tensor ``t`` along
+    ``dim`` (a d_model slice of an activation, a head_dim slice),
+    contiguous, as a kernel takes it."""
+    axis = model_axis()
+    return t.chunk(axis.size, dim)[axis.rank].contiguous()
 
 
 def vocab_offset(n_local: int) -> int:
@@ -668,7 +814,8 @@ def gather_cache_layer(pool, i: int, keep_model=False):
     (``model`` on the KV heads, head_dim, heads, ssm heads or inner dim;
     ``MeshRows.gather``), but ``model`` with ``keep_model`` (the block's
     attention is split: it reads its shard; or the keys of the leaves
-    that keep it, a split mamba block's ``h``), which
+    that keep it, a split mamba block's ``h``, an sLSTM block's state
+    but ``m`` where the cache does not place that on ``model``), which
     ``write_cache_layer`` writes back."""
     rows = meshed_rows()
     if rows is None:
@@ -766,7 +913,8 @@ def layer_params(params: dict, axes: dict, grad_placements=None) -> dict:
     (embeddings, head, final norms, the Whisper frontend, the hybrid's
     shared block) gathered whole once, or, under a split, taken as its
     unit's ``model`` shards (``unit_form``: the embedding, the untied
-    head, the shared block's attention and MLP); plain leaves as they
+    head, the shared block's attention and MLP, the Whisper frontend and
+    decoder positions); plain leaves as they
     are."""
     ctx = _active() or _Gather(None, None, None, None, True)
 
@@ -1038,12 +1186,18 @@ def logits_head(p: dict, x: torch.Tensor, vocab: int,
     bf16-rounded x as f32 operands: each product of two bf16 values is
     exact in f32, so this is the reference's bf16 x bf16 -> f32 einsum,
     accumulated in f32 and never rounded to bf16. A head split over
-    ``model`` (the untied head's columns, or the tied table's rows)
-    computes this rank's vocabulary columns, the padding mask offset by
-    ``vocab_offset``; the logits come back as this rank's shard
-    (``model_dim``: the last)."""
-    split = model_dim(p["table"] if head is None else head) is not None
-    if head is not None:
+    ``model`` along the vocabulary (the untied head's columns, or the
+    tied table's rows) computes this rank's vocabulary columns, the
+    padding mask offset by ``vocab_offset``; the logits come back as
+    this rank's shard (``model_dim``: the last). An untied head split
+    along d_model (``param_embed``) is row-parallel: this rank's f32
+    partial of every column, summed over ``model``, the logits whole."""
+    head_dim = None if head is None else model_dim(head)
+    split = model_dim(p["table"]) is not None if head is None \
+        else head_dim == 1
+    if head_dim == 0:
+        y = row_parallel_mm(model_chunk(x), head, _F32, _F32)
+    elif head is not None:
         y = mm(x, head, torch.float32)
     else:
         tbl = p["table"]
@@ -1111,9 +1265,16 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, device,
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Plain two-layer MLP (Whisper); a ``gate`` weight makes it gated.
-    Split over ``model`` (``ff``): ``up`` and ``gate`` column-parallel,
-    the activation on this rank's columns, ``down`` row-parallel (its
-    f32 partial, ``row_parallel``)."""
+    Split over ``model`` along its columns (``ff``): ``up`` and ``gate``
+    column-parallel, the activation on this rank's columns, ``down``
+    row-parallel (its f32 partial, ``row_parallel_mm``). Split along
+    d_model (``param_embed``): ``up`` and ``gate`` row-parallel on this
+    rank's d_model slice of x, so the activation is whole on every
+    rank, and ``down`` row-parallel on this rank's columns of it, a
+    block of rows at a time (``by_rows``: the whole activation's f32
+    temporaries of a prefill are not held at once)."""
+    if model_dim(p["up"]) == 0:
+        return by_rows(lambda t: _mlp_row_tp(p, t, act), x)
     up = constrain(mm(x, p["up"]), "batch", "q_seq", "ff")
     if "gate" in p:
         g = _act(act)(mm(x, p["gate"]))
@@ -1121,5 +1282,14 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = _act(act)(up)
     if model_dim(p["down"]) is not None:
-        return row_parallel(mm(h, p["down"], out_dtype=_F32))
+        return row_parallel_mm(h, p["down"])
     return constrain(mm(h, p["down"]), "batch", "q_seq", "embed")
+
+
+def _mlp_row_tp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``mlp`` split along d_model (``param_embed``) on rows x."""
+    xl = model_chunk(x)
+    up = row_parallel_mm(xl, p["up"])
+    h = _act(act)(row_parallel_mm(xl, p["gate"])) * up if "gate" in p \
+        else _act(act)(up)
+    return row_parallel_mm(model_chunk(h), p["down"])

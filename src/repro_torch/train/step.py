@@ -47,15 +47,19 @@ decode step. Each rank runs the rows its cache shard holds
 rank's ``model`` shard (Megatron-style tensor parallelism, the split the
 reference's pjit makes): the attention on its heads (``wo``
 row-parallel), the MLP on its columns (``down`` row-parallel), the
-embedding vocab-parallel and the head on its vocabulary columns
-(``layers.unit_form``, ``parallel.model_axis.MeshAxis``); every other
-layer (MoE experts, mamba, xLSTM, a layer whose heads do not divide
-``model``) is gathered a layer at a time, whole, as above. The prefill
-keeps each layer's new cache as DTensors built from its rows and shard,
-and a decode block reads its shard of one layer's cache where its
-attention is split (else its rows gathered over the model axis) and
-writes the new rows (or a state block's whole new state) into the local
-shards in place (``layers.gather_cache_layer`` / ``write_cache_layer``).
+embedding vocab-parallel and the head on its vocabulary columns, the
+MoE on its experts, the mamba and xLSTM blocks on their heads; where
+the heads do not divide ``model`` (the reference's ``serve_row_tp``)
+every product along d_model, row-parallel, with the Whisper frontend's
+and decoder positions' columns (``layers.unit_form``,
+``parallel.model_axis.MeshAxis``); a unit whose placements give no form
+(a quantized cache's attention) is gathered a layer at a time, whole,
+as above. The prefill keeps each layer's new cache as DTensors built
+from its rows and shard, and a decode block reads its shard of one
+layer's cache where its unit is split (else its rows gathered over the
+model axis) and writes the new rows (or a state block's new state)
+into the local shards in place (``layers.gather_cache_layer`` /
+``write_cache_layer``).
 Where the data axes do not divide the batch (``enforce_divisibility``
 leaves it whole: long_500k's one lane), every rank runs every row, as
 its cache holds them. The logits come back whole on every rank.
@@ -508,7 +512,9 @@ def make_prefill_step(model: Model, *, mesh=None,
     gathering the parameters a layer at a time (``layers.layer_params``)
     but for the layers every family shares, which it runs on its
     ``model`` shards (``layers.unit_form``: the attention heads, the
-    MLP's columns, the vocabulary), and keeps each layer's new cache as
+    MLP's columns, the vocabulary, the experts, the mamba and xLSTM
+    heads, or d_model where the heads do not divide ``model``), and
+    keeps each layer's new cache as
     DTensors in the placements of ``cache_shardings`` as the layer makes
     it, built from this rank's rows and shard (``MeshRows.place``); the
     last position's logits come back whole on every rank (one all-gather
@@ -554,7 +560,8 @@ def make_decode_step(model: Model, *, mesh=None,
     parameters gathered a layer at a time but for the split layers, as
     the meshed prefill, and each block's cache too: this rank's rows of
     the layer, gathered over the model axis where the block's attention
-    is whole (a split one reads its shard: its KV heads, or head_dim),
+    is whole (a split one reads its shard: its KV heads, or head_dim;
+    a split mamba or xLSTM block its state's heads),
     read, and its new rows written into the local shards
     (``layers.gather_cache_layer`` / ``write_cache_layer``). A quantized
     cache keeps the attention whole. It returns the same cache tree,

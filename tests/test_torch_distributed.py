@@ -33,7 +33,10 @@ the JAX package's numbers:
   tolerance of the largest, the MoE routing counts exactly), after the
   prefill and after the last step; the same for qwen3-4b on a (1, 4)
   mesh, where the cache shards head_dim and the attention splits the
-  query heads alone;
+  query heads alone, and for whisper-tiny.en and xlstm-350m on a (1, 4)
+  mesh with heads that do not divide it (6 and 2 KV heads; 2 xLSTM
+  heads), where every product splits along d_model (the reference's
+  ``serve_row_tp``; xlstm-350m on 2x2 splits its heads);
 * a 2x2 meshed decode step gathers no cache over ``model`` (qwen3-4b and
   whisper-tiny.en, reduced, 4 layers: their KV heads divide it, and a
   split attention reads its shard), where a planted whole-cache gather
@@ -42,7 +45,8 @@ the JAX package's numbers:
   whole-layer gather of every leaf on ``model`` is seen when the split is
   off (qwen3-4b, whisper-tiny.en, qwen3-moe-30b-a3b's experts, zamba2-
   7b's mamba blocks, whose ``conv`` state leaf alone a decode step
-  gathers a layer at a time);
+  gathers a layer at a time, xlstm-350m's blocks, and whisper-tiny.en
+  on (1, 4) with 6 heads, its frontend and decoder positions too);
 * ``compressed_psum``'s mean is within 1e-6 of the mean over ranks of
   the reference's ``dequantize_grad(quantize_grad(g_r + e_r))``, and each
   rank's new residual equals the reference's;
@@ -97,8 +101,10 @@ SERVE_TOL = 1e-5
 # rounds the other way, one bf16 ulp (2**-8 relative), and later layers
 # carry it. So the logits and the cache agree within two and a half bf16
 # ulps of the largest value, GRAD_TOL's bound; measured: 4.4e-3 (whisper-
-# tiny.en's prefill logits, one row of four; the other rows bit-equal).
-# SERVE_TOL still binds where ``model`` is 1. The greedy ids must agree
+# tiny.en's prefill logits, one row of four; the other rows bit-equal;
+# 7.0e-3 for whisper-tiny.en split along d_model over 4, shard by shard).
+# The xLSTM blocks' products are f64 on the CPU (``models/xlstm.py``), so
+# their split checks are exact. SERVE_TOL still binds where ``model`` is 1. The greedy ids must agree
 # but at a near-tie (``TIE_MARGIN`` of the unmeshed logits)
 SPLIT_TOL = 1e-2
 TIE_MARGIN = 0.25
@@ -110,11 +116,16 @@ PIPE_FWD_RTOL, PIPE_GRAD_RTOL = 2e-5, 1e-5
 # at this wall rather than running into the suite's limit
 RANKS_DEADLINE_S = 300
 GATHER_ARCHS = ("qwen3-4b", "whisper-tiny-en")
-SPLIT_ARCHS = GATHER_ARCHS + ("qwen3-moe-30b-a3b", "zamba2-7b")
+#: the reference's ``serve_row_tp`` on a (1, 4) mesh: these archs with
+#: their reduced heads replaced by ones that do not divide 4
+ROW_TP_ARCHS = ("whisper-tiny-en", "xlstm-350m")
+SPLIT_ARCHS = GATHER_ARCHS + ("qwen3-moe-30b-a3b", "zamba2-7b",
+                              "xlstm-350m", "whisper-tiny-en-row_tp")
 CASES = ([f"sharded_step[{a}]" for a in FAMILIES]
          + [f"layer_gather_peak[{a}]" for a in GATHER_ARCHS]
          + [f"meshed_serving[{a}]" for a in FAMILIES]
          + ["meshed_serving_head_dim"]
+         + [f"meshed_serving_row_tp[{a}]" for a in ROW_TP_ARCHS]
          + [f"meshed_decode_peak[{a}]" for a in GATHER_ARCHS]
          + [f"meshed_split_bytes[{a}]" for a in SPLIT_ARCHS]
          + ["compressed_psum", "compressed_step",
@@ -455,6 +466,45 @@ def case_meshed_serving_head_dim(work):
     _meshed_serving(model, mesh)
 
 
+def _row_tp_port(arch):
+    """Reduced ``arch`` with heads that do not divide a ``model`` of 4:
+    6 heads and 2 KV heads (an xLSTM block's 2 heads), so the serve
+    rules place its products on d_model (the reference's
+    ``serve_row_tp``)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import build
+    cfg = reduced(get_config(arch))
+    heads = (2, 2) if cfg.xlstm else (6, 2)
+    return build(dataclasses.replace(cfg, n_heads=heads[0],
+                                     n_kv_heads=heads[1]))
+
+
+#: the units a meshed serving step must split, never take whole
+SPLIT_UNITS = ("attention", "mlp", "head", "mlstm", "slstm")
+
+
+def case_meshed_serving_row_tp(arch, work):
+    """``_row_tp_port(arch)`` on a (1, 4) mesh, whose serve rules place
+    d_model on ``model`` (``param_embed``; the cache on head_dim, the
+    xLSTM state whole): the meshed prefill and decode steps against the
+    unmeshed ones (``_meshed_serving``: the logits within ``SPLIT_TOL``,
+    the cache in its shardings and written in place), every attention,
+    MLP, head and xLSTM unit in the ``param_embed`` form, none whole."""
+    from repro_torch.models.layers import reset_split_counts, split_counts
+    from repro_torch.parallel.sharding import rules_for
+    model = _row_tp_port(arch)
+    mesh = _mesh((1, 4), ("data", "model"))
+    rules = rules_for(model.cfg, mesh, mode="serve")
+    assert rules["param_embed"] == "model" and rules["heads"] is None
+    reset_split_counts()
+    _meshed_serving(model, mesh)
+    counts = split_counts()
+    assert not any(u in SPLIT_UNITS and f != "param_embed"
+                   for u, f in counts), counts
+    assert any(u in ("attention", "mlstm") for u, _ in counts), counts
+
+
 class GatheredCacheBytes(GatheredBytes):
     """``GatheredBytes`` of the cache alone: an all-gather whose operand
     is a view of one of ``storages`` (the cache's local shards) or of
@@ -584,11 +634,14 @@ class GatheredLeaves:
 def case_meshed_split_bytes(arch, work):
     """A 2x2 meshed prefill and decode step of ``arch`` (reduced: its
     heads, KV heads, MLP columns, vocabulary, experts and SSM heads
-    divide ``model``) gather no parameter and no cache leaf over
-    ``model``: every leaf the serve rules place on ``model`` belongs to
-    a unit the split takes (attention, MLP, embedding, head, MoE experts,
-    mamba block), a split attention reads its shard of the cache and a
-    split mamba block its state's heads. The one exception is a mamba
+    divide ``model``; ``<arch>-row_tp``: ``_row_tp_port(arch)`` on a
+    (1, 4) mesh, its products on d_model) gather no parameter and no
+    cache leaf over ``model``: every leaf the serve rules place on
+    ``model`` belongs to a unit the split takes (attention, MLP,
+    embedding, head, MoE experts, mamba and xLSTM blocks, the Whisper
+    frontend and decoder positions), a split attention reads its shard
+    of the cache and a split mamba or xLSTM block its state's heads.
+    The one exception is a mamba
     block's ``conv`` leaf, which the decode step gathers a layer at a
     time (its chunks over ``model`` do not line up with a rank's
     channels: ``models/ssm.py``). The same steps with the split off (the
@@ -596,8 +649,12 @@ def case_meshed_split_bytes(arch, work):
     and, decoding, every cache leaf placed on it."""
     from repro_torch.models.model import tree_paths
     from repro_torch.train import step as S
-    model = _port(arch)
-    mesh = _mesh((2, 2), ("data", "model"))
+    if arch.endswith("-row_tp"):
+        model = _row_tp_port(arch[:-len("-row_tp")])
+        mesh = _mesh((1, 4), ("data", "model"))
+    else:
+        model = _port(arch)
+        mesh = _mesh((2, 2), ("data", "model"))
     m = mesh.mesh_dim_names.index("model")
     group = mesh.get_group(m).group_name
     params = model.init_values(torch.Generator().manual_seed(3), "cpu")

@@ -33,7 +33,17 @@ process (and one subprocess for the reference's meshes):
   their all-reduced f32 sums within ``SPLIT_REL`` of the unsplit
   product of the shards' own inputs, their outputs within one bf16
   rounding of the unsplit layer's, the routing counts and the mamba
-  state equal; ``sharded_argmax`` equals ``torch.argmax`` with maxima
+  state equal; the reference's ``serve_row_tp`` (heads that do not
+  divide ``model``) in the ``param_embed`` form over 4 shards (reduced
+  gemma2-2b's attention, prefill and decode, and MLP, llava-next-34b's
+  untied head, 6 heads and 2 KV heads; head_dim 32, and 18, which does
+  not divide 4: the cache whole, ``wo`` column-parallel) and the xLSTM
+  blocks (reduced xlstm-350m over 4: 4 heads in the mLSTM's ``inner``
+  and the sLSTM's ``heads`` form, 2 heads in ``param_embed``; a prefill,
+  then a decode step on its state), each row-parallel sum within
+  ``SPLIT_REL`` of the exact product of the shards' operands, the
+  outputs, caches and states within one bf16 rounding of the unsplit
+  unit's; ``sharded_argmax`` equals ``torch.argmax`` with maxima
   tied across shard edges; and which units a split takes, from the
   serve rules' placements of full-size configs on a ``fake`` group.
 """
@@ -681,6 +691,233 @@ def test_split_mamba_sums_to_the_unsplit(mode, monkeypatch):
             _near(c["conv"], want_c["conv"], "conv tail", rel=2 ** -7)
 
 
+def _row_sums(monkeypatch, module, name="row_parallel_mm") -> dict:
+    """``module.name`` (a row-parallel product: ``layers.row_parallel_mm``
+    as a module imports it, or ``xlstm._row_mm``) wrapped to keep, under
+    the calling shard's rank, its operands as the product casts them and
+    the sum its all-reduce made: {rank: [(x, w, sum), ...]}. Each module
+    wrapped in a list shares one record."""
+    from repro_torch.models import layers as L
+    seen = {}
+    for m in module if isinstance(module, list) else [module]:
+        real = getattr(m, name)
+
+        def spy(x, w, dtype=torch.bfloat16, compute_dtype=None, real=real):
+            kw = {} if compute_dtype is None else {
+                "compute_dtype": compute_dtype}
+            out = real(x, w, dtype, **kw)
+            axis = L.model_axis()
+            cd = compute_dtype or dtype
+            keep = cd == torch.float32 and w.dtype == torch.bfloat16
+            seen.setdefault(axis.rank, []).append(
+                (x.to(cd), w if keep else w.to(cd), axis.reduced[-1]))
+            return out
+        monkeypatch.setattr(m, name, spy)
+    return seen
+
+
+def _sums_exact(seen: dict, tp: int) -> int:
+    """Every shard's all-reduced sum of each ``row_parallel_mm`` call
+    (``_row_sums``) within ``SPLIT_REL`` of the exact (f64) product of
+    the shards' operands side by side. Returns the calls a shard made."""
+    calls = len(seen[0])
+    assert calls and all(len(seen[r]) == calls for r in range(tp))
+    for j in range(calls):
+        exact = sum(x.double().reshape(-1, x.shape[-1])
+                    @ w.double().reshape(w.shape[0], -1)
+                    for x, w, _ in (seen[r][j] for r in range(tp)))
+        for r in range(tp):
+            _near(seen[r][j][2].reshape(exact.shape), exact,
+                  f"call {j} shard {r} sum")
+    return calls
+
+
+#: serve_row_tp, shard by shard: reduced gemma2-2b (softcap, local
+#: window) and llava-next-34b (its untied head) with 6 heads and 2 KV
+#: heads, which do not divide 4; head_dim 32 divides 4 (the cache and
+#: ``wo`` split head_dim), 18 does not (the cache whole, ``wo`` on
+#: d_model, column-parallel)
+ROW_TP, ROW_TP_HEADS = 4, (6, 2)
+
+
+def _row_tp_setup(arch, d_head):
+    import dataclasses
+    from repro_torch.models.layers import layer_slice
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              n_heads=ROW_TP_HEADS[0],
+                              n_kv_heads=ROW_TP_HEADS[1], d_head=d_head)
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu",
+                                    dtype=torch.bfloat16)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, SPLIT_SEQ, cfg.d_model)).astype(np.float32))
+    seg = layer_slice(params["segments"], 0)
+    return cfg, params, seg["block1" if cfg.local_global else "block0"], \
+        x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("unit,d_head", [
+    ("attention-prefill", 32), ("attention-decode", 32), ("mlp", 32),
+    ("head", 32), ("attention-prefill", 18), ("attention-decode", 18)],
+    ids=["attention-prefill", "attention-decode", "mlp", "head",
+         "attention-prefill-whole_cache", "attention-decode-whole_cache"])
+def test_split_row_tp_sums_to_the_unsplit(unit, d_head, monkeypatch):
+    """The reference's ``serve_row_tp`` (heads that do not divide
+    ``model``), the ``param_embed`` form over 4 shards: every product
+    row-parallel on the shard's d_model slice (or its head_dim slice of
+    the attention's output, the MLP's columns of its activation), each
+    all-reduced f32 sum within ``SPLIT_REL`` of the exact product of the
+    shards' operands; the outputs within one bf16 rounding of the
+    unsplit unit's. The attention (gemma2-2b's global layer: softcap 50)
+    runs every head on every shard; a prefill's new cache is the
+    shard's head_dim slice of the unsplit one, or the whole cache where
+    head_dim does not divide 4 (``wo`` column-parallel, its output
+    all-gathered); a decode step of two queries a lane over a
+    12-position cache sums the scores of the shard's slice over the
+    shards, or reads the whole cache, and writes its new rows there. The
+    untied head (llava-next-34b) gives whole f32 logits, their argmax
+    the unsplit one's."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    arch = "llava-next-34b" if unit == "head" else "gemma2-2b"
+    cfg, params, layer, x = _row_tp_setup(arch, d_head)
+    split_d = d_head % ROW_TP == 0
+    seen = _row_sums(monkeypatch, [A, L])
+    kind, _, mode = unit.partition("-")
+    if kind == "attention":
+        attn = layer["attn"]
+        pool, pos = None, torch.tensor([5, 9])
+        if mode == "decode":
+            rng = np.random.default_rng(12)
+            shape = (1, SPLIT_ROWS, SPLIT_CACHE, cfg.n_kv_heads, d_head)
+            pool = {k: torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(torch.bfloat16) for k in ("k", "v")}
+            x = x[:, :2]
+
+        def run(p, cache):
+            if mode == "prefill":
+                return A.attention(p, x, cfg, mode="prefill", use_rope=True)
+            return A.attention(p, x, cfg, mode="decode", cache=cache,
+                               pos=pos, layer_idx=0, use_rope=True)[0], cache
+        whole = None if pool is None else {k: v.clone()
+                                           for k, v in pool.items()}
+        want, want_c = run(attn, whole)
+
+        def one(axis):
+            mine = None if pool is None else {
+                k: (v.chunk(ROW_TP, 4)[axis.rank] if split_d else v).clone()
+                for k, v in pool.items()}
+            p = L.split_unit(attn, axis, "param_embed")
+            assert L.model_dim(p["wo"]) == (1 if split_d else 2)
+            return run(p, mine)
+        outs = _shards(ROW_TP, one)
+        for r, (y, c) in enumerate(outs):
+            _near(y, want, f"shard {r} output", rel=2 ** -7)
+            for key in ("k", "v"):
+                dim = 3 if mode == "prefill" else 4
+                mine = want_c[key].chunk(ROW_TP, dim)[r] if split_d \
+                    else want_c[key]
+                assert (L.model_dim(c[key]) == 3) == (
+                    split_d and mode == "prefill")
+                _near(c[key], mine, f"shard {r} cache {key}", rel=2 ** -7)
+    elif kind == "mlp":
+        want = L.mlp(layer["mlp"], x, cfg.act)
+        outs = _shards(ROW_TP, lambda axis: L.mlp(
+            L.split_unit(layer["mlp"], axis, "param_embed"), x, cfg.act))
+        for r, y in enumerate(outs):
+            _near(y, want, f"shard {r} output", rel=2 ** -7)
+    else:
+        head = params["lm_head"]
+        want = L.logits_head(params["embed"], x, cfg.vocab, head=head)
+
+        def one(axis):
+            h = L.split_unit(head, axis, "param_embed")
+            assert L.model_dim(h) == 0
+            y = L.logits_head(params["embed"], x, cfg.vocab, head=h)
+            assert L.model_dim(y) is None
+            return y
+        for r, y in enumerate(_shards(ROW_TP, one)):
+            _near(y, want, f"shard {r} logits")
+            assert torch.equal(y.argmax(-1), want.argmax(-1))
+    # Q/K/V's one product and wo's (row-parallel where it lies on
+    # head_dim), the MLP's up, gate and down, the head
+    assert _sums_exact(seen, ROW_TP) == {
+        "attention": 1 + split_d, "mlp": 3, "head": 1}[kind]
+
+
+def _xlstm_setup(heads):
+    """(cfg, the first segment's mLSTM and sLSTM blocks' float params,
+    bf16 x) of reduced xlstm-350m with ``heads`` heads."""
+    import dataclasses
+    from repro_torch.models.layers import layer_slice
+    cfg = dataclasses.replace(reduced(get_config("xlstm-350m")),
+                              n_heads=heads, n_kv_heads=heads)
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu")
+    seg = layer_slice(params["segments"], 0)
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, SPLIT_SEQ, cfg.d_model)).astype(np.float32))
+    return (cfg, {"mlstm": seg["block0"]["mlstm"],
+                  "slstm": seg["block1"]["slstm"]}, x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("unit,form", [
+    ("mlstm", "inner"), ("mlstm", "param_embed"), ("slstm", "heads"),
+    ("slstm", "param_embed")],
+    ids=["mlstm-heads", "mlstm-row_tp", "slstm-heads", "slstm-row_tp"])
+def test_split_xlstm_sums_to_the_unsplit(unit, form, monkeypatch):
+    """An xLSTM block of reduced xlstm-350m over 4 shards: with 4 heads
+    (one a shard) in its heads form (the mLSTM's ``inner``: its inner
+    channels and heads, Q/K/V and ``w_down`` row-parallel, the out-norm's
+    mean square one f32 all-reduce; the sLSTM's ``heads``: its heads'
+    gate weights sliced locally, the hidden states all-gathered, the
+    FFN's columns), with 2 heads (which do not divide 4) in the
+    ``param_embed`` form (every product row-parallel on d_model or the
+    inner dim, the recurrence whole). A prefill, then a decode step on
+    the state the shard's prefill left: each all-reduced f32 sum within
+    ``SPLIT_REL`` of the exact product of the shards' operands, the
+    outputs within one bf16 rounding of the unsplit block's, the state
+    (the shard's heads of it, or whole) within one bf16 rounding of the
+    unsplit state."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm
+    heads = form != "param_embed"
+    cfg, blocks, x = _xlstm_setup(4 if heads else 2)
+    block = (xlstm.mlstm_block if unit == "mlstm" else xlstm.slstm_block)
+    init = (xlstm.init_mlstm_cache if unit == "mlstm"
+            else xlstm.init_slstm_cache)
+    p = blocks[unit]
+    xd = x[:, :1] * 0.5
+
+    def run(q):
+        y, state = block(q, x, cfg, mode="prefill",
+                         cache=init(cfg, SPLIT_ROWS))
+        yd, state = block(q, xd, cfg, mode="decode", cache=state)
+        return y, yd, state
+    want = run(p)
+    seen = _row_sums(monkeypatch, xlstm, "_row_mm")
+    outs = _shards(ROW_TP, lambda axis: run(L.split_unit(p, axis, form)))
+    for r, (y, yd, state) in enumerate(outs):
+        _near(y, want[0], f"shard {r} prefill output", rel=2 ** -7)
+        _near(yd, want[1], f"shard {r} decode output", rel=2 ** -7)
+        for key, t in state.items():
+            ref = want[2][key]
+            # the sLSTM's m lies on head_dim (its cache axes name
+            # (batch, heads) for a (b, h, hd) leaf, as the reference's)
+            dim = (2 if (unit, key) == ("slstm", "m") else 1) if heads \
+                else None
+            assert L.model_dim(t) == dim, key
+            if dim is not None:
+                ref = ref.chunk(ROW_TP, dim)[r]
+            _near(t, ref, f"shard {r} state {key}", rel=2 ** -7)
+    # the mLSTM: w_up and w_gate (row_tp), Q/K/V, the gates' wi / wf,
+    # w_down; the sLSTM: the gates' wx and w_up (row_tp), w_down; a
+    # prefill and a decode step each
+    calls = {("mlstm", True): 3, ("mlstm", False): 5,
+             ("slstm", True): 1, ("slstm", False): 3}[(unit, heads)]
+    assert _sums_exact(seen, ROW_TP) == 2 * calls
+
+
 #: a whole model's logits split shard by shard against the unsplit ones,
 #: over the largest: test_torch_distributed.py's SPLIT_TOL, with its
 #: argument (a row-parallel sum that lies at a bf16 rounding boundary
@@ -746,8 +983,12 @@ def test_unit_forms_follow_the_placements():
     serve rules on a ``fake`` group (full-size configs on fake tensors):
     qwen3-4b on 16 ranks of ``model`` takes the head_dim form (its 8 KV
     heads do not divide 16), its MLP, embedding and head split; whisper-
-    tiny.en on 4 keeps its attention and MLP whole (6 heads on 4: the
-    serve rules shard d_model, the reference's ``serve_row_tp``);
+    tiny.en on 4 (6 heads on 4: the serve rules shard d_model, the
+    reference's ``serve_row_tp``), gemma2-2b and llava-next-34b on 16
+    take the ``param_embed`` form for their attention, MLP, untied head
+    and the Whisper frontend and decoder positions, whisper-tiny.en on 2
+    the heads form; xlstm-350m's 4 heads on 4 take the mLSTM's ``inner``
+    and the sLSTM's ``heads`` form, on 16 the ``param_embed`` form;
     mixtral-8x7b's 8 experts on 16 take the ``expert_ff`` form and
     qwen3-moe-30b-a3b's 128 the ``experts`` form, zamba2-7b's mamba blocks
     the ``inner`` form on 16 (112 SSM heads) and whole on 32, where its
@@ -786,8 +1027,25 @@ def test_unit_forms_follow_the_placements():
         ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
         ("attention", "whole"): 1, ("mlp", "ff"): 1}
     assert counts("whisper-tiny-en", 4) == {
-        ("embed", "vocab"): 1, ("attention", "whole"): 2,
-        ("mlp", "whole"): 1}
+        ("embed", "vocab"): 1, ("attention", "param_embed"): 2,
+        ("mlp", "param_embed"): 1, ("frontend", "param_embed"): 1,
+        ("dec_pos", "param_embed"): 1}
+    assert counts("whisper-tiny-en", 2) == {
+        ("embed", "vocab"): 1, ("attention", "heads"): 2, ("mlp", "ff"): 1}
+    assert counts("gemma2-2b", 16) == {
+        ("embed", "vocab"): 1, ("attention", "param_embed"): 2,
+        ("mlp", "param_embed"): 2}
+    assert counts("llava-next-34b", 16) == {
+        ("embed", "vocab"): 1, ("head", "param_embed"): 1,
+        ("attention", "param_embed"): 1, ("mlp", "param_embed"): 1}
+    assert counts("llava-next-34b", 16, split_attention=False)[
+        ("attention", "whole")] == 1
+    assert counts("xlstm-350m", 4) == {
+        ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
+        ("mlstm", "inner"): 1, ("slstm", "heads"): 1}
+    assert counts("xlstm-350m", 16) == {
+        ("embed", "vocab"): 1, ("head", "param_embed"): 1,
+        ("mlstm", "param_embed"): 1, ("slstm", "param_embed"): 1}
     assert counts("mixtral-8x7b", 16) == {
         ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
         ("attention", "head_dim"): 1, ("moe", "expert_ff"): 1}
