@@ -220,13 +220,16 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    vocabulary, the MoE experts (``experts`` or ``expert_ff`` form), the
    mamba blocks (``inner`` form) and, where the heads do not divide
    ``model`` (``R2_ROW_TP``), every product along d_model
-   (``param_embed``) over ``model``; ten processes started before r1:
+   (``param_embed``) over ``model``, a prefill's attention on the
+   rank's block of the query positions (context parallelism); ten
+   processes started before r1:
    each ends ``ok``, a rank's peak under its bound and the card's
    memory, the traced FLOPs under its bound times the model FLOPs, and
    an ``R2_ROW_TP`` cell takes no attention, MLP, head or xLSTM unit
    whole and holds no op on a global cache leaf's shape; it prints the
    peaks, the FLOPs, the roofline's compute, memory and collective
-   terms, the units split, and the figures before the split.
+   terms, the flash attention's share of a rank's FLOPs, the units
+   split, and the figures before the split.
    r3: one qwen3-4b layer at full width split over 16
    ranks of ``model`` (head_dim form) and over 8 (heads form), shard by
    shard in one process (a thread a shard, the collectives met in
@@ -243,7 +246,9 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    MoE and mamba unit split, then ``R4_SPLIT``: xlstm-350m (24 blocks)
    over 4 in its heads forms, whisper-tiny.en over 4 and gemma2-2b
    (``R4_GEMMA_LAYERS``) over 16 in the ``param_embed`` form, each within
-   ``LOGIT_REL_TOL_DECODER``; it prints each step's gap. r5: one MoE
+   ``LOGIT_REL_TOL_DECODER``, each shard's prefill attention its block
+   of the query positions at its ``q_offset``; it prints each step's
+   gap. r5: one MoE
    layer or mamba block at full width shard by shard (``R5_SPLITS``:
    qwen3-moe-30b-a3b's experts over 16 and 4, mixtral-8x7b's FFN columns
    over 16, a zamba2-7b mamba block over 16), a prefill of 4 lanes x 256
@@ -255,7 +260,8 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    layer and gemma2-2b's local and global layers over 16, xlstm-350m's
    mLSTM and sLSTM blocks over 16 and 4; the sums within ``R3_REL`` of
    exact, outputs within ``R3_OUT_REL``, KV slices and states within
-   ``BF16_REL``).
+   ``BF16_REL``, each shard's prefill attention its block of the query
+   positions at its ``q_offset``).
 
 Phase 2 holds each kernel to its plain version within one bf16 rounding
 of the largest output (``rel`` below), and adds "tail" cases whose
@@ -289,7 +295,9 @@ bit for bit (``bit_diff``, at most ``SLSTM_TIES``). The Q4_0 GEMM's
 cases print the plan each shape took.
 The shard shapes of phase r3 (qwen3-4b's products and prefill attention
 split over 16 or 8 ranks of ``model``) are cases of the dense GEMM and
-flash attention too.
+flash attention too, and so are a context-parallel prefill's blocks of
+query positions at their ``q_offset`` (``FA_OFFSET``: far from 0, near
+0 with KV splits that read no tile, past Skv, and r4's and r5's blocks).
 
 Every phase of 3, 4, 5, e, f, g, h, i, j, k, l and d (not m, whose
 tick is captured before its load, nor n, which checks one capture per
@@ -418,6 +426,31 @@ ZAMBA2_GEMMS = tuple(
         ("prefill wo, S=300", 300, 3584, 3584),
         ("prefill MLP up / gate, S=300", 300, 3584, 14336),
         ("prefill MLP down, S=300", 300, 14336, 3584)))
+#: phase 2's flash attention at a q_offset (query row i at position off +
+#: i): a context-parallel prefill's blocks, (label, B, Sq, Skv, H, Hkv, D,
+#: causal, window, softcap, off): a causal block at D = 128 far from 0;
+#: gemma2-2b's window and softcap at D = 256; the KV split near 0, where
+#: the block's causal range is 3 KV tiles and 21 of its 24 splits read
+#: none; rows past Skv (a short last block's padding); the blocks r4 and
+#: r5 run (whisper-tiny.en over 4; llava-next-34b and gemma2-2b over 16,
+#: 4 lanes of 256 positions, the last rank's block)
+FA_OFFSET = (
+    ("llava-next-34b prefill block, causal", 1, 256, 1024, 56, 8, 128,
+     True, None, None, 768),
+    ("gemma2-2b prefill block, binding window", 1, 256, 1024, 8, 4, 256,
+     True, 128, 50.0, 768),
+    ("split KV, causal block near 0", 1, 16, 1500, 6, 6, 64, True, None,
+     None, 16),
+    ("padded block past Skv, causal", 2, 8, 24, 6, 2, 64, True, None, None,
+     20),
+    ("whisper encoder block, tp=4, bidirectional", 1, 375, 1500, 6, 6, 64,
+     False, None, None, 375),
+    ("whisper decoder prefill block, tp=4, causal", 4, 4, 16, 6, 6, 64,
+     True, None, None, 12),
+    ("llava-next-34b shard block, tp=16, causal", 4, 16, 256, 56, 8, 128,
+     True, None, None, 240),
+    ("gemma2-2b shard block, tp=16, local layer", 4, 16, 256, 8, 4, 256,
+     True, 4096, 50.0, 240))
 
 
 def _log(*a):
@@ -698,25 +731,29 @@ def kernel_cases():
                    F32_REL if dt == f32 else BF16_REL))
     cases["q8_matmul"] = q8
 
-    def pairs(sq, skv, causal, window):
-        """Unmasked (query, key) pairs: the products the masks leave."""
-        qp = np.arange(sq)[:, None]
+    def pairs(sq, skv, causal, window, off=0):
+        """(unmasked (query, key) pairs: the products the masks leave;
+        the keys some row keeps: those the function must read), query row
+        i at position off + i."""
+        qp = np.arange(sq)[:, None] + off
         kp = np.arange(skv)[None, :]
         keep = np.ones((sq, skv), bool)
         if causal:
             keep &= kp <= qp
         if window:
             keep &= (qp - kp) < window
-        return float(keep.sum())
+        return float(keep.sum()), int(keep.any(0).sum())
 
     # the main path's three (B*H = 6, D = 64); then the KV-split path:
     # few queries against the 1500 encoder frames, a ragged Skv whose
     # last tile holds 1 key (65) or 29 (1501), GQA, a window (with rows
     # whose every key is masked: Sq > Skv), softcap and D = 32. Each also
     # with V only on the last 3 keys a row sees: the output is what the
-    # ragged last KV tile holds, so dropping or mis-masking it fails
+    # ragged last KV tile holds, so dropping or mis-masking it fails.
+    # Then a context-parallel prefill's blocks at their q_offset (FA_OFFSET)
     fa = []
-    for label, b, sq, skv, h, hkv, d, causal, window, softcap in (
+    for label, b, sq, skv, h, hkv, d, causal, window, softcap, off in [
+            (*c, 0) for c in (
             ("encoder self, bidirectional", 1, 1500, 1500, 6, 6, 64, False,
              None, None),
             ("decoder prefill, causal", 1, 32, 32, 6, 6, 64, True, None,
@@ -781,36 +818,49 @@ def kernel_cases():
             ("split KV", 1, 33, 1500, 32, 32, 112, False, None, None),
             ("split KV, ragged", 2, 40, 65, 4, 4, 112, False, None, None),
             ("split KV, causal window, masked rows", 1, 200, 65, 2, 1, 112,
-             True, 16, None)):
+             True, 16, None))] + list(FA_OFFSET):
         q, k, v = randn((b, sq, h, d)), randn((b, skv, hkv, d)), \
             randn((b, skv, hkv, d))
         kw = dict(causal=causal, window=window, softcap=softcap)
+        # the bound reads q, writes the output, and reads K and V at only
+        # the keys the masks leave to some row
+        n_pairs, n_keys = pairs(sq, skv, causal, window, off)
+        moved = _nbytes(q, q, k[:, :n_keys], v[:, :n_keys])
+        if off:
+            kw["q_offset"] = off
         # the yardstick takes GQA's K/V repeated to H heads beforehand
         plain_only = window or softcap
-        # causal: the last keys a row sees are those before min(Sq, Skv);
-        # the keys after them keep V and must weigh 0
+        # causal: the last keys a row sees are those before min(off + Sq,
+        # Skv); the keys after them keep V and must weigh 0
         vtail = v.clone()
-        vtail[:, :(min(sq, skv) if causal else skv) - 3] = 0
+        vtail[:, :(min(off + sq, skv) if causal else skv) - 3] = 0
         for tag, vv in (("", v), (", V on the last 3 keys seen", vtail)):
             lib = None
             if not (tag or plain_only):
                 qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
                               .transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                lib = (lambda qt=qt, kt=kt, vt=vt, c=causal:
+                # an offset block's causal mask is not SDPA's top-left
+                # one: the library call takes it as a boolean mask
+                mask = None if not (causal and off) else (
+                    torch.arange(skv, device=dev)[None, :]
+                    <= torch.arange(off, off + sq, device=dev)[:, None])
+                lib = (lambda qt=qt, kt=kt, vt=vt, m=mask,
+                       c=causal and not off:
                        F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=m,
                                                       is_causal=c))
-            opts = "".join(f" {n}={kw[n]}" for n in ("window", "softcap")
-                           if kw[n])
+            opts = "".join(f" {n}={kw[n]}" for n in ("window", "softcap",
+                                                     "q_offset")
+                           if kw.get(n))
             fa.append((f"{label} B*H={b * h} Hkv={hkv} Sq={sq} Skv={skv} "
                        f"D={d}{' causal' if causal else ''}{opts}{tag}",
                        lambda q=q, k=k, v=vv, kw=kw:
                            fa_ops.flash_attention(q, k, v, **kw),
                        lambda q=q, k=k, v=vv, kw=kw:
                            fa_plain.flash_attention(q, k, v, **kw),
-                       lib, _nbytes(q, k, v, q),
-                       4.0 * pairs(sq, skv, causal, window) * b * h * d,
-                       "bf16", BF16_REL))
+                       lib, moved, 4.0 * n_pairs * b * h * d, "bf16",
+                       BF16_REL))
     cases["flash_attention"] = fa
 
     # each draft shape prints the GEMV plan it took: (layout, column
@@ -2721,9 +2771,16 @@ P_BACKEND = "nccl"
 def _p_steps(step, state, ds, n: int) -> tuple:
     """``n`` steps of ``step``; (state, losses, seconds a step, bytes the
     steps' peak rose above what was allocated before them), each step
-    timed to its loss's fetch."""
+    timed to its loss's fetch. The cuBLAS workspaces are released first:
+    one (32 MiB) a cuBLAS handle and stream, made by its first product and
+    kept allocated after the run that made it, so without the release a
+    run is charged those that no earlier phase of the process made (p1
+    alone: 64 MiB more for the sharded run, which goes first), and each
+    run here pays its own."""
     import torch
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -3324,7 +3381,7 @@ R2_CELLS = {
     ("mixtral-8x7b", "decode_32k"): (9.5e9, 8.0),
     ("zamba2-7b", "decode_32k"): (5.1e9, 5.0),
     ("llava-next-34b", "decode_32k"): (10e9, 4.0),
-    ("llava-next-34b", "prefill_32k"): (40e9, 18.0),
+    ("llava-next-34b", "prefill_32k"): (17e9, 2.5),
     ("gemma2-2b", "decode_32k"): (3.5e9, 4.0),
     ("xlstm-350m", "decode_32k"): (0.6e9, 4.0),
 }
@@ -3339,15 +3396,17 @@ R2_SPLIT_UNITS = ("attention", "mlp", "head", "mlstm", "slstm")
 #: r2: a rank's peak in bytes and traced / model FLOPs of the cells whose
 #: MoE experts, mamba blocks, xLSTM blocks or ``serve_row_tp`` layers were
 #: gathered whole over ``model`` before the split took them (the MoE's
-#: one-hot combine too), traced on fake ``cpu`` tensors; printed beside
-#: this run's
+#: one-hot combine too), traced on fake ``cpu`` tensors; llava-next-34b's
+#: prefill_32k before its context parallelism (every rank attended every
+#: position), traced on fake ``cuda`` on the card; printed beside this
+#: run's
 R2_BEFORE = {
     ("qwen3-moe-30b-a3b", "prefill_32k"): (124958907408, 168.8),
     ("qwen3-moe-30b-a3b", "decode_32k"): (6802180484, 142.8),
     ("mixtral-8x7b", "decode_32k"): (11763720356, 57.1),
     ("zamba2-7b", "decode_32k"): (5074458380, 15.9),
     ("llava-next-34b", "decode_32k"): (13217134916, 28.89),
-    ("llava-next-34b", "prefill_32k"): (39508909568, 28.67),
+    ("llava-next-34b", "prefill_32k"): (16247590400, 14.078),
     ("gemma2-2b", "decode_32k"): (5089393540, 33.97),
     ("xlstm-350m", "decode_32k"): (595946180, 14.56),
 }
@@ -3643,7 +3702,7 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
         ratio = rec["hlo_flops"] / rec["model_flops"]
         before = R2_BEFORE.get((arch, shape))
         was = "" if before is None else (
-            f"; before the split {before[0]} B, {before[1]}x (fake cpu)")
+            f"; before {before[0]} B, {before[1]}x")
         was += (f"; units {rec['split_counts']}; ops on a global cache "
                 f"leaf's shape {rec['cache_leaf_ops']}")
         if (arch, shape) in R2_ROW_TP:
@@ -3656,7 +3715,9 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
         _log(f"[{phase}] {arch} {shape}: status {rec['status']}, a rank's "
              f"peak {peak} B ({peak / 1e9:.3f} GB; weights, cache and rows "
              f"{mem['argument_bytes']} B), traced FLOPs {rec['hlo_flops']}"
-             f" (model FLOPs {rec['model_flops']}, {ratio:.3f}x), "
+             f" (model FLOPs {rec['model_flops']}, {ratio:.3f}x; a rank's "
+             f"{rec['hlo_flops'] / rec['chips']:.6g}, flash_attention "
+             f"{rec['attention_flops']} of them), "
              f"compute term {rec['compute_s'] * 1e3:.4f} ms, memory term "
              f"{rec['memory_s'] * 1e3:.4f} ms, collective term "
              f"{rec['collective_s'] * 1e3:.4f} ms ({rec['collectives']}), "
@@ -3912,8 +3973,10 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
     memory), fed the unmeshed run's ids. Each step's logits, gathered
     over the ranks, within ``tol`` of the unmeshed ones' largest, the
     greedy ids equal but at near-ties (``TIE_MARGIN``), every unit split
-    in its form and none whole (``split_counts``), and ``kernels``
-    launched. It prints each step's gap: the
+    in its form and none whole (``split_counts``), ``kernels`` launched
+    and, where the attention takes the ``param_embed`` form, each
+    shard's prefill attention its block of the query positions at its
+    ``q_offset`` (context parallelism). It prints each step's gap: the
     four-card run's own gap holds the same splits of the same products,
     summed by ``nccl`` in its order. For xLSTM it also prints a
     yardstick: the unmeshed steps, fed the same ids, with each bf16
@@ -3945,11 +4008,18 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
                 last, cache = decode(lp, cache, nxt, pos + t)
                 out.append(axis.all_gather(last, dim=-1))
         return out if axis.rank == 0 else None
-    with use_context(DispatchContext.for_platform("h100-sxm")):
+    # serve_row_tp: a context-parallel prefill, each shard its block
+    cp = forms.get("attention") == "param_embed"
+    with use_context(DispatchContext.for_platform("h100-sxm")), \
+            (_query_blocks() if cp else contextlib.nullcontext({})) \
+            as blocks:
         got = run_shards(tp, one, forms)[0]
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     splits = {f"{u}:{f}": n for (u, f), n in split_counts().items()}
+    cp_line = "" if not cp else (
+        f"; the last shard's query blocks (rows, q_offset) "
+        f"{sorted(set(blocks.get(tp - 1, [])))}")
     yard = ""
     if model.cfg.xlstm:
         from repro_torch.models import xlstm
@@ -3987,7 +4057,11 @@ def run_r4(phase: str, arch: str = R3_ARCH, layers=None,
          f"unmeshed ids: logits gap over the largest a step "
          f"{[f'{x:.4g}' for x in gaps]} (bound {tol}); "
          f"greedy flips (step, lane, margin) {flips}; splits {splits}; "
-         f"launches {counts}{yard}; {time.monotonic() - t_phase:.2f} s")
+         f"launches {counts}{cp_line}{yard}; "
+         f"{time.monotonic() - t_phase:.2f} s")
+    bad = _blocks_bad(blocks, tp) if cp else []
+    if bad:
+        raise AssertionError(f"[{phase}] {'; '.join(bad)}")
     want_splits = {f"{u}:{f}" for u, f in forms.items()}
     if set(splits) != want_splits:
         raise AssertionError(f"[{phase}] units split {splits}, not "
@@ -4158,6 +4232,39 @@ def run_r5(phase: str) -> None:
 
 
 @contextlib.contextmanager
+def _query_blocks():
+    """``models.attention.dispatch`` wrapped for the block so that each
+    ``flash_attention`` call's (query rows, ``q_offset``) is kept under
+    the calling shard's rank (-1 outside a split): yields {rank: [(rows,
+    offset), ...]}."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import model_axis
+    real, seen = A.dispatch, {}
+
+    def spy(name, *args, **kwargs):
+        if name == "flash_attention":
+            axis = model_axis()
+            seen.setdefault(-1 if axis is None else axis.rank, []).append(
+                (args[0].shape[1], kwargs.get("q_offset")))
+        return real(name, *args, **kwargs)
+    A.dispatch = spy
+    try:
+        yield seen
+    finally:
+        A.dispatch = real
+
+
+def _blocks_bad(seen: dict, tp: int) -> list:
+    """The context-parallel prefill's faults in ``_query_blocks``'
+    record: a shard with no ``flash_attention`` call, or one not of its
+    block (rows at ``q_offset`` rank * rows)."""
+    return [f"shard {r}'s flash_attention calls (rows, q_offset) "
+            f"{seen.get(r, [])[:4]}" for r in range(tp)
+            if not seen.get(r) or any(off != r * rows
+                                      for rows, off in seen[r])]
+
+
+@contextlib.contextmanager
 def _row_sums(module, name: str):
     """``module.name`` (a row-parallel product, ``(x, w, dtype=...,
     compute_dtype=...)``) wrapped for the block so that each call's
@@ -4231,8 +4338,9 @@ def run_r5_units(phase: str) -> None:
       to bf16, so an element whose sum lies at a bf16 rounding boundary
       rounds to the other side of it than the unsplit product's;
     * ``fp16_matmul`` launched, ``flash_attention`` for an attention
-      layer and ``slstm_scan`` for an sLSTM block (one head a shard over
-      4)."""
+      layer (each shard's prefill on its block of the query positions at
+      its ``q_offset``: context parallelism) and ``slstm_scan`` for an
+      sLSTM block (one head a shard over 4)."""
     import dataclasses
 
     import numpy as np
@@ -4347,7 +4455,8 @@ def run_r5_units(phase: str) -> None:
                            {k: v.clone() for k, v in pool.items()})
                 zero_counts()
                 with _row_sums(A, "row_parallel_mm") as seen_a, \
-                        _row_sums(L, "row_parallel_mm") as seen_l:
+                        _row_sums(L, "row_parallel_mm") as seen_l, \
+                        _query_blocks() as blocks:
                     outs = run_shards(tp, one)
                     torch.cuda.synchronize()
                     counts = {k: fn.launches
@@ -4368,8 +4477,11 @@ def run_r5_units(phase: str) -> None:
                     close(f"head logits shard {r}", lg, wl)
                     if not torch.equal(lg.argmax(-1), wl.argmax(-1)):
                         bad.append(f"shard {r}: the head's argmax differs")
+            bad += _blocks_bad(blocks, tp)
             shape = (f"{cfg.n_heads} heads, d_model {cfg.d_model // tp} "
-                     f"and head_dim {cfg.head_dim // tp} a shard")
+                     f"and head_dim {cfg.head_dim // tp} a shard, the "
+                     f"prefill's query block (rows, q_offset) "
+                     f"{blocks.get(tp - 1, [None])[0]} on the last")
             del params, seg, bp, attn, mlp_p, head, pool, want, outs
         _log(f"[{phase}] {arch} {unit} at tp={tp} ({form}, {shape}), "
              f"{R_LANES} lanes, a prefill of {R3_PROMPT} positions and a "

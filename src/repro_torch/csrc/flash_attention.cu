@@ -8,6 +8,9 @@
 // -1e30 (a row whose every key is masked averages V over its keys) and a
 // row whose l stays 0 divided by 1. Unlike the TPU kernel it
 //  * takes sq != skv (the decoder's cross-attention prefill),
+//  * takes a query offset q_off: query row i sits at position q_off + i
+//    and key j at j, so a rank of a context-parallel prefill attends
+//    its block of the positions over the whole K and V,
 //  * masks a ragged S itself: rows past Skv are zero-filled by the copy
 //    and their scores are -inf, so they weigh exactly 0,
 //  * reads GQA by index (kv head = h // (H / Hkv)); K and V are never
@@ -67,11 +70,14 @@
 //    exact, because they lie after every row's own key (the diagonal,
 //    kept under a window too, a window being at least 1 wide), which
 //    makes the row's m finite before them, so they would only add
-//    exactly 0. A row at or past Skv (Sq > Skv) lies in a CTA whose range
-//    the skip leaves whole. A split whose tiles are all skipped (or
-//    lie past Skv) writes m = -1e30, l = 0, acc = 0, which the combine
-//    weighs exactly 0 (or, in a row whose every key is masked, adds
-//    nothing to l or acc); m never starts at -inf, so no exp(-inf + inf).
+//    exactly 0. A row at or past Skv (Sq > Skv, or q_off + Sq > Skv)
+//    lies in a CTA whose range the skip leaves whole. A split whose
+//    tiles are all skipped (or lie past Skv: the later splits of a CTA
+//    near position 0, whose causal range is shorter than the splits
+//    cover) reads no tile and writes m = -1e30, l = 0, acc = 0, which
+//    the combine weighs exactly 0 (or, in a row whose every key is
+//    masked, adds nothing to l or acc); m never starts at -inf, so no
+//    exp(-inf + inf).
 //
 // Instantiated for what the port runs: bf16 at head_dim 64
 // (whisper-tiny.en, whisper-base), 32 (the reduced configurations), 112
@@ -133,6 +139,7 @@ struct Args {
   float* part_o;   // (splits, B*H*Sq, D) unnormalised acc, splits > 1
   float* part_ml;  // (splits, B*H*Sq, 2) m and l, splits > 1
   int Sq, Skv, H, Hkv, causal, window;
+  int q_off;   // the position of query row 0
   float softcap, scale, scale_log2;   // scale_log2 = scale * log2(e)
   int splits, tiles_per_split;
 };
@@ -169,9 +176,10 @@ flash_attention_kernel(Args a) {
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.z;
 
-  // Causal: the tiles above the CTA's last row add 0.
+  // Causal: the tiles above the CTA's last row (position q_off + q0 +
+  // BQ - 1) add 0.
   int kv_end = a.Skv;
-  if (a.causal) kv_end = min(a.Skv, q0 + BQ);
+  if (a.causal) kv_end = min(a.Skv, a.q_off + q0 + BQ);
   const int n_tiles = (kv_end + BKV - 1) / BKV;
   const int t_begin = split * a.tiles_per_split;
   const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
@@ -298,7 +306,8 @@ flash_attention_kernel(Args a) {
           for (int e = 0; e < 4; ++e) s[mt][j][e] *= a.scale_log2;
     }
     const int k_last = t * BKV + BKV - 1;
-    if ((a.causal && k_last > q0 + rw) || a.window > 0 || k_last >= a.Skv) {
+    if ((a.causal && k_last > a.q_off + q0 + rw) || a.window > 0 ||
+        k_last >= a.Skv) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -306,7 +315,7 @@ flash_attention_kernel(Args a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kpos = t * BKV + j * 8 + (lane & 3) * 2 + (e & 1);
-            const int qpos = qrow + mt * 16 + (e >> 1) * 8;
+            const int qpos = a.q_off + qrow + mt * 16 + (e >> 1) * 8;
             bool keep = true;
             if (a.causal) keep = keep && (kpos <= qpos);
             if (a.window > 0) keep = keep && (qpos - kpos < a.window);
@@ -478,15 +487,17 @@ bool aligned16(const void* p) {
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), all contiguous bf16 with
 // 16-byte aligned bases; D is 32, 64, 112, 128 or 256. window <= 0: none;
-// softcap <= 0: none. splits >= 1 KV splits of whole Layout<D>::BKV-key
-// tiles; with splits > 1, part_o holds splits * B*H*Sq * D floats and
-// part_ml splits * B*H*Sq * 2.
+// q_off >= 0: the position of query row 0 (key j at j); softcap <= 0:
+// none. splits >= 1 KV splits of whole Layout<D>::BKV-key tiles; with
+// splits > 1, part_o holds splits * B*H*Sq * D floats and part_ml
+// splits * B*H*Sq * 2.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part_o, void* part_ml, int B,
                                int Sq, int Skv, int H, int Hkv, int D,
-                               int causal, int window, float softcap,
-                               int splits, void* stream) {
-  if (splits < 1 || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+                               int causal, int window, int q_off,
+                               float softcap, int splits, void* stream) {
+  if (q_off < 0 || splits < 1 ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -504,7 +515,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   Args a{static_cast<const T*>(q), static_cast<const T*>(k),
          static_cast<const T*>(v), static_cast<T*>(o),
          static_cast<float*>(part_o), static_cast<float*>(part_ml), Sq, Skv,
-         H, Hkv, causal, window, softcap, static_cast<float>(scale),
+         H, Hkv, causal, window, q_off, softcap, static_cast<float>(scale),
          static_cast<float>(scale * 1.4426950408889634), splits,
          (n_tiles + splits - 1) / splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,10 @@
 """Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
 
 ``flash_attention(q, k, v)`` over the model's (B, S, H, D) layout with
-GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill).
+GQA (H % Hkv == 0). Sq and Skv may differ (cross-attention prefill),
+and ``q_offset`` places query row i at position q_offset + i (key j at
+j): a context-parallel prefill's rank attends its block of the
+positions over the whole K and V.
 The kernel takes bf16 with head_dim 64 (whisper-tiny.en, whisper-base),
 32 (the reduced configurations), 112 (zamba2-7b's shared attention), 128
 (the other decoder-only models) or 256 (gemma2-2b); calls outside that
@@ -32,7 +35,7 @@ LAYOUT = {32: (128, 64, 2), 64: (128, 64, 2), 112: (64, 64, 2),
           128: (64, 64, 2), 256: (64, 32, 1)}
 HEAD_DIMS = tuple(LAYOUT)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -64,7 +67,7 @@ def _kernel():
     return _entry[0]
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, q_offset) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
@@ -82,19 +85,23 @@ def _check(q, k, v, window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D). Returns (B, Sq, H, D)
-    in q's dtype."""
-    _check(q, k, v, window)
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D); query row i at
+    position q_offset + i. Returns (B, Sq, H, D) in q's dtype."""
+    _check(q, k, v, window, q_offset)
     if not q.is_cuda:
         return plain.flash_attention(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, q_offset=q_offset)
     build.require_cuda("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -112,7 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_o,
         part_ml, b, sq, skv, h, hkv, d, int(causal), int(window or 0),
-        float(softcap or 0.0), splits, build.stream(q.device))
+        int(q_offset), float(softcap or 0.0), splits,
+        build.stream(q.device))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

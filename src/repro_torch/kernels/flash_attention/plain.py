@@ -13,11 +13,13 @@ NEG_INF = -1e30
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) with H % Hkv == 0 (GQA:
     query head h reads KV head h // (H // Hkv)). Query i sits at
-    position i and key j at position j, so the causal mask is j <= i
-    for any Sq, Skv. Computed in f32; returns q's dtype."""
+    position q_offset + i and key j at position j, so the causal mask is
+    j <= q_offset + i for any Sq, Skv. Computed in f32; returns q's
+    dtype."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     rep = h // k.shape[2]
@@ -27,7 +29,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k.to(torch.float32)) * (d ** -0.5)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
     if causal:

@@ -225,6 +225,9 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "compile_s": cost.seconds,
         "memory": mem,
         "hlo_flops": rl.hlo_flops,
+        # a rank's: its share of hlo_flops
+        "attention_flops": cost.flops_by_op.get("kernel:flash_attention",
+                                                0),
         "hlo_bytes": rl.hlo_bytes,
         "collective_bytes": rl.collective_bytes,
         "collectives": rl.collectives,
@@ -242,7 +245,9 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
     if verbose:
         print(f"[{arch} x {shape} x {label}] traced {cost.seconds:.1f}s on "
               f"fake {device} | peak {cost.peak_bytes / 1e9:.3f} GB a rank "
-              f"(state + rows {arg_b / 1e9:.3f} GB) | compute "
+              f"(state + rows {arg_b / 1e9:.3f} GB) | FLOPs a rank "
+              f"{cost.flops:.4g}, flash_attention "
+              f"{rec['attention_flops']:.4g} of them | compute "
               f"{rl.compute_s * 1e3:.2f}ms memory {rl.memory_s * 1e3:.2f}ms "
               f"collective {rl.collective_s * 1e3:.2f}ms -> "
               f"{rl.dominant}-bound, useful {rl.useful_flops_ratio:.2f}, "

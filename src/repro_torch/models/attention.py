@@ -41,13 +41,19 @@ its slice of every head to the whole head_dim of its heads with one
 all-to-all. In the ``param_embed`` form (the heads do not divide
 ``model``: the reference's ``serve_row_tp``) Q, K and V are
 row-parallel on this rank's d_model slice of x and whole after their
-sum, and every head runs on every rank. Where the cache splits head_dim
-(``wo`` lies on head_dim), the cache keeps this rank's slice, a decode
-step sums the scores of the slice over ``model`` in f32 from the whole
-query (no gather of it) and runs P.V on the slice, and ``wo`` is
-row-parallel over the slice; where head_dim does not divide ``model``
-the cache is whole, read locally, and ``wo`` (on d_model) is
-column-parallel, its output all-gathered.
+sum, and every head runs on every rank. A prefill is context-parallel,
+as the reference places ``q_seq`` on ``model``: a rank attends its
+block of ceil(S / tp) query positions with every head over the whole K
+and V (``flash_attention`` at the block's ``q_offset``), and the
+blocks' outputs meet again before ``wo``; a decode step's one position
+runs on every rank. Where the cache splits head_dim (``wo`` lies on
+head_dim), the cache keeps this rank's slice, the prefill's blocks move
+to the slice of every position by one all-to-all, a decode step sums
+the scores of the slice over ``model`` in f32 from the whole query (no
+gather of it) and runs P.V on the slice, and ``wo`` is row-parallel
+over the slice; where head_dim does not divide ``model`` the cache is
+whole, read locally, the prefill's blocks are all-gathered, and ``wo``
+(on d_model) is column-parallel, its output all-gathered.
 
 With a ``page_table`` the planes are a paged pool (L, n_pages, P, Hkv,
 .) shared by the lanes (``repro_torch.paging``): self-attention writes
@@ -195,8 +201,14 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             kq, vq = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
         if d_split:
             k, v = _d_slice(k), _d_slice(v)
+        first = 0
+        if form == "param_embed":
+            # context parallelism: this rank's block of the positions
+            q, first = _query_block(q)
         out = dispatch("flash_attention", q, kq, vq, causal=causal,
-                       window=window, softcap=softcap)
+                       window=window, softcap=softcap, q_offset=first)
+        if form == "param_embed":
+            out = _join_blocks(out, s, d_split)
         new_cache = None
         if mode == "prefill":
             new_cache = _write_prefill_cache(cache, k, v)
@@ -204,8 +216,6 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 split = 2 if form == "heads" else 3
                 new_cache = {key: model_local(t, split)
                              for key, t in new_cache.items()}
-        if form == "param_embed" and d_split:
-            out = _d_slice(out)   # wo's rows: this rank's head_dim slice
         return constrain(_project_out(p, out), "batch", "q_seq",
                          "embed"), new_cache
 
@@ -341,6 +351,34 @@ def _d_slice(t: torch.Tensor) -> torch.Tensor:
     """This rank's slice of the last dim (head_dim) of ``t``."""
     axis = model_axis()
     return t.chunk(axis.size, -1)[axis.rank]
+
+
+def _query_block(q: torch.Tensor) -> tuple:
+    """(this rank's block of q (B, S, H, D) along the sequence, its
+    first position): ceil(S / tp) positions at rank * ceil(S / tp), the
+    rows past S zero, so every rank's block has one shape."""
+    axis = model_axis()
+    s = q.shape[1]
+    blk = -(-s // axis.size)
+    lo = axis.rank * blk
+    qb = q[:, lo:lo + blk]
+    if qb.shape[1] < blk:
+        qb = torch.nn.functional.pad(qb, (0, 0, 0, 0, 0, blk - qb.shape[1]))
+    return qb.contiguous(), lo
+
+
+def _join_blocks(out: torch.Tensor, s: int, d_split: bool) -> torch.Tensor:
+    """The blocks' attention outputs (B, ceil(S / tp), H, D), one a
+    rank, as ``_project_out`` takes them: with ``wo`` on head_dim one
+    all-to-all to this rank's head_dim slice of every position (B, S, H,
+    D / tp); with ``wo`` on d_model one all-gather of every position (B,
+    S, H, D). The padded rows dropped."""
+    axis = model_axis()
+    if d_split:
+        out = axis.all_to_all(out, split_dim=3, cat_dim=1)
+    else:
+        out = axis.all_gather(out, dim=1)
+    return out[:, :s].contiguous()
 
 
 def _kv_span(n_local: int, cfg: ArchConfig) -> tuple:

@@ -166,7 +166,8 @@ def test_q8_matmul_kernel(dev, dtype, m, k, n):
 
 
 @pytest.mark.parametrize("tail", [None, 3])
-@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,softcap", [
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,softcap,off", [
+    (*c, 0) for c in (
     (1, 1500, 1500, 6, 6, 64, False, None, None),   # encoder
     (1, 32, 32, 6, 6, 64, True, None, None),        # decoder prefill
     (1, 32, 1500, 6, 6, 64, False, None, None),     # cross prefill
@@ -204,19 +205,29 @@ def test_q8_matmul_kernel(dev, dtype, m, k, n):
     (1, 64, 64, 32, 32, 112, True, None, None),
     (1, 300, 300, 32, 32, 112, True, None, None),
     (1, 33, 1500, 8, 8, 112, False, None, None),
-    (1, 200, 65, 2, 1, 112, True, 16, None),
+    (1, 200, 65, 2, 1, 112, True, 16, None))] + [
+    # a context-parallel prefill's block, query row i at position off + i:
+    # causal at its offset; near 0, where the later KV splits of a block
+    # read no tile; past Skv (the padded rows of a short last block); a
+    # window and softcap at D = 256
+    (1, 256, 1024, 8, 2, 128, True, None, None, 768),
+    (1, 64, 2048, 4, 1, 128, True, None, None, 64),
+    (1, 16, 1500, 6, 2, 64, True, None, None, 16),
+    (2, 8, 24, 6, 2, 64, True, None, None, 20),
+    (1, 128, 512, 8, 4, 256, True, 100, 50.0, 256),
+    (1, 64, 512, 4, 2, 32, False, None, 5.0, 128),
 ])
 def test_flash_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
-                                softcap, tail):
-    rng = np.random.default_rng(sq * 7 + skv)
+                                softcap, off, tail):
+    rng = np.random.default_rng(sq * 7 + skv + off)
     q = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
     k = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
     v = _randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
     if tail:   # V only on the last keys a row sees (causal: the keys
-        # before min(Sq, Skv); the later keys keep V and must weigh 0):
-        # the output is the ragged tile's
-        v[:, :(min(sq, skv) if causal else skv) - tail] = 0
-    kw = dict(causal=causal, window=window, softcap=softcap)
+        # before min(off + Sq, Skv); the later keys keep V and must weigh
+        # 0): the output is the ragged tile's
+        v[:, :(min(off + sq, skv) if causal else skv) - tail] = 0
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     got = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = fa_plain.flash_attention(q, k, v, **kw)

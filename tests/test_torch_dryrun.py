@@ -271,6 +271,8 @@ ROW_TP_HEADS = {"gemma2-2b": (6, 2), "xlstm-350m": (2, 2)}
                  id="qwen3-moe-30b-a3b-prefill_32k"),
     pytest.param("gemma2-2b", "decode_32k", 3.0,
                  id="gemma2-2b-row_tp-decode_32k"),
+    pytest.param("gemma2-2b", "prefill_32k", 3.0,
+                 id="gemma2-2b-row_tp-prefill_32k"),
     pytest.param("xlstm-350m", "decode_32k", 2.0,
                  id="xlstm-350m-row_tp-decode_32k")])
 def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape, low):
@@ -284,7 +286,9 @@ def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape, low):
     ``model``'s size against the whole-layer gather (the K/V projections
     stay whole in the head_dim form, the MoE's router and routing and
     the xLSTM recurrence, whose state the rules leave whole, on every
-    rank, so less than 4; by at least ``low``), no unit is taken whole,
+    rank, so less than 4; by at least ``low``), the flash attention's
+    exactly 4-fold (a rank's query heads, or in ``serve_row_tp`` its
+    block of the query positions), no unit is taken whole,
     and the trace holds no op on a global cache leaf's shape, stacked or
     of one layer (the MoE routing counts, which the cache keeps whole,
     aside, and the write of a leaf whose rows it keeps whole: an sLSTM's
@@ -309,4 +313,8 @@ def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape, low):
         held = dryrun.cache_leaf_ops(split, model, shape, mesh, rules)
     ratio = whole.flops / split.flops
     assert low <= ratio <= 4.0, (whole.flops, split.flops)
+    attn = [c.flops_by_op.get("kernel:flash_attention", 0)
+            for c in (whole, split)]
+    assert attn[0] == 4 * attn[1], attn
+    assert (attn[1] > 0) == shape.startswith("prefill"), attn
     assert not held, held

@@ -19,6 +19,7 @@ from repro.core.burst import split_burst
 from repro.core.quantize import quantize_q4_0 as j_quantize_q4
 from repro.core.quantize import quantize_q8_0 as j_quantize
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.fp16_matmul.ops import fp16_matmul as j_fp16
 from repro.kernels.q8_attention.ops import q8_decode_attention as j_q8attn
 from repro.kernels.q4_attention.ops import cache_traffic_ratio_q4 as \
@@ -35,6 +36,7 @@ from repro.models.attention import chunked_attention
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import api, decode
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import plain as fa_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fp16_matmul import ops as mm_ops
 from repro_torch.kernels.fp16_matmul.ops import fp16_matmul, offload_info
@@ -111,6 +113,52 @@ def test_flash_attention_matches_jax(causal, window, softcap):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("s", [8, 7, 3])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 3, None), (False, None, 5.0)])
+def test_flash_attention_q_offset_blocks_equal_the_whole(causal, window,
+                                                          softcap, s):
+    """A context-parallel prefill's blocks: ``q_offset`` o places query
+    row i at position o + i, so the ceil(S / 4) rows of each of 4 blocks
+    (the last short or empty) at their offsets equal those rows of the
+    full-length call, and the blocks side by side the reference's dense
+    ``attention_ref`` over the whole sequence (GQA's K/V repeated for
+    it)."""
+    rng = np.random.default_rng(s)
+    q, k, v = (jnp.asarray(rng.standard_normal(shape), BF) for shape in
+               ((2, s, 4, 32), (2, s, 2, 32), (2, s, 2, 32)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    qb, kb, vb = (_t(x) for x in (q, k, v))
+    qf, kf, vf = (x.float() for x in (qb, kb, vb))
+    whole = fa_plain.flash_attention(qf, kf, vf, **kw)
+    blk = -(-s // 4)
+    blocks = []
+    for r in range(4):
+        lo = r * blk
+        part = fa_plain.flash_attention(qf[:, lo:lo + blk], kf, vf,
+                                        q_offset=lo, **kw)
+        np.testing.assert_allclose(part.numpy(),
+                                   whole[:, lo:lo + blk].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        # the wrapper (bf16, on the CPU its plain version) passes it on
+        blocks.append(flash_attention(qb[:, lo:lo + blk].contiguous(), kb,
+                                      vb, q_offset=lo, **kw))
+    got = torch.cat(blocks, dim=1).float()
+
+    def bh(x):   # (B, S, H, D) -> (B*H, S, D)
+        return jnp.transpose(x, (0, 2, 1, 3)).reshape(-1, s, x.shape[-1])
+    want = _np(attention_ref(bh(q), bh(jnp.repeat(k, 2, axis=2)),
+                             bh(jnp.repeat(v, 2, axis=2)), **kw))
+    want = want.reshape(2, 4, s, 32).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_flash_attention_refuses_a_negative_q_offset():
+    q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, q, q, q_offset=-1)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -43,7 +43,12 @@ process (and one subprocess for the reference's meshes):
   then a decode step on its state), each row-parallel sum within
   ``SPLIT_REL`` of the exact product of the shards' operands, the
   outputs, caches and states within one bf16 rounding of the unsplit
-  unit's; ``sharded_argmax`` equals ``torch.argmax`` with maxima
+  unit's; a ``serve_row_tp`` prefill context-parallel over 4 shards
+  (gemma2-2b's global and local layers, whisper-tiny.en's encoder,
+  decoder and cross-attention, S = 8, 7 and 3, both ``wo`` forms): each
+  shard's flash attention on its block of the query positions at its
+  ``q_offset``, the outputs within one bf16 rounding of the unsplit
+  unit's, the caches its slice; ``sharded_argmax`` equals ``torch.argmax`` with maxima
   tied across shard edges; and which units a split takes, from the
   serve rules' placements of full-size configs on a ``fake`` group.
 """
@@ -843,6 +848,96 @@ def test_split_row_tp_sums_to_the_unsplit(unit, d_head, monkeypatch):
     # head_dim), the MLP's up, gate and down, the head
     assert _sums_exact(seen, ROW_TP) == {
         "attention": 1 + split_d, "mlp": 3, "head": 1}[kind]
+
+
+#: context parallelism at a ``serve_row_tp`` prefill: unit -> (arch, the
+#: layer stack, the attention's key, kind, mode, cross-attention);
+#: gemma2-2b's local layer with its window cut to CP_WINDOW so it bites
+#: at these lengths; whisper-tiny.en's encoder self-attention (``train``
+#: mode, as ``encode`` calls it), decoder prefill and cross-attention
+#: over CP_FRAMES encoder states
+CP_UNITS = {
+    "gemma2-global": ("gemma2-2b", "segments", "block1", "global",
+                      "prefill", False),
+    "gemma2-local": ("gemma2-2b", "segments", "block0", "local",
+                     "prefill", False),
+    "whisper-encoder": ("whisper-tiny-en", "enc_layers", "attn", "bidir",
+                        "train", False),
+    "whisper-decoder": ("whisper-tiny-en", "dec_layers", "self_attn",
+                        "global", "prefill", False),
+    "whisper-cross": ("whisper-tiny-en", "dec_layers", "cross_attn",
+                      "bidir", "prefill", True),
+}
+CP_WINDOW, CP_FRAMES = 3, 10
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only the standard
+    library when loaded)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("d_head", [32, 18], ids=["wo_head_dim",
+                                                  "wo_d_model"])
+@pytest.mark.parametrize("s", [8, 7, 3])
+@pytest.mark.parametrize("unit", list(CP_UNITS))
+def test_context_parallel_prefill_equals_the_unsplit(unit, s, d_head):
+    """The reference's context parallelism at a ``serve_row_tp`` prefill
+    (``q_seq`` on ``model``), over 4 shards: shard r attends its block of
+    ceil(S / 4) query positions (a short block zero-padded, the last
+    past S), every head over the whole K and V, through one
+    ``flash_attention`` call at ``q_offset`` r * ceil(S / 4); the blocks
+    meet again by one all-to-all (``wo`` on head_dim) or all-gather
+    (``wo`` on d_model). Each shard's output lies within one bf16
+    rounding of the unsplit unit's, and its new cache is its head_dim
+    slice of the unsplit one's, or the whole cache."""
+    import dataclasses
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    arch, stack, key, kind, mode, cross = CP_UNITS[unit]
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              n_heads=ROW_TP_HEADS[0],
+                              n_kv_heads=ROW_TP_HEADS[1], d_head=d_head)
+    if kind == "local":
+        cfg = dataclasses.replace(cfg, local_window=CP_WINDOW)
+    params = build(cfg).init_values(torch.Generator().manual_seed(3), "cpu",
+                                    dtype=torch.bfloat16)
+    attn = L.layer_slice(params[stack], 0)[key]
+    if stack == "segments":
+        attn = attn["attn"]
+    rng = np.random.default_rng(19)
+    x, enc = (torch.from_numpy(rng.standard_normal(
+        (SPLIT_ROWS, n, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+        for n in (s, CP_FRAMES))
+
+    def run(p):
+        return A.attention(p, x, cfg, kind=kind, mode=mode,
+                           x_kv=enc if cross else None,
+                           use_rope=stack == "segments")
+    # chip_smoke.py's spy on the layer's dispatch: {rank: [(rows,
+    # q_offset), ...]}, rank -1 for the unsplit call
+    with _chip_smoke()._query_blocks() as calls:
+        want, want_c = run(attn)
+        outs = _shards(ROW_TP, lambda axis: run(
+            L.split_unit(attn, axis, "param_embed")))
+    blk = -(-s // ROW_TP)
+    assert calls == {-1: [(s, 0)],
+                     **{r: [(blk, r * blk)] for r in range(ROW_TP)}}, calls
+    split_d = d_head % ROW_TP == 0
+    for r, (y, c) in enumerate(outs):
+        _near(y, want, f"shard {r} output", rel=2 ** -7)
+        if mode == "train":
+            assert c is None and want_c is None
+            continue
+        for k in ("k", "v"):
+            assert L.model_dim(c[k]) == (3 if split_d else None)
+            mine = want_c[k].chunk(ROW_TP, 3)[r] if split_d else want_c[k]
+            _near(c[k], mine, f"shard {r} cache {k}", rel=2 ** -7)
 
 
 def _xlstm_setup(heads):
