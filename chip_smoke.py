@@ -226,16 +226,22 @@ r. the meshed serving steps (``make_prefill_step`` / ``make_decode_step``
    each ends ``ok``, a rank's peak under its bound and the card's
    memory, the traced FLOPs under its bound times the model FLOPs, and
    an ``R2_ROW_TP`` cell takes no attention, MLP, head or xLSTM unit
-   whole and holds no op on a global cache leaf's shape; it prints the
-   peaks, the FLOPs, the roofline's compute, memory and collective
-   terms, the flash attention's share of a rank's FLOPs, the units
-   split, and the figures before the split.
+   whole and holds no op on a global cache leaf's shape, and an
+   ``R2_HEAD_DIM`` cell gathers no ``wk``, ``wv``, ``bk`` or ``bv``
+   whole; it prints the peaks, the FLOPs, the roofline's compute,
+   memory and collective terms, the collective bytes by kind, the flash
+   attention's share of a rank's FLOPs, the units split, the leaves
+   gathered whole, and the figures before the split.
    r3: one qwen3-4b layer at full width split over 16
    ranks of ``model`` (head_dim form) and over 8 (heads form), shard by
    shard in one process (a thread a shard, the collectives met in
    memory) through the kernels: the prefill of 4 lanes x 256 ids, a
    decode step, the MLP, the embedding and the head against the unsplit
-   layer (``run_r3``: the row-parallel f32 sums within ``R3_REL``);
+   layer (``run_r3``: the row-parallel f32 sums within ``R3_REL``; in
+   the head_dim form the fused Q/K/V product of the rank's heads and
+   head_dim slice, one ``fp16_matmul`` of (2560, 384), the exact
+   product rounded once but at near-ties, and the cache slices within
+   ``R3_REL`` of the unsplit K/V path run on the shards' products);
    ``fp16_matmul`` and ``flash_attention`` must launch. r4: r1's
    qwen3-4b (36 layers) split over 4 ranks of ``model`` shard by shard
    on the card, as a four-card 1x4 mesh splits it, against the unmeshed
@@ -633,11 +639,17 @@ def kernel_cases():
                _nbytes(x, wb, y), 2.0 * 4 * n * k, "bf16", BF16_REL))
     # phase r3's shard shapes: qwen3-4b split over 16 (8 for the heads
     # form's wo) ranks of ``model``, 4 lanes of 256 ids in prefill and a
-    # decode step: the column-parallel MLP up / gate (bf16 out), the
-    # row-parallel wo and MLP down (f32 partials), the head's vocabulary
-    # columns (f32 x, the bf16 weight as stored, f32 out)
+    # decode step: the head_dim form's fused product of the rank's query
+    # heads beside its head_dim slice of wk and wv and the column-parallel
+    # MLP up / gate (bf16 out), the row-parallel wo and MLP down (f32
+    # partials), the head's vocabulary columns (f32 x, the bf16 weight as
+    # stored, f32 out)
     f32 = torch.float32
     for label, m, k, n, xdt, odt in (
+            ("prefill Q | K | V, head_dim form, tp=16", 1024, 2560, 384, bf,
+             bf),
+            ("decode Q | K | V, 4 lanes, head_dim form, tp=16", 4, 2560, 384,
+             bf, bf),
             ("prefill wo, tp=16", 1024, 256, 2560, bf, f32),
             ("prefill wo, tp=8", 1024, 512, 2560, bf, f32),
             ("prefill MLP up / gate, tp=16", 1024, 2560, 608, bf, bf),
@@ -3393,17 +3405,30 @@ R2_ROW_TP = {("llava-next-34b", "decode_32k"),
              ("llava-next-34b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
              ("xlstm-350m", "decode_32k")}
 R2_SPLIT_UNITS = ("attention", "mlp", "head", "mlstm", "slstm")
-#: r2: a rank's peak in bytes and traced / model FLOPs of the cells whose
-#: MoE experts, mamba blocks, xLSTM blocks or ``serve_row_tp`` layers were
-#: gathered whole over ``model`` before the split took them (the MoE's
-#: one-hot combine too), traced on fake ``cpu`` tensors; llava-next-34b's
-#: prefill_32k before its context parallelism (every rank attended every
-#: position), traced on fake ``cuda`` on the card; printed beside this
-#: run's
+#: r2: the cells whose attention takes the ``head_dim`` form (their KV
+#: heads do not divide 16, head_dim does): no ``wk``, ``wv``, ``bk`` or
+#: ``bv`` may be gathered whole (``whole_leaves``), and no all-gather of
+#: a ``wk`` / ``wv`` shard traced at ``models.layers:gathered``
+#: (``gathered_sites``): a rank computes K and V on its head_dim slice
+R2_HEAD_DIM = {("qwen3-4b", "decode_32k"), ("qwen3-4b", "prefill_32k"),
+               ("qwen3-moe-30b-a3b", "prefill_32k"),
+               ("qwen3-moe-30b-a3b", "decode_32k"),
+               ("mixtral-8x7b", "decode_32k")}
+#: r2: a rank's peak in bytes and traced / model FLOPs before a split
+#: took more of the cell, printed beside this run's: the ``head_dim``
+#: cells as they were while each rank gathered ``wk`` / ``wv`` whole and
+#: multiplied every KV head at full head_dim (traced on fake ``cuda`` on
+#: the card, PRs 28-29, unchanged to PR 31); zamba2-7b, xlstm-350m and
+#: the ``serve_row_tp`` cells before their mamba, xLSTM and
+#: ``serve_row_tp`` layers were split, traced on fake ``cpu`` tensors;
+#: llava-next-34b's prefill_32k before its context parallelism (every
+#: rank attended every position), traced on fake ``cuda`` on the card
 R2_BEFORE = {
-    ("qwen3-moe-30b-a3b", "prefill_32k"): (124958907408, 168.8),
-    ("qwen3-moe-30b-a3b", "decode_32k"): (6802180484, 142.8),
-    ("mixtral-8x7b", "decode_32k"): (11763720356, 57.1),
+    ("qwen3-4b", "decode_32k"): (3080666624, 3.738),
+    ("qwen3-4b", "prefill_32k"): (4859127808, 3.649),
+    ("qwen3-moe-30b-a3b", "prefill_32k"): (7556146176, 5.288),
+    ("qwen3-moe-30b-a3b", "decode_32k"): (5560663040, 13.336),
+    ("mixtral-8x7b", "decode_32k"): (8125412352, 4.595),
     ("zamba2-7b", "decode_32k"): (5074458380, 15.9),
     ("llava-next-34b", "decode_32k"): (13217134916, 28.89),
     ("llava-next-34b", "prefill_32k"): (16247590400, 14.078),
@@ -3688,10 +3713,13 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
     """Read ``start_r2``'s records (``R2_TIMEOUT`` from ``t_start``) and
     gate them: each ends ``ok``, a rank's peak under its ``R2_CELLS``
     bound and under the card's memory, its traced FLOPs under its bound
-    times the model FLOPs; it prints the roofline's three terms and,
-    where ``R2_BEFORE`` has them, the figures before the MoE and mamba
-    split."""
+    times the model FLOPs, and in the ``R2_HEAD_DIM`` cells no ``wk`` /
+    ``wv`` gathered whole; it prints the roofline's three terms, the
+    collective bytes by kind, the leaves gathered whole and, where
+    ``R2_BEFORE`` has them, the figures before the split took more."""
     import torch
+
+    from repro_torch.configs import get_config
     recs = _finish_dryruns(phase, procs, t_start + R2_TIMEOUT)
     card = torch.cuda.get_device_properties(0).total_memory
     bad = []
@@ -3704,7 +3732,18 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
         was = "" if before is None else (
             f"; before {before[0]} B, {before[1]}x")
         was += (f"; units {rec['split_counts']}; ops on a global cache "
-                f"leaf's shape {rec['cache_leaf_ops']}")
+                f"leaf's shape {rec['cache_leaf_ops']}; leaves gathered "
+                f"whole {rec['whole_leaves']}, their all-gathers' operand "
+                f"bytes {rec['gathered_sites']}")
+        if (arch, shape) in R2_HEAD_DIM:
+            cfg = get_config(arch)
+            kv = (cfg.d_model, cfg.n_kv_heads, cfg.head_dim // 16)
+            kv = f"all-gather {kv}"
+            whole = [k for k in rec["whole_leaves"]
+                     if k.split(":")[1] in ("wk", "wv", "bk", "bv")]
+            if whole or kv in rec["gathered_sites"]:
+                bad.append(f"{arch} {shape}: K/V weights gathered whole "
+                           f"{whole}, gathered {rec['gathered_sites']}")
         if (arch, shape) in R2_ROW_TP:
             whole = [k for k in rec["split_counts"]
                      if k.split(":")[0] in R2_SPLIT_UNITS
@@ -3720,7 +3759,8 @@ def finish_r2(phase: str, procs: dict, t_start: float) -> None:
              f"{rec['attention_flops']} of them), "
              f"compute term {rec['compute_s'] * 1e3:.4f} ms, memory term "
              f"{rec['memory_s'] * 1e3:.4f} ms, collective term "
-             f"{rec['collective_s'] * 1e3:.4f} ms ({rec['collectives']}), "
+             f"{rec['collective_s'] * 1e3:.4f} ms (collective bytes by "
+             f"kind {rec['collectives']}), "
              f"under {peak_max / 1e9:.1f} GB: {peak < peak_max}, under "
              f"{flops_max}x: {ratio < flops_max}, fits the card's {card} B:"
              f" {peak < card}; traced in {rec['compile_s']:.1f} s{was}")
@@ -3763,6 +3803,18 @@ def run_r3(phase: str) -> dict:
     * the layer's bf16 outputs within ``R3_OUT_REL``, each shard's cache
       slice within ``R3_REL``, the embedding bit-equal, the head's
       columns within ``R3_REL``, ``sharded_argmax`` the unsplit argmax.
+
+    In the ``head_dim`` form a shard multiplies x by its query heads
+    beside its head_dim slice of ``wk`` and ``wv`` in one
+    ``fp16_matmul`` launch of (d, H/tp * D + 2 * Hkv * D/tp), where the
+    unsplit layer's 3-D QKV product is the library's, so a K or V
+    element may round apart from the unsplit one at a near-tie. There
+    (``_head_dim_checks``) each shard's fused product, bf16, must lie
+    where its exact (f64) product, moved by at most ``R3_REL`` of its
+    largest magnitude (f32 summation order), rounds once, and each
+    cache slice within ``R3_REL`` of the slice the unsplit layer's
+    qk-norm and rope make from the shards' products side by side; the
+    slices' gaps to the unsplit layer's cache are printed.
 
     ``fp16_matmul`` and ``flash_attention`` must launch. Returns the
     launch counts."""
@@ -3872,7 +3924,9 @@ def run_r3(phase: str) -> dict:
                     return dict(yp=yp, cp=cp, sp=sp, yd=yd, mine=mine,
                                 sd=sd, ym=ym, sm=sm, h=act_in(u), xs=xs,
                                 ls=ls, ids=ids)
-                outs = run_shards(tp, one)
+                with _spied(A, "_head_dim_qkv") as kv_seen, \
+                        _mm_shapes() as mm_seen:
+                    outs = run_shards(tp, one)
                 torch.cuda.synchronize()
                 counts = {k: fn.launches
                           for k, fn in launch_counters().items()}
@@ -3905,6 +3959,25 @@ def run_r3(phase: str) -> dict:
                 close("MLP activation", hs, want_h, BF16_REL)
                 for what, (ex, kern) in refs.items():
                     gaps[f"unsplit {what} to exact"] = _r3_gap(kern, ex)
+                caches = {}
+                if form == "head_dim":
+                    caches = _head_dim_checks(cfg, attn, tp, kv_seen, pool,
+                                              pos, close, bad, gaps)
+                    kv_shape = (cfg.d_model, (cfg.n_heads + 2
+                                              * cfg.n_kv_heads)
+                                * cfg.head_dim // tp)
+                    kv_rows = {tuple(x.shape), tuple(xd.shape)}
+                    for r in range(tp):
+                        rows = {xs for xs, ws in mm_seen.get(r, ())
+                                if ws == kv_shape}
+                        if not kv_rows <= rows:
+                            bad.append(f"shard {r}: fp16_matmul at "
+                                       f"{kv_shape} took x {rows}, not "
+                                       f"the prefill's and the decode "
+                                       f"step's {kv_rows}")
+                    gaps["K/V product fp16_matmul (x, w)"] = sorted(
+                        {(xs, ws) for xs, ws in mm_seen.get(0, ())
+                         if ws == kv_shape})
                 for r, o in enumerate(outs):
                     for key, got in (("prefill wo", o["sp"]),
                                      ("decode wo", o["sd"]),
@@ -3915,16 +3988,23 @@ def run_r3(phase: str) -> dict:
                         what = f"{key} sum to unsplit"   # printed only
                         gaps[what] = max(gaps.get(what, 0.0),
                                          _r3_gap(got, kern))
+                    unsplit = {}
+                    for k in ("k", "v"):
+                        unsplit[f"prefill cache {k}"] = (
+                            o["cp"][k], want_pc[k].chunk(tp, split[0])[r])
+                        unsplit[f"decode cache {k}"] = (
+                            o["mine"][k], whole[k].chunk(tp, split[1])[r])
+                    for what, (got, want) in unsplit.items():
+                        if caches:   # printed only; held to ``caches``
+                            key = f"{what} to unsplit"
+                            gaps[key] = max(gaps.get(key, 0.0),
+                                            _r3_gap(got, want))
+                            want = caches[what][r]
+                        close(f"{what} shard {r}", got, want, R3_REL)
                     for what, got, want, rel in (
                             ("prefill output", o["yp"], want_p, R3_OUT_REL),
                             ("decode output", o["yd"], want_d, R3_OUT_REL),
-                            ("MLP output", o["ym"], want_m, R3_OUT_REL),
-                            *((f"prefill cache {k}", o["cp"][k],
-                               want_pc[k].chunk(tp, split[0])[r], R3_REL)
-                              for k in ("k", "v")),
-                            *((f"decode cache {k}", o["mine"][k],
-                               whole[k].chunk(tp, split[1])[r], R3_REL)
-                              for k in ("k", "v"))):
+                            ("MLP output", o["ym"], want_m, R3_OUT_REL)):
                         close(f"{what} shard {r}", got, want, rel)
                     if not torch.equal(o["xs"], want_x):
                         bad.append(f"shard {r}: the embedding differs")
@@ -3935,10 +4015,12 @@ def run_r3(phase: str) -> dict:
                 bad += [f"sharded_argmax {o['ids'].tolist()} against "
                         f"{want_ids.tolist()}" for o in outs
                         if not torch.equal(o["ids"], want_ids)]
+                shown = {k: v if isinstance(v, (list, int)) else f"{v:.3g}"
+                         for k, v in gaps.items()}
                 _log(f"[{phase}] {cfg.name} layer at tp={tp} ({form}), "
                      f"{lanes} lanes x {R3_PROMPT} ids, a decode step over "
                      f"{R3_CACHE} positions: largest gap over the largest "
-                     f"magnitude {({k: f'{v:.3g}' for k, v in gaps.items()})}"
+                     f"magnitude {shown}"
                      f"; embedding bit-equal {not any('embedding' in b for b in bad)}, "
                      f"ids {want_ids.tolist()}; launches {counts}; "
                      f"{time.monotonic() - t0:.2f} s")
@@ -3952,11 +4034,92 @@ def run_r3(phase: str) -> dict:
                     launches[k] = launches.get(k, 0) + counts[k]
         finally:
             A._project_out = plain_out
-    del params, block, attn, unit, head, pool, whole, outs, seen
+    del params, block, attn, unit, head, pool, whole, outs, seen, kv_seen
     gc.collect()
     torch.cuda.empty_cache()
     _log(f"[{phase}] phase wall {time.monotonic() - t_phase:.2f} s")
     return launches
+
+
+@contextlib.contextmanager
+def _mm_shapes():
+    """``models.layers.dispatch`` wrapped for the block so that each
+    ``fp16_matmul`` call's (x shape, w shape) is kept under the calling
+    shard's rank (-1 outside a split): yields {rank: [(x, w), ...]}."""
+    from repro_torch.models import layers as L
+    real, seen = L.dispatch, {}
+
+    def spy(name, *args, **kwargs):
+        if name == "fp16_matmul":
+            axis = L.model_axis()
+            seen.setdefault(-1 if axis is None else axis.rank, []).append(
+                (tuple(args[0].shape), tuple(args[1].shape)))
+        return real(name, *args, **kwargs)
+    L.dispatch = spy
+    try:
+        yield seen
+    finally:
+        L.dispatch = real
+
+
+def _head_dim_checks(cfg, attn: dict, tp: int, seen: dict, pool: dict, pos,
+                     close, bad: list, gaps: dict) -> dict:
+    """r3's checks of the ``head_dim`` form's fused Q/K/V products, from
+    ``_spied(A, "_head_dim_qkv")``'s record ``seen`` (each shard's
+    prefill, then its decode step): each shard's bf16 product must lie,
+    element by element, where its exact (f64) product moved by at most
+    ``R3_REL`` of its largest magnitude rounds once (the f32 sum's order
+    may move a near-tie across a rounding boundary, nothing more);
+    returns the cache slices the unsplit layer's K and V path (biases,
+    qk-norm, rope) makes from the shards' products side by side, each
+    shard's slice of them: {"prefill cache k": [slice of each shard],
+    ...}, the decode's written into ``pool``'s slice at ``pos``."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import rope
+    flips = "K/V product elements rounded apart from exact"
+    gaps[flips] = 0
+    for j in range(2):
+        for r in range(tp):
+            (p, x, _), got = seen[r][j]
+            ws = torch.cat([p[k].reshape(cfg.d_model, -1)
+                            for k in ("wq", "wk", "wv")], 1)
+            exact = x.double().reshape(-1, cfg.d_model) @ ws.double()
+            got = torch.cat([t.flatten(-2) for t in got], -1).reshape(
+                exact.shape)
+            tol = R3_REL * float(exact.abs().max())
+            lo, hi = (exact - tol).to(got.dtype), (exact + tol).to(got.dtype)
+            off = int(((got < lo) | (got > hi)).sum())
+            gaps[flips] += int((got != exact.to(got.dtype)).sum())
+            gap = _r3_gap(got, exact)     # printed only: half a bf16 step
+            gaps["K/V product to exact"] = max(
+                gaps.get("K/V product to exact", 0.0), gap)
+            if off:
+                bad.append(f"shard {r}'s fused Q/K/V product ({j}): {off} "
+                           f"elements off the exact product rounded once "
+                           f"within {R3_REL} of its largest magnitude")
+    b = pos.shape[0]
+    posq = pos[:, None]
+    out = {}
+    for j, when in enumerate(("prefill", "decode")):
+        k = torch.cat([seen[r][j][1][1] for r in range(tp)], -1)
+        v = torch.cat([seen[r][j][1][2] for r in range(tp)], -1)
+        at = torch.arange(k.shape[1], device=k.device).expand(b, -1) \
+            if when == "prefill" else posq
+        k = rope(A.bias_norm(attn, k, cfg, "k"), at, cfg.rope_theta)
+        v = A.bias_norm(attn, v, cfg, "v")
+        for key, t in (("k", k), ("v", v)):
+            sl = t.chunk(tp, -1)
+            if when == "decode":
+                rows = (0, torch.arange(b, device=k.device)[:, None], posq)
+                mine = [pool[key].chunk(tp, -1)[r].clone()
+                        for r in range(tp)]
+                for c, new in zip(mine, sl):
+                    c[rows] = new.to(c.dtype)
+                sl = mine
+            out[f"{when} cache {key}"] = sl
+    return out
 
 
 def run_r4(phase: str, arch: str = R3_ARCH, layers=None,

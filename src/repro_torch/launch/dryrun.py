@@ -20,11 +20,16 @@ reference's pjit does) and records, for one rank:
   the three-term roofline on ``h100-sxm``;
 * for a serving cell, the units its split over ``model`` took in each
   form (``split_counts``: ``"unit:form"`` -> count, ``"whole"`` where a
-  unit was gathered whole) and the traced ops on a global cache leaf's
-  shape, stacked or of one layer (``cache_leaf_ops``: a rank's step
-  holds its rows and shards of the cache, so any such op gathered one;
-  the MoE routing counts, which the cache keeps whole, and the write of
-  a leaf whose rows it keeps whole aside).
+  unit was gathered whole), the leaves on ``model`` that a split unit
+  gathered whole (``whole_leaves``: ``"unit:leaf"`` -> count, from
+  ``whole_leaf_counts``), the operand bytes of the all-gathers of whole
+  leaves (``gathered_sites``: ``"kind shape"`` -> bytes, the
+  collectives traced at ``models.layers:gathered``) and the traced ops
+  on a global cache leaf's shape, stacked or of one layer
+  (``cache_leaf_ops``: a rank's step holds its rows and shards of the
+  cache, so any such op gathered one; the MoE routing counts, which the
+  cache keeps whole, and the write of a leaf whose rows it keeps whole
+  aside).
 
 Where the reference compiles, the port executes the step on fake
 tensors, so ``compile_s`` is the trace's wall time. The fake tensors
@@ -53,7 +58,8 @@ import torch
 from repro_torch.analysis.cost import measure
 from repro_torch.analysis.roofline import model_flops, roofline_from_cost
 from repro_torch.configs import get_config, list_archs
-from repro_torch.models.layers import reset_split_counts, split_counts
+from repro_torch.models.layers import (reset_split_counts, split_counts,
+                                       whole_leaf_counts)
 from repro_torch.models.model import (SHAPES, build, input_specs,
                                       shape_applicable)
 from repro_torch.optim.adamw import AdamWConfig, tree_map
@@ -176,6 +182,18 @@ def cache_leaf_ops(cost, model, shape: str, mesh, rules) -> list:
                                           and site == "models.layers:write"))
 
 
+def gathered_sites(cost) -> dict:
+    """``"kind torch.Size([...])"`` -> the operand bytes of the
+    collectives ``cost`` traced at ``models.layers:gathered`` (a DTensor
+    leaf gathered whole), by the shape of their operand (a rank's
+    shard)."""
+    out = {}
+    for (kind, shape, where), b in sorted(cost.collective_sites.items()):
+        if where == "models.layers:gathered":
+            out[f"{kind} {shape}"] = out.get(f"{kind} {shape}", 0) + b
+    return out
+
+
 def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 verbose: bool = True, opt_overrides: Optional[dict] = None,
                 n_micro: Optional[int] = None, device: str = "cuda"):
@@ -208,6 +226,9 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
             tokens = gbatch * seq if kind == "prefill" else gbatch
             serve = {"split_counts": {f"{u}:{f}": n for (u, f), n
                                       in sorted(split_counts().items())},
+                     "whole_leaves": {f"{u}:{k}": n for (u, k), n in sorted(
+                         whole_leaf_counts().items())},
+                     "gathered_sites": gathered_sites(cost),
                      "cache_leaf_ops": [list(op) for op in cache_leaf_ops(
                          cost, model, shape, mesh, rules)]}
         label = mesh_label(mesh)

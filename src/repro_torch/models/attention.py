@@ -33,13 +33,18 @@ Split over ``model`` (a meshed serving step, ``layers.split_unit``) the
 block runs on this rank's query heads and ``wo`` is row-parallel. In
 the ``heads`` form its K/V heads are its shard too, and so is the cache
 it reads. In the ``head_dim`` form (the KV heads do not divide
-``model``; the cache splits head_dim) K and V are whole: the prefill's
-query heads read their KV heads at full head_dim and the cache keeps
-its slice, and a decode step gathers the query of every head, sums the
-scores of its head_dim slice over ``model`` in f32, and moves P.V from
-its slice of every head to the whole head_dim of its heads with one
-all-to-all. In the ``param_embed`` form (the heads do not divide
-``model``: the reference's ``serve_row_tp``) Q, K and V are
+``model``; the cache splits head_dim) ``wk`` and ``wv`` are this rank's
+head_dim slice of every KV head, multiplied beside its query heads in
+one product, and K and V come out on that slice. K's slices are
+all-gathered along head_dim before the qk-norm and rope, which read the
+whole head_dim (rope pairs dim i with i + D/2), and the cache keeps the
+rank's slice of the result; V's slice goes into the cache as it is. A
+prefill all-gathers V's slices too, so its query heads read their KV
+heads at full head_dim; a decode step gathers the query of every head,
+sums the scores of its head_dim slice over ``model`` in f32, and moves
+P.V from its slice of every head to the whole head_dim of its heads
+with one all-to-all. In the ``param_embed`` form (the heads do not
+divide ``model``: the reference's ``serve_row_tp``) Q, K and V are
 row-parallel on this rank's d_model slice of x and whole after their
 sum, and every head runs on every rank. A prefill is context-parallel,
 as the reference places ``q_seq`` on ``model``: a rank attends its
@@ -110,8 +115,17 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device,
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
                  x_kv: Optional[torch.Tensor] = None):
+    """(q, k, v) after their biases and qk-norm. In the ``head_dim`` form
+    q is this rank's query heads, k every KV head at full head_dim (its
+    slices all-gathered over ``model``) and v this rank's head_dim slice
+    of every KV head."""
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
-    if attention_form(p) == "param_embed":
+    form = attention_form(p)
+    if form == "head_dim":
+        q, k, v = _head_dim_qkv(p, x, x_kv)
+        return bias_norm(p, q, cfg, "q"), \
+            bias_norm(p, k, cfg, "k", gather=True), bias_norm(p, v, cfg, "v")
+    if form == "param_embed":
         # row-parallel on this rank's d_model slice, whole after the sum
         xl = model_chunk(x)
         if x_kv is None:
@@ -137,13 +151,38 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
         bias_norm(p, v, cfg, "v")
 
 
+def _head_dim_qkv(p: dict, x: torch.Tensor,
+                  x_kv: Optional[torch.Tensor]) -> tuple:
+    """The ``head_dim`` form's products, before the biases: x against
+    this rank's query heads beside its head_dim slice of every KV head,
+    one (d, H/tp * D + 2 * Hkv * D/tp) product for self-attention
+    (cross-attention: q of x, then one product of x_kv for k and v).
+    Returns q (..., H/tp, D), k and v (..., Hkv, D/tp)."""
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    d = wq.shape[0]
+    ws = [w.reshape(d, -1) for w in (wq, wk, wv)]
+    nq, nk = ws[0].shape[1], ws[1].shape[1]
+    if x_kv is None:
+        q, k, v = mm(x, torch.cat(ws, dim=1)).split([nq, nk, nk], dim=-1)
+    else:
+        q = mm(x, ws[0])
+        k, v = mm(x_kv, torch.cat(ws[1:], dim=1)).split([nk, nk], dim=-1)
+    return (q.unflatten(-1, wq.shape[1:]), k.unflatten(-1, wk.shape[1:]),
+            v.unflatten(-1, wv.shape[1:]))
+
+
 def bias_norm(p: dict, t: torch.Tensor, cfg: ArchConfig,
-              which: str) -> torch.Tensor:
+              which: str, gather: bool = False) -> torch.Tensor:
     """The projection ``which`` ("q", "k", "v") with its bias added in
     its own dtype and, for q and k, the qk-norm, as the reference's
-    ``_project_qkv`` does after the product."""
+    ``_project_qkv`` does after the product. ``gather``: ``t`` is this
+    rank's head_dim slice (the ``head_dim`` form's K), the bias its
+    slice too; the slices, biased, are all-gathered over ``model`` along
+    head_dim before the norm."""
     if f"b{which}" in p:
         t = t + p[f"b{which}"].to(t.dtype)
+    if gather:
+        t = model_axis().all_gather(t.contiguous(), dim=-1)
     if f"{which}_norm" in p:
         t = rmsnorm(p[f"{which}_norm"], t, cfg.norm_eps)
     return t.contiguous()
@@ -195,11 +234,14 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         kq, vq = k, v
         d_split = _cache_splits_head_dim(p)
         if form == "head_dim":
-            # every KV head at full head_dim (wk, wv whole): the query
-            # heads read theirs, the cache keeps its head_dim slice
+            # K whole, V this rank's head_dim slice: V's slices gathered,
+            # the query heads read their KV heads at full head_dim, the
+            # cache keeps the slice of each
             lo, hi = _kv_span(q.shape[2], cfg)
-            kq, vq = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
-        if d_split:
+            vq = model_axis().all_gather(v, dim=-1)
+            kq, vq = k[:, :, lo:hi].contiguous(), vq[:, :, lo:hi].contiguous()
+            k = _d_slice(k)
+        elif d_split:
             k, v = _d_slice(k), _d_slice(v)
         first = 0
         if form == "param_embed":
@@ -249,7 +291,9 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             if tier != "bf16":
                 raise NotImplementedError("a quantized cache on a mesh "
                                           "keeps the attention whole")
-            new = {"k": _d_slice(k_new), "v": _d_slice(v_new)}
+            # the head_dim form's v_new is this rank's slice already
+            new = {"k": _d_slice(k_new),
+                   "v": v_new if form == "head_dim" else _d_slice(v_new)}
         if tier != "bf16":
             qz = quantize_q8_0 if tier == "q8_0" else quantize_q4_0
             kt, vt = qz(k_new, axis=-1), qz(v_new, axis=-1)

@@ -297,24 +297,25 @@ ATTN_UNITS = ("attn", "self_attn", "cross_attn")
 #: ``heads``: the query and KV heads (Megatron's column-parallel Q/K/V and
 #: row-parallel output), and an sLSTM block's FFN columns (its heads'
 #: gate weights, which the serve rules leave whole, sliced locally);
-#: ``head_dim``: the query heads, with K and V whole (their KV heads do
-#: not divide ``model``; the cache splits head_dim); ``ff``: the MLP's
-#: columns; ``vocab`` / ``vocab_cols``: the embedding table's rows / the
-#: untied head's columns; ``experts``: the MoE's experts (expert
-#: parallelism), ``expert_ff``: each expert's FFN columns (the router
-#: whole either way); ``inner``: a mamba block's inner channels and SSM
-#: heads (``wB``, ``wC`` and their conv taps, which the serve rules
+#: ``head_dim``: the query heads, and K and V on their head_dim slice
+#: (their KV heads do not divide ``model``; the cache splits head_dim);
+#: ``ff``: the MLP's columns; ``vocab`` / ``vocab_cols``: the embedding
+#: table's rows / the untied head's columns; ``experts``: the MoE's experts
+#: (expert parallelism), ``expert_ff``: each expert's FFN columns (the
+#: router whole either way); ``inner``: a mamba block's inner channels and
+#: SSM heads (``wB``, ``wC`` and their conv taps, which the serve rules
 #: leave off ``model``, whole), or an mLSTM block's inner channels and
-#: heads; ``param_embed``: the reference's ``serve_row_tp`` (the heads
-#: do not divide ``model``), every product split along d_model, or
-#: along the inner dim it contracts (an xLSTM block's, the MLP's
-#: ``down``), ``wo`` along head_dim where it divides ``model`` (the
-#: cache splits head_dim), else along d_model (a tuple: the first dim
-#: ``model`` divides); the Whisper frontend and decoder positions too
+#: heads; ``param_embed``: the reference's ``serve_row_tp`` (the heads do
+#: not divide ``model``), every product split along d_model, or along the
+#: inner dim it contracts (an xLSTM block's, the MLP's ``down``), ``wo``
+#: along head_dim where it divides ``model`` (the cache splits head_dim),
+#: else along d_model (a tuple: the first dim ``model`` divides); the
+#: Whisper frontend and decoder positions too
 FORMS = {
     "heads": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
               "bv": 0, "w_up": 1, "w_down": 0},
-    "head_dim": {"wq": 1, "wo": 0, "bq": 0},
+    "head_dim": {"wq": 1, "wk": 2, "wv": 2, "wo": 0, "bq": 0, "bk": 1,
+                 "bv": 1},
     "ff": {"up": 1, "gate": 1, "down": 0},
     "vocab": {"table": 0},
     "vocab_cols": {"lm_head": 1},
@@ -334,7 +335,7 @@ FORMS = {
 #: that it has must lie as the form says too)
 _NEED = {
     ("attention", "heads"): ("wq", "wk", "wv", "wo"),
-    ("attention", "head_dim"): ("wq", "wo"),
+    ("attention", "head_dim"): ("wq", "wk", "wv", "wo"),
     ("attention", "param_embed"): ("wq", "wk", "wv", "wo"),
     ("mlp", "ff"): ("up", "down"),
     ("mlp", "param_embed"): ("up", "down"),
@@ -355,6 +356,7 @@ _NEED = {
 SLSTM_GATES = ("i", "f", "z", "o")
 
 _SPLITS: collections.Counter = collections.Counter()
+_WHOLE: collections.Counter = collections.Counter()
 
 
 def split_counts() -> collections.Counter:
@@ -364,8 +366,19 @@ def split_counts() -> collections.Counter:
     return collections.Counter(_SPLITS)
 
 
+def whole_leaf_counts() -> collections.Counter:
+    """(unit, leaf) -> how many times a split step gathered that leaf of
+    a unit it split whole over ``model`` (a DTensor the placements put
+    on ``model`` that the unit's form does not take as a shard), since
+    the last ``reset_split_counts``. A gate subtree's leaf is named
+    ``gate.leaf``."""
+    return collections.Counter(_WHOLE)
+
+
 def reset_split_counts() -> None:
+    """Clear ``split_counts`` and ``whole_leaf_counts``."""
     _SPLITS.clear()
+    _WHOLE.clear()
 
 
 def _model_shard_dim(t) -> Optional[int]:
@@ -455,7 +468,6 @@ def unit_form(name, tree, ctx: Optional[_Gather] = None) -> Optional[str]:
         if ctx.split_attention and _takes(tree, unit, "heads"):
             form = "heads"
         elif ctx.split_attention and _takes(tree, unit, "head_dim") \
-                and _model_shard_dim(tree["wk"]) == 2 \
                 and size % tree["wk"].shape[1] == 0:
             form = "head_dim"
         elif ctx.split_attention and _takes(tree, unit, "param_embed"):
@@ -526,21 +538,39 @@ def _local_shard(t, dim, axis) -> torch.Tensor:
 
 def split_unit(tree, axis, form: str, grad_placements=None,
                name: str = "lm_head"):
-    """The unit ``tree`` (a dict, or the top-level leaf at key ``name``:
-    the head, the Whisper frontend or decoder positions) in ``form``:
-    its form leaves as this rank's ``model`` shards (``model_local``;
-    an sLSTM block's gate subtrees leaf by leaf), every other DTensor
-    leaf gathered whole. Takes DTensors (a meshed step's) or whole plain
-    tensors, which it chunks as the placements would (a shard-by-shard
-    run: ``parallel.model_axis.run_shards``)."""
+    """The unit ``tree`` (a dict at key ``name`` of a layer, or the
+    top-level leaf there: the head, the Whisper frontend or decoder
+    positions) in ``form``: its form leaves as this rank's ``model``
+    shards (``model_local``; an sLSTM block's gate subtrees leaf by
+    leaf), every other DTensor leaf gathered whole (those on ``model``
+    counted in ``whole_leaf_counts``). Takes DTensors (a meshed step's)
+    or whole plain tensors, which it chunks as the placements would (a
+    shard-by-shard run: ``parallel.model_axis.run_shards``)."""
     dims = FORMS[form]
     if not isinstance(tree, dict):
         return _local_shard(tree, dims[name], axis)
-    return {k: split_unit(v, axis, form, grad_placements)
-            if isinstance(v, dict)
-            else _local_shard(v, dims[k], axis) if k in dims
-            else gathered(v, grad_placements) if is_dtensor(v) else v
-            for k, v in tree.items()}
+    return _split_tree(tree, axis, dims, grad_placements,
+                       _unit(name, tree) or name, "")
+
+
+def _split_tree(tree: dict, axis, dims: dict, grad_placements, unit: str,
+                prefix: str) -> dict:
+    """``split_unit`` of a dict ``tree`` of ``unit``, its nested dicts'
+    leaves named ``prefix`` + key in ``whole_leaf_counts``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _split_tree(v, axis, dims, grad_placements, unit,
+                                 f"{prefix}{k}.")
+        elif k in dims:
+            out[k] = _local_shard(v, dims[k], axis)
+        elif is_dtensor(v):
+            if _model_shard_dim(v) is not None:
+                _WHOLE[(unit, prefix + k)] += 1
+            out[k] = gathered(v, grad_placements)
+        else:
+            out[k] = v
+    return out
 
 
 def attention_form(p) -> Optional[str]:
@@ -551,7 +581,7 @@ def attention_form(p) -> Optional[str]:
         return None
     if dim == 0:
         return "param_embed"
-    return "heads" if model_dim(p["wk"]) is not None else "head_dim"
+    return "heads" if model_dim(p["wk"]) == 1 else "head_dim"
 
 
 def row_parallel(partial: torch.Tensor, dtype=_BF16) -> torch.Tensor:

@@ -283,16 +283,20 @@ def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape, low):
     rank), or reduced gemma2-2b and xlstm-350m with heads that do not
     divide 4 (``ROW_TP_HEADS``: every product split along d_model, the
     reference's ``serve_row_tp``): a rank's traced FLOPs fall by about
-    ``model``'s size against the whole-layer gather (the K/V projections
-    stay whole in the head_dim form, the MoE's router and routing and
-    the xLSTM recurrence, whose state the rules leave whole, on every
-    rank, so less than 4; by at least ``low``), the flash attention's
-    exactly 4-fold (a rank's query heads, or in ``serve_row_tp`` its
-    block of the query positions), no unit is taken whole,
-    and the trace holds no op on a global cache leaf's shape, stacked or
-    of one layer (the MoE routing counts, which the cache keeps whole,
-    aside, and the write of a leaf whose rows it keeps whole: an sLSTM's
-    m where its heads do not divide the data axis)."""
+    ``model``'s size against the whole-layer gather (the MoE's router and
+    routing and the xLSTM recurrence, whose state the rules leave whole,
+    on every rank, so less than 4; by at least ``low``), the flash
+    attention's exactly 4-fold (a rank's query heads, or in
+    ``serve_row_tp`` its block of the query positions), no unit is taken
+    whole, the head_dim form (qwen3-4b, qwen3-moe-30b-a3b) computes K and
+    V on the rank's head_dim slice (no all-gather at
+    ``models.layers:gathered`` of a ``wk`` / ``wv`` shard,
+    ``gathered_sites``; none of ``wk``, ``wv``, ``bk``, ``bv`` gathered
+    whole, ``whole_leaf_counts``), and the trace holds no op on a global
+    cache leaf's shape, stacked or of one layer (the MoE routing counts,
+    which the cache keeps whole, aside, and the write of a leaf whose
+    rows it keeps whole: an sLSTM's m where its heads do not divide the
+    data axis)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers as L
     cfg = reduced(get_config(arch))
@@ -308,6 +312,13 @@ def test_meshed_serve_cell_splits_over_model(monkeypatch, arch, shape, low):
         split = dryrun._trace_serve(model, shape, mesh, rules, "cpu")
         assert not any(f == "whole" for _, f in L.split_counts()), \
             L.split_counts()
+        if ("attention", "head_dim") in L.split_counts():
+            kv = (cfg.d_model, cfg.n_kv_heads, cfg.head_dim // 4)
+            kv = f"all-gather {kv}"
+            sites = dryrun.gathered_sites(split)
+            assert sites and kv not in sites, sites
+            assert not {k for _, k in L.whole_leaf_counts()} & {
+                "wk", "wv", "bk", "bv"}, L.whole_leaf_counts()
         monkeypatch.setattr(t_step, "_model_axis", lambda mesh: None)
         whole = dryrun._trace_serve(model, shape, mesh, rules, "cpu")
         held = dryrun.cache_leaf_ops(split, model, shape, mesh, rules)

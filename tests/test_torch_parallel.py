@@ -1073,6 +1073,95 @@ def test_whole_steps_run_shard_by_shard(tp, form):
             assert gap < TIE, (t, int(r), gap)
 
 
+def _split_first_layer(cfg, tp: int, **kw) -> tuple:
+    """The first layer of ``cfg`` as a split over ``model`` of ``tp``
+    ranks hands it to rank 0, from the DTensor placements of the serve
+    rules on a 1 x ``tp`` ``fake`` group (fake tensors): (``split_counts``,
+    ``whole_leaf_counts``, the layer)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import fake_tensors, fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.model_axis import ModelAxis
+    from repro_torch.parallel.sharding import (enforce_divisibility,
+                                               place_tree, tree_shardings)
+    model = build(cfg)
+    fm = FakeTensorMode()
+    with fake_world(tp):
+        mesh = make_mesh((1, tp), ("data", "model"), "cpu")
+        rules = rules_for(model.cfg, mesh, mode="serve")
+        params = place_tree(
+            fake_tensors(model.param_shapes(torch.bfloat16), fm, "cpu"),
+            enforce_divisibility(tree_shardings(model.param_axes(), mesh,
+                                                rules),
+                                 model.param_shapes()))
+        L.reset_split_counts()
+        with fm, L.gather_context(model=ModelAxis(tp, 0), **kw):
+            tree = L.layer_params(params, model.param_axes())
+            stack = "dec_layers" if model.cfg.enc_dec else "segments"
+            layer = L.gather_layer(L.layer_slice(tree[stack], 0))
+        return dict(L.split_counts()), dict(L.whole_leaf_counts()), layer
+
+
+def _row_tp_codeqwen():
+    import dataclasses
+    return dataclasses.replace(reduced(get_config("codeqwen1.5-7b")),
+                               n_heads=6, n_kv_heads=2)
+
+
+#: the leaves of a unit in the ``param_embed`` form that a split gathers
+#: whole over ``model``: Q, K and V are whole after their row-parallel
+#: sum, so their biases and qk-norm are needed whole, and so is an
+#: mLSTM block's ``out_norm`` (deliberate difference 41)
+ROW_TP_WHOLE = {"bq", "bk", "bv", "q_norm", "k_norm", "out_norm"}
+
+
+@pytest.mark.parametrize("cfg,tp,form", [
+    pytest.param(lambda: reduced(get_config("codeqwen1.5-7b")), 4,
+                 "head_dim", id="codeqwen1.5-7b-reduced-bias-4"),
+    pytest.param(lambda: get_config("qwen3-4b"), 16, "head_dim",
+                 id="qwen3-4b-16"),
+    pytest.param(lambda: get_config("qwen3-moe-30b-a3b"), 16, "head_dim",
+                 id="qwen3-moe-30b-a3b-16"),
+    pytest.param(lambda: get_config("mixtral-8x7b"), 16, "head_dim",
+                 id="mixtral-8x7b-16"),
+    pytest.param(_row_tp_codeqwen, 4, "param_embed",
+                 id="codeqwen1.5-7b-reduced-row_tp-4"),
+    pytest.param(lambda: get_config("gemma2-2b"), 16, "param_embed",
+                 id="gemma2-2b-16"),
+    pytest.param(lambda: get_config("xlstm-350m"), 16, "param_embed",
+                 id="xlstm-350m-16")])
+def test_split_hands_kv_weights_as_head_dim_slices(cfg, tp, form):
+    """In the ``head_dim`` form (the KV heads do not divide ``model``,
+    head_dim does) the split hands a rank its head_dim slice of ``wk``
+    and ``wv`` (``model_dim`` 2) and of ``bk`` and ``bv`` (``model_dim``
+    1; reduced codeqwen1.5-7b has QKV biases), as the reference's serve
+    rules place them, and gathers none of them whole
+    (``whole_leaf_counts``: only the qk-norm weights, head_dim bytes). In
+    the ``param_embed`` form it gathers whole only the biases, the
+    qk-norm and the mLSTM's ``out_norm`` (``ROW_TP_WHOLE``)."""
+    from repro_torch.models.layers import model_dim
+    cfg = cfg()
+    splits, whole, layer = _split_first_layer(cfg, tp)
+    assert any(f == form for _, f in splits), splits
+    assert not any(f == "whole" for _, f in splits), splits
+    leaves = {k for _, k in whole}
+    if form == "param_embed":
+        assert leaves <= ROW_TP_WHOLE, whole
+        return
+    assert not leaves & {"wk", "wv", "bk", "bv"}, whole
+    assert leaves <= {"q_norm", "k_norm"}, whole
+    attn = layer["block0"]["attn"]
+    hk, d = cfg.n_kv_heads, cfg.head_dim // tp
+    for key in ("wk", "wv"):
+        assert tuple(attn[key].shape) == (cfg.d_model, hk, d)
+        assert model_dim(attn[key]) == 2
+    assert ("bk" in attn) == cfg.attn_bias
+    for key in ("bk", "bv") if cfg.attn_bias else ():
+        assert tuple(attn[key].shape) == (hk, d)
+        assert model_dim(attn[key]) == 1
+
+
 def test_unit_forms_follow_the_placements():
     """Which units a split takes, from the DTensor placements of the
     serve rules on a ``fake`` group (full-size configs on fake tensors):
@@ -1089,31 +1178,8 @@ def test_unit_forms_follow_the_placements():
     the ``inner`` form on 16 (112 SSM heads) and whole on 32, where its
     heads do not divide ``model``; a quantized cache keeps the attention
     whole. ``split_counts`` names each fallback."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from repro_torch.launch.dryrun import fake_tensors, fake_world
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import layers as L
-    from repro_torch.parallel.model_axis import ModelAxis
-    from repro_torch.parallel.sharding import (enforce_divisibility,
-                                               place_tree, tree_shardings)
-
     def counts(arch, tp, **kw):
-        model = build(get_config(arch))
-        fm = FakeTensorMode()
-        with fake_world(tp):
-            mesh = make_mesh((1, tp), ("data", "model"), "cpu")
-            rules = rules_for(model.cfg, mesh, mode="serve")
-            params = place_tree(
-                fake_tensors(model.param_shapes(torch.bfloat16), fm, "cpu"),
-                enforce_divisibility(tree_shardings(model.param_axes(), mesh,
-                                                    rules),
-                                     model.param_shapes()))
-            L.reset_split_counts()
-            with fm, L.gather_context(model=ModelAxis(tp, 0), **kw):
-                tree = L.layer_params(params, model.param_axes())
-                stack = "dec_layers" if model.cfg.enc_dec else "segments"
-                L.gather_layer(L.layer_slice(tree[stack], 0))
-            return dict(L.split_counts())
+        return _split_first_layer(get_config(arch), tp, **kw)[0]
 
     assert counts("qwen3-4b", 16) == {
         ("embed", "vocab"): 1, ("head", "vocab_cols"): 1,
